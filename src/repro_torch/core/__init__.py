@@ -1,0 +1,92 @@
+"""The stencil DSL and its encodings on PyTorch: specs, boundary handling,
+the shifted-add oracle, the paper's conv and dense encodings, the dispatcher
+(``plan.py``) and the run-to-convergence solver (``solver.py``).
+
+``stencil_apply(spec, x, backend="auto", ...)`` routes one ``StencilSpec``
+through any backend (reference oracle, dense, conv, direct CUDA kernels,
+temporally-fused CUDA kernel); ``make_plan`` prepares a reusable executor
+and ``backend_support`` reports which backends are legal for a cell.
+``solve``/``Solver`` run the Jacobi time loop to convergence.  Entry points
+run on the card unless given ``device="cpu"``.
+"""
+from repro_torch.core.boundary import BoundaryMode, DirichletBC, runtime_bc_grids
+from repro_torch.core.conv_encoding import (
+    conv2d_apply,
+    conv2d_kernel,
+    conv_jacobi_2d,
+    conv_var_jacobi,
+    split_var_kernels,
+)
+from repro_torch.core.dense_encoding import (
+    build_dense_matrix,
+    dense_jacobi,
+    dense_layer_bytes,
+    var_tap_indices,
+)
+from repro_torch.core.metrics import DeliveredPerf, encoding_flops_per_point
+from repro_torch.core.plan import (
+    BACKENDS,
+    DEVICE_PROFILES,
+    BackendSupport,
+    DeviceProfile,
+    StencilPlan,
+    backend_support,
+    choose_backend,
+    estimate_seconds,
+    make_plan,
+    stencil_apply,
+)
+from repro_torch.core.reference import apply_stencil, jacobi_reference, jacobi_step
+from repro_torch.core.solver import SolveResult, Solver, select_fuse, solve
+from repro_torch.core.stencil import (
+    StencilSpec,
+    WeightField,
+    box,
+    heterogeneous_jacobi,
+    laplace_jacobi,
+    spec_from_taps,
+    star,
+    variable_coefficient,
+)
+
+__all__ = [
+    "BACKENDS",
+    "DEVICE_PROFILES",
+    "BackendSupport",
+    "BoundaryMode",
+    "DeliveredPerf",
+    "DeviceProfile",
+    "DirichletBC",
+    "SolveResult",
+    "Solver",
+    "StencilPlan",
+    "StencilSpec",
+    "WeightField",
+    "apply_stencil",
+    "backend_support",
+    "box",
+    "build_dense_matrix",
+    "choose_backend",
+    "conv2d_apply",
+    "conv2d_kernel",
+    "conv_jacobi_2d",
+    "conv_var_jacobi",
+    "dense_jacobi",
+    "dense_layer_bytes",
+    "encoding_flops_per_point",
+    "estimate_seconds",
+    "heterogeneous_jacobi",
+    "jacobi_reference",
+    "jacobi_step",
+    "laplace_jacobi",
+    "make_plan",
+    "runtime_bc_grids",
+    "select_fuse",
+    "solve",
+    "spec_from_taps",
+    "split_var_kernels",
+    "star",
+    "stencil_apply",
+    "var_tap_indices",
+    "variable_coefficient",
+]

@@ -1,0 +1,200 @@
+"""Convolution-layer encoding of a 2D stencil (paper Algorithm 2, Figure 2).
+
+The stencil's footprint window slides over the input (``F.conv2d``, NCHW —
+the only layout the CS-1 supported).  Non-zero Dirichlet BCs use the paper's
+mask trick (BoundaryMode.MASK); BoundaryMode.PAD re-writes the shell from x.
+
+Variable coefficients ride the *gather trick*: a one-hot kernel (one output
+channel per varying tap) extracts each neighbour into a channel, and the
+per-cell fields apply as an elementwise multiply-and-reduce over channels.
+
+The conv is a library call, as the JAX package left it to XLA's
+convolution; it is one of the paper's own comparators, not a kernel of this
+port.  On the card it runs with TF32 off (cuDNN's default is on), so the
+``conv`` backend stays an fp32 comparator.  Convolutions compute in fp32
+and round to the working type once per call, as JAX's
+``preferred_element_type=float32``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.boundary import BoundaryMode, DirichletBC, runtime_bc_grids
+from repro_torch.core.stencil import StencilSpec, WeightField
+
+
+def _seed_and_drive(grid, bc, bc_value, source, dtype, x0):
+    """(seeded x, mask, drive) shared by the MASK-trick executors.
+
+    Every mask-trick body computes ``y = conv(x) * mask + drive`` with
+    ``drive = bc_grid + mask * source``; ``drive`` carries a leading
+    broadcast axis ((1, *grid) or (B, *grid) for a batched source).
+    """
+    dev = x0.device
+    if bc_value is None:
+        mask = bc.interior_mask(grid, dtype, dev)
+        bcg = bc.bc_grid(grid, dtype, dev)
+        x = bc.set_boundary(x0.to(dtype), len(grid))
+    else:
+        mask, bcg = runtime_bc_grids(grid, bc_value, dtype, dev)
+        x = x0.to(dtype) * mask + bcg
+    drive = bcg[None]
+    if source is not None:
+        drive = drive + mask * torch.as_tensor(source, device=dev).to(dtype)
+    return x, mask, drive
+
+
+def _padding(spec: StencilSpec) -> tuple[int, int, int, int]:
+    """F.pad widths that align the footprint window with the offsets (the
+    'same' padding for the symmetric footprints of every 2D family)."""
+    lo = [-min(off[d] for off, _ in spec.taps) for d in range(2)]
+    hi = [max(off[d] for off, _ in spec.taps) for d in range(2)]
+    return (lo[1], hi[1], lo[0], hi[0])
+
+
+def conv2d_kernel(spec: StencilSpec, dtype=np.float32) -> np.ndarray:
+    """OIHW kernel (1,1,kh,kw) — Figure 2 of the paper for 2D Laplace."""
+    if spec.ndim != 2:
+        raise ValueError("conv2d_kernel needs a 2D spec")
+    return spec.to_kernel(dtype)[None, None]
+
+
+def conv2d_apply(x: torch.Tensor, kernel: torch.Tensor,
+                 pad: tuple[int, int, int, int] | None = None) -> torch.Tensor:
+    """One conv application.  x: (batch, C, H, W); kernel: OIHW.
+
+    ``pad`` zero-pads x first (F.pad order: left, right, top, bottom); None
+    is a 'valid' conv.  Computes in fp32, returns x's type.
+    """
+    xf = x.float()
+    if pad is not None:
+        xf = F.pad(xf, pad)
+    kf = kernel.float()
+    if xf.device.type == "cpu" and torch.backends.mkldnn.is_available():
+        # F.conv2d's CPU heuristic sends a batch of one through im2col and
+        # sgemm, whose blocked sums round differently from the oneDNN
+        # direct convolution it takes for larger batches.  oneDNN for every
+        # batch keeps batched solves equal to one-by-one solves, and sums
+        # the window in row-major order, as the shifted-add oracle does.
+        y = torch.ops.aten.mkldnn_convolution(xf, kf, None, [0, 0], [1, 1],
+                                              [1, 1], 1)
+    else:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y = F.conv2d(xf, kf)
+    return y.to(x.dtype)
+
+
+def conv_jacobi_2d(
+    x0: torch.Tensor,
+    spec: StencilSpec,
+    bc: DirichletBC,
+    iterations: int,
+    mode: BoundaryMode = BoundaryMode.MASK,
+    dtype=torch.float32,
+    *,
+    source: torch.Tensor | None = None,
+    bc_value=None,
+) -> torch.Tensor:
+    """Algorithm 2 of the paper.  x0: (batch, H, W) → (batch, H, W).
+
+    ``source``/``bc_value`` are optional runtime operands; they fold into
+    the mask-trick drive grid, so they require ``BoundaryMode.MASK``.
+    """
+    if mode is BoundaryMode.PAD and spec.radius != 1:
+        # With a 1-cell boundary shell, 'valid'+re-pad only reconstructs the
+        # zero-padded semantics for radius-1 stencils; use MASK otherwise.
+        raise ValueError("BoundaryMode.PAD requires a radius-1 stencil")
+    if mode not in (BoundaryMode.MASK, BoundaryMode.PAD):
+        raise ValueError(f"unsupported mode for conv encoding: {mode}")
+    if (source is not None or bc_value is not None) \
+            and mode is not BoundaryMode.MASK:
+        raise ValueError("runtime source/bc_value operands fold into the "
+                         "mask-trick drive grid (BoundaryMode.MASK only)")
+    grid = tuple(x0.shape[1:])
+    kernel = torch.as_tensor(conv2d_kernel(spec), device=x0.device)
+    x, mask, drive = _seed_and_drive(grid, bc, bc_value, source, dtype, x0)
+    x, mask, drive = x[:, None], mask[None, None], drive[:, None]
+    pad = _padding(spec)
+    for _ in range(iterations):
+        if mode is BoundaryMode.MASK:
+            # Paper §3: zero the convolved boundary, add the BC values back.
+            x = conv2d_apply(x, kernel, pad) * mask + drive
+        else:
+            # 'valid' conv on the interior; the shell is re-written from x
+            # itself (it holds the Dirichlet values, which never change).
+            y = F.pad(conv2d_apply(x, kernel), (1, 1, 1, 1))
+            x = y * mask + x * (1.0 - mask)
+    return x[:, 0]
+
+
+def split_var_kernels(spec: StencilSpec, dtype=np.float32):
+    """Split a (possibly mixed) spec into conv-friendly pieces.
+
+    Returns ``(scalar_kernel, gather_kernel, fields)``:
+
+      scalar_kernel  (1, 1, *footprint) holding the constant taps (zeros if
+                     every tap varies);
+      gather_kernel  (V, 1, *footprint), one one-hot output channel per
+                     varying tap — the conv that extracts each neighbour;
+      fields         (V, *grid) stacked per-cell weight fields, in the same
+                     channel order as ``gather_kernel``.
+    """
+    lo = [min(off[d] for off, _ in spec.taps) for d in range(spec.ndim)]
+    fp = spec.footprint
+    scalar = np.zeros((1, 1) + fp, dtype=dtype)
+    onehots, fields = [], []
+    for off, w in spec.taps:
+        idx = tuple(o - l for o, l in zip(off, lo))
+        if isinstance(w, WeightField):
+            oh = np.zeros((1,) + fp, dtype=dtype)
+            oh[(0,) + idx] = 1.0
+            onehots.append(oh)
+            fields.append(w.array)
+        else:
+            scalar[(0, 0) + idx] += w
+    gather = np.stack(onehots) if onehots else np.zeros((0, 1) + fp, dtype)
+    flds = (np.stack(fields).astype(dtype) if fields
+            else np.zeros((0,) + (spec.weights_shape or ()), dtype))
+    return scalar, gather, flds
+
+
+def conv_var_jacobi(
+    x0: torch.Tensor,
+    spec: StencilSpec,
+    bc: DirichletBC,
+    iterations: int,
+    dtype=torch.float32,
+    *,
+    fields: torch.Tensor | None = None,
+    source: torch.Tensor | None = None,
+    bc_value=None,
+) -> torch.Tensor:
+    """Variable-coefficient 2D Jacobi via the gather trick (MASK mode).
+
+    x0: (batch, H, W) → (batch, H, W).  ``fields`` optionally overrides the
+    spec's baked per-cell values with a runtime (V, H, W) stack.
+    """
+    if spec.ndim != 2:
+        raise ValueError("the ported conv gather trick supports 2D specs")
+    grid = tuple(x0.shape[1:])
+    if spec.weights_shape != grid:
+        raise ValueError(
+            f"spec {spec.name} carries {spec.weights_shape}-shaped weight "
+            f"fields but the grid is {grid}")
+    dev = x0.device
+    scalar_k, gather_k, baked = split_var_kernels(spec)
+    scalar_k = torch.as_tensor(scalar_k, device=dev)
+    gather_k = torch.as_tensor(gather_k, device=dev)
+    f = torch.as_tensor(baked if fields is None else fields,
+                        device=dev).to(dtype)[None]
+    x, mask, drive = _seed_and_drive(grid, bc, bc_value, source, dtype, x0)
+    x, mask, drive = x[:, None], mask[None, None], drive[:, None]
+    pad = _padding(spec)
+    for _ in range(iterations):
+        y = conv2d_apply(x, scalar_k, pad)
+        g = conv2d_apply(x, gather_k, pad)                  # (B, V, H, W)
+        y = y + torch.sum(g * f, dim=1, keepdim=True)
+        x = y * mask + drive
+    return x[:, 0]

@@ -1,0 +1,608 @@
+"""Unified stencil dispatch — one spec, every encoding, one entry point.
+
+A ``StencilSpec`` + grid shape + boundary condition can be lowered through
+any of the port's executable encodings:
+
+  reference   plain shifted-add oracle              (core/reference.py)
+  dense       N×N dense-layer matmul, BCs in-matrix (core/dense_encoding.py)
+  conv        conv layer (2D)                       (core/conv_encoding.py)
+  cuda        direct CUDA stencil kernels           (kernels/stencil2d.py,
+                                                     kernels/jacobi_fused.py)
+  cuda_fused  temporally-blocked CUDA kernel        (kernels/jacobi_fused.py)
+
+``cuda``/``cuda_fused`` are the JAX package's ``pallas``/``pallas_fused``.
+Its ``conv3d_native`` and ``halo`` backends and the 3D kernel paths are not
+ported yet; ``backend_support`` says so for them.
+
+``backend="auto"`` picks via a small analytic cost model: per-point FLOPs for
+the encoding (core/metrics.py), bytes streamed per iteration, the device's
+vector/matmul throughput and memory bandwidth, and the arithmetic-intensity
+boost temporal fusion buys.  ``backend_support`` answers *which backends are
+legal* for a (spec, grid, boundary mode) cell, with a reason when not.
+
+Entry points run on the card: ``device=None`` means ``cuda`` and raises
+where there is none.  Pass ``device="cpu"`` to run on the CPU, where the
+kernel backends run their plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.boundary import BoundaryMode, DirichletBC, runtime_bc_grids
+from repro_torch.core.metrics import encoding_flops_per_point
+from repro_torch.core.reference import apply_stencil
+from repro_torch.core.stencil import StencilSpec
+
+BACKENDS = (
+    "reference",
+    "dense",
+    "conv",
+    "cuda",
+    "cuda_fused",
+)
+
+# The JAX package's backends that have no counterpart here yet.
+NOT_PORTED = ("conv3d_native", "halo")
+
+KERNEL_BACKENDS = ("cuda", "cuda_fused")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  Raises where CUDA is asked for and absent:
+    an entry point never drops quietly to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in DEVICE_PROFILES:
+        raise ValueError(f"repro_torch runs on cuda or cpu, not {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available here; pass device='cpu' to run on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Support matrix
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BackendSupport:
+    """Whether a backend can execute a cell, and if not, why not."""
+
+    ok: bool
+    reason: str = ""
+
+    def __bool__(self) -> bool:
+        return self.ok
+
+
+def _no(reason: str) -> BackendSupport:
+    return BackendSupport(False, reason)
+
+
+_OK = BackendSupport(True)
+
+
+def backend_support(
+    backend: str,
+    spec: StencilSpec,
+    *,
+    grid_shape: tuple[int, ...] | None = None,
+    mode: BoundaryMode = BoundaryMode.MASK,
+    bc: DirichletBC | float | None = 0.0,
+) -> BackendSupport:
+    """Is ``backend`` legal for this (spec, grid, mode, bc) cell?
+
+    Returns a BackendSupport whose ``reason`` string is suitable for a test
+    skip message — the conformance walk relies on this being exhaustive.
+    """
+    if backend in NOT_PORTED:
+        return _no(f"{backend} is not yet ported to repro_torch")
+    if backend not in BACKENDS:
+        return _no(f"unknown backend {backend!r} (known: {BACKENDS})")
+    nd = spec.ndim
+    raw = bc is None
+    variable = spec.is_variable
+    scalar_bc = raw or isinstance(bc, (int, float)) or (
+        isinstance(bc, DirichletBC) and isinstance(bc.value, (int, float))
+    )
+
+    if variable and grid_shape is not None and \
+            spec.weights_shape != tuple(grid_shape):
+        return _no(f"spec carries {spec.weights_shape}-shaped weight fields "
+                   f"but the grid is {tuple(grid_shape)}")
+
+    if backend == "reference":
+        return _OK  # the oracle runs everywhere; mode is a no-op for it
+
+    if backend == "dense":
+        if raw:
+            return _no("dense encoding folds BCs into identity matrix rows; "
+                       "raw (bc=None) zero-pad semantics not expressible")
+        if mode is not BoundaryMode.MATRIX:
+            return _no("dense encoding applies BCs as identity matrix rows "
+                       "(BoundaryMode.MATRIX only)")
+        return _OK  # per-cell fields fold into the matrix columns for free
+
+    if backend == "conv":
+        if nd == 1:
+            return _no("no 1D conv encoding (use dense or reference)")
+        if nd == 3:
+            return _no("the 3D conv encodings (channels trick, conv3d) are "
+                       "not yet ported to repro_torch")
+        if raw:
+            return _no("conv encoding paths bake in the Dirichlet fixup")
+        if mode is BoundaryMode.MATRIX:
+            return _no("MATRIX mode is the dense encoding's BC scheme")
+        if variable and mode is not BoundaryMode.MASK:
+            return _no("the variable-coefficient gather trick bakes in the "
+                       "mask fixup (BoundaryMode.MASK only)")
+        if mode is BoundaryMode.PAD and spec.radius != 1:
+            return _no("BoundaryMode.PAD reconstructs the shell only for "
+                       "radius-1 stencils")
+        return _OK
+
+    # cuda / cuda_fused
+    if backend == "cuda_fused" and nd != 2:
+        return _no("temporal fusion kernel is 2D only (jacobi_fused.py)")
+    if nd == 3:
+        return _no("no 3D CUDA kernel yet: stencil3d is not yet ported to "
+                   "repro_torch")
+    if nd != 2:
+        return _no(f"no {nd}D CUDA kernel (stencil2d/stencil3d only)")
+    if not raw and mode is not BoundaryMode.MASK:
+        return _no("CUDA kernels fuse the mask trick in-kernel "
+                   "(BoundaryMode.MASK only)")
+    if not scalar_bc:
+        return _no("CUDA kernels pin the shell to a scalar bc_value; "
+                   "array-valued DirichletBC unsupported")
+    return _OK
+
+
+# ---------------------------------------------------------------------------
+# Cost model for backend="auto"
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DeviceProfile:
+    """Coarse per-device rates the auto cost model prices against."""
+
+    kind: str
+    vector_flops: float   # elementwise FLOP/s
+    matmul_flops: float   # GEMM FLOP/s at the working precision
+    mem_bw: float         # device memory bytes/s
+    kernels_native: bool  # False => the kernel backends run plain PyTorch
+
+
+DEVICE_PROFILES = {
+    # One CPU core (the JAX package's numbers); the kernel backends run
+    # their plain versions there and are priced like interpreted Pallas.
+    "cpu": DeviceProfile("cpu", 5e10, 2e11, 5e10, kernels_native=False),
+    # NVIDIA H100 SXM, data-sheet rates: 67 TFLOP/s fp32 outside the tensor
+    # cores (fp32 matmul runs there too, TF32 being off) and 3.35 TB/s HBM3.
+    "cuda": DeviceProfile("cuda", 6.7e13, 6.7e13, 3.35e12,
+                          kernels_native=True),
+}
+
+# The plain versions re-run every tap as its own PyTorch op — orders of
+# magnitude off; the model only needs them to never win on the CPU.
+_PLAIN_PENALTY = 1e4
+
+
+def _resolve_fuse(iters: int) -> int:
+    """The fuse depth cuda_fused actually runs at for ``iters`` (the same
+    rule make_plan applies)."""
+    return next((f for f in (8, 4, 2) if iters % f == 0), 1)
+
+
+def estimate_seconds(
+    backend: str,
+    spec: StencilSpec,
+    grid_shape: tuple[int, ...],
+    iters: int,
+    device: DeviceProfile,
+    *,
+    itemsize: int = 4,
+    fuse: int | None = None,
+) -> float:
+    """Roofline-style time estimate for ``iters`` applications on one step.
+
+    time = max(compute, memory) per iteration; temporal fusion divides the
+    streamed bytes by the fuse depth but pays the trapezoid's rim
+    recompute.  ``fuse=None`` prices the depth ``make_plan`` would resolve
+    for ``iters``.
+    """
+    n = int(np.prod(grid_shape))
+    n_var = spec.num_variable_taps
+    # Read + write the grid once per iteration; per-cell weight fields add
+    # one grid-sized read per varying tap on every streaming backend.
+    stream = (2 + n_var) * n * itemsize
+
+    if backend == "dense":
+        flops = encoding_flops_per_point(spec, "dense", n_total=n)
+        compute = flops * n / device.matmul_flops
+        mem = (n * n * itemsize + 2 * n * itemsize) / device.mem_bw
+    elif backend == "conv":
+        if spec.is_variable:
+            # Gather trick: direct-form MACs for the one-hot conv plus an
+            # elementwise multiply + add + reduce per varying tap.
+            flops = encoding_flops_per_point(spec, "direct") + 3 * n_var
+        else:
+            flops = encoding_flops_per_point(spec, "conv")
+        compute = flops * n / device.vector_flops
+        mem = stream / device.mem_bw
+    else:  # reference / cuda / cuda_fused: direct shifted adds
+        from repro_torch.kernels.tiling import fuse_redundancy
+        flops = encoding_flops_per_point(spec, "direct")
+        compute = flops * n / device.vector_flops
+        mem = stream / device.mem_bw
+        if fuse is None:
+            fuse = _resolve_fuse(iters) if backend == "cuda_fused" else 1
+        if backend in KERNEL_BACKENDS and fuse > 1 and spec.ndim == 2:
+            mem /= fuse  # fuse-depth fewer device-memory round-trips ...
+            # ... at the price of recomputing the overlapping block rims
+            compute *= fuse_redundancy(grid_shape, fuse, spec.radius)
+
+    total = max(compute, mem) * iters
+    if backend in KERNEL_BACKENDS and not device.kernels_native:
+        total *= _PLAIN_PENALTY
+    return total
+
+
+def choose_backend(
+    spec: StencilSpec,
+    grid_shape: tuple[int, ...],
+    *,
+    mode: BoundaryMode = BoundaryMode.MASK,
+    bc: DirichletBC | float | None = 0.0,
+    iters: int = 1,
+    device_kind: str = "cuda",
+    fuse: int | None = None,
+) -> tuple[str, dict[str, float]]:
+    """Pick the cheapest supported backend by the roofline; returns (name,
+    cost table).  ``reference`` is the cross-validation oracle, so auto only
+    falls back to it when no real encoding supports the cell.  ``fuse``
+    prices the kernel paths at an explicit temporal depth; None prices the
+    depth make_plan itself would resolve for ``iters``.
+    """
+    device = DEVICE_PROFILES[device_kind]
+    costs: dict[str, float] = {}
+    for b in BACKENDS:
+        if b == "reference" or not backend_support(
+                b, spec, grid_shape=grid_shape, mode=mode, bc=bc):
+            continue
+        costs[b] = estimate_seconds(b, spec, grid_shape, iters, device,
+                                    fuse=fuse)
+    if not costs:
+        # Oracle fallback: always legal, never preferred.
+        costs["reference"] = estimate_seconds("reference", spec, grid_shape,
+                                              iters, device)
+    return min(costs, key=costs.__getitem__), costs
+
+
+# ---------------------------------------------------------------------------
+# Plan construction
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StencilPlan:
+    """A prepared (batch, *grid) -> (batch, *grid) stencil executor.
+
+    ``make_plan`` does the one-time work (backend choice, dense-matrix
+    materialization, constants and baked fields placed on the device) so
+    repeated calls pay only the execution.
+
+    Beyond the input field, a plan may accept *runtime operands*:
+
+      fields    (V, *grid) per-cell weight stack overriding the spec's baked
+                values (canonical tap order, ``StencilSpec.field_stack``);
+      source    additive interior term per iteration ((*grid) or
+                (batch, *grid)) — the fixed-point form ``x <- M (S x + s) + g``;
+      bc_value  Dirichlet value (scalar or full grid).
+
+    ``operands`` names what this backend/mode combination supports; passing
+    an unsupported operand raises.
+    """
+
+    spec: StencilSpec
+    backend: str
+    grid_shape: tuple[int, ...]
+    mode: BoundaryMode
+    iters: int
+    fuse: int
+    costs: dict[str, float]
+    device: torch.device
+    _fn: Callable[..., torch.Tensor]
+    # Where the backend choice came from: "explicit" (caller named it) or
+    # "roofline" (the analytic cost model).
+    source: str = "explicit"
+    rim: str | None = None
+    operands: frozenset = frozenset()
+
+    def __call__(self, x: torch.Tensor, *, fields=None, source=None,
+                 bc_value=None) -> torch.Tensor:
+        for name, val in (("fields", fields), ("source", source),
+                          ("bc_value", bc_value)):
+            if val is not None and name not in self.operands:
+                sup = ", ".join(sorted(self.operands)) or "none"
+                raise ValueError(
+                    f"this {self.backend!r} plan takes no runtime {name} "
+                    f"operand (supported here: {sup})")
+        if fields is not None:
+            want = (self.spec.num_variable_taps, *self.grid_shape)
+            if tuple(fields.shape) != want:
+                raise ValueError(
+                    f"fields operand must be shaped {want} (tap-major stack "
+                    f"over the variable taps), got {tuple(fields.shape)}")
+        if x.device.type != self.device.type:
+            raise ValueError(f"plan built for {self.device}, got a tensor "
+                             f"on {x.device}")
+        squeeze = x.ndim == self.spec.ndim
+        if squeeze:
+            x = x[None]
+        if tuple(x.shape[1:]) != self.grid_shape:
+            raise ValueError(
+                f"plan built for grid {self.grid_shape}, got "
+                f"{tuple(x.shape[1:])}")
+        out = self._fn(x, fields, source, bc_value)
+        return out[0] if squeeze else out
+
+
+def _as_bc(bc: DirichletBC | float | None) -> DirichletBC | None:
+    if bc is None or isinstance(bc, DirichletBC):
+        return bc
+    return DirichletBC(float(bc))
+
+
+def _scalar_bc_value(bc: DirichletBC | None) -> float | None:
+    if bc is None:
+        return None
+    if not isinstance(bc.value, (int, float)):
+        raise ValueError("this backend needs a scalar Dirichlet value")
+    return float(bc.value)
+
+
+def _raw_reference(x, spec, iters, fields=None):
+    for _ in range(iters):
+        x = apply_stencil(x, spec, fields)
+    return x
+
+
+def _bc_reference(x, spec, bc, iters, fields=None, source=None,
+                  bc_value=None, dtype=torch.float32):
+    # Same math as jacobi_reference, batched; runtime operands ride the
+    # mask-trick form directly: x <- mask * (S x + source) + bc_grid.
+    grid = tuple(x.shape[1:])
+    if bc_value is None:
+        mask = bc.interior_mask(grid, dtype, x.device)
+        bcg = bc.bc_grid(grid, dtype, x.device)
+    else:
+        mask, bcg = runtime_bc_grids(grid, bc_value, dtype, x.device)
+    s = None if source is None else \
+        torch.as_tensor(source, device=x.device).to(dtype)
+    x = x * mask + bcg
+    for _ in range(iters):
+        y = apply_stencil(x, spec, fields)
+        if s is not None:
+            y = y + s
+        x = y * mask + bcg
+    return x
+
+
+def make_plan(
+    spec: StencilSpec,
+    grid_shape: tuple[int, ...],
+    *,
+    backend: str = "auto",
+    bc: DirichletBC | float | None = 0.0,
+    mode: BoundaryMode = BoundaryMode.MASK,
+    iters: int = 1,
+    fuse: int | None = None,
+    dtype=torch.float32,
+    device=None,
+    rim: str | None = None,
+) -> StencilPlan:
+    """Lower ``spec`` on ``grid_shape`` through one backend into a callable.
+
+    backend="auto" routes through :func:`choose_backend` (the roofline, for
+    this device).  ``bc=None`` means raw zero-padded stencil application
+    (no Dirichlet fixup) — only the reference and kernel backends can
+    express it.  ``fuse`` and ``rim`` set the 2D kernel schedule: the fuse
+    depth (iterations per pass) and the fusion geometry ("trapezoid" or
+    "resident"; "resident" with no fuse runs all ``iters`` in one pass).
+    ``device=None`` means the card.
+    """
+    grid_shape = tuple(int(g) for g in grid_shape)
+    if spec.ndim != len(grid_shape):
+        raise ValueError(f"spec is {spec.ndim}D but grid is {len(grid_shape)}D")
+    if spec.is_variable and spec.weights_shape != grid_shape:
+        raise ValueError(
+            f"spec carries {spec.weights_shape}-shaped weight fields but the "
+            f"grid is {grid_shape}")
+    if iters < 1:
+        raise ValueError("iters must be >= 1")
+    dev = resolve_device(device)
+    bc = _as_bc(bc)
+
+    costs: dict[str, float] = {}
+    source = "explicit"
+    if backend == "auto":
+        backend, costs = choose_backend(spec, grid_shape, mode=mode, bc=bc,
+                                        iters=iters, device_kind=dev.type)
+        source = "roofline"
+    sup = backend_support(backend, spec, grid_shape=grid_shape, mode=mode,
+                          bc=bc)
+    if not sup:
+        raise ValueError(f"backend {backend!r} unsupported here: {sup.reason}")
+
+    # ``fuse`` is a hint for the 2D kernel paths (both scalar-bc and raw
+    # execute in fuse-sized passes); every other backend ignores it and the
+    # plan records fuse=1 so its metadata reflects what actually runs.
+    if backend not in KERNEL_BACKENDS:
+        fuse, rim = 1, None
+    else:
+        if fuse is None:
+            if rim == "resident":
+                fuse = iters  # the whole chunk stays resident on chip
+            else:
+                fuse = _resolve_fuse(iters) if backend == "cuda_fused" else 1
+        elif iters % fuse:
+            raise ValueError(f"iters={iters} not divisible by fuse={fuse}")
+        if rim is None and fuse > 1:
+            rim = "trapezoid"
+        if rim not in (None, "trapezoid", "resident"):
+            raise ValueError(f"unknown rim strategy {rim!r} "
+                             f"(expected 'trapezoid' or 'resident')")
+
+    fn, operands = _build_fn(spec, grid_shape, backend, bc, mode, iters, fuse,
+                             dtype, dev, rim)
+    return StencilPlan(spec=spec, backend=backend, grid_shape=grid_shape,
+                       mode=mode, iters=iters, fuse=fuse, costs=costs,
+                       device=dev, _fn=fn, source=source, rim=rim,
+                       operands=operands)
+
+
+def _build_fn(spec, grid_shape, backend, bc, mode, iters, fuse, dtype, dev,
+              rim):
+    """One closure per backend; all share (batch, *grid) -> same semantics.
+
+    Returns ``(fn, operands)``: ``fn(x, fields, source, bc_value)`` and the
+    frozenset of runtime-operand names this cell supports (see StencilPlan).
+    Baked per-cell fields go to the device once, here.
+    """
+    var_ops = frozenset(("fields",)) if spec.is_variable else frozenset()
+    baked = None
+    if spec.is_variable:
+        baked = torch.as_tensor(spec.field_stack(), device=dev)
+
+    def fields_or_baked(fields):
+        return baked if fields is None else fields
+
+    if backend == "reference":
+        if bc is None:
+            return (lambda x, fields, source, bc_value:
+                    _raw_reference(x.to(dtype), spec, iters,
+                                   fields_or_baked(fields)),
+                    var_ops)
+        return (lambda x, fields, source, bc_value:
+                _bc_reference(x.to(dtype), spec, bc, iters,
+                              fields_or_baked(fields), source, bc_value,
+                              dtype),
+                var_ops | {"source", "bc_value"})
+
+    if backend == "dense":
+        from repro_torch.core.dense_encoding import (build_dense_matrix,
+                                                     dense_jacobi,
+                                                     var_tap_indices)
+        matrix = torch.as_tensor(build_dense_matrix(grid_shape, spec),
+                                 device=dev).to(dtype)
+        if spec.is_variable:
+            matrix0 = torch.as_tensor(
+                build_dense_matrix(grid_shape, spec, include_variable=False),
+                device=dev).to(dtype)
+            tap_k, flat_j, flat_i = (torch.as_tensor(a, device=dev)
+                                     for a in var_tap_indices(grid_shape,
+                                                              spec))
+        nvar = spec.num_variable_taps
+
+        def run_dense(x, fields, source, bc_value):
+            x = x.to(dtype)
+            if bc_value is None:
+                x = bc.set_boundary(x, len(grid_shape))
+                mask = bc.interior_mask(grid_shape, dtype, dev)
+            else:
+                mask, bcg = runtime_bc_grids(grid_shape, bc_value, dtype, dev)
+                x = x * mask + bcg
+            m = matrix
+            if fields is not None:
+                vals = torch.as_tensor(fields, device=dev).to(dtype)
+                vals = vals.reshape(nvar, -1)
+                m = matrix0.index_put((flat_j, flat_i), vals[tap_k, flat_i],
+                                      accumulate=True)
+            drive = None
+            if source is not None:
+                s = torch.as_tensor(source, device=dev).to(dtype)
+                drive = torch.broadcast_to(s * mask, x.shape)
+                drive = drive.reshape(x.shape[0], -1)
+            return dense_jacobi(x, m, iters, drive)
+        return run_dense, var_ops | {"source", "bc_value"}
+
+    if backend == "conv":
+        from repro_torch.core.conv_encoding import (conv_jacobi_2d,
+                                                    conv_var_jacobi)
+        if spec.is_variable:
+            return (lambda x, fields, source, bc_value:
+                    conv_var_jacobi(x, spec, bc, iters, dtype=dtype,
+                                    fields=fields_or_baked(fields),
+                                    source=source, bc_value=bc_value),
+                    frozenset(("fields", "source", "bc_value")))
+        ops = frozenset(("source", "bc_value")) \
+            if mode is BoundaryMode.MASK else frozenset()
+        return (lambda x, fields, source, bc_value:
+                conv_jacobi_2d(x, spec, bc, iters, mode, dtype=dtype,
+                               source=source, bc_value=bc_value), ops)
+
+    # cuda / cuda_fused (2D; backend_support has ruled out the rest)
+    from repro_torch.kernels import jacobi2d, jacobi2d_fused_step, stencil2d
+    bc_value_s = _scalar_bc_value(bc)
+    rim = rim or "trapezoid"
+    if bc_value_s is not None:
+        return (lambda x, fields, source, bc_value:
+                jacobi2d(x.to(dtype), spec, bc_value=bc_value_s,
+                         iterations=iters, fuse=fuse, rim=rim,
+                         fields=fields_or_baked(fields)),
+                var_ops)
+    if spec.is_variable:
+        def run_raw2d_var(x, fields, source, bc_value):
+            x, f = x.to(dtype), fields_or_baked(fields)
+            for _ in range(iters):
+                x = stencil2d(x, spec, fields=f)
+            return x
+        return run_raw2d_var, var_ops
+
+    def run_raw2d(x, fields, source, bc_value):
+        x = x.to(dtype)
+        for _ in range(iters // fuse):
+            x = jacobi2d_fused_step(x, spec, fuse=fuse, rim=rim)
+        return x
+    return run_raw2d, frozenset()
+
+
+# ---------------------------------------------------------------------------
+# One-shot convenience
+# ---------------------------------------------------------------------------
+
+def stencil_apply(
+    spec: StencilSpec,
+    x,
+    *,
+    backend: str = "auto",
+    bc: DirichletBC | float | None = 0.0,
+    mode: BoundaryMode = BoundaryMode.MASK,
+    iters: int = 1,
+    fuse: int | None = None,
+    device=None,
+    rim: str | None = None,
+) -> torch.Tensor:
+    """Apply ``iters`` stencil steps to ``x`` through any backend.
+
+    ``x`` is (batch, *grid) or bare (*grid), a tensor or an array; it is
+    moved to ``device`` (None: the card).  Semantics match
+    ``jacobi_reference``: the Dirichlet shell is seeded, then each
+    iteration applies the stencil and re-pins the shell (``bc=None`` skips
+    both and iterates the raw zero-padded operator).
+    """
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, device=dev)
+    if x.ndim not in (spec.ndim, spec.ndim + 1):
+        raise ValueError(
+            f"x.ndim={x.ndim} incompatible with a {spec.ndim}D spec "
+            f"(expect grid or batch+grid)")
+    grid_shape = tuple(x.shape[-spec.ndim:])
+    plan = make_plan(spec, grid_shape, backend=backend, bc=bc, mode=mode,
+                     iters=iters, fuse=fuse, dtype=x.dtype, device=dev,
+                     rim=rim)
+    return plan(x)

@@ -1,0 +1,154 @@
+"""Build the CUDA kernels with nvcc and bind them with ctypes.
+
+Every ``csrc/*.cu`` is compiled on its own into a shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds), all sources at
+once, the first time a kernel is launched in the process.  The libraries go
+to ``build/kernels/<hash>/`` at the root of the checkout, keyed by a hash of
+the sources and flags, so an edit rebuilds and an unchanged tree reuses
+them.  Wrappers pass tensors as ``data_ptr()`` integers and PyTorch's
+current stream; each C entry point returns ``cudaGetLastError()`` after its
+launch and :func:`check` raises on anything but 0.
+
+Nothing here runs at import: importing the package needs no CUDA toolkit.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.stencil import StencilSpec, WeightField
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launches per kernel, counted by the wrappers where they launch (never on
+# the plain path), so a run can show which kernels its main path went
+# through.  Keys: "stencil2d", "jacobi2d_trapezoid", "jacobi2d_resident".
+LAUNCHES: collections.Counter = collections.Counter()
+
+# Size of the tap table (csrc/taps.cuh), the most taps it holds, and the
+# dtype codes of its DTYPE_* enum.
+MAX_TAPS = 25
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Taps(ctypes.Structure):
+    """The ``Taps`` struct of csrc/taps.cuh, field for field."""
+
+    _fields_ = [("n", ctypes.c_int),
+                ("dr", ctypes.c_int * MAX_TAPS),
+                ("dc", ctypes.c_int * MAX_TAPS),
+                ("field", ctypes.c_int * MAX_TAPS),
+                ("w", ctypes.c_float * MAX_TAPS)]
+
+
+_lock = threading.Lock()
+_libraries: dict[str, ctypes.CDLL] = {}
+_build_log: dict[str, str] = {}
+
+
+@functools.lru_cache(maxsize=64)
+def tap_table(spec: StencilSpec) -> Taps:
+    """The spec's taps in canonical order, as the kernels read them (the
+    wrappers have checked that it is 2D with at most MAX_TAPS taps)."""
+    t = Taps()
+    t.n = len(spec.taps)
+    k = 0
+    for i, ((dr, dc), w) in enumerate(spec.taps):
+        t.dr[i], t.dc[i] = dr, dc
+        if isinstance(w, WeightField):
+            t.field[i], t.w[i] = k, 0.0
+            k += 1
+        else:
+            t.field[i], t.w[i] = -1, w
+    return t
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (looked on PATH, in $CUDA_HOME/bin "
+                       "and /usr/local/cuda/bin): the CUDA kernels cannot "
+                       "be built")
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every ``csrc/*.cu`` not built yet, one nvcc each, all at
+    once; returns {source stem: library path}.  Raises with nvcc's output
+    when a source does not compile."""
+    out_dir = _build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {p.stem: out_dir / f"lib{p.stem}.so"
+            for p in sorted(CSRC.glob("*.cu"))}
+    todo = {name: path for name, path in libs.items() if not path.exists()}
+    if todo:
+        nvcc = _nvcc()
+        procs = {}
+        for name, path in todo.items():
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, path)
+        failed = []
+        for name, (proc, tmp, path) in procs.items():
+            log, _ = proc.communicate()
+            _build_log[name] = log
+            (out_dir / f"{name}.log").write_text(log)
+            if proc.returncode:
+                failed.append(f"nvcc failed on csrc/{name}.cu:\n{log}")
+            else:
+                os.replace(tmp, path)  # atomic: concurrent builds agree
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register and shared-memory report) for one
+    source, or "" if this process did not compile it."""
+    return _build_log.get(name, "")
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _libraries.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all()[name]))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _libraries[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if rc:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,146 @@
+"""K1: one direct 2D stencil step — the port of the TPU kernel
+``kernels/stencil2d.py::stencil2d``.
+
+``stencil2d`` dispatches on the device of ``x``: a CPU tensor goes through
+``stencil2d_plain`` (the same arithmetic in plain PyTorch), a CUDA tensor
+launches ``csrc/stencil2d.cu`` and raises if it cannot.  ``sweep`` is the
+one step both plain versions (this one and the fused kernel's) repeat.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.stencil import StencilSpec, WeightField
+from repro_torch.kernels import _build
+
+# gridDim.z carries the batch; cells of one grid are indexed in int32.
+MAX_BATCH = 65_535
+MAX_CELLS = 2**31 - 1
+
+
+def check_launch(B: int, H: int, W: int) -> None:
+    """Raise on a shape the kernels' launch geometry cannot cover."""
+    if B > MAX_BATCH:
+        raise ValueError(f"batch {B} exceeds the kernels' {MAX_BATCH}")
+    if H * W > MAX_CELLS:
+        raise ValueError(f"a {H}x{W} grid exceeds the kernels' {MAX_CELLS} "
+                         f"cells")
+
+
+def resolve_fields(spec: StencilSpec, fields, device) -> torch.Tensor | None:
+    """The (V, H, W) fp32 field stack the kernels read: ``fields`` if given,
+    else the spec's baked values; None for an all-scalar spec."""
+    if not spec.is_variable:
+        return None
+    if fields is None:
+        fields = spec.field_stack()
+    return torch.as_tensor(fields, device=device).to(torch.float32)
+
+
+def check_operands(x: torch.Tensor, spec: StencilSpec,
+                   fields: torch.Tensor | None) -> None:
+    """What both the kernels and their plain versions take."""
+    if spec.ndim != 2:
+        raise ValueError("the 2D stencil kernels need a 2D spec")
+    if x.ndim != 3:
+        raise ValueError(f"x must be (batch, H, W), got {tuple(x.shape)}")
+    if len(spec.taps) > _build.MAX_TAPS:
+        raise ValueError(f"{spec.name} has {len(spec.taps)} taps; the CUDA "
+                         f"kernels take at most {_build.MAX_TAPS}")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    want = (spec.num_variable_taps, *x.shape[1:])
+    if fields is not None and tuple(fields.shape) != want:
+        raise ValueError(f"fields must be shaped {want}, got "
+                         f"{tuple(fields.shape)}")
+
+
+def interior(H: int, W: int, device) -> torch.Tensor:
+    """True off the Dirichlet shell."""
+    m = torch.zeros((H, W), dtype=torch.bool, device=device)
+    m[1:-1, 1:-1] = True
+    return m
+
+
+def sweep(x32: torch.Tensor, spec: StencilSpec, fields: torch.Tensor | None,
+          inside: torch.Tensor | None, bc_value: float | None) -> torch.Tensor:
+    """One fp32 stencil step on (B, H, W): zero padding outside the grid,
+    taps summed in canonical order, the shell pinned when ``bc_value`` is
+    set (``inside`` is then the :func:`interior` mask)."""
+    _, H, W = x32.shape
+    r = spec.radius
+    xp = F.pad(x32, (r, r, r, r))
+    acc = None
+    k = 0
+    for (dr, dc), w in spec.taps:
+        term = xp[:, r + dr:r + dr + H, r + dc:r + dc + W]
+        if isinstance(w, WeightField):
+            term = term * fields[k]
+            k += 1
+        else:
+            term = term * float(np.float32(w))
+        acc = term if acc is None else acc + term
+    if bc_value is not None:
+        acc = torch.where(inside, acc, float(np.float32(bc_value)))
+    return acc
+
+
+def stencil2d_plain(x: torch.Tensor, spec: StencilSpec, *,
+                    bc_value: float | None = None,
+                    fields: torch.Tensor | None = None) -> torch.Tensor:
+    """K1's plain PyTorch version: one fp32 step, rounded to x's type."""
+    fields = resolve_fields(spec, fields, x.device)
+    check_operands(x, spec, fields)
+    _, H, W = x.shape
+    inside = interior(H, W, x.device) if bc_value is not None else None
+    return sweep(x.float(), spec, fields, inside, bc_value).to(x.dtype)
+
+
+def _launcher():
+    lib = _build.library("stencil2d")
+    fn = lib.stencil2d_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(_build.Taps), ctypes.c_int,
+                       ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def stencil2d(x: torch.Tensor, spec: StencilSpec, *,
+              bc_value: float | None = None,
+              fields: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply one stencil step to x: (batch, H, W).
+
+    bc_value=None → raw stencil with zero padding; bc_value=v → one Jacobi
+    step with the shell pinned to v.  ``fields`` overrides a variable
+    spec's baked per-cell weights with a (V, H, W) stack.
+    """
+    if x.device.type == "cpu":
+        return stencil2d_plain(x, spec, bc_value=bc_value, fields=fields)
+    if x.device.type != "cuda":
+        raise ValueError(f"stencil2d runs on cpu or cuda, not {x.device}")
+    fields = resolve_fields(spec, fields, x.device)
+    check_operands(x, spec, fields)
+    if not x.is_contiguous() or (fields is not None
+                                 and not fields.is_contiguous()):
+        raise ValueError("stencil2d needs contiguous x and fields")
+    B, H, W = x.shape
+    check_launch(B, H, W)
+    taps = _build.tap_table(spec)
+    lib, fn = _launcher()
+    out = torch.empty_like(x)
+    rc = fn(x.data_ptr(), fields.data_ptr() if fields is not None else None,
+            out.data_ptr(), B, H, W, spec.radius, _build.DTYPE_CODES[x.dtype],
+            ctypes.byref(taps), int(bc_value is not None),
+            0.0 if bc_value is None else bc_value,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "stencil2d")
+    _build.LAUNCHES["stencil2d"] += 1
+    return out

@@ -1,0 +1,69 @@
+"""The PyTorch port stands alone: no JAX and nothing of the JAX package at
+run time, and no quiet fallback to the CPU when the card is missing."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import laplace_jacobi, solve
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "src", "repro_torch")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_or_repro_import_anywhere_in_the_port():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+             if f.endswith(".py")]
+    assert len(files) >= 15, files
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append((os.path.relpath(path, REPO), mod))
+    assert not bad, bad
+
+
+def test_port_imports_and_solves_with_jax_blocked():
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None       # any import of jax now fails
+        sys.modules["repro"] = None
+        sys.path.insert(0, {os.path.join(REPO, 'src')!r})
+        import numpy as np
+        import repro_torch.core, repro_torch.kernels
+        from repro_torch.core import laplace_jacobi, solve
+        r = solve(laplace_jacobi(2), np.zeros((16, 16), np.float32),
+                  backend="cuda_fused", bc=1.0, rtol=1e-4, check_every=8,
+                  max_iters=2000, device="cpu")
+        assert "jax" not in [m.split(".")[0] for m in sys.modules
+                             if sys.modules[m] is not None]
+        print(r.converged, r.iterations)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    converged, iters = out.stdout.split()
+    assert converged == "True" and int(iters) > 0
+
+
+def test_default_device_is_the_card_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve(laplace_jacobi(2), np.zeros((8, 8), np.float32), bc=1.0)

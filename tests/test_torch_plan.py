@@ -1,0 +1,248 @@
+"""The port's dispatcher against the JAX package's: the same support matrix
+and reasons under the backend-name map, the same roofline picks on the CPU
+profile, and a cross-package conformance walk in which every live 2D port
+cell equals the JAX ``reference`` cell.
+
+Tolerances are test_matrix.py's: fp32 2e-5, bf16 6e-2 absolute.
+"""
+import functools
+import importlib.util
+import itertools
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as J
+import repro.core.solver as JS
+import repro_torch.core as T
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# JAX backend -> port backend.
+NAME_MAP = {"reference": "reference", "dense": "dense", "conv": "conv",
+            "pallas": "cuda", "pallas_fused": "cuda_fused",
+            "conv3d_native": "conv3d_native", "halo": "halo"}
+PORT_TO_JAX = {v: k for k, v in NAME_MAP.items()}
+
+
+def _load_matrix():
+    path = os.path.join(REPO, "tests", "conformance", "test_matrix.py")
+    spec = importlib.util.spec_from_file_location("_jax_conformance_matrix",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_M = _load_matrix()
+SPECS, GRIDS, MODES, BC_VALUE, ITERS = (_M.SPECS, _M.GRIDS, _M.MODES,
+                                        _M.BC_VALUE, _M.ITERS)
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 6e-2)}
+FAMILIES_2D = [f for f, s in SPECS.items() if s.ndim == 2]
+
+
+def to_torch_spec(jspec):
+    return T.spec_from_taps(
+        [(o, w.array if isinstance(w, J.WeightField) else w)
+         for o, w in jspec.taps], name=jspec.name)
+
+
+TSPECS = {f: to_torch_spec(s) for f, s in SPECS.items()}
+
+
+def _mapped_reason(reason: str) -> str:
+    """A JAX reason string as the port words it."""
+    return (reason.replace("Pallas", "CUDA")
+            .replace(repr(J.BACKENDS), repr(T.BACKENDS)))
+
+
+def _assert_same_verdict(family, jax_backend, mode, bc):
+    grid = GRIDS[SPECS[family].ndim]
+    js = J.backend_support(jax_backend, SPECS[family], grid_shape=grid,
+                           mode=mode, bc=bc)
+    ts = T.backend_support(NAME_MAP[jax_backend], TSPECS[family],
+                           grid_shape=grid, mode=T.BoundaryMode(mode.value),
+                           bc=bc)
+    if ts.ok:
+        assert js.ok, (family, jax_backend, mode, js.reason)
+    elif "not yet ported" in ts.reason:
+        pass  # a JAX path the port has not reached yet, said so
+    else:
+        assert not js.ok, (family, jax_backend, mode, ts.reason)
+        assert ts.reason == _mapped_reason(js.reason)
+    return ts
+
+
+def test_backend_support_reasons_equal_jax():
+    live = 0
+    for family, jb, mode, bc in itertools.product(
+            SPECS, J.BACKENDS, MODES, (BC_VALUE, None)):
+        live += _assert_same_verdict(family, jb, mode, bc).ok
+    assert live > 50
+    for nd in (1, 2):
+        ts = T.backend_support("tensorflow", TSPECS[f"laplace/{nd}d"])
+        js = J.backend_support("tensorflow", SPECS[f"laplace/{nd}d"])
+        assert ts.reason == _mapped_reason(js.reason)
+    # Every 2D cell JAX runs, the port runs too — apart from halo.
+    for family, jb, mode in itertools.product(FAMILIES_2D, J.BACKENDS,
+                                              MODES):
+        if jb != "halo" and J.backend_support(
+                jb, SPECS[family], grid_shape=GRIDS[2], mode=mode,
+                bc=BC_VALUE):
+            assert T.backend_support(NAME_MAP[jb], TSPECS[family],
+                                     grid_shape=GRIDS[2],
+                                     mode=T.BoundaryMode(mode.value),
+                                     bc=BC_VALUE), (family, jb, mode)
+
+
+@pytest.mark.parametrize("iters", [1, 20, 100])
+def test_choose_backend_on_cpu_profile_makes_jax_picks(iters):
+    for family, mode in itertools.product(SPECS, MODES):
+        jspec = SPECS[family]
+        if jspec.ndim == 3:
+            continue  # the 3D encodings are not ported yet
+        grid = GRIDS[jspec.ndim]
+        jb, jcosts = J.choose_backend(jspec, grid, mode=mode, bc=BC_VALUE,
+                                      iters=iters, device_kind="cpu",
+                                      tuned=None)
+        tb, tcosts = T.choose_backend(TSPECS[family], grid,
+                                      mode=T.BoundaryMode(mode.value),
+                                      bc=BC_VALUE, iters=iters,
+                                      device_kind="cpu")
+        assert tb == NAME_MAP[jb], (family, mode)
+        assert {NAME_MAP[k]: v for k, v in jcosts.items()} == \
+            pytest.approx(tcosts, rel=1e-12)
+    # Table 1: conv on the CPU (as JAX), the fused kernel on the card.
+    lap = TSPECS["laplace/2d"]
+    assert T.choose_backend(lap, (64, 64), bc=1.0, iters=20,
+                            device_kind="cpu")[0] == "conv"
+    assert T.choose_backend(lap, (64, 64), bc=1.0, iters=20,
+                            device_kind="cuda")[0] == "cuda_fused"
+
+
+def test_select_fuse_on_cpu_profile_makes_jax_picks():
+    grids = [(12, 17), (64, 64), (1024, 1024), (8192, 8192)]
+    for family, jb, grid, ce in itertools.product(
+            FAMILIES_2D, ("pallas", "pallas_fused", "conv", "reference"),
+            grids, (7, 16, 20, 24)):
+        want = JS.select_fuse(jb, SPECS[family], grid, ce, device_kind="cpu",
+                              tuned=None)
+        got = T.select_fuse(NAME_MAP[jb], TSPECS[family], grid, ce, "cpu")
+        assert got == want, (family, jb, grid, ce)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference_cell(family, dtype_name):
+    jd = DTYPES[dtype_name][0]
+    x = np.random.default_rng(7).standard_normal((2, *GRIDS[2]))
+    out = J.stencil_apply(SPECS[family], jnp.asarray(x, jd),
+                          backend="reference", bc=BC_VALUE, iters=ITERS,
+                          tuned=None)
+    return x, np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: m.value)
+@pytest.mark.parametrize("backend", T.BACKENDS)
+@pytest.mark.parametrize("family", FAMILIES_2D)
+def test_conformance_cell_equals_jax_reference(family, backend, mode,
+                                               dtype_name):
+    ts = _assert_same_verdict(family, PORT_TO_JAX[backend], mode, BC_VALUE)
+    if not ts:
+        pytest.skip(f"{backend}/{family}/{mode.value}: {ts.reason}")
+    _, td, atol = DTYPES[dtype_name]
+    x, ref = _jax_reference_cell(family, dtype_name)
+    out = T.stencil_apply(TSPECS[family], torch.tensor(x).to(td),
+                          backend=backend, bc=BC_VALUE,
+                          mode=T.BoundaryMode(mode.value),
+                          iters=ITERS, device="cpu")
+    assert out.dtype == td
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=atol,
+                               err_msg=f"{backend} diverges from the JAX "
+                                       f"reference on {family} {mode.value}")
+
+
+@pytest.mark.parametrize("backend", ["reference", "conv", "dense"])
+def test_source_and_bc_value_operands_match_jax(backend):
+    mode = J.BoundaryMode.MATRIX if backend == "dense" else J.BoundaryMode.MASK
+    tmode = T.BoundaryMode(mode.value)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 12, 17)).astype(np.float32)
+    src = 0.1 * rng.standard_normal((12, 17)).astype(np.float32)
+    jplan = J.make_plan(J.laplace_jacobi(2), (12, 17), backend=backend,
+                        bc=1.0, mode=mode, iters=5, tuned=None)
+    tplan = T.make_plan(T.laplace_jacobi(2), (12, 17), backend=backend,
+                        bc=1.0, mode=tmode, iters=5, device="cpu")
+    jout = jplan(jnp.asarray(x), source=jnp.asarray(src), bc_value=2.5)
+    tout = tplan(torch.tensor(x), source=torch.tensor(src), bc_value=2.5)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-5)
+
+
+@pytest.mark.parametrize("backend", T.BACKENDS)
+def test_fields_operand_matches_jax(backend):
+    jspec = SPECS["varcoef/2d"]
+    mode = J.BoundaryMode.MATRIX if backend == "dense" else J.BoundaryMode.MASK
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 12, 17)).astype(np.float32)
+    f = (0.2 + 0.05 * rng.random((4, 12, 17))).astype(np.float32)
+    jb = PORT_TO_JAX[backend]
+    jplan = J.make_plan(jspec, (12, 17), backend=jb, bc=1.0, mode=mode,
+                        iters=4, fuse=2 if jb == "pallas_fused" else None,
+                        tuned=None)
+    tplan = T.make_plan(TSPECS["varcoef/2d"], (12, 17), backend=backend,
+                        bc=1.0, mode=T.BoundaryMode(mode.value), iters=4,
+                        fuse=2 if backend == "cuda_fused" else None,
+                        device="cpu")
+    jout = jplan(jnp.asarray(x), fields=jnp.asarray(f))
+    tout = tplan(torch.tensor(x), fields=torch.tensor(f))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-5)
+
+
+def test_raw_kernel_plans_match_jax():
+    # bc=None: the raw zero-pad operator, scalar (K2) and variable (K1).
+    x = np.random.default_rng(13).standard_normal((1, 12, 17))
+    for family, backend, fuse in (("laplace/2d", "cuda_fused", 2),
+                                  ("laplace/2d", "cuda", 1),
+                                  ("varcoef/2d", "cuda", 1)):
+        jout = J.stencil_apply(SPECS[family], jnp.asarray(x, jnp.float32),
+                               backend=PORT_TO_JAX[backend], bc=None,
+                               iters=4, fuse=fuse, tuned=None)
+        tout = T.stencil_apply(TSPECS[family], torch.tensor(x).float(),
+                               backend=backend, bc=None, iters=4, fuse=fuse,
+                               device="cpu")
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout),
+                                   atol=1e-6)
+
+
+def test_plan_contract():
+    lap = T.laplace_jacobi(2)
+    x = torch.zeros(12, 17)
+    plan = T.make_plan(lap, (12, 17), backend="cuda_fused", bc=1.0, iters=8,
+                       device="cpu")
+    assert (plan.fuse, plan.rim, plan.source) == (8, "trapezoid", "explicit")
+    assert plan(x).shape == x.shape  # a bare grid round-trips
+    res = T.make_plan(lap, (12, 17), backend="cuda_fused", bc=1.0, iters=40,
+                      rim="resident", device="cpu")
+    assert (res.fuse, res.rim) == (40, "resident")
+    auto = T.make_plan(lap, (12, 17), bc=1.0, iters=8, device="cpu")
+    assert (auto.backend, auto.source) == ("conv", "roofline")
+    assert T.make_plan(lap, (12, 17), backend="conv", bc=1.0, iters=8,
+                       fuse=4, device="cpu").fuse == 1
+    with pytest.raises(ValueError, match="not divisible"):
+        T.make_plan(lap, (12, 17), backend="cuda", bc=1.0, iters=10, fuse=4,
+                    device="cpu")
+    with pytest.raises(ValueError, match="rim strategy"):
+        T.make_plan(lap, (12, 17), backend="cuda", bc=1.0, iters=4,
+                    rim="diamond", device="cpu")
+    with pytest.raises(ValueError, match="takes no runtime fields"):
+        plan(x, fields=torch.zeros(0, 12, 17))
+    with pytest.raises(ValueError, match="plan built for grid"):
+        plan(torch.zeros(1, 8, 8))
+    with pytest.raises(ValueError, match="unsupported here"):
+        T.make_plan(lap, (12, 17), backend="dense", bc=1.0, device="cpu")
+    with pytest.raises(ValueError, match="incompatible"):
+        T.stencil_apply(T.laplace_jacobi(3), torch.zeros(4, 4), device="cpu")
