@@ -3,17 +3,29 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-The main path is the paper's Table-1 experiment — the 5-point Laplace Jacobi
-solve on a 64x64 grid with bc=1, rtol=1e-6 and check_every=20, run to
-convergence — through ``repro_torch``'s spec -> plan -> solver and its three
-CUDA kernels, plus the sizes at which the card does real work.  Phases, one
-JSON line each:
+The paths, each driven with the launch counts set to zero just before it and
+read just after, through ``repro_torch``'s spec -> plan -> solver:
+
+  - the paper's Table-1 experiment — the 5-point Laplace Jacobi solve on a
+    64x64 grid with bc=1, rtol=1e-6 and check_every=20, run to convergence —
+    through K1-K3, plus the sizes at which the card does real work
+    (phases 3-6);
+  - the paper's Fig-6 experiment — the 7-point Laplace Jacobi solve on a
+    (Z, X, Y) = (10, 64, 64) grid, same settings — and the paper's full
+    problem, 50,000 such grids (2048 M elements), through K4 (phases 8-9);
+  - the paper's dense-layer encoding (Algorithm 1) on the Table-1 grid,
+    65,536 instances, through K5 (phase 10).
+
+Phases, one JSON line each:
 
   1. the card and the build: nvidia-smi's name and power limit, torch and
      CUDA versions, then every ``csrc/*.cu`` compiled with nvcc;
   2. each kernel against its plain PyTorch version on the card (K1
-     stencil2d, K2 trapezoid, K3 resident), fp32 within 1e-5 and bf16
-     within 2e-2 absolute;
+     stencil2d, K2 trapezoid, K3 resident, K4 stencil3d: fp32 within 1e-5
+     and bf16 within 2e-2 absolute; K5 dense_stencil_matmul, a GEMM whose
+     sums run in another order than its plain version's library product:
+     within 1e-4 + 1e-4 * max|plain| in fp32, 3e-1 + 3e-2 * max|plain| in
+     bf16);
   3. the Table-1 solve through cuda_fused, cuda, conv and reference (7960
      iterations on the CPU; within one 20-iteration chunk here), each solved
      twice and the second timed, then the same number of fixed iterations
@@ -22,10 +34,24 @@ JSON line each:
   5. full size: an 8192x8192 fp32 grid, 1024 iterations through cuda_fused
      (trapezoid, fuse 16) and 64 through cuda at fuse 1;
   6. a batch of 1024 Table-1 instances in one Solver call;
-  7. the kernel inventory: launches on the main path (phases 3-6), errors,
-     and times of each kernel, its plain version and a library call, the
-     kernels' read from CUDA-graph replays (device time without the host's
-     gaps between launches), with the eager times beside them.
+  7. K1-K3 timed: launches on their path (phases 3-6), errors, and times
+     of each kernel, its plain version and a library call, the kernels'
+     read from CUDA-graph replays (device time without the host's gaps
+     between launches), with the eager times beside them;
+  8. Fig 6 through cuda, conv, conv3d_native and reference (620 iterations
+     on the CPU: exactly that, with the CPU's residual, through cuda and
+     reference; within one chunk through the cuDNN paths), and a
+     heterogeneous Fig-6 solve (640 on the CPU);
+  9. the paper's full problem, 50,000 Fig-6 grids in fp32, and one
+     256x512x512 grid, 20 iterations each through cuda (K4), held against
+     the plain version on a slice of the batch;
+ 10. the dense row of Table 1 (64x64, N=4096, 7 iterations) through
+     ``ops.dense_jacobi_kernel`` on 65,536 instances, held against
+     ``jacobi2d`` (K2 at fuse 1) to 1e-5 absolute;
+ 11. K4 and K5 timed at those shapes by CUDA-graph replay, against their
+     bounds, their plain versions, and F.conv3d, the channels-trick
+     F.conv2d and torch.matmul (TF32 off).
+The inventory line lists K1-K5.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -44,11 +70,24 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# K5: (absolute, relative to max|plain|) per dtype.
+GEMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-1, 3e-2)}
 TABLE1 = dict(bc=1.0, rtol=1e-6, check_every=20, max_iters=20_000)
 TABLE1_ITERS = 7960  # the JAX package's and the port's count on the CPU
 HET_GRID = (1024, 1024)   # phase 4
 BIG_GRID = (8192, 8192)   # phase 5: 256 MiB a sweep, far past the 50 MB L2
 BATCH = 1024              # phase 6
+FIG6 = dict(rtol=1e-6, check_every=20, max_iters=10_000)
+FIG6_GRID = (10, 64, 64)  # (Z, X, Y): configs/jacobi.py's Fig-6 grid
+FIG6_ITERS = 620          # the JAX package's and the port's count on the CPU
+FIG6_RESIDUAL = 1.4074293721932918e-04  # the CPU's, through cuda/reference
+HET3D_ITERS = 640
+PAPER_BATCH = 50_000      # phase 9: 2048 M elements, 8.19 GB in fp32
+DEEP_GRID = (256, 512, 512)   # phase 9: one grid, 256 MiB
+ITERS_3D = 20             # phase 9
+CHECK_SLICE = 256         # phase 9: instances held against the plain version
+DENSE_BATCH = 65_536      # phase 10: Table-1 dense row instances
+DENSE_ITERS = 7           # phase 10: configs/jacobi.py's dense row
 DEVICE = "cuda"
 
 
@@ -67,9 +106,13 @@ def main() -> int:
     import torch.nn.functional as F
 
     import repro_torch.core as T
-    from repro_torch.kernels import (_build, jacobi2d_fused_plain,
+    from repro_torch.kernels import (_build, dense_jacobi_kernel,
+                                     dense_stencil_matmul,
+                                     dense_stencil_plain, jacobi2d,
+                                     jacobi2d_fused_plain,
                                      jacobi2d_fused_step, stencil2d,
-                                     stencil2d_plain)
+                                     stencil2d_plain, stencil3d,
+                                     stencil3d_plain)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -149,9 +192,10 @@ def main() -> int:
     worst = {}   # kernel -> (max fp32 error, max bf16 error)
     cases = {}
 
-    def record(kernel, dtype, e, label):
+    def record(kernel, dtype, e, label, tol=None):
         key = str(dtype).split(".")[1]
-        check(e <= TOL[key], f"{kernel} {label} {key}: {e} > {TOL[key]}")
+        tol = TOL[key] if tol is None else tol
+        check(e <= tol, f"{kernel} {label} {key}: {e} > {tol}")
         w = worst.setdefault(kernel, {"float32": 0.0, "bfloat16": 0.0})
         w[key] = max(w[key], e)
         cases[kernel] = cases.get(kernel, 0) + 1
@@ -196,7 +240,46 @@ def main() -> int:
                        err(out, jacobi2d_fused_plain(x, spec, fuse=fuse,
                                                      bc_value=bc)),
                        f"{name} fuse={fuse} {grid}")
-    emit({"phase": 2, "cases": cases, "max_abs_err": worst, "tol": TOL})
+
+    def specs3(grid):
+        kappa = 1.0 + 9.0 * rng.random(grid)
+        return {
+            "laplace_bc": (T.laplace_jacobi(3), 1.5),
+            "laplace_raw": (T.laplace_jacobi(3), None),
+            "fields_bc": (T.heterogeneous_jacobi(kappa), 1.5),
+            "fields_raw": (T.heterogeneous_jacobi(kappa), None),
+            "star_r2_bc": (T.star(3, [0.15, 0.05], center=0.2), 1.5),
+            "box_raw": (T.box(3), None),
+        }
+
+    for shape in ((2, 6, 10, 12), (1, 10, 33, 57), (3, *FIG6_GRID)):
+        for name, (spec, bc) in specs3(shape[1:]).items():
+            for dtype in (torch.float32, torch.bfloat16):
+                x = field(shape, dtype)
+                out = stencil3d(x, spec, bc_value=bc)
+                sync()
+                record("stencil3d", dtype,
+                       err(out, stencil3d_plain(x, spec, bc_value=bc)),
+                       f"{name} {shape}")
+    check(worst["stencil3d"]["float32"] == 0.0,
+          f"K4 fp32 is not bit-equal: {worst['stencil3d']['float32']}")
+
+    def gemm_case(s_rows, n, dtype):
+        x = field((s_rows, n), dtype)
+        w = field((n, n), dtype) / n ** 0.5
+        out = dense_stencil_matmul(x, w)
+        sync()
+        ref = dense_stencil_plain(x, w)
+        atol, rtol = GEMM_TOL[str(dtype).split(".")[1]]
+        record("dense_stencil_matmul", dtype, err(out, ref),
+               f"({s_rows},{n})", atol + rtol * float(ref.abs().max()))
+
+    for s_rows, n in ((1, 64), (8, 130), (300, 257), (1000, 4096),
+                      (4097, 1000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            gemm_case(s_rows, n, dtype)
+    emit({"phase": 2, "cases": cases, "max_abs_err": worst, "tol": TOL,
+          "gemm_tol": GEMM_TOL})
 
     # -- 3-6. the main path, with the launch counts from zero ----------------
     _build.LAUNCHES.clear()
@@ -361,11 +444,213 @@ def main() -> int:
         "kernel_share": t1_kernel_ms
         / (solves["cuda_fused"].wall_seconds * 1e3)}})
 
+    # Free the 2D path's large tensors before the 3D path's 8 GB batch.
+    del xb, xs, outs, br, batch
+    torch.cuda.empty_cache()
+
+    # -- 8-9. the 3D path (Fig 6), with the launch counts from zero ---------
+    _build.LAUNCHES.clear()
+    lap3 = T.laplace_jacobi(3)
+    fig6, fig6_cold, fig6_k4 = {}, {}, {}
+    for backend in ("cuda", "conv", "conv3d_native", "reference"):
+        solver = T.Solver(lap3, FIG6_GRID, backend=backend, bc=1.0,
+                          device=dev, **FIG6)
+        fig6_cold[backend] = solver.solve(
+            torch.zeros(FIG6_GRID)).wall_seconds * 1e3
+        k4_before = _build.LAUNCHES["stencil3d"]
+        r = solver.solve(torch.zeros(FIG6_GRID))
+        fig6_k4[backend] = _build.LAUNCHES["stencil3d"] - k4_before
+        check(r.converged and r.x.shape == FIG6_GRID
+              and bool(torch.isfinite(r.x).all()), f"fig6 {backend}")
+        if backend in ("cuda", "reference"):
+            check(r.iterations == FIG6_ITERS
+                  and r.residual == FIG6_RESIDUAL,
+                  f"fig6 {backend}: {r.iterations} iterations, residual "
+                  f"{r.residual!r}")
+        else:
+            check(abs(r.iterations - FIG6_ITERS) <= FIG6["check_every"],
+                  f"fig6 {backend}: {r.iterations} iterations")
+        fig6[backend] = r
+    check(err(fig6["cuda"].x, fig6["reference"].x) == 0.0,
+          "fig6 cuda field is not bit-equal to reference")
+    for backend, r in fig6.items():
+        chunks = abs(r.iterations - FIG6_ITERS) // FIG6["check_every"]
+        check(err(r.x, fig6["reference"].x)
+              <= TOL["float32"] + chunks * 2 * fig6["reference"].residual,
+              f"fig6 {backend} field vs reference")
+    kappa3 = 1.0 + 9.0 * np.random.default_rng(0).random(FIG6_GRID)
+    het3 = T.heterogeneous_jacobi(kappa3)
+    het3d = {}
+    for backend in ("cuda", "conv3d_native", "reference"):
+        solver = T.Solver(het3, FIG6_GRID, backend=backend, bc=1.0,
+                          device=dev, **FIG6)
+        k4_before = _build.LAUNCHES["stencil3d"]
+        r = solver.solve(torch.zeros(FIG6_GRID))
+        if backend == "conv3d_native":
+            check(abs(r.iterations - HET3D_ITERS) <= FIG6["check_every"],
+                  f"hetero 3D {backend}: {r.iterations} iterations")
+        else:
+            check(r.iterations == HET3D_ITERS,
+                  f"hetero 3D {backend}: {r.iterations} iterations")
+        het3d[backend] = {"iterations": r.iterations,
+                          "residual": r.residual,
+                          "wall_ms": r.wall_seconds * 1e3,
+                          "k4_launches": _build.LAUNCHES["stencil3d"]
+                          - k4_before, "x": r.x}
+    check(err(het3d["cuda"].pop("x"), het3d["reference"].pop("x")) == 0.0,
+          "hetero 3D cuda field is not bit-equal to reference")
+    het3d["conv3d_native"].pop("x")
+    emit({"phase": 8, "grid": list(FIG6_GRID), "fig6": {
+        b: {"iterations": r.iterations, "residual": r.residual,
+            "wall_ms": r.wall_seconds * 1e3, "cold_wall_ms": fig6_cold[b],
+            "k4_launches": fig6_k4[b]} for b, r in fig6.items()},
+        "hetero3d": het3d})
+
+    # The paper's full problem and one deep grid, through the plan.
+    g3 = torch.Generator(device=dev).manual_seed(3)
+    xp_batch = torch.rand((PAPER_BATCH, *FIG6_GRID), generator=g3,
+                          device=dev)
+    xp_deep = torch.rand((1, *DEEP_GRID), generator=g3, device=dev)
+    big3 = {}
+    for name, x3d in (("paper_batch", xp_batch), ("deep_grid", xp_deep)):
+        plan = T.make_plan(lap3, x3d.shape[1:], backend="cuda", bc=1.0,
+                           iters=ITERS_3D, device=dev)
+        k4_before = _build.LAUNCHES["stencil3d"]
+        sync()
+        t0 = time.perf_counter()
+        y3d = plan(x3d)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches3d = _build.LAUNCHES["stencil3d"] - k4_before
+        check(y3d.shape == x3d.shape and bool(torch.isfinite(y3d).all()),
+              f"{name} finite")
+        big3[name] = {"shape": list(x3d.shape), "iters": ITERS_3D,
+                      "wall_ms": wall, "k4_launches": launches3d,
+                      "out": y3d}
+    launches3 = dict(_build.LAUNCHES)
+    check(launches3.get("stencil3d", 0) > 0,
+          "the 3D path never launched stencil3d")
+    # Against the plain version: a slice of the batch, the whole deep grid.
+    for name, x3d in (("paper_batch", xp_batch[:CHECK_SLICE]),
+                      ("deep_grid", xp_deep)):
+        y = T.DirichletBC(1.0).set_boundary(x3d, 3)
+        for _ in range(ITERS_3D):
+            y = stencil3d_plain(y, lap3, bc_value=1.0)
+        e = err(big3[name].pop("out")[:len(x3d)], y)
+        check(e == 0.0, f"{name} vs plain on {len(x3d)} instances: {e}")
+        big3[name]["max_abs_err_vs_plain"] = e
+        big3[name]["checked_instances"] = len(x3d)
+    del y
+    emit({"phase": 9, "launches": launches3, **big3})
+
+    # -- 10. the dense path (Algorithm 1), with the launch counts from zero --
+    _build.LAUNCHES.clear()
+    gd = torch.Generator(device=dev).manual_seed(4)
+    xd = T.DirichletBC(1.0).set_boundary(
+        torch.rand((DENSE_BATCH, 64, 64), generator=gd, device=dev), 2)
+    matrix = torch.as_tensor(T.build_dense_matrix((64, 64), lap), device=dev)
+    sync()
+    t0 = time.perf_counter()
+    yd = dense_jacobi_kernel(xd, matrix, iterations=DENSE_ITERS)
+    sync()
+    dense_wall = (time.perf_counter() - t0) * 1e3
+    launches5 = dict(_build.LAUNCHES)
+    check(launches5.get("dense_stencil_matmul", 0) == DENSE_ITERS,
+          f"the dense path launched K5 {launches5}")
+    # K2's grid carries at most 65,535 instances a launch: two halves.
+    yk = torch.cat([jacobi2d(half, lap, bc_value=1.0, iterations=DENSE_ITERS)
+                    for half in xd.chunk(2)])
+    dense_err = err(yd, yk)
+    check(yd.shape == xd.shape and dense_err <= 1e-5,
+          f"dense path vs jacobi2d: {dense_err}")
+    emit({"phase": 10, "instances": DENSE_BATCH, "grid": [64, 64],
+          "N": 64 * 64, "iterations": DENSE_ITERS, "wall_ms": dense_wall,
+          "launches": launches5, "max_abs_err_vs_jacobi2d": dense_err})
+    del yd, yk
+
+    # -- 11. K4 and K5 timed at the 3D and dense paths' shapes ---------------
+    def chain_graph_ms(step, x, reps):
+        """Device ms of one ``step``: ``reps`` steps chained y = step(y) in
+        one CUDA graph and replayed (memory: two outputs at a time)."""
+        step(x)
+        sync()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = x
+            for _ in range(reps):
+                y = step(y)
+        graph.replay()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        del graph, y
+        torch.cuda.empty_cache()
+        return start.elapsed_time(end) / reps
+
+    def k4_step(y):
+        return stencil3d(y, lap3, bc_value=1.0)
+
+    xs3 = T.DirichletBC(1.0).set_boundary(xp_batch, 3)
+    del xp_batch
+    torch.cuda.empty_cache()
+    n3 = xs3.numel()
+    k4_ms = chain_graph_ms(k4_step, xs3, 3)
+    k4_eager = time_ms(lambda: k4_step(xs3), 3)
+    k4_plain = time_ms(lambda: stencil3d_plain(xs3, lap3, bc_value=1.0), 1)
+    k333 = torch.as_tensor(lap3.to_kernel(), device=dev)[None, None]
+    kch = torch.as_tensor(T.conv3d_channels_kernel(lap3, FIG6_GRID[0]),
+                          device=dev)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        conv3d_ms = time_ms(lambda: F.conv3d(xs3[:, None], k333, padding=1),
+                            3)
+        conv2d_ch_ms = time_ms(lambda: F.conv2d(xs3, kch, padding=1), 3)
+    k4_ops = (2 * len(lap3.taps) - 1) * n3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del xs3
+    torch.cuda.empty_cache()
+    deep = T.DirichletBC(1.0).set_boundary(xp_deep, 3)
+    n_deep = deep.numel()
+    k4_deep_ms = chain_graph_ms(k4_step, deep, 10)
+    k4_deep_plain = time_ms(lambda: stencil3d_plain(deep, lap3,
+                                                    bc_value=1.0), 3)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        conv3d_deep_ms = time_ms(
+            lambda: F.conv3d(deep[:, None], k333, padding=1), 3)
+    del deep, xp_deep
+
+    xd2 = xd.reshape(DENSE_BATCH, -1)
+    k5_ms = chain_graph_ms(lambda y: dense_stencil_matmul(y, matrix), xd2, 3)
+    k5_plain = time_ms(lambda: dense_stencil_plain(xd2, matrix), 3)
+    matmul_ms = time_ms(lambda: torch.matmul(xd2, matrix), 3)
+    nd_ = 64 * 64
+    k5_ops = 2 * DENSE_BATCH * nd_ * nd_
+    k5_bytes = (2 * DENSE_BATCH * nd_ + nd_ * nd_) * 4
+    emit({"phase": 11, "k4": {
+        "paper_batch": {"shape": [PAPER_BATCH, *FIG6_GRID], "ms": k4_ms,
+                        "eager_ms": k4_eager, "plain_ms": k4_plain,
+                        "bound_ms": 2 * n3 * 4 / PEAK_BYTES * 1e3,
+                        "conv3d_ms": conv3d_ms,
+                        "conv2d_channels_ms": conv2d_ch_ms,
+                        "library_batch": PAPER_BATCH,
+                        "peak_memory_GB": peak_gb},
+        "deep_grid": {"shape": [1, *DEEP_GRID], "ms": k4_deep_ms,
+                      "plain_ms": k4_deep_plain,
+                      "bound_ms": 2 * n_deep * 4 / PEAK_BYTES * 1e3,
+                      "conv3d_ms": conv3d_deep_ms}},
+        "k5": {"shape": [DENSE_BATCH, nd_], "ms": k5_ms, "plain_ms": k5_plain,
+               "matmul_ms": matmul_ms,
+               "bound_ms": k5_ops / PEAK_FP32_FLOPS * 1e3,
+               "TFLOPs": k5_ops / (k5_ms * 1e-3) / 1e12}})
+
     def entry(name, source, replaces, ms, plain_ms, nbytes, ops, lib_ms,
-              extra):
+              extra, path_launches=launches):
         tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32_FLOPS * 1e3
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": path_launches[name],
                 "max_abs_err": worst[name]["float32"], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": max(tb, to),
                 "bound_by": "bytes" if tb >= to else "operations",
@@ -392,6 +677,23 @@ def main() -> int:
               2 * 64 * 64 * 4, k3_ops, None,
               {"shape": [1, 64, 64], "fuse": n_iters,
                "plain_timing": "eager", "conv2d_one_sweep_ms": conv64_ms}),
+        entry("stencil3d", "src/repro_torch/csrc/stencil3d.cu",
+              "src/repro/kernels/stencil3d.py:117", k4_ms, k4_plain,
+              2 * n3 * 4, k4_ops, conv3d_ms,
+              {"shape": [PAPER_BATCH, *FIG6_GRID], "eager_ms": k4_eager,
+               "plain_timing": "eager", "library": "F.conv3d",
+               "conv2d_channels_ms": conv2d_ch_ms,
+               "deep_grid_ms": k4_deep_ms,
+               "deep_grid_bound_ms": 2 * n_deep * 4 / PEAK_BYTES * 1e3,
+               "max_abs_err_bf16": worst["stencil3d"]["bfloat16"]},
+              launches3),
+        entry("dense_stencil_matmul", "src/repro_torch/csrc/dense_stencil.cu",
+              "src/repro/kernels/dense_stencil.py:61", k5_ms, k5_plain,
+              k5_bytes, k5_ops, matmul_ms,
+              {"shape": [DENSE_BATCH, nd_, nd_], "plain_timing": "eager",
+               "library": "torch.matmul",
+               "max_abs_err_bf16": worst["dense_stencil_matmul"]["bfloat16"]},
+              launches5),
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -3,9 +3,10 @@ the shifted-add oracle, the paper's conv and dense encodings, the dispatcher
 (``plan.py``) and the run-to-convergence solver (``solver.py``).
 
 ``stencil_apply(spec, x, backend="auto", ...)`` routes one ``StencilSpec``
-through any backend (reference oracle, dense, conv, direct CUDA kernels,
-temporally-fused CUDA kernel); ``make_plan`` prepares a reusable executor
-and ``backend_support`` reports which backends are legal for a cell.
+through any backend (reference oracle, dense, conv, native Conv3D, direct
+CUDA kernels, temporally-fused CUDA kernel); ``make_plan`` prepares a
+reusable executor and ``backend_support`` reports which backends are legal
+for a cell.
 ``solve``/``Solver`` run the Jacobi time loop to convergence.  Entry points
 run on the card unless given ``device="cpu"``.
 """
@@ -13,7 +14,11 @@ from repro_torch.core.boundary import BoundaryMode, DirichletBC, runtime_bc_grid
 from repro_torch.core.conv_encoding import (
     conv2d_apply,
     conv2d_kernel,
+    conv3d_channels_kernel,
+    conv3d_kernel,
     conv_jacobi_2d,
+    conv_jacobi_3d_channels,
+    conv_jacobi_3d_native,
     conv_var_jacobi,
     split_var_kernels,
 )
@@ -69,7 +74,11 @@ __all__ = [
     "choose_backend",
     "conv2d_apply",
     "conv2d_kernel",
+    "conv3d_channels_kernel",
+    "conv3d_kernel",
     "conv_jacobi_2d",
+    "conv_jacobi_3d_channels",
+    "conv_jacobi_3d_native",
     "conv_var_jacobi",
     "dense_jacobi",
     "dense_layer_bytes",

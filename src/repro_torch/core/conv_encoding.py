@@ -1,19 +1,27 @@
-"""Convolution-layer encoding of a 2D stencil (paper Algorithm 2, Figure 2).
+"""Convolution-layer encoding of a stencil (paper Algorithm 2, Figures 2-4).
 
-The stencil's footprint window slides over the input (``F.conv2d``, NCHW —
-the only layout the CS-1 supported).  Non-zero Dirichlet BCs use the paper's
-mask trick (BoundaryMode.MASK); BoundaryMode.PAD re-writes the shell from x.
+2D: the stencil's footprint window slides over the input (``F.conv2d``,
+NCHW — the only layout the CS-1 supported).  Non-zero Dirichlet BCs use the
+paper's mask trick (BoundaryMode.MASK); BoundaryMode.PAD re-writes the shell
+from x.
+
+3D: the CS-1 only had Conv2D, so the third dimension maps onto the
+*channels* axis (paper Figures 3-4): a (dz, dx, dy) tap with weight w
+becomes kernel[z_out, z_out+dz, dx, dy] = w, a banded Z x Z channel-mixing
+matrix.  Native Conv3D (``F.conv3d``, NCDHW) is the encoding the paper
+could not use.
 
 Variable coefficients ride the *gather trick*: a one-hot kernel (one output
 channel per varying tap) extracts each neighbour into a channel, and the
-per-cell fields apply as an elementwise multiply-and-reduce over channels.
+per-cell fields apply as an elementwise multiply-and-reduce over channels
+(2D through Conv2D, 3D through native Conv3D).
 
 The conv is a library call, as the JAX package left it to XLA's
 convolution; it is one of the paper's own comparators, not a kernel of this
 port.  On the card it runs with TF32 off (cuDNN's default is on), so the
-``conv`` backend stays an fp32 comparator.  Convolutions compute in fp32
-and round to the working type once per call, as JAX's
-``preferred_element_type=float32``.
+``conv`` and ``conv3d_native`` backends stay fp32 comparators.
+Convolutions compute in fp32 and round to the working type once per call,
+as JAX's ``preferred_element_type=float32``.
 """
 from __future__ import annotations
 
@@ -46,12 +54,17 @@ def _seed_and_drive(grid, bc, bc_value, source, dtype, x0):
     return x, mask, drive
 
 
-def _padding(spec: StencilSpec) -> tuple[int, int, int, int]:
-    """F.pad widths that align the footprint window with the offsets (the
-    'same' padding for the symmetric footprints of every 2D family)."""
-    lo = [-min(off[d] for off, _ in spec.taps) for d in range(2)]
-    hi = [max(off[d] for off, _ in spec.taps) for d in range(2)]
-    return (lo[1], hi[1], lo[0], hi[0])
+def _padding(spec: StencilSpec, dims=None) -> tuple[int, ...]:
+    """F.pad widths that align the footprint window with the offsets along
+    the spec's ``dims`` (all by default) — the 'same' padding for the
+    symmetric footprints of every family.  F.pad lists the last dim
+    first."""
+    dims = range(spec.ndim) if dims is None else dims
+    pad = ()
+    for d in reversed(dims):
+        pad += (-min(off[d] for off, _ in spec.taps),
+                max(off[d] for off, _ in spec.taps))
+    return pad
 
 
 def conv2d_kernel(spec: StencilSpec, dtype=np.float32) -> np.ndarray:
@@ -62,27 +75,31 @@ def conv2d_kernel(spec: StencilSpec, dtype=np.float32) -> np.ndarray:
 
 
 def conv2d_apply(x: torch.Tensor, kernel: torch.Tensor,
-                 pad: tuple[int, int, int, int] | None = None) -> torch.Tensor:
-    """One conv application.  x: (batch, C, H, W); kernel: OIHW.
+                 pad: tuple[int, ...] | None = None) -> torch.Tensor:
+    """One conv application.  x: (batch, C, H, W) with an OIHW kernel, or
+    (batch, C, D, H, W) with an OIDHW kernel (a native 3D conv).
 
-    ``pad`` zero-pads x first (F.pad order: left, right, top, bottom); None
-    is a 'valid' conv.  Computes in fp32, returns x's type.
+    ``pad`` zero-pads x first (F.pad order: last dim first); None is a
+    'valid' conv.  Computes in fp32, returns x's type.
     """
     xf = x.float()
     if pad is not None:
         xf = F.pad(xf, pad)
     kf = kernel.float()
+    nd = xf.ndim - 2
     if xf.device.type == "cpu" and torch.backends.mkldnn.is_available():
-        # F.conv2d's CPU heuristic sends a batch of one through im2col and
-        # sgemm, whose blocked sums round differently from the oneDNN
-        # direct convolution it takes for larger batches.  oneDNN for every
-        # batch keeps batched solves equal to one-by-one solves, and sums
-        # the window in row-major order, as the shifted-add oracle does.
-        y = torch.ops.aten.mkldnn_convolution(xf, kf, None, [0, 0], [1, 1],
-                                              [1, 1], 1)
+        # F.conv2d's and F.conv3d's CPU heuristics send a batch of one
+        # through im2col and sgemm, whose blocked sums round differently
+        # from the oneDNN direct convolution they take for larger batches.
+        # oneDNN for every batch keeps batched solves equal to one-by-one
+        # solves, and sums the window in row-major order, as the
+        # shifted-add oracle does.
+        y = torch.ops.aten.mkldnn_convolution(xf, kf, None, [0] * nd,
+                                              [1] * nd, [1] * nd, 1)
     else:
+        conv = F.conv2d if nd == 2 else F.conv3d
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            y = F.conv2d(xf, kf)
+            y = conv(xf, kf)
     return y.to(x.dtype)
 
 
@@ -129,6 +146,88 @@ def conv_jacobi_2d(
     return x[:, 0]
 
 
+def conv3d_channels_kernel(spec: StencilSpec, depth: int,
+                           dtype=np.float32) -> np.ndarray:
+    """OIHW kernel (Z, Z, kx, ky) encoding a 3D stencil in Conv2D channels.
+
+    Offsets are (dz, dx, dy): dz indexes the channel band, (dx, dy) the 2D
+    window.  Output channel z reads input channels z+dz — the banded matrix
+    of paper Figure 4.
+    """
+    if spec.ndim != 3:
+        raise ValueError("conv3d_channels_kernel needs a 3D spec")
+    if spec.is_variable:
+        raise ValueError(
+            "the channels-trick Conv2D shares its band weights across the "
+            "whole X-Y plane; per-cell weight fields are not expressible — "
+            "use conv3d_native, dense, or cuda")
+    _, fx, fy = spec.footprint
+    lo = [min(off[d] for off, _ in spec.taps) for d in range(3)]
+    ker = np.zeros((depth, depth, fx, fy), dtype=dtype)
+    for (dz, dx, dy), w in spec.taps:
+        for z_out in range(depth):
+            z_in = z_out + dz
+            if 0 <= z_in < depth:
+                ker[z_out, z_in, dx - lo[1], dy - lo[2]] += w
+    return ker
+
+
+def conv_jacobi_3d_channels(
+    x0: torch.Tensor,
+    spec: StencilSpec,
+    bc: DirichletBC,
+    iterations: int,
+    dtype=torch.float32,
+    *,
+    source: torch.Tensor | None = None,
+    bc_value=None,
+) -> torch.Tensor:
+    """The paper's 3D approach.  x0: (batch, Z, X, Y); Z rides the channel
+    axis.
+
+    The channel band handles dz itself, so the *mask* treats the Z faces as
+    boundary too: the mask and bc grids are built on the full 3D shape and
+    broadcast as (1, Z, X, Y).
+    """
+    grid = tuple(x0.shape[1:])
+    kernel = torch.as_tensor(conv3d_channels_kernel(spec, depth=grid[0]),
+                             device=x0.device)
+    x, mask, drive = _seed_and_drive(grid, bc, bc_value, source, dtype, x0)
+    pad = _padding(spec, dims=(1, 2))
+    for _ in range(iterations):
+        x = conv2d_apply(x, kernel, pad) * mask + drive
+    return x
+
+
+def conv3d_kernel(spec: StencilSpec, dtype=np.float32) -> np.ndarray:
+    """OIDHW kernel (1, 1, kz, kx, ky) for a native 3D convolution."""
+    if spec.ndim != 3:
+        raise ValueError("conv3d_kernel needs a 3D spec")
+    return spec.to_kernel(dtype)[None, None]
+
+
+def conv_jacobi_3d_native(
+    x0: torch.Tensor,
+    spec: StencilSpec,
+    bc: DirichletBC,
+    iterations: int,
+    dtype=torch.float32,
+    *,
+    source: torch.Tensor | None = None,
+    bc_value=None,
+) -> torch.Tensor:
+    """Native Conv3D path — the encoding the paper could not use on the
+    CS-1.  x0: (batch, Z, X, Y) → (batch, Z, X, Y)."""
+    grid = tuple(x0.shape[1:])
+    kernel = torch.as_tensor(conv3d_kernel(spec), device=x0.device)
+    x, mask, drive = _seed_and_drive(grid, bc, bc_value, source, dtype, x0)
+    x, mask, drive = x[:, None], mask[None, None], drive[:, None]
+    pad = _padding(spec)
+    for _ in range(iterations):
+        x = conv2d_apply(x, kernel, pad) * mask + drive
+    return x[:, 0]
+
+
 def split_var_kernels(spec: StencilSpec, dtype=np.float32):
     """Split a (possibly mixed) spec into conv-friendly pieces.
 
@@ -171,13 +270,15 @@ def conv_var_jacobi(
     source: torch.Tensor | None = None,
     bc_value=None,
 ) -> torch.Tensor:
-    """Variable-coefficient 2D Jacobi via the gather trick (MASK mode).
+    """Variable-coefficient Jacobi via the gather trick (MASK mode).
 
-    x0: (batch, H, W) → (batch, H, W).  ``fields`` optionally overrides the
-    spec's baked per-cell values with a runtime (V, H, W) stack.
+    2D runs through Conv2D (NCHW); 3D through native Conv3D (NCDHW) — the
+    channels-trick 3D path cannot express per-cell fields.  x0: (batch,
+    *grid) → (batch, *grid).  ``fields`` optionally overrides the spec's
+    baked per-cell values with a runtime (V, *grid) stack.
     """
-    if spec.ndim != 2:
-        raise ValueError("the ported conv gather trick supports 2D specs")
+    if spec.ndim not in (2, 3):
+        raise ValueError("conv gather trick supports 2D and 3D specs")
     grid = tuple(x0.shape[1:])
     if spec.weights_shape != grid:
         raise ValueError(
@@ -194,7 +295,7 @@ def conv_var_jacobi(
     pad = _padding(spec)
     for _ in range(iterations):
         y = conv2d_apply(x, scalar_k, pad)
-        g = conv2d_apply(x, gather_k, pad)                  # (B, V, H, W)
+        g = conv2d_apply(x, gather_k, pad)                  # (B, V, *grid)
         y = y + torch.sum(g * f, dim=1, keepdim=True)
         x = y * mask + drive
     return x[:, 0]

@@ -3,16 +3,17 @@
 A ``StencilSpec`` + grid shape + boundary condition can be lowered through
 any of the port's executable encodings:
 
-  reference   plain shifted-add oracle              (core/reference.py)
-  dense       N×N dense-layer matmul, BCs in-matrix (core/dense_encoding.py)
-  conv        conv layer (2D)                       (core/conv_encoding.py)
-  cuda        direct CUDA stencil kernels           (kernels/stencil2d.py,
-                                                     kernels/jacobi_fused.py)
-  cuda_fused  temporally-blocked CUDA kernel        (kernels/jacobi_fused.py)
+  reference      plain shifted-add oracle              (core/reference.py)
+  dense          N×N dense-layer matmul, BCs in-matrix (core/dense_encoding.py)
+  conv           conv layer; 3D rides Conv2D channels  (core/conv_encoding.py)
+  conv3d_native  true Conv3D (what the CS-1 lacked)    (core/conv_encoding.py)
+  cuda           direct CUDA stencil kernels           (kernels/stencil2d.py,
+                                                        kernels/stencil3d.py,
+                                                        kernels/jacobi_fused.py)
+  cuda_fused     temporally-blocked CUDA kernel        (kernels/jacobi_fused.py)
 
 ``cuda``/``cuda_fused`` are the JAX package's ``pallas``/``pallas_fused``.
-Its ``conv3d_native`` and ``halo`` backends and the 3D kernel paths are not
-ported yet; ``backend_support`` says so for them.
+Its ``halo`` backend is not ported yet; ``backend_support`` says so.
 
 ``backend="auto"`` picks via a small analytic cost model: per-point FLOPs for
 the encoding (core/metrics.py), bytes streamed per iteration, the device's
@@ -41,12 +42,13 @@ BACKENDS = (
     "reference",
     "dense",
     "conv",
+    "conv3d_native",
     "cuda",
     "cuda_fused",
 )
 
 # The JAX package's backends that have no counterpart here yet.
-NOT_PORTED = ("conv3d_native", "halo")
+NOT_PORTED = ("halo",)
 
 KERNEL_BACKENDS = ("cuda", "cuda_fused")
 
@@ -130,9 +132,12 @@ def backend_support(
     if backend == "conv":
         if nd == 1:
             return _no("no 1D conv encoding (use dense or reference)")
-        if nd == 3:
-            return _no("the 3D conv encodings (channels trick, conv3d) are "
-                       "not yet ported to repro_torch")
+        if variable and nd == 3:
+            return _no("channels-trick Conv2D shares its band weights across "
+                       "the X-Y plane; per-cell weight fields not "
+                       "expressible (use conv3d_native, dense, or cuda)")
+        if nd == 3 and mode is not BoundaryMode.MASK:
+            return _no("3D channels-trick conv supports the mask trick only")
         if raw:
             return _no("conv encoding paths bake in the Dirichlet fixup")
         if mode is BoundaryMode.MATRIX:
@@ -145,13 +150,19 @@ def backend_support(
                        "radius-1 stencils")
         return _OK
 
+    if backend == "conv3d_native":
+        if nd != 3:
+            return _no("conv3d_native is the 3D-only Conv3D path")
+        if raw:
+            return _no("conv encoding paths bake in the Dirichlet fixup")
+        if mode is not BoundaryMode.MASK:
+            return _no("conv3d_native supports the mask trick only")
+        return _OK  # variable taps ride the gather trick (one-hot channels)
+
     # cuda / cuda_fused
     if backend == "cuda_fused" and nd != 2:
         return _no("temporal fusion kernel is 2D only (jacobi_fused.py)")
-    if nd == 3:
-        return _no("no 3D CUDA kernel yet: stencil3d is not yet ported to "
-                   "repro_torch")
-    if nd != 2:
+    if nd not in (2, 3):
         return _no(f"no {nd}D CUDA kernel (stencil2d/stencil3d only)")
     if not raw and mode is not BoundaryMode.MASK:
         return _no("CUDA kernels fuse the mask trick in-kernel "
@@ -225,11 +236,14 @@ def estimate_seconds(
         flops = encoding_flops_per_point(spec, "dense", n_total=n)
         compute = flops * n / device.matmul_flops
         mem = (n * n * itemsize + 2 * n * itemsize) / device.mem_bw
-    elif backend == "conv":
+    elif backend in ("conv", "conv3d_native"):
         if spec.is_variable:
             # Gather trick: direct-form MACs for the one-hot conv plus an
             # elementwise multiply + add + reduce per varying tap.
             flops = encoding_flops_per_point(spec, "direct") + 3 * n_var
+        elif spec.ndim == 3 and backend == "conv":
+            flops = encoding_flops_per_point(spec, "conv3d_channels",
+                                             n_total=grid_shape[0])
         else:
             flops = encoding_flops_per_point(spec, "conv")
         compute = flops * n / device.vector_flops
@@ -439,9 +453,10 @@ def make_plan(
         raise ValueError(f"backend {backend!r} unsupported here: {sup.reason}")
 
     # ``fuse`` is a hint for the 2D kernel paths (both scalar-bc and raw
-    # execute in fuse-sized passes); every other backend ignores it and the
-    # plan records fuse=1 so its metadata reflects what actually runs.
-    if backend not in KERNEL_BACKENDS:
+    # execute in fuse-sized passes); every other backend, and the 3D kernel,
+    # ignores it and the plan records fuse=1 so its metadata reflects what
+    # actually runs.
+    if backend not in KERNEL_BACKENDS or spec.ndim != 2:
         fuse, rim = 1, None
     else:
         if fuse is None:
@@ -530,8 +545,10 @@ def _build_fn(spec, grid_shape, backend, bc, mode, iters, fuse, dtype, dev,
             return dense_jacobi(x, m, iters, drive)
         return run_dense, var_ops | {"source", "bc_value"}
 
-    if backend == "conv":
+    if backend in ("conv", "conv3d_native"):
         from repro_torch.core.conv_encoding import (conv_jacobi_2d,
+                                                    conv_jacobi_3d_channels,
+                                                    conv_jacobi_3d_native,
                                                     conv_var_jacobi)
         if spec.is_variable:
             return (lambda x, fields, source, bc_value:
@@ -539,15 +556,39 @@ def _build_fn(spec, grid_shape, backend, bc, mode, iters, fuse, dtype, dev,
                                     fields=fields_or_baked(fields),
                                     source=source, bc_value=bc_value),
                     frozenset(("fields", "source", "bc_value")))
+        if spec.ndim == 3:
+            jacobi = conv_jacobi_3d_channels if backend == "conv" \
+                else conv_jacobi_3d_native
+            return (lambda x, fields, source, bc_value:
+                    jacobi(x, spec, bc, iters, dtype=dtype, source=source,
+                           bc_value=bc_value),
+                    frozenset(("source", "bc_value")))
         ops = frozenset(("source", "bc_value")) \
             if mode is BoundaryMode.MASK else frozenset()
         return (lambda x, fields, source, bc_value:
                 conv_jacobi_2d(x, spec, bc, iters, mode, dtype=dtype,
                                source=source, bc_value=bc_value), ops)
 
-    # cuda / cuda_fused (2D; backend_support has ruled out the rest)
-    from repro_torch.kernels import jacobi2d, jacobi2d_fused_step, stencil2d
     bc_value_s = _scalar_bc_value(bc)
+    if spec.ndim == 3:
+        # K4, one pass per iteration, the baked fields on the device once;
+        # as in the JAX package, no runtime operands.
+        from repro_torch.kernels import jacobi3d, stencil3d
+        if bc_value_s is not None:
+            return (lambda x, fields, source, bc_value:
+                    jacobi3d(x.to(dtype), spec, bc_value=bc_value_s,
+                             iterations=iters, fields=baked),
+                    frozenset())
+
+        def run_raw3d(x, fields, source, bc_value):
+            x = x.to(dtype)
+            for _ in range(iters):
+                x = stencil3d(x, spec, fields=baked)
+            return x
+        return run_raw3d, frozenset()
+
+    # cuda / cuda_fused in 2D (backend_support has ruled out the rest)
+    from repro_torch.kernels import jacobi2d, jacobi2d_fused_step, stencil2d
     rim = rim or "trapezoid"
     if bc_value_s is not None:
         return (lambda x, fields, source, bc_value:

@@ -12,8 +12,10 @@
 
 #include <type_traits>
 
-// Radius 2 in full (a 5x5 box) fits.  The Python side raises beyond it.
+// Radius 2 in full (a 5x5 box, a 5x5x5 box) fits.  The Python side raises
+// beyond it.
 #define STENCIL_MAX_TAPS 25
+#define STENCIL3D_MAX_TAPS 125
 
 // field[k] < 0: tap k has the scalar weight w[k].  Otherwise its weight is
 // the per-cell field fields[field[k]] read at the output cell.
@@ -23,6 +25,17 @@ struct Taps {
   int dc[STENCIL_MAX_TAPS];
   int field[STENCIL_MAX_TAPS];
   float w[STENCIL_MAX_TAPS];
+};
+
+// The 3D table: tap k reads the neighbour at (dz, dr, dc) = (z, x, y)
+// offsets; field and w as in Taps.
+struct Taps3 {
+  int n;
+  int dz[STENCIL3D_MAX_TAPS];
+  int dr[STENCIL3D_MAX_TAPS];
+  int dc[STENCIL3D_MAX_TAPS];
+  int field[STENCIL3D_MAX_TAPS];
+  float w[STENCIL3D_MAX_TAPS];
 };
 
 // dtype codes shared with the Python wrappers.

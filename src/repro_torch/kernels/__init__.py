@@ -6,15 +6,24 @@ version, ``csrc/<name>.cu`` the kernel, ``ops.py`` the iteration loop,
 binding.  A wrapper runs its plain version on a CPU tensor and launches the
 kernel on a CUDA tensor; ``_build.LAUNCHES`` counts the launches.
 """
+from repro_torch.kernels.dense_stencil import (dense_stencil_matmul,
+                                               dense_stencil_plain)
 from repro_torch.kernels.jacobi_fused import (jacobi2d_fused_plain,
                                               jacobi2d_fused_step)
-from repro_torch.kernels.ops import jacobi2d
+from repro_torch.kernels.ops import dense_jacobi_kernel, jacobi2d, jacobi3d
 from repro_torch.kernels.stencil2d import stencil2d, stencil2d_plain
+from repro_torch.kernels.stencil3d import stencil3d, stencil3d_plain
 
 __all__ = [
+    "dense_jacobi_kernel",
+    "dense_stencil_matmul",
+    "dense_stencil_plain",
     "jacobi2d",
     "jacobi2d_fused_plain",
     "jacobi2d_fused_step",
+    "jacobi3d",
     "stencil2d",
     "stencil2d_plain",
+    "stencil3d",
+    "stencil3d_plain",
 ]

@@ -34,12 +34,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launches per kernel, counted by the wrappers where they launch (never on
 # the plain path), so a run can show which kernels its main path went
-# through.  Keys: "stencil2d", "jacobi2d_trapezoid", "jacobi2d_resident".
+# through.  Keys: "stencil2d", "jacobi2d_trapezoid", "jacobi2d_resident",
+# "stencil3d", "dense_stencil_matmul".
 LAUNCHES: collections.Counter = collections.Counter()
 
-# Size of the tap table (csrc/taps.cuh), the most taps it holds, and the
-# dtype codes of its DTYPE_* enum.
+# Sizes of the 2D and 3D tap tables (csrc/taps.cuh), the most taps each
+# holds, and the dtype codes of its DTYPE_* enum.
 MAX_TAPS = 25
+MAX_TAPS_3D = 125
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,20 +55,34 @@ class Taps(ctypes.Structure):
                 ("w", ctypes.c_float * MAX_TAPS)]
 
 
+class Taps3(ctypes.Structure):
+    """The ``Taps3`` struct of csrc/taps.cuh, field for field."""
+
+    _fields_ = [("n", ctypes.c_int),
+                ("dz", ctypes.c_int * MAX_TAPS_3D),
+                ("dr", ctypes.c_int * MAX_TAPS_3D),
+                ("dc", ctypes.c_int * MAX_TAPS_3D),
+                ("field", ctypes.c_int * MAX_TAPS_3D),
+                ("w", ctypes.c_float * MAX_TAPS_3D)]
+
+
 _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}
 _build_log: dict[str, str] = {}
 
 
 @functools.lru_cache(maxsize=64)
-def tap_table(spec: StencilSpec) -> Taps:
-    """The spec's taps in canonical order, as the kernels read them (the
-    wrappers have checked that it is 2D with at most MAX_TAPS taps)."""
-    t = Taps()
+def tap_table(spec: StencilSpec) -> Taps | Taps3:
+    """The spec's taps in canonical order, as the kernels read them: a
+    ``Taps`` for a 2D spec, a ``Taps3`` for a 3D one (the wrappers have
+    checked the rank and the tap count)."""
+    t = Taps() if spec.ndim == 2 else Taps3()
     t.n = len(spec.taps)
     k = 0
-    for i, ((dr, dc), w) in enumerate(spec.taps):
-        t.dr[i], t.dc[i] = dr, dc
+    for i, (off, w) in enumerate(spec.taps):
+        if spec.ndim == 3:
+            t.dz[i] = off[0]
+        t.dr[i], t.dc[i] = off[-2:]
         if isinstance(w, WeightField):
             t.field[i], t.w[i] = k, 0.0
             k += 1

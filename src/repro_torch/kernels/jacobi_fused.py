@@ -66,11 +66,10 @@ def jacobi2d_fused_plain(x: torch.Tensor, spec: StencilSpec, *, fuse: int,
     """K2's and K3's plain PyTorch version."""
     fields = resolve_fields(spec, fields, x.device)
     check_operands(x, spec, fields)
-    _, H, W = x.shape
     y = x.float()
     inside = None
     if bc_value is not None:
-        inside = interior(H, W, x.device)
+        inside = interior(x.shape[1:], x.device)
         y = torch.where(inside, y, float(np.float32(bc_value)))
     for _ in range(fuse):
         y = sweep(y, spec, fields, inside, bc_value)

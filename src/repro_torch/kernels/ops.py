@@ -1,9 +1,12 @@
-"""The iteration loop around the 2D kernels.
+"""The iteration loops around the kernels.
 
 ``jacobi2d`` sets the Dirichlet shell, then runs the kernel pass by pass:
 ``fuse`` iterations per pass through the fused kernel, or one per pass
-through the direct kernel for variable-coefficient specs at fuse=1.  Each
-kernel runs as its plain version on a CPU tensor and as CUDA on a CUDA one.
+through the direct kernel for variable-coefficient specs at fuse=1.
+``jacobi3d`` sets the shell and runs one 3D kernel pass per iteration.
+``dense_jacobi_kernel`` runs the dense encoding, one matrix-product pass per
+iteration.  Each kernel runs as its plain version on a CPU tensor and as
+CUDA on a CUDA one.
 """
 from __future__ import annotations
 
@@ -11,8 +14,10 @@ import torch
 
 from repro_torch.core.boundary import DirichletBC
 from repro_torch.core.stencil import StencilSpec
+from repro_torch.kernels.dense_stencil import dense_stencil_matmul
 from repro_torch.kernels.jacobi_fused import jacobi2d_fused_step
 from repro_torch.kernels.stencil2d import resolve_fields, stencil2d
+from repro_torch.kernels.stencil3d import stencil3d
 
 
 def jacobi2d(
@@ -55,4 +60,39 @@ def jacobi2d(
     return x
 
 
-__all__ = ["jacobi2d", "jacobi2d_fused_step", "stencil2d"]
+def jacobi3d(
+    x0: torch.Tensor,
+    spec: StencilSpec,
+    *,
+    bc_value: float,
+    iterations: int,
+    fields: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``iterations`` 3D Jacobi steps on (batch, Z, X, Y) through K4.
+
+    ``fields`` overrides a variable spec's baked per-cell values with a
+    (V, Z, X, Y) stack.
+    """
+    fields = resolve_fields(spec, fields, x0.device)
+    x = DirichletBC(bc_value).set_boundary(x0, 3)
+    for _ in range(iterations):
+        x = stencil3d(x, spec, bc_value=bc_value, fields=fields)
+    return x
+
+
+def dense_jacobi_kernel(x0: torch.Tensor, matrix: torch.Tensor, *,
+                        iterations: int) -> torch.Tensor:
+    """The dense encoding through K5.  x0: (batch, *grid).
+
+    The BC lives inside ``matrix`` (identity rows): build it with
+    ``core.build_dense_matrix`` and set the shell on x0 first.
+    """
+    batch, grid_shape = x0.shape[0], x0.shape[1:]
+    x = x0.reshape(batch, -1)
+    for _ in range(iterations):
+        x = dense_stencil_matmul(x, matrix)
+    return x.reshape(batch, *grid_shape)
+
+
+__all__ = ["dense_jacobi_kernel", "dense_stencil_matmul", "jacobi2d",
+           "jacobi2d_fused_step", "jacobi3d", "stencil2d", "stencil3d"]

@@ -14,6 +14,11 @@ def stencil2d_ref(x: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
     return torch.stack([apply_stencil(x[i], spec) for i in range(x.shape[0])])
 
 
+def stencil3d_ref(x: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
+    """Raw 3D stencil, zero padding.  x: (batch, Z, X, Y)."""
+    return torch.stack([apply_stencil(x[i], spec) for i in range(x.shape[0])])
+
+
 def jacobi2d_ref(x: torch.Tensor, spec: StencilSpec, bc_value: float,
                  iterations: int) -> torch.Tensor:
     """Jacobi with scalar Dirichlet BC.  x: (batch, H, W)."""
@@ -25,3 +30,8 @@ def jacobi2d_ref(x: torch.Tensor, spec: StencilSpec, bc_value: float,
             g = bc.apply_mask_trick(apply_stencil(g, spec))
         out.append(g)
     return torch.stack(out)
+
+
+def dense_stencil_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (S, N) @ w: (N, N) with fp32 accumulation."""
+    return (x.float() @ w.float()).to(x.dtype)

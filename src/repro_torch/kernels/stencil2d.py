@@ -4,7 +4,8 @@
 ``stencil2d`` dispatches on the device of ``x``: a CPU tensor goes through
 ``stencil2d_plain`` (the same arithmetic in plain PyTorch), a CUDA tensor
 launches ``csrc/stencil2d.cu`` and raises if it cannot.  ``sweep`` is the
-one step both plain versions (this one and the fused kernel's) repeat.
+one step every plain version (this one, the fused kernel's and the 3D
+kernel's) repeats.
 """
 from __future__ import annotations
 
@@ -42,15 +43,17 @@ def resolve_fields(spec: StencilSpec, fields, device) -> torch.Tensor | None:
 
 
 def check_operands(x: torch.Tensor, spec: StencilSpec,
-                   fields: torch.Tensor | None) -> None:
-    """What both the kernels and their plain versions take."""
-    if spec.ndim != 2:
-        raise ValueError("the 2D stencil kernels need a 2D spec")
-    if x.ndim != 3:
-        raise ValueError(f"x must be (batch, H, W), got {tuple(x.shape)}")
-    if len(spec.taps) > _build.MAX_TAPS:
+                   fields: torch.Tensor | None, ndim: int = 2) -> None:
+    """What the ``ndim``-D kernels and their plain versions take."""
+    if spec.ndim != ndim:
+        raise ValueError(f"the {ndim}D stencil kernels need a {ndim}D spec")
+    if x.ndim != ndim + 1:
+        dims = "H, W" if ndim == 2 else "Z, X, Y"
+        raise ValueError(f"x must be (batch, {dims}), got {tuple(x.shape)}")
+    max_taps = _build.MAX_TAPS if ndim == 2 else _build.MAX_TAPS_3D
+    if len(spec.taps) > max_taps:
         raise ValueError(f"{spec.name} has {len(spec.taps)} taps; the CUDA "
-                         f"kernels take at most {_build.MAX_TAPS}")
+                         f"kernels take at most {max_taps}")
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     want = (spec.num_variable_taps, *x.shape[1:])
@@ -59,25 +62,26 @@ def check_operands(x: torch.Tensor, spec: StencilSpec,
                          f"{tuple(fields.shape)}")
 
 
-def interior(H: int, W: int, device) -> torch.Tensor:
-    """True off the Dirichlet shell."""
-    m = torch.zeros((H, W), dtype=torch.bool, device=device)
-    m[1:-1, 1:-1] = True
+def interior(grid: tuple[int, ...], device) -> torch.Tensor:
+    """True off the Dirichlet shell of a grid of any rank."""
+    m = torch.zeros(grid, dtype=torch.bool, device=device)
+    m[tuple(slice(1, -1) for _ in grid)] = True
     return m
 
 
 def sweep(x32: torch.Tensor, spec: StencilSpec, fields: torch.Tensor | None,
           inside: torch.Tensor | None, bc_value: float | None) -> torch.Tensor:
-    """One fp32 stencil step on (B, H, W): zero padding outside the grid,
+    """One fp32 stencil step on (B, *grid): zero padding outside the grid,
     taps summed in canonical order, the shell pinned when ``bc_value`` is
     set (``inside`` is then the :func:`interior` mask)."""
-    _, H, W = x32.shape
+    grid = x32.shape[1:]
     r = spec.radius
-    xp = F.pad(x32, (r, r, r, r))
+    xp = F.pad(x32, (r,) * (2 * len(grid)))
     acc = None
     k = 0
-    for (dr, dc), w in spec.taps:
-        term = xp[:, r + dr:r + dr + H, r + dc:r + dc + W]
+    for off, w in spec.taps:
+        term = xp[(slice(None),) + tuple(slice(r + o, r + o + n)
+                                         for o, n in zip(off, grid))]
         if isinstance(w, WeightField):
             term = term * fields[k]
             k += 1
@@ -95,8 +99,8 @@ def stencil2d_plain(x: torch.Tensor, spec: StencilSpec, *,
     """K1's plain PyTorch version: one fp32 step, rounded to x's type."""
     fields = resolve_fields(spec, fields, x.device)
     check_operands(x, spec, fields)
-    _, H, W = x.shape
-    inside = interior(H, W, x.device) if bc_value is not None else None
+    inside = interior(x.shape[1:], x.device) if bc_value is not None \
+        else None
     return sweep(x.float(), spec, fields, inside, bc_value).to(x.dtype)
 
 

@@ -1,0 +1,89 @@
+"""K4: one direct 3D stencil step — the port of the TPU kernel
+``kernels/stencil3d.py::stencil3d``.
+
+``stencil3d`` dispatches on the device of ``x``: a CPU tensor goes through
+``stencil3d_plain`` (the 2D kernels' ``sweep`` on a rank-3 grid: the same
+arithmetic in plain PyTorch), a CUDA tensor launches ``csrc/stencil3d.cu``
+and raises if it cannot.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.stencil import StencilSpec
+from repro_torch.kernels import _build
+from repro_torch.kernels.stencil2d import (MAX_BATCH, MAX_CELLS,
+                                           check_operands, interior,
+                                           resolve_fields, sweep)
+
+
+def check_launch3(B: int, Z: int, X: int, Y: int) -> None:
+    """Raise on a shape the kernel's launch geometry cannot cover: gridDim.z
+    carries the batch, gridDim.y the Z planes, and cells of one grid are
+    indexed in int32."""
+    if B > MAX_BATCH or Z > MAX_BATCH:
+        raise ValueError(f"batch {B} and depth {Z} must each be at most "
+                         f"{MAX_BATCH}")
+    if Z * X * Y > MAX_CELLS:
+        raise ValueError(f"a {Z}x{X}x{Y} grid exceeds the kernel's "
+                         f"{MAX_CELLS} cells")
+
+
+def stencil3d_plain(x: torch.Tensor, spec: StencilSpec, *,
+                    bc_value: float | None = None,
+                    fields: torch.Tensor | None = None) -> torch.Tensor:
+    """K4's plain PyTorch version: one fp32 step, rounded to x's type."""
+    fields = resolve_fields(spec, fields, x.device)
+    check_operands(x, spec, fields, ndim=3)
+    inside = interior(x.shape[1:], x.device) if bc_value is not None \
+        else None
+    return sweep(x.float(), spec, fields, inside, bc_value).to(x.dtype)
+
+
+def _launcher():
+    lib = _build.library("stencil3d")
+    fn = lib.stencil3d_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(_build.Taps3), ctypes.c_int,
+                       ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def stencil3d(x: torch.Tensor, spec: StencilSpec, *,
+              bc_value: float | None = None,
+              fields: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply one 3D stencil step to x: (batch, Z, X, Y).
+
+    bc_value=None → raw stencil with zero padding; bc_value=v → one Jacobi
+    step with the shell (all six faces) pinned to v.  ``fields`` overrides
+    a variable spec's baked per-cell weights with a (V, Z, X, Y) stack,
+    shared by the batch.
+    """
+    if x.device.type == "cpu":
+        return stencil3d_plain(x, spec, bc_value=bc_value, fields=fields)
+    if x.device.type != "cuda":
+        raise ValueError(f"stencil3d runs on cpu or cuda, not {x.device}")
+    fields = resolve_fields(spec, fields, x.device)
+    check_operands(x, spec, fields, ndim=3)
+    if not x.is_contiguous() or (fields is not None
+                                 and not fields.is_contiguous()):
+        raise ValueError("stencil3d needs contiguous x and fields")
+    B, Z, X, Y = x.shape
+    check_launch3(B, Z, X, Y)
+    taps = _build.tap_table(spec)
+    lib, fn = _launcher()
+    out = torch.empty_like(x)
+    rc = fn(x.data_ptr(), fields.data_ptr() if fields is not None else None,
+            out.data_ptr(), B, Z, X, Y, spec.radius,
+            _build.DTYPE_CODES[x.dtype], ctypes.byref(taps),
+            int(bc_value is not None), 0.0 if bc_value is None else bc_value,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "stencil3d")
+    _build.LAUNCHES["stencil3d"] += 1
+    return out

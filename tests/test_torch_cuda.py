@@ -9,16 +9,20 @@ This file imports no JAX, so it runs where only the port is installed.
 Tolerances: fp32 1e-6 absolute — the kernels round each product and each
 sum as the plain versions do (no FMA contraction), in the same tap order,
 so fp32 results are expected bit-equal; bf16 2e-2 absolute (one bf16 ulp
-at these magnitudes).
+at these magnitudes).  K5 (a GEMM) sums in another order than the library
+product its plain version calls: 1e-4 relative and absolute in fp32, and
+3e-2 relative plus 3e-1 absolute in bf16, the JAX package's tolerances.
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch.kernels import (_build, jacobi2d_fused_plain,
+from repro_torch.kernels import (_build, dense_jacobi_kernel,
+                                 dense_stencil_matmul, dense_stencil_plain,
+                                 jacobi2d, jacobi2d_fused_plain,
                                  jacobi2d_fused_step, stencil2d,
-                                 stencil2d_plain)
+                                 stencil2d_plain, stencil3d, stencil3d_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +121,94 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
         stencil2d(x.transpose(1, 2), T.laplace_jacobi(2))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         jacobi2d_fused_step(x.half(), T.laplace_jacobi(2), fuse=2)
+
+
+def _specs3(grid):
+    """name -> (3D spec on this grid, bc_value)."""
+    return {
+        "laplace_bc": (T.laplace_jacobi(3), 1.5),
+        "laplace_raw": (T.laplace_jacobi(3), None),
+        "fields_bc": (T.heterogeneous_jacobi(1.0 + 9.0 * _rng.random(grid)),
+                      1.5),
+        "radius2_bc": (T.star(3, [0.15, 0.05], center=0.2), 1.5),
+        "box_raw": (T.box(3), None),
+    }
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 10, 12), (1, 10, 33, 57),
+                                   (3, 10, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(_specs3((2, 2, 2))))
+def test_stencil3d_matches_plain(cuda, case, dtype, shape):
+    spec, bc = _specs3(shape[1:])[case]
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(shape)
+                         .astype(np.float32)).to(cuda, dtype)
+    n = _build.LAUNCHES["stencil3d"]
+    out = stencil3d(x, spec, bc_value=bc)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stencil3d"] == n + 1
+    ref = stencil3d_plain(x, spec, bc_value=bc)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("s,n", [(1, 64), (8, 130), (300, 257),
+                                 (129, 1024)])
+def test_dense_stencil_matches_plain(cuda, s, n):
+    rng = np.random.default_rng(s + n)
+    x = torch.from_numpy(rng.standard_normal((s, n)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32))
+    x, w = x.to(cuda), w.to(cuda)
+    k = _build.LAUNCHES["dense_stencil_matmul"]
+    out = dense_stencil_matmul(x, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["dense_stencil_matmul"] == k + 1
+    torch.testing.assert_close(out, dense_stencil_plain(x, w), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_dense_stencil_bf16_accumulates_fp32(cuda):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((256, 256)).astype(np.float32))
+    x, w = x.to(cuda, torch.bfloat16), w.to(cuda, torch.bfloat16)
+    out = dense_stencil_matmul(x, w)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), dense_stencil_plain(x, w).float(),
+                               rtol=3e-2, atol=3e-1)
+
+
+def test_dense_jacobi_kernel_equals_the_stencil_kernels(cuda):
+    lap = T.laplace_jacobi(2)
+    m = torch.as_tensor(T.build_dense_matrix((20, 24), lap), device=cuda)
+    x0 = torch.from_numpy(np.random.default_rng(4).random((5, 20, 24))
+                          .astype(np.float32)).to(cuda)
+    x0 = T.DirichletBC(1.0).set_boundary(x0, 2)
+    out = dense_jacobi_kernel(x0, m, iterations=7)
+    ref = jacobi2d(x0, lap, bc_value=1.0, iterations=7)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+def test_fig6_on_the_card_takes_the_cpu_iteration_count(cuda):
+    for backend in ("cuda", "reference", "conv", "conv3d_native"):
+        r = T.solve(T.laplace_jacobi(3), torch.zeros(10, 64, 64),
+                    backend=backend, bc=1.0, rtol=1e-6, check_every=20,
+                    max_iters=10_000)
+        assert r.converged and r.x.device.type == "cuda"
+        if backend in ("cuda", "reference"):
+            # Bit-equal to the CPU: the same count and residual.
+            assert r.iterations == 620, backend
+            assert r.residual == 1.4074293721932918e-04, backend
+        else:
+            assert abs(r.iterations - 620) <= 20, (backend, r.iterations)
+
+
+def test_3d_and_dense_wrappers_raise_rather_than_fall_back(cuda):
+    x = torch.zeros(2, 4, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil3d(x.transpose(2, 3), T.laplace_jacobi(3))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        stencil3d(x.half(), T.laplace_jacobi(3))
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_stencil_matmul(x[0, 0], x[0, 0].t())

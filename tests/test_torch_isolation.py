@@ -29,7 +29,9 @@ def _imported_modules(path):
 def test_no_jax_or_repro_import_anywhere_in_the_port():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
-    assert len(files) >= 15, files
+    assert len(files) >= 17, files
+    for module in ("stencil3d.py", "dense_stencil.py"):
+        assert os.path.join(PKG, "kernels", module) in files
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -47,10 +49,20 @@ def test_port_imports_and_solves_with_jax_blocked():
         sys.path.insert(0, {os.path.join(REPO, 'src')!r})
         import numpy as np
         import repro_torch.core, repro_torch.kernels
+        import repro_torch.kernels.dense_stencil
+        import repro_torch.kernels.stencil3d
         from repro_torch.core import laplace_jacobi, solve
         r = solve(laplace_jacobi(2), np.zeros((16, 16), np.float32),
                   backend="cuda_fused", bc=1.0, rtol=1e-4, check_every=8,
                   max_iters=2000, device="cpu")
+        r3 = solve(laplace_jacobi(3), np.zeros((4, 8, 8), np.float32),
+                   backend="cuda", bc=1.0, rtol=1e-4, check_every=8,
+                   max_iters=2000, device="cpu")
+        assert r3.converged
+        import torch
+        from repro_torch.kernels import dense_jacobi_kernel
+        dense_jacobi_kernel(torch.zeros(2, 4, 4), torch.eye(16),
+                            iterations=2)
         assert "jax" not in [m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None]
         print(r.converged, r.iterations)

@@ -1,5 +1,6 @@
-"""The port's kernels K1 (``stencil2d``) and K2/K3 (``jacobi2d_fused_step``,
-trapezoid and resident) against the JAX package's Pallas kernels, run
+"""The port's kernels K1 (``stencil2d``), K2/K3 (``jacobi2d_fused_step``,
+trapezoid and resident), K4 (``stencil3d``) and K5
+(``dense_stencil_matmul``) against the JAX package's Pallas kernels, run
 interpreted on the CPU as the JAX tests run them.
 
 On a CPU tensor each wrapper runs its plain PyTorch version, so these hold
@@ -8,7 +9,10 @@ CUDA kernels against the plain versions on the card.
 
 Tolerances: fp32 1e-6 absolute (same arithmetic, same tap order — the
 results are expected bit-equal); bf16 2e-2 absolute (one bf16 ulp at the
-magnitudes of these inputs, for a rounding that lands differently).
+magnitudes of these inputs, for a rounding that lands differently).  K5's
+are the JAX package's own (tests/test_kernels.py): its blocked sums run in
+another order than one matrix product, 1e-4 in fp32, and 3e-2 relative
+plus 3e-1 absolute in bf16.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +22,10 @@ import torch
 import repro.core as J
 import repro.kernels as JK
 import repro_torch.core as T
-from repro_torch.kernels import (_build, jacobi2d, jacobi2d_fused_step,
-                                 stencil2d)
+from repro_torch.kernels import (_build, dense_jacobi_kernel,
+                                 dense_stencil_matmul, jacobi2d,
+                                 jacobi2d_fused_step, jacobi3d, stencil2d,
+                                 stencil3d)
 
 SHAPE = (2, 33, 57)
 TOL = {"f32": 1e-6, "bf16": 2e-2}
@@ -174,4 +180,179 @@ def test_plain_path_launches_no_kernel():
     x = torch.from_numpy(X)
     stencil2d(x, T.laplace_jacobi(2), bc_value=1.0)
     jacobi2d_fused_step(x, T.laplace_jacobi(2), fuse=2, bc_value=1.0)
+    stencil3d(x[None], T.laplace_jacobi(3), bc_value=1.0)
+    dense_stencil_matmul(x[0], torch.zeros(57, 57))
     assert dict(_build.LAUNCHES) == before
+
+
+# --- K4: stencil3d ----------------------------------------------------------
+
+SHAPES_3D = [(1, 10, 16, 20), (2, 4, 9, 7), (1, 10, 64, 64)]
+
+
+def _x3(shape):
+    return np.random.default_rng(sum(shape)).standard_normal(shape).astype(
+        np.float32)
+
+
+def _cases_3d(grid):
+    """name -> (JAX spec on this grid, bc_value)."""
+    rng = np.random.default_rng(3)
+    return {
+        "laplace_raw": (J.laplace_jacobi(3), None),
+        "laplace_bc": (J.laplace_jacobi(3), 0.5),
+        "fields_bc": (J.heterogeneous_jacobi(1.0 + 9.0 * rng.random(grid)),
+                      1.5),
+        "radius2_bc": (J.star(3, [0.15, 0.05], center=0.2), 1.5),
+        "box_raw": (J.box(3), None),
+    }
+
+
+@pytest.mark.parametrize("shape", SHAPES_3D)
+def test_plain_stencil3d_raw_matches_pallas(shape):
+    x = _x3(shape)
+    jout = JK.stencil3d(jnp.asarray(x), J.laplace_jacobi(3), block_x=8)
+    tout = stencil3d(torch.from_numpy(x), T.laplace_jacobi(3))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(_cases_3d((4, 9, 7))))
+def test_plain_stencil3d_cases_match_pallas(case, dtype_name):
+    shape = (2, 4, 9, 7)
+    jspec, bc = _cases_3d(shape[1:])[case]
+    jd, td = DT[dtype_name]
+    x = _x3(shape)
+    jout = JK.stencil3d(jnp.asarray(x, jd), jspec, block_x=8, bc_value=bc)
+    tout = stencil3d(torch.from_numpy(x).to(td), to_torch_spec(jspec),
+                     bc_value=bc)
+    assert tout.dtype == td and tout.shape == shape
+    _close(jout, tout, dtype_name)
+
+
+def test_jacobi3d_loop_matches_pallas():
+    x = _x3((1, 10, 16, 20))
+    jout = JK.jacobi3d(jnp.asarray(x), J.laplace_jacobi(3), bc_value=0.5,
+                       iterations=3, block_x=8)
+    tout = jacobi3d(torch.from_numpy(x), T.laplace_jacobi(3), bc_value=0.5,
+                    iterations=3)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", list(_cases_3d((4, 9, 7))))
+def test_plain_stencil3d_equals_the_oracle(case):
+    # Same taps, same order, same roundings: bit for bit in fp32.
+    from repro_torch.kernels import ref as tref
+    x = torch.from_numpy(_x3((2, 4, 9, 7)))
+    jspec, bc = _cases_3d((4, 9, 7))[case]
+    tspec = to_torch_spec(jspec)
+    if bc is None:
+        want = tref.stencil3d_ref(x, tspec)
+    else:
+        want = T.DirichletBC(bc).apply_mask_trick(
+            torch.stack([T.apply_stencil(g, tspec) for g in x]), 3)
+    torch.testing.assert_close(stencil3d(x, tspec, bc_value=bc), want,
+                               rtol=0, atol=0)
+
+
+def test_stencil3d_fields_override():
+    jspec, _ = _cases_3d((4, 9, 7))["fields_bc"]
+    tspec = to_torch_spec(jspec)
+    x = torch.from_numpy(_x3((2, 4, 9, 7)))
+    f = torch.from_numpy(
+        (0.1 + 0.05 * np.random.default_rng(4).random((6, 4, 9, 7)))
+        .astype(np.float32))
+    override = T.heterogeneous_jacobi(np.ones((4, 9, 7)))
+    want = T.DirichletBC(1.5).apply_mask_trick(
+        torch.stack([T.apply_stencil(g, override, f) for g in x]), 3)
+    torch.testing.assert_close(stencil3d(x, tspec, bc_value=1.5, fields=f),
+                               want, rtol=0, atol=0)
+
+
+# --- K5: dense_stencil_matmul -------------------------------------------------
+
+@pytest.mark.parametrize("s,n", [(1, 64), (8, 130), (32, 96)])
+def test_plain_dense_matmul_matches_pallas(s, n):
+    rng = np.random.default_rng(s * n)
+    x = rng.standard_normal((s, n)).astype(np.float32)
+    w = rng.standard_normal((n, n)).astype(np.float32)
+    jout = JK.dense_stencil_matmul(jnp.asarray(x), jnp.asarray(w), bm=8,
+                                   bk=128, bn=128)
+    tout = dense_stencil_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_plain_dense_jacobi_kernel_matches_pallas():
+    rng = np.random.default_rng(12)
+    x0 = rng.standard_normal((2, 12, 10)).astype(np.float32)
+    m = J.build_dense_matrix((12, 10), J.laplace_jacobi(2))
+    bc = J.DirichletBC(1.0)
+    jx0 = jnp.stack([bc.set_boundary(jnp.asarray(g)) for g in x0])
+    jout = JK.dense_jacobi_kernel(jx0, jnp.asarray(m), iterations=4, bm=8,
+                                  bk=128, bn=128)
+    tx0 = T.DirichletBC(1.0).set_boundary(torch.from_numpy(x0), 2)
+    tout = dense_jacobi_kernel(tx0, torch.from_numpy(m), iterations=4)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
+                               atol=1e-4)
+    ref = T.jacobi_reference(torch.from_numpy(x0), T.laplace_jacobi(2),
+                             T.DirichletBC(1.0), 4)
+    np.testing.assert_allclose(tout.numpy(), ref.numpy(), rtol=0, atol=1e-4)
+
+
+def test_plain_dense_matmul_bf16_accumulates_fp32():
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((8, 256)).astype(np.float32)
+    w = rng.standard_normal((256, 256)).astype(np.float32)
+    jout = JK.dense_stencil_matmul(jnp.asarray(x, jnp.bfloat16),
+                                   jnp.asarray(w, jnp.bfloat16), bm=8,
+                                   bk=128, bn=128)
+    tout = dense_stencil_matmul(torch.from_numpy(x).bfloat16(),
+                                torch.from_numpy(w).bfloat16())
+    assert tout.dtype == torch.bfloat16
+    np.testing.assert_allclose(tout.float().numpy(),
+                               np.asarray(jout.astype(jnp.float32)),
+                               rtol=3e-2, atol=3e-1)
+
+
+def test_3d_and_dense_oracles_match_jax():
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref as tref
+    x = _x3((2, 4, 9, 7))
+    for case in ("laplace_raw", "radius2_bc", "fields_bc"):
+        jspec, _ = _cases_3d((4, 9, 7))[case]
+        np.testing.assert_array_equal(
+            tref.stencil3d_ref(torch.from_numpy(x),
+                               to_torch_spec(jspec)).numpy(),
+            np.asarray(jref.stencil3d_ref(jnp.asarray(x), jspec)))
+    rng = np.random.default_rng(14)
+    a = rng.standard_normal((5, 40)).astype(np.float32)
+    w = rng.standard_normal((40, 40)).astype(np.float32)
+    np.testing.assert_allclose(
+        tref.dense_stencil_ref(torch.from_numpy(a),
+                               torch.from_numpy(w)).numpy(),
+        np.asarray(jref.dense_stencil_ref(jnp.asarray(a), jnp.asarray(w))),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_3d_and_dense_wrappers_reject_what_the_kernels_cannot_run():
+    x = torch.zeros(1, 4, 9, 7)
+    with pytest.raises(ValueError, match="need a 3D spec"):
+        stencil3d(x, T.laplace_jacobi(2))
+    with pytest.raises(ValueError, match="batch, Z, X, Y"):
+        stencil3d(x[0], T.laplace_jacobi(3))
+    wide = T.StencilSpec({(i, j, k): 0.001 for i in range(-3, 4)
+                          for j in range(-2, 3) for k in range(-2, 3)})
+    with pytest.raises(ValueError, match="at most 125"):
+        stencil3d(x, wide)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        stencil3d(x.double(), T.laplace_jacobi(3))
+    box5 = T.StencilSpec({(i, j, k): 0.008 for i in range(-2, 3)
+                          for j in range(-2, 3) for k in range(-2, 3)})
+    assert stencil3d(x, box5).shape == x.shape  # 125 taps fit
+    with pytest.raises(ValueError, match="must be \\(5,5\\)"):
+        dense_stencil_matmul(torch.zeros(3, 5), torch.zeros(5, 4))
+    with pytest.raises(ValueError, match="float32 or both bfloat16"):
+        dense_stencil_matmul(torch.zeros(3, 5), torch.zeros(5, 5).double())

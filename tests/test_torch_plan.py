@@ -1,7 +1,7 @@
 """The port's dispatcher against the JAX package's: the same support matrix
 and reasons under the backend-name map, the same roofline picks on the CPU
-profile, and a cross-package conformance walk in which every live 2D port
-cell equals the JAX ``reference`` cell.
+profile, and a cross-package conformance walk in which every live 2D and 3D
+port cell equals the JAX ``reference`` cell.
 
 Tolerances are test_matrix.py's: fp32 2e-5, bf16 6e-2 absolute.
 """
@@ -9,6 +9,7 @@ import functools
 import importlib.util
 import itertools
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +44,7 @@ SPECS, GRIDS, MODES, BC_VALUE, ITERS = (_M.SPECS, _M.GRIDS, _M.MODES,
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 6e-2)}
 FAMILIES_2D = [f for f, s in SPECS.items() if s.ndim == 2]
+FAMILIES_3D = [f for f, s in SPECS.items() if s.ndim == 3]
 
 
 def to_torch_spec(jspec):
@@ -55,9 +57,10 @@ TSPECS = {f: to_torch_spec(s) for f, s in SPECS.items()}
 
 
 def _mapped_reason(reason: str) -> str:
-    """A JAX reason string as the port words it."""
-    return (reason.replace("Pallas", "CUDA")
-            .replace(repr(J.BACKENDS), repr(T.BACKENDS)))
+    """A JAX reason string as the port words it: the kernels and the
+    backend are CUDA where JAX says Pallas."""
+    reason = reason.replace(repr(J.BACKENDS), repr(T.BACKENDS))
+    return re.sub(r"\bpallas\b", "cuda", reason.replace("Pallas", "CUDA"))
 
 
 def _assert_same_verdict(family, jax_backend, mode, bc):
@@ -70,7 +73,7 @@ def _assert_same_verdict(family, jax_backend, mode, bc):
     if ts.ok:
         assert js.ok, (family, jax_backend, mode, js.reason)
     elif "not yet ported" in ts.reason:
-        pass  # a JAX path the port has not reached yet, said so
+        assert jax_backend == "halo"  # the one JAX path not reached yet
     else:
         assert not js.ok, (family, jax_backend, mode, ts.reason)
         assert ts.reason == _mapped_reason(js.reason)
@@ -87,24 +90,22 @@ def test_backend_support_reasons_equal_jax():
         ts = T.backend_support("tensorflow", TSPECS[f"laplace/{nd}d"])
         js = J.backend_support("tensorflow", SPECS[f"laplace/{nd}d"])
         assert ts.reason == _mapped_reason(js.reason)
-    # Every 2D cell JAX runs, the port runs too — apart from halo.
-    for family, jb, mode in itertools.product(FAMILIES_2D, J.BACKENDS,
-                                              MODES):
+    # Every 2D and 3D cell JAX runs, the port runs too — apart from halo.
+    for family, jb, mode, bc in itertools.product(
+            FAMILIES_2D + FAMILIES_3D, J.BACKENDS, MODES, (BC_VALUE, None)):
+        grid = GRIDS[SPECS[family].ndim]
         if jb != "halo" and J.backend_support(
-                jb, SPECS[family], grid_shape=GRIDS[2], mode=mode,
-                bc=BC_VALUE):
+                jb, SPECS[family], grid_shape=grid, mode=mode, bc=bc):
             assert T.backend_support(NAME_MAP[jb], TSPECS[family],
-                                     grid_shape=GRIDS[2],
+                                     grid_shape=grid,
                                      mode=T.BoundaryMode(mode.value),
-                                     bc=BC_VALUE), (family, jb, mode)
+                                     bc=bc), (family, jb, mode, bc)
 
 
 @pytest.mark.parametrize("iters", [1, 20, 100])
 def test_choose_backend_on_cpu_profile_makes_jax_picks(iters):
     for family, mode in itertools.product(SPECS, MODES):
         jspec = SPECS[family]
-        if jspec.ndim == 3:
-            continue  # the 3D encodings are not ported yet
         grid = GRIDS[jspec.ndim]
         jb, jcosts = J.choose_backend(jspec, grid, mode=mode, bc=BC_VALUE,
                                       iters=iters, device_kind="cpu",
@@ -122,6 +123,16 @@ def test_choose_backend_on_cpu_profile_makes_jax_picks(iters):
                             device_kind="cpu")[0] == "conv"
     assert T.choose_backend(lap, (64, 64), bc=1.0, iters=20,
                             device_kind="cuda")[0] == "cuda_fused"
+    # Fig 6: the JAX pick on the CPU; on the card K4 and native Conv3D are
+    # both bytes-bound with the same bytes, a tie the roofline cannot split.
+    lap3 = TSPECS["laplace/3d"]
+    assert T.choose_backend(lap3, (10, 64, 64), bc=1.0, iters=20,
+                            device_kind="cpu")[0] == NAME_MAP[
+        J.choose_backend(SPECS["laplace/3d"], (10, 64, 64), bc=1.0,
+                         iters=20, device_kind="cpu", tuned=None)[0]]
+    costs = T.choose_backend(lap3, (10, 64, 64), bc=1.0, iters=20,
+                             device_kind="cuda")[1]
+    assert costs["cuda"] == costs["conv3d_native"] < costs["conv"]
 
 
 def test_select_fuse_on_cpu_profile_makes_jax_picks():
@@ -138,7 +149,8 @@ def test_select_fuse_on_cpu_profile_makes_jax_picks():
 @functools.lru_cache(maxsize=None)
 def _jax_reference_cell(family, dtype_name):
     jd = DTYPES[dtype_name][0]
-    x = np.random.default_rng(7).standard_normal((2, *GRIDS[2]))
+    grid = GRIDS[SPECS[family].ndim]
+    x = np.random.default_rng(7).standard_normal((2, *grid))
     out = J.stencil_apply(SPECS[family], jnp.asarray(x, jd),
                           backend="reference", bc=BC_VALUE, iters=ITERS,
                           tuned=None)
@@ -148,7 +160,7 @@ def _jax_reference_cell(family, dtype_name):
 @pytest.mark.parametrize("dtype_name", list(DTYPES))
 @pytest.mark.parametrize("mode", MODES, ids=lambda m: m.value)
 @pytest.mark.parametrize("backend", T.BACKENDS)
-@pytest.mark.parametrize("family", FAMILIES_2D)
+@pytest.mark.parametrize("family", FAMILIES_2D + FAMILIES_3D)
 def test_conformance_cell_equals_jax_reference(family, backend, mode,
                                                dtype_name):
     ts = _assert_same_verdict(family, PORT_TO_JAX[backend], mode, BC_VALUE)
@@ -182,7 +194,8 @@ def test_source_and_bc_value_operands_match_jax(backend):
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-5)
 
 
-@pytest.mark.parametrize("backend", T.BACKENDS)
+@pytest.mark.parametrize("backend", [b for b in T.BACKENDS
+                                     if b != "conv3d_native"])
 def test_fields_operand_matches_jax(backend):
     jspec = SPECS["varcoef/2d"]
     mode = J.BoundaryMode.MATRIX if backend == "dense" else J.BoundaryMode.MASK
@@ -246,3 +259,50 @@ def test_plan_contract():
         T.make_plan(lap, (12, 17), backend="dense", bc=1.0, device="cpu")
     with pytest.raises(ValueError, match="incompatible"):
         T.stencil_apply(T.laplace_jacobi(3), torch.zeros(4, 4), device="cpu")
+
+
+@pytest.mark.parametrize("bc", [BC_VALUE, None])
+@pytest.mark.parametrize("family", FAMILIES_3D)
+def test_3d_kernel_plans_carry_the_spec_across(family, bc):
+    # K4's plan, raw and with a bc, on every 3D family (varcoef/3d's fields
+    # come across through to_torch_spec), against JAX's pallas plan.
+    grid = GRIDS[3]
+    x = np.random.default_rng(15).standard_normal((2, *grid))
+    jout = J.stencil_apply(SPECS[family], jnp.asarray(x, jnp.float32),
+                           backend="pallas", bc=bc, iters=3, tuned=None)
+    plan = T.make_plan(TSPECS[family], grid, backend="cuda", bc=bc, iters=3,
+                       fuse=4 if bc is None else None, device="cpu")
+    assert (plan.fuse, plan.rim, plan.operands) == (1, None, frozenset())
+    tout = plan(torch.tensor(x).float())
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["conv", "conv3d_native", "reference"])
+def test_3d_source_and_bc_value_operands_match_jax(backend):
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((2, *GRIDS[3])).astype(np.float32)
+    src = 0.1 * rng.standard_normal(GRIDS[3]).astype(np.float32)
+    jplan = J.make_plan(J.laplace_jacobi(3), GRIDS[3], backend=backend,
+                        bc=1.0, iters=5, tuned=None)
+    tplan = T.make_plan(T.laplace_jacobi(3), GRIDS[3], backend=backend,
+                        bc=1.0, iters=5, device="cpu")
+    assert tplan.operands == frozenset({"source", "bc_value"})
+    jout = jplan(jnp.asarray(x), source=jnp.asarray(src), bc_value=2.5)
+    tout = tplan(torch.tensor(x), source=torch.tensor(src), bc_value=2.5)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-5)
+
+
+def test_3d_fields_operand_matches_jax():
+    jspec = SPECS["varcoef/3d"]
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((2, *GRIDS[3])).astype(np.float32)
+    f = (0.1 + 0.05 * rng.random((6, *GRIDS[3]))).astype(np.float32)
+    jplan = J.make_plan(jspec, GRIDS[3], backend="conv3d_native", bc=1.0,
+                        iters=4, tuned=None)
+    tplan = T.make_plan(TSPECS["varcoef/3d"], GRIDS[3],
+                        backend="conv3d_native", bc=1.0, iters=4,
+                        device="cpu")
+    jout = jplan(jnp.asarray(x), fields=jnp.asarray(f))
+    tout = tplan(torch.tensor(x), fields=torch.tensor(f))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-5)

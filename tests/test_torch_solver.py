@@ -1,5 +1,6 @@
-"""The port's solver against the JAX package's on the paper's Table-1 solve
-and on a heterogeneous grid, plus its batching and fixed-iteration modes.
+"""The port's solver against the JAX package's on the paper's Table-1 solve,
+its Fig-6 3D solve and heterogeneous grids, plus its batching and
+fixed-iteration modes.
 
 Table 1 (5-point Laplace Jacobi, 64x64, bc=1, rtol=1e-6, check_every=20)
 converges in 7960 iterations in the JAX package.  The port sums the taps in
@@ -9,6 +10,8 @@ as many and the field must match to 1e-6.  The residual history matches to
 the 4096 squares inside its while_loop is off a float64 sum by up to 3.4e-6
 relative on this solve, where the port's is off by 1.2e-7.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +21,11 @@ import repro.core as J
 import repro_torch.core as T
 
 TABLE1 = dict(bc=1.0, rtol=1e-6, check_every=20, max_iters=20_000)
+FIG6 = dict(rtol=1e-6, check_every=20, max_iters=10_000)
+FIG6_GRID = (10, 64, 64)
+FIG6_RESIDUAL = 1.4074293721932918e-04
+PORT_TO_JAX = {"cuda": "pallas", "conv": "conv",
+               "conv3d_native": "conv3d_native", "reference": "reference"}
 
 
 @pytest.fixture(scope="module")
@@ -109,3 +117,75 @@ def test_solver_validates_like_jax():
         ("conv", "roofline", 4, 2)
     r = s.solve(np.zeros((8, 8), np.float32))
     assert r.iterations <= 8 and len(r.residual_history) <= 2
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fig6(backend, bc):
+    return J.solve(J.laplace_jacobi(3), jnp.zeros(FIG6_GRID, jnp.float32),
+                   backend=backend, bc=bc, tuned=None, **FIG6)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "conv", "conv3d_native",
+                                     "reference"])
+def test_fig6_converges_in_620_iterations_like_jax(backend):
+    jres = _jax_fig6(PORT_TO_JAX[backend], 1.0)
+    assert jres.iterations == 620
+    r = T.solve(T.laplace_jacobi(3), np.zeros(FIG6_GRID, np.float32),
+                backend=backend, bc=1.0, device="cpu", **FIG6)
+    assert r.backend == backend and r.converged
+    assert r.iterations == 620
+    if backend == "cuda":
+        np.testing.assert_array_equal(r.x.numpy(), np.asarray(jres.x))
+        assert r.residual == float(jres.residual) == FIG6_RESIDUAL
+    else:
+        np.testing.assert_allclose(r.x.numpy(), np.asarray(jres.x), rtol=0,
+                                   atol=5e-6)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_heat3d_hot_walls_converge_in_620_iterations(backend):
+    # examples/heat3d.py's problem: the Fig-6 grid with bc=100.
+    r = T.solve(T.laplace_jacobi(3), np.zeros(FIG6_GRID, np.float32),
+                backend=backend, bc=100.0, device="cpu", **FIG6)
+    assert r.converged and r.iterations == 620
+    jres = _jax_fig6(PORT_TO_JAX[backend], 100.0)
+    assert jres.iterations == 620
+    np.testing.assert_allclose(r.x.numpy(), np.asarray(jres.x), rtol=0,
+                               atol=5e-4)  # 5e-6 relative to the bc
+
+
+@pytest.mark.parametrize("backend", ["cuda", "conv3d_native", "reference"])
+def test_heterogeneous_3d_solve_takes_640_iterations(backend):
+    kappa = 1.0 + 9.0 * np.random.default_rng(0).random(FIG6_GRID)
+    r = T.solve(T.heterogeneous_jacobi(kappa),
+                np.zeros(FIG6_GRID, np.float32), backend=backend, bc=1.0,
+                device="cpu", **FIG6)
+    assert r.converged and r.iterations == 640
+
+
+def test_fixed_iteration_3d_reference_equals_jax_oracle():
+    x0 = np.random.default_rng(8).standard_normal(FIG6_GRID).astype(
+        np.float32)
+    want = J.jacobi_reference(jnp.asarray(x0), J.laplace_jacobi(3),
+                              J.DirichletBC(1.0), 50)
+    r = T.solve(T.laplace_jacobi(3), x0, backend="reference", bc=1.0,
+                rtol=None, atol=None, max_iters=50, device="cpu")
+    np.testing.assert_array_equal(r.x.numpy(), np.asarray(want))
+    got = T.jacobi_reference(torch.from_numpy(x0), T.laplace_jacobi(3),
+                             T.DirichletBC(1.0), 50)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_batched_3d_solve_equals_instance_by_instance():
+    rng = np.random.default_rng(9)
+    x0 = rng.random((3, 6, 10, 12)).astype(np.float32)
+    x0[1] *= 0.1
+    solver = T.Solver(T.laplace_jacobi(3), (6, 10, 12), backend="cuda",
+                      bc=1.0, rtol=1e-4, check_every=4, max_iters=2000,
+                      device="cpu")
+    batched = solver.solve(x0)
+    assert len(set(batched.iterations.tolist())) > 1
+    for i in range(3):
+        alone = solver.solve(x0[i])
+        assert alone.iterations == batched.iterations[i]
+        torch.testing.assert_close(alone.x, batched.x[i], rtol=0, atol=0)

@@ -137,6 +137,20 @@ def test_encoding_flops_equal_jax_and_the_paper():
     assert T.dense_layer_bytes((64, 64), 7) == J.dense_layer_bytes((64, 64), 7)
 
 
+def test_conv3d_channels_flops_equal_jax():
+    # Fig 6's channels trick: a Z-deep band of kx*ky windows per element.
+    for jspec in SPECS.values():
+        if jspec.ndim != 3:
+            continue
+        for depth, mask in itertools.product((6, 10), (True, False)):
+            assert T.encoding_flops_per_point(
+                to_torch_spec(jspec), "conv3d_channels", depth, mask) == \
+                J.encoding_flops_per_point(jspec, "conv3d_channels", depth,
+                                           mask)
+    assert T.encoding_flops_per_point(T.laplace_jacobi(3), "conv3d_channels",
+                                      n_total=10) == 2 * 10 * 9 - 1 + 2
+
+
 def test_tiling_functions_equal_jax():
     shapes = [(8, 8), (12, 17), (33, 57), (64, 64), (160, 160), (257, 300),
               (1024, 1024)]
