@@ -24,8 +24,8 @@ Phases, one JSON line each:
      stencil2d, K2 trapezoid, K3 resident, K4 stencil3d: fp32 within 1e-5
      and bf16 within 2e-2 absolute; K5 dense_stencil_matmul, a GEMM whose
      sums run in another order than its plain version's library product:
-     within 1e-4 + 1e-4 * max|plain| in fp32, 3e-1 + 3e-2 * max|plain| in
-     bf16);
+     each element within 1e-4 + 1e-4 * |plain| in fp32, 2e-2 + 1e-2 *
+     |plain| in bf16, about one bf16 ulp plus the summation order);
   3. the Table-1 solve through cuda_fused, cuda, conv and reference (7960
      iterations on the CPU; within one 20-iteration chunk here), each solved
      twice and the second timed, then the same number of fixed iterations
@@ -50,7 +50,8 @@ Phases, one JSON line each:
      ``jacobi2d`` (K2 at fuse 1) to 1e-5 absolute;
  11. K4 and K5 timed at those shapes by CUDA-graph replay, against their
      bounds, their plain versions, and F.conv3d, the channels-trick
-     F.conv2d and torch.matmul (TF32 off).
+     F.conv2d and torch.matmul (TF32 off); K5 also held against its plain
+     version at the dense path's shape.
 The inventory line lists K1-K5.
 
 Any failed check raises and the script exits nonzero.  The last line is
@@ -70,8 +71,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# K5: (absolute, relative to max|plain|) per dtype.
-GEMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-1, 3e-2)}
+# K5: (absolute, relative to |plain|) per element, per dtype.
+GEMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
 TABLE1 = dict(bc=1.0, rtol=1e-6, check_every=20, max_iters=20_000)
 TABLE1_ITERS = 7960  # the JAX package's and the port's count on the CPU
 HET_GRID = (1024, 1024)   # phase 4
@@ -135,16 +136,20 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def graph_ms(fn, reps):
+    def graph_ms(fn, reps, x=None):
         """Device ms of one call of ``fn``: ``reps`` calls captured in one
         CUDA graph and replayed, so the host's time between launches (the
-        wrappers' Python) does not count as the kernel's."""
-        fn()  # warm: library and module load, allocator
+        wrappers' Python) does not count as the kernel's.  Given ``x``, the
+        calls chain y = fn(y) from it (memory: two outputs at a time)."""
+        step = fn if x is not None else (lambda _: fn())
+        step(x)  # warm: library and module load, allocator
         sync()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
+            y = x
             for _ in range(reps):
-                fn()
+                y = step(y)
+        del y
         graph.replay()
         sync()
         start = torch.cuda.Event(enable_timing=True)
@@ -153,6 +158,8 @@ def main() -> int:
         graph.replay()
         end.record()
         end.synchronize()
+        del graph
+        torch.cuda.empty_cache()
         return start.elapsed_time(end) / reps
 
     def err(a, b):
@@ -192,13 +199,21 @@ def main() -> int:
     worst = {}   # kernel -> (max fp32 error, max bf16 error)
     cases = {}
 
-    def record(kernel, dtype, e, label, tol=None):
+    def record(kernel, dtype, out, plain, label, tol=None):
+        """Hold ``out`` to ``plain`` element by element, within atol +
+        rtol * |plain| (``tol``: dtype -> (atol, rtol); default TOL, 0)."""
         key = str(dtype).split(".")[1]
-        tol = TOL[key] if tol is None else tol
-        check(e <= tol, f"{kernel} {label} {key}: {e} > {tol}")
+        atol, rtol = (TOL[key], 0.0) if tol is None else tol[key]
+        diff = (out.float() - plain.float()).abs()
+        bad = int((diff > atol + rtol * plain.float().abs()).sum())
+        e = float(diff.max())
+        del diff
+        check(bad == 0, f"{kernel} {label} {key}: {bad} elements past "
+              f"{atol} + {rtol} * |plain|, max error {e}")
         w = worst.setdefault(kernel, {"float32": 0.0, "bfloat16": 0.0})
         w[key] = max(w[key], e)
         cases[kernel] = cases.get(kernel, 0) + 1
+        return e
 
     for shape in ((3, 33, 57), (2, *HET_GRID)):
         for name, (spec, bc) in specs(shape[1:]).items():
@@ -206,8 +221,8 @@ def main() -> int:
                 x = field(shape, dtype)
                 out = stencil2d(x, spec, bc_value=bc)
                 sync()
-                record("stencil2d", dtype,
-                       err(out, stencil2d_plain(x, spec, bc_value=bc)),
+                record("stencil2d", dtype, out,
+                       stencil2d_plain(x, spec, bc_value=bc),
                        f"{name} {shape}")
         sp = specs(shape[1:])
         for fuse in (1, 2, 4, 8, 16):
@@ -216,16 +231,15 @@ def main() -> int:
                 x = field(shape)
                 out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc)
                 sync()
-                record("jacobi2d_trapezoid", torch.float32,
-                       err(out, jacobi2d_fused_plain(x, spec, fuse=fuse,
-                                                     bc_value=bc)),
+                record("jacobi2d_trapezoid", torch.float32, out,
+                       jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc),
                        f"{name} fuse={fuse} {shape}")
         x = field(shape, torch.bfloat16)
         spec, bc = sp["star_r2_bc"]
         out = jacobi2d_fused_step(x, spec, fuse=8, bc_value=bc)
         sync()
-        record("jacobi2d_trapezoid", torch.bfloat16,
-               err(out, jacobi2d_fused_plain(x, spec, fuse=8, bc_value=bc)),
+        record("jacobi2d_trapezoid", torch.bfloat16, out,
+               jacobi2d_fused_plain(x, spec, fuse=8, bc_value=bc),
                f"star_r2_bc fuse=8 {shape}")
     for grid in ((64, 64), (160, 160)):
         sp = specs(grid)
@@ -236,9 +250,8 @@ def main() -> int:
                 out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc,
                                           rim="resident")
                 sync()
-                record("jacobi2d_resident", torch.float32,
-                       err(out, jacobi2d_fused_plain(x, spec, fuse=fuse,
-                                                     bc_value=bc)),
+                record("jacobi2d_resident", torch.float32, out,
+                       jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc),
                        f"{name} fuse={fuse} {grid}")
 
     def specs3(grid):
@@ -258,8 +271,8 @@ def main() -> int:
                 x = field(shape, dtype)
                 out = stencil3d(x, spec, bc_value=bc)
                 sync()
-                record("stencil3d", dtype,
-                       err(out, stencil3d_plain(x, spec, bc_value=bc)),
+                record("stencil3d", dtype, out,
+                       stencil3d_plain(x, spec, bc_value=bc),
                        f"{name} {shape}")
     check(worst["stencil3d"]["float32"] == 0.0,
           f"K4 fp32 is not bit-equal: {worst['stencil3d']['float32']}")
@@ -269,10 +282,8 @@ def main() -> int:
         w = field((n, n), dtype) / n ** 0.5
         out = dense_stencil_matmul(x, w)
         sync()
-        ref = dense_stencil_plain(x, w)
-        atol, rtol = GEMM_TOL[str(dtype).split(".")[1]]
-        record("dense_stencil_matmul", dtype, err(out, ref),
-               f"({s_rows},{n})", atol + rtol * float(ref.abs().max()))
+        record("dense_stencil_matmul", dtype, out, dense_stencil_plain(x, w),
+               f"({s_rows},{n})", GEMM_TOL)
 
     for s_rows, n in ((1, 64), (8, 130), (300, 257), (1000, 4096),
                       (4097, 1000)):
@@ -569,28 +580,6 @@ def main() -> int:
     del yd, yk
 
     # -- 11. K4 and K5 timed at the 3D and dense paths' shapes ---------------
-    def chain_graph_ms(step, x, reps):
-        """Device ms of one ``step``: ``reps`` steps chained y = step(y) in
-        one CUDA graph and replayed (memory: two outputs at a time)."""
-        step(x)
-        sync()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            y = x
-            for _ in range(reps):
-                y = step(y)
-        graph.replay()
-        sync()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        del graph, y
-        torch.cuda.empty_cache()
-        return start.elapsed_time(end) / reps
-
     def k4_step(y):
         return stencil3d(y, lap3, bc_value=1.0)
 
@@ -598,7 +587,7 @@ def main() -> int:
     del xp_batch
     torch.cuda.empty_cache()
     n3 = xs3.numel()
-    k4_ms = chain_graph_ms(k4_step, xs3, 3)
+    k4_ms = graph_ms(k4_step, 3, xs3)
     k4_eager = time_ms(lambda: k4_step(xs3), 3)
     k4_plain = time_ms(lambda: stencil3d_plain(xs3, lap3, bc_value=1.0), 1)
     k333 = torch.as_tensor(lap3.to_kernel(), device=dev)[None, None]
@@ -614,7 +603,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     deep = T.DirichletBC(1.0).set_boundary(xp_deep, 3)
     n_deep = deep.numel()
-    k4_deep_ms = chain_graph_ms(k4_step, deep, 10)
+    k4_deep_ms = graph_ms(k4_step, 10, deep)
     k4_deep_plain = time_ms(lambda: stencil3d_plain(deep, lap3,
                                                     bc_value=1.0), 3)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -622,8 +611,15 @@ def main() -> int:
             lambda: F.conv3d(deep[:, None], k333, padding=1), 3)
     del deep, xp_deep
 
+    # K5 against its plain version at the dense path's shape, then timed.
     xd2 = xd.reshape(DENSE_BATCH, -1)
-    k5_ms = chain_graph_ms(lambda y: dense_stencil_matmul(y, matrix), xd2, 3)
+    out = dense_stencil_matmul(xd2, matrix)
+    sync()
+    k5_err = record("dense_stencil_matmul", torch.float32, out,
+                    dense_stencil_plain(xd2, matrix), f"{tuple(xd2.shape)}",
+                    GEMM_TOL)
+    del out
+    k5_ms = graph_ms(lambda y: dense_stencil_matmul(y, matrix), 3, xd2)
     k5_plain = time_ms(lambda: dense_stencil_plain(xd2, matrix), 3)
     matmul_ms = time_ms(lambda: torch.matmul(xd2, matrix), 3)
     nd_ = 64 * 64
@@ -642,7 +638,7 @@ def main() -> int:
                       "bound_ms": 2 * n_deep * 4 / PEAK_BYTES * 1e3,
                       "conv3d_ms": conv3d_deep_ms}},
         "k5": {"shape": [DENSE_BATCH, nd_], "ms": k5_ms, "plain_ms": k5_plain,
-               "matmul_ms": matmul_ms,
+               "matmul_ms": matmul_ms, "max_abs_err_vs_plain": k5_err,
                "bound_ms": k5_ops / PEAK_FP32_FLOPS * 1e3,
                "TFLOPs": k5_ops / (k5_ms * 1e-3) / 1e12}})
 

@@ -277,7 +277,9 @@ def choose_backend(
     fuse: int | None = None,
 ) -> tuple[str, dict[str, float]]:
     """Pick the cheapest supported backend by the roofline; returns (name,
-    cost table).  ``reference`` is the cross-validation oracle, so auto only
+    cost table).  A tie goes to a kernel backend (on the card K4 and native
+    Conv3D move the same bytes; the library call is the slower one).
+    ``reference`` is the cross-validation oracle, so auto only
     falls back to it when no real encoding supports the cell.  ``fuse``
     prices the kernel paths at an explicit temporal depth; None prices the
     depth make_plan itself would resolve for ``iters``.
@@ -294,7 +296,8 @@ def choose_backend(
         # Oracle fallback: always legal, never preferred.
         costs["reference"] = estimate_seconds("reference", spec, grid_shape,
                                               iters, device)
-    return min(costs, key=costs.__getitem__), costs
+    pick = min(costs, key=lambda b: (costs[b], b not in KERNEL_BACKENDS))
+    return pick, costs
 
 
 # ---------------------------------------------------------------------------

@@ -9,14 +9,12 @@ from repro_torch.core.reference import apply_stencil
 from repro_torch.core.stencil import StencilSpec
 
 
-def stencil2d_ref(x: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
-    """Raw 2D stencil, zero padding.  x: (batch, H, W)."""
+def stencil_ref(x: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
+    """Raw stencil of any rank, zero padding.  x: (batch, *grid)."""
     return torch.stack([apply_stencil(x[i], spec) for i in range(x.shape[0])])
 
 
-def stencil3d_ref(x: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
-    """Raw 3D stencil, zero padding.  x: (batch, Z, X, Y)."""
-    return torch.stack([apply_stencil(x[i], spec) for i in range(x.shape[0])])
+stencil2d_ref = stencil3d_ref = stencil_ref
 
 
 def jacobi2d_ref(x: torch.Tensor, spec: StencilSpec, bc_value: float,

@@ -191,12 +191,15 @@ def test_dense_jacobi_kernel_equals_the_stencil_kernels(cuda):
 
 
 def test_fig6_on_the_card_takes_the_cpu_iteration_count(cuda):
-    for backend in ("cuda", "reference", "conv", "conv3d_native"):
+    for backend in ("auto", "cuda", "reference", "conv", "conv3d_native"):
         r = T.solve(T.laplace_jacobi(3), torch.zeros(10, 64, 64),
                     backend=backend, bc=1.0, rtol=1e-6, check_every=20,
                     max_iters=10_000)
         assert r.converged and r.x.device.type == "cuda"
-        if backend in ("cuda", "reference"):
+        if backend == "auto":
+            # The default entry point runs K4 on the card.
+            assert r.backend == "cuda"
+        if backend in ("auto", "cuda", "reference"):
             # Bit-equal to the CPU: the same count and residual.
             assert r.iterations == 620, backend
             assert r.residual == 1.4074293721932918e-04, backend

@@ -124,15 +124,16 @@ def test_choose_backend_on_cpu_profile_makes_jax_picks(iters):
     assert T.choose_backend(lap, (64, 64), bc=1.0, iters=20,
                             device_kind="cuda")[0] == "cuda_fused"
     # Fig 6: the JAX pick on the CPU; on the card K4 and native Conv3D are
-    # both bytes-bound with the same bytes, a tie the roofline cannot split.
+    # both bytes-bound with the same bytes, a tie that goes to the kernel.
     lap3 = TSPECS["laplace/3d"]
     assert T.choose_backend(lap3, (10, 64, 64), bc=1.0, iters=20,
                             device_kind="cpu")[0] == NAME_MAP[
         J.choose_backend(SPECS["laplace/3d"], (10, 64, 64), bc=1.0,
                          iters=20, device_kind="cpu", tuned=None)[0]]
-    costs = T.choose_backend(lap3, (10, 64, 64), bc=1.0, iters=20,
-                             device_kind="cuda")[1]
+    pick, costs = T.choose_backend(lap3, (10, 64, 64), bc=1.0, iters=20,
+                                   device_kind="cuda")
     assert costs["cuda"] == costs["conv3d_native"] < costs["conv"]
+    assert pick == "cuda"
 
 
 def test_select_fuse_on_cpu_profile_makes_jax_picks():
