@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 The paths, each driven with the launch counts set to zero just before it and
-read just after, through ``repro_torch``'s spec -> plan -> solver:
+read just after (the stencil paths through ``repro_torch``'s spec -> plan ->
+solver):
 
   - the paper's Table-1 experiment — the 5-point Laplace Jacobi solve on a
     64x64 grid with bc=1, rtol=1e-6 and check_every=20, run to convergence —
@@ -14,7 +15,12 @@ read just after, through ``repro_torch``'s spec -> plan -> solver:
     (Z, X, Y) = (10, 64, 64) grid, same settings — and the paper's full
     problem, 50,000 such grids (2048 M elements), through K4 (phases 8-9);
   - the paper's dense-layer encoding (Algorithm 1) on the Table-1 grid,
-    65,536 instances, through K5 (phase 10).
+    65,536 instances, through K5 (phase 10);
+  - the LM substrate's serve path at qwen3-0.6b's full width (28 layers,
+    random weights from a seed): batched prefill through K7, once a layer,
+    then greedy decode, as ``python -m repro_torch.launch.serve --arch
+    qwen3-0.6b --batch 4 --prompt-len 2048 --tokens 32`` runs it
+    (phases 13-14).
 
 Phases, one JSON line each:
 
@@ -46,18 +52,39 @@ Phases, one JSON line each:
      256x512x512 grid, 20 iterations each through cuda (K4), held against
      the plain version on a slice of the batch;
  10. the dense row of Table 1 (64x64, N=4096, 7 iterations) through
-     ``ops.dense_jacobi_kernel`` on 65,536 instances, held against
-     ``jacobi2d`` (K2 at fuse 1) to 1e-5 absolute;
+     ``ops.dense_jacobi_kernel`` on 65,536 instances, held against one
+     ``jacobi2d`` call (K2 at fuse 1) on the whole batch to 1e-5 absolute:
+     past gridDim.z's 65,535 the launcher slices the batch (two K2
+     launches an iteration);
  11. K4 and K5 timed at those shapes by CUDA-graph replay, against their
      bounds, their plain versions, and F.conv3d, the channels-trick
      F.conv2d and torch.matmul (TF32 off); K5 also held against its plain
-     version at the dense path's shape.
-The inventory line lists K1-K5.
+     version at the dense path's shape;
+ 12. K6 (flash_attention) and K7 (flash_fwd) against their plain versions:
+     MHA, GQA 2:1 on a ragged 96, MQA, non-causal, cross lengths with
+     kv_offset=128, head_dim 16/32/64/128, fp32 and bf16, and the serve
+     prefill's shape (4 x 2048, 16 heads, 8 kv heads, hd 128, bf16); out
+     within 2e-5 (fp32) and 3e-2 (bf16) absolute, lse within 1e-5 of its
+     max-abs;
+ 13. the serve path in fp32 at full width, batch 2, a 1000-token prompt
+     (ragged against every block), 16 greedy tokens, attn_impl "flash"
+     against "xla": the last prefill hidden within 1e-4 of its max-abs, K7
+     launched once a layer and no other kernel, the tokens of both runs
+     (a disagreement fails only where the xla run's top-2 logit margin
+     there exceeds 1e-3 of its max-abs logit);
+ 14. the main path: ``launch.serve.serve`` in bf16, batch 4, 2048-token
+     prompts, 32 tokens (prefill ms and tokens/s, decode ms/token, peak
+     memory, K7 launches);
+ 15. K6 and K7 timed by CUDA-graph replay at the serve shape beside their
+     bound, their plain version and F.scaled_dot_product_attention (the
+     library yardstick, timed here only; the port never calls it).
+The inventory line lists K1-K7.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
 before printing any result.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -67,8 +94,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM data-sheet rates (fp32 outside the tensor cores; HBM3).
+# H100 SXM data-sheet rates (fp32 outside the tensor cores; dense bf16 on
+# them; HBM3).
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # K5: (absolute, relative to |plain|) per element, per dtype.
@@ -89,6 +118,14 @@ ITERS_3D = 20             # phase 9
 CHECK_SLICE = 256         # phase 9: instances held against the plain version
 DENSE_BATCH = 65_536      # phase 10: Table-1 dense row instances
 DENSE_ITERS = 7           # phase 10: configs/jacobi.py's dense row
+LM_ARCH = "qwen3-0.6b"     # phases 12-15, full width (28 layers)
+LM_SHAPE = (4, 2048, 16, 8, 128)   # (B, S, H, KV, hd): the serve prefill's
+LM_FP32 = (2, 1000, 16)   # phase 13: batch, prompt (ragged), tokens
+LM_SERVE = (4, 2048, 32)  # phase 14: the main path
+# K6/K7: out per element (atol, rtol), JAX's own test bounds
+# (tests/test_flash_attention.py:31,52); lse relative to its max-abs.
+FLASH_TOL = {"float32": (2e-5, 0.0), "bfloat16": (3e-2, 0.0)}
+LSE_RTOL = 1e-5
 DEVICE = "cuda"
 
 
@@ -568,15 +605,20 @@ def main() -> int:
     launches5 = dict(_build.LAUNCHES)
     check(launches5.get("dense_stencil_matmul", 0) == DENSE_ITERS,
           f"the dense path launched K5 {launches5}")
-    # K2's grid carries at most 65,535 instances a launch: two halves.
-    yk = torch.cat([jacobi2d(half, lap, bc_value=1.0, iterations=DENSE_ITERS)
-                    for half in xd.chunk(2)])
+    # One jacobi2d call on all 65,536 instances: past gridDim.z's 65,535,
+    # K2's launcher runs the batch in slices (two launches an iteration).
+    k2_before = _build.LAUNCHES["jacobi2d_trapezoid"]
+    yk = jacobi2d(xd, lap, bc_value=1.0, iterations=DENSE_ITERS)
+    k2_sliced = _build.LAUNCHES["jacobi2d_trapezoid"] - k2_before
+    check(k2_sliced == 2 * DENSE_ITERS,
+          f"jacobi2d on {DENSE_BATCH} instances: {k2_sliced} K2 launches")
     dense_err = err(yd, yk)
     check(yd.shape == xd.shape and dense_err <= 1e-5,
           f"dense path vs jacobi2d: {dense_err}")
     emit({"phase": 10, "instances": DENSE_BATCH, "grid": [64, 64],
           "N": 64 * 64, "iterations": DENSE_ITERS, "wall_ms": dense_wall,
-          "launches": launches5, "max_abs_err_vs_jacobi2d": dense_err})
+          "launches": launches5, "max_abs_err_vs_jacobi2d": dense_err,
+          "jacobi2d_one_call_k2_launches": k2_sliced})
     del yd, yk
 
     # -- 11. K4 and K5 timed at the 3D and dense paths' shapes ---------------
@@ -642,11 +684,168 @@ def main() -> int:
                "bound_ms": k5_ops / PEAK_FP32_FLOPS * 1e3,
                "TFLOPs": k5_ops / (k5_ms * 1e-3) / 1e12}})
 
+
+    # -- 12. K6 and K7 against their plain versions ---------------------------
+    del xd, xd2, matrix
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                     flash_fwd, flash_fwd_plain)
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model_zoo import build
+    from repro_torch.models.transformer import Transformer, mask_pad_logits
+    from repro_torch.train.serve_step import greedy_generate
+
+    ga = torch.Generator(device=dev).manual_seed(5)
+    lse_worst = {"float32": 0.0, "bfloat16": 0.0}
+
+    def flash_case(label, shape, dtype, causal=True, kv_offset=0,
+                   blocks=(32, 128)):
+        """Both kernels on one case, held element by element to the plain
+        versions (every row here has a valid key)."""
+        B_, Sq_, Skv_, H_, KV_, hd_ = shape
+        q, k, v = (torch.randn(s_, generator=ga, device=dev).to(dtype)
+                   for s_ in ((B_, Sq_, H_, hd_), (B_, Skv_, KV_, hd_),
+                              (B_, Skv_, KV_, hd_)))
+        kw = dict(causal=causal, kv_offset=kv_offset, block_q=blocks[0],
+                  block_k=blocks[1])
+        out6 = flash_attention(q, k, v, **kw)
+        out7, lse7 = flash_fwd(q, k, v, **kw)
+        sync()
+        plain7, plain_lse = flash_fwd_plain(q, k, v, **kw)
+        record("flash_attention", dtype, out6,
+               flash_attention_plain(q, k, v, **kw), label, FLASH_TOL)
+        record("flash_fwd", dtype, out7, plain7, label, FLASH_TOL)
+        key = str(dtype).split(".")[1]
+        e = err(lse7, plain_lse) / float(plain_lse.abs().max())
+        check(e <= LSE_RTOL, f"flash_fwd lse {label} {key}: {e} relative")
+        lse_worst[key] = max(lse_worst[key], e)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_case("mha", (1, 128, 128, 2, 2, 32), dtype)
+        flash_case("gqa_2to1_ragged_96", (2, 96, 96, 4, 2, 16), dtype)
+        flash_case("mqa", (1, 256, 256, 8, 1, 32), dtype)
+        flash_case("non_causal", (1, 64, 64, 2, 2, 16), dtype, causal=False)
+        flash_case("cross_kv_offset_128", (1, 32, 160, 2, 2, 16), dtype,
+                   kv_offset=128)
+        for hd in (16, 32, 64, 128):
+            flash_case(f"hd{hd}", (2, 200, 200, 4, 2, hd), dtype)
+    Bm, Sm, Hm, KVm, hdm = LM_SHAPE
+    flash_case("serve_shape", (Bm, Sm, Sm, Hm, KVm, hdm), torch.bfloat16,
+               blocks=(512, 512))
+    emit({"phase": 12, "cases": {n: cases[n] for n in ("flash_attention",
+                                                       "flash_fwd")},
+          "max_abs_err": {n: worst[n] for n in ("flash_attention",
+                                                "flash_fwd")},
+          "lse_max_rel_err": lse_worst, "tol": FLASH_TOL,
+          "lse_rtol": LSE_RTOL})
+
+    # -- 13. the serve path in fp32 at full width: flash against xla ----------
+    cfg_f = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    cfg_x = dataclasses.replace(cfg_f, attn_impl="xla")
+    model_f = build(cfg_f, device=dev, dtype=torch.float32,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    model_x = Transformer(cfg_x, device=dev, dtype=torch.float32)
+    model_x.load_state_dict(model_f.state_dict())
+    B13, S13, T13 = LM_FP32
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg_f.vocab_size, (B13, S13)), device=dev)
+    max_len = S13 + T13 + 1
+    _build.LAUNCHES.clear()
+    h_f, _ = model_f.prefill(prompts, max_len)
+    sync()
+    prefill13 = dict(_build.LAUNCHES)
+    check(prefill13 == {"flash_fwd": cfg_f.n_layers},
+          f"fp32 flash prefill launched {prefill13}")
+    h_x, _ = model_x.prefill(prompts, max_len)
+    sync()
+    check(dict(_build.LAUNCHES) == prefill13, "the xla prefill launched "
+          "a kernel")
+    hidden_rel = err(h_f, h_x) / float(h_x.abs().max())
+    check(bool(torch.isfinite(h_f).all()) and hidden_rel <= 1e-4,
+          f"fp32 prefill hidden flash vs xla: {hidden_rel} of max-abs")
+    _build.LAUNCHES.clear()
+    tok_f = greedy_generate(model_f, {"tokens": prompts}, steps=T13,
+                            max_len=max_len)
+    generate13 = dict(_build.LAUNCHES)
+    check(generate13 == {"flash_fwd": cfg_f.n_layers},
+          f"fp32 flash generate launched {generate13}")
+    tok_x = greedy_generate(model_x, {"tokens": prompts}, steps=T13,
+                            max_len=max_len)
+    agree = int((tok_f == tok_x).sum())
+    margins = []
+    for b in range(B13):
+        diff = (tok_f[b] != tok_x[b]).nonzero()
+        if len(diff) == 0:
+            continue
+        t = int(diff[0])   # later tokens follow different prefixes
+        ctx = torch.cat([prompts[b], tok_x[b, :t]])[None]
+        h_t, _ = model_x.prefill(ctx, ctx.shape[1])
+        logits = mask_pad_logits(model_x.logits(h_t), cfg_x)[0]
+        top2 = torch.topk(logits, 2).values
+        margin = float(top2[0] - top2[1]) / float(logits.abs().max())
+        margins.append({"row": b, "position": t, "rel_margin": margin})
+        check(margin <= 1e-3, f"row {b} token {t}: flash and xla disagree "
+              f"where xla's top-2 margin is {margin} of max-abs")
+    emit({"phase": 13, "arch": cfg_f.arch, "dtype": "float32",
+          "batch": B13, "prompt_len": S13, "tokens": T13,
+          "hidden_rel_err": hidden_rel, "prefill_launches": prefill13,
+          "generate_launches": generate13,
+          "tokens_flash": tok_f.tolist(), "tokens_xla": tok_x.tolist(),
+          "tokens_agree": agree, "tokens_total": B13 * T13,
+          "first_disagreements": margins})
+    del model_f, model_x, h_f, h_x
+    torch.cuda.empty_cache()
+
+    # -- 14. the main path: bf16 serve at full width --------------------------
+    B14, S14, T14 = LM_SERVE
+    _build.LAUNCHES.clear()
+    served = serve(cfg_f, batch=B14, prompt_len=S14, tokens=T14, device=dev,
+                   dtype=torch.bfloat16, seed=0)
+    launches7 = dict(_build.LAUNCHES)   # the warm-up and the timed run
+    gen = served.pop("generated")
+    check(served["prefill_launches"] == {"flash_fwd": cfg_f.n_layers}
+          and not served["decode_launches"],
+          f"bf16 serve launched {served['prefill_launches']}, "
+          f"{served['decode_launches']}")
+    check(gen.shape == (B14, T14 + 1) and bool((gen >= 0).all())
+          and bool((gen < cfg_f.vocab_size).all()), "bf16 serve tokens")
+    emit({"phase": 14, **served, "launches_whole_run": launches7,
+          "seq0": gen[0].tolist()})
+
+    # -- 15. K6 and K7 timed at the serve shape --------------------------------
+    gq = torch.Generator(device=dev).manual_seed(6)
+    qm, km, vm = (torch.randn(s_, generator=gq, device=dev)
+                  .to(torch.bfloat16)
+                  for s_ in ((Bm, Sm, Hm, hdm), (Bm, Sm, KVm, hdm),
+                             (Bm, Sm, KVm, hdm)))
+    k6_ms = graph_ms(lambda: flash_attention(qm, km, vm, causal=True), 5)
+    k7_ms = graph_ms(lambda: flash_fwd(qm, km, vm, causal=True), 5)
+    k67_plain = time_ms(lambda: flash_fwd_plain(qm, km, vm, causal=True), 3)
+    # The library yardstick, timed here only: (B, H, S, hd) copies first.
+    qs_, ks_, vs_ = (t_.transpose(1, 2).contiguous() for t_ in (qm, km, vm))
+    sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs_, ks_, vs_, is_causal=True, enable_gqa=True), 5)
+    q32, k32, v32 = qm.float(), km.float(), vm.float()
+    k7_fp32_ms = graph_ms(lambda: flash_fwd(q32, k32, v32, causal=True), 3)
+    del q32, k32, v32
+    lm_ops = 4 * Bm * Hm * hdm * (Sm * (Sm + 1) // 2)
+    lm_bytes = 2 * (2 * Bm * Sm * Hm * hdm + 2 * Bm * Sm * KVm * hdm)
+    lse_bytes = Bm * Hm * Sm * 4
+    emit({"phase": 15, "shape": list(LM_SHAPE), "dtype": "bfloat16",
+          "k6_ms": k6_ms, "k7_ms": k7_ms, "plain_ms": k67_plain,
+          "sdpa_ms": sdpa_ms, "k7_fp32_ms": k7_fp32_ms,
+          "operations": lm_ops, "bytes": lm_bytes,
+          "bound_ms": max(lm_ops / PEAK_BF16_FLOPS,
+                          lm_bytes / PEAK_BYTES) * 1e3,
+          "fp32_bound_ms": lm_ops / PEAK_FP32_FLOPS * 1e3,
+          "k7_TFLOPs": lm_ops / (k7_ms * 1e-3) / 1e12})
+
     def entry(name, source, replaces, ms, plain_ms, nbytes, ops, lib_ms,
-              extra, path_launches=launches):
-        tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+              extra, path_launches=launches, peak_flops=PEAK_FP32_FLOPS):
+        tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak_flops * 1e3
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": path_launches[name],
+                "replaces": replaces, "launches": path_launches.get(name, 0),
                 "max_abs_err": worst[name]["float32"], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": max(tb, to),
                 "bound_by": "bytes" if tb >= to else "operations",
@@ -690,7 +889,28 @@ def main() -> int:
                "library": "torch.matmul",
                "max_abs_err_bf16": worst["dense_stencil_matmul"]["bfloat16"]},
               launches5),
+        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:122", k6_ms, k67_plain,
+              lm_bytes, lm_ops, sdpa_ms,
+              {"shape": list(LM_SHAPE), "dtype": "bfloat16",
+               "plain_timing": "eager",
+               "library": "F.scaled_dot_product_attention",
+               "path": "not on the serve path (K7 is); held on the card "
+                       "in phase 12",
+               "max_abs_err_bf16": worst["flash_attention"]["bfloat16"]},
+              launches7, PEAK_BF16_FLOPS),
+        entry("flash_fwd", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention_bwd.py:86", k7_ms,
+              k67_plain, lm_bytes + lse_bytes, lm_ops, sdpa_ms,
+              {"shape": list(LM_SHAPE), "dtype": "bfloat16",
+               "plain_timing": "eager", "fp32_ms": k7_fp32_ms,
+               "library": "F.scaled_dot_product_attention",
+               "max_abs_err_bf16": worst["flash_fwd"]["bfloat16"],
+               "lse_max_rel_err": lse_worst},
+              launches7, PEAK_BF16_FLOPS),
     ]
+    check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
+          f"the serve path launched {launches7}")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,7 +18,7 @@
 // warp's shared-memory reads fall in distinct banks or broadcast.  Ragged
 // edges (any S and N) are masked in the kernel, not padded in memory as
 // the TPU kernel pads to its blocks.  wgmma and TMA are later work.
-#include "taps.cuh"  // the fp32/bf16 conversions, dtype codes, error text
+#include "common.cuh"  // the fp32/bf16 conversions, dtype codes, error text
 
 namespace {
 

@@ -1,4 +1,4 @@
-// Shared by the stencil kernels: the tap table and the fp32/bf16 conversions.
+// Shared by the stencil kernels: the tap table and the batch slicing.
 //
 // Taps arrive in the spec's canonical order (sorted by offset) and every
 // kernel sums them in that order, one rounded multiply and one rounded add
@@ -7,10 +7,9 @@
 // for bit in fp32.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <type_traits>
+
+#include "common.cuh"
 
 // Radius 2 in full (a 5x5 box, a 5x5x5 box) fits.  The Python side raises
 // beyond it.
@@ -38,23 +37,22 @@ struct Taps3 {
   float w[STENCIL3D_MAX_TAPS];
 };
 
-// dtype codes shared with the Python wrappers.
-enum { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+// gridDim.z carries the batch and stops at 65,535 (the wrappers' and
+// _build.MAX_GRID_Z's number): the launchers run a larger batch as
+// consecutive launches of at most this many instances each, offsetting x and
+// out by the instances before them (fields are shared by the batch).
+constexpr int MAX_GRID_Z = 65535;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
+// Calls launch_slice(b0, nb) for each slice of at most MAX_GRID_Z instances
+// of a batch of B; returns the first nonzero CUDA error, else 0.
+template <typename LaunchSlice>
+int for_batch_slices(int B, LaunchSlice launch_slice) {
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
+    const int nb = B - b0 < MAX_GRID_Z ? B - b0 : MAX_GRID_Z;
+    const int err = launch_slice(b0, nb);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // Copies the tap table into shared memory, where every thread of the block
@@ -137,10 +135,4 @@ int dispatch_taps(int n, Launch launch_fn) {
     case 9: return launch_fn(std::integral_constant<int, 9>{});
     default: return launch_fn(std::integral_constant<int, 0>{});
   }
-}
-
-// The message for a code the launch functions return.  Each kernel source
-// is its own library, so each carries this one definition.
-extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the stencil hot path (Hopper, sm_90a).
+"""Hand-written CUDA kernels (Hopper, sm_90a): the stencil hot path (K1-K5)
+and the LM substrate's attention forward (K6/K7).
 
 Layout per kernel: ``<name>.py`` holds the wrapper and its plain PyTorch
 version, ``csrc/<name>.cu`` the kernel, ``ops.py`` the iteration loop,
@@ -8,6 +9,10 @@ kernel on a CUDA tensor; ``_build.LAUNCHES`` counts the launches.
 """
 from repro_torch.kernels.dense_stencil import (dense_stencil_matmul,
                                                dense_stencil_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention_bwd import (
+    flash_attention_trainable, flash_fwd, flash_fwd_plain)
 from repro_torch.kernels.jacobi_fused import (jacobi2d_fused_plain,
                                               jacobi2d_fused_step)
 from repro_torch.kernels.ops import dense_jacobi_kernel, jacobi2d, jacobi3d
@@ -18,6 +23,11 @@ __all__ = [
     "dense_jacobi_kernel",
     "dense_stencil_matmul",
     "dense_stencil_plain",
+    "flash_attention",
+    "flash_attention_plain",
+    "flash_attention_trainable",
+    "flash_fwd",
+    "flash_fwd_plain",
     "jacobi2d",
     "jacobi2d_fused_plain",
     "jacobi2d_fused_step",

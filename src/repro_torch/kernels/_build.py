@@ -35,8 +35,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launches per kernel, counted by the wrappers where they launch (never on
 # the plain path), so a run can show which kernels its main path went
 # through.  Keys: "stencil2d", "jacobi2d_trapezoid", "jacobi2d_resident",
-# "stencil3d", "dense_stencil_matmul".
+# "stencil3d", "dense_stencil_matmul", "flash_attention", "flash_fwd".
 LAUNCHES: collections.Counter = collections.Counter()
+
+# gridDim.z carries the batch of the stencil kernels (csrc/taps.cuh): a
+# larger batch runs as consecutive launches of at most this many instances.
+MAX_GRID_Z = 65_535
+
+
+def batch_launches(batch: int) -> int:
+    """Kernel launches one stencil wrapper call makes for ``batch``."""
+    return -(-batch // MAX_GRID_Z)
 
 # Sizes of the 2D and 3D tap tables (csrc/taps.cuh), the most taps each
 # holds, and the dtype codes of its DTYPE_* enum.

@@ -130,5 +130,5 @@ def jacobi2d_fused_step(x: torch.Tensor, spec: StencilSpec, *, fuse: int,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, f"jacobi2d_fused_step(rim={rim!r})")
     _build.LAUNCHES["jacobi2d_resident" if resident
-                    else "jacobi2d_trapezoid"] += 1
+                    else "jacobi2d_trapezoid"] += _build.batch_launches(B)
     return out

@@ -18,15 +18,13 @@ import torch.nn.functional as F
 from repro_torch.core.stencil import StencilSpec, WeightField
 from repro_torch.kernels import _build
 
-# gridDim.z carries the batch; cells of one grid are indexed in int32.
-MAX_BATCH = 65_535
+# Cells of one grid are indexed in int32.  The batch has no limit: the
+# launchers slice it (_build.MAX_GRID_Z).
 MAX_CELLS = 2**31 - 1
 
 
 def check_launch(B: int, H: int, W: int) -> None:
     """Raise on a shape the kernels' launch geometry cannot cover."""
-    if B > MAX_BATCH:
-        raise ValueError(f"batch {B} exceeds the kernels' {MAX_BATCH}")
     if H * W > MAX_CELLS:
         raise ValueError(f"a {H}x{W} grid exceeds the kernels' {MAX_CELLS} "
                          f"cells")
@@ -146,5 +144,5 @@ def stencil2d(x: torch.Tensor, spec: StencilSpec, *,
             0.0 if bc_value is None else bc_value,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "stencil2d")
-    _build.LAUNCHES["stencil2d"] += 1
+    _build.LAUNCHES["stencil2d"] += _build.batch_launches(B)
     return out

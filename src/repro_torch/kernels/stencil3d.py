@@ -14,18 +14,19 @@ import torch
 
 from repro_torch.core.stencil import StencilSpec
 from repro_torch.kernels import _build
-from repro_torch.kernels.stencil2d import (MAX_BATCH, MAX_CELLS,
-                                           check_operands, interior,
-                                           resolve_fields, sweep)
+from repro_torch.kernels.stencil2d import (MAX_CELLS, check_operands,
+                                           interior, resolve_fields, sweep)
+
+# gridDim.y carries the Z planes.
+MAX_DEPTH = 65_535
 
 
 def check_launch3(B: int, Z: int, X: int, Y: int) -> None:
-    """Raise on a shape the kernel's launch geometry cannot cover: gridDim.z
-    carries the batch, gridDim.y the Z planes, and cells of one grid are
-    indexed in int32."""
-    if B > MAX_BATCH or Z > MAX_BATCH:
-        raise ValueError(f"batch {B} and depth {Z} must each be at most "
-                         f"{MAX_BATCH}")
+    """Raise on a shape the kernel's launch geometry cannot cover: gridDim.y
+    carries the Z planes and cells of one grid are indexed in int32 (the
+    launcher slices any batch, _build.MAX_GRID_Z)."""
+    if Z > MAX_DEPTH:
+        raise ValueError(f"depth {Z} must be at most {MAX_DEPTH}")
     if Z * X * Y > MAX_CELLS:
         raise ValueError(f"a {Z}x{X}x{Y} grid exceeds the kernel's "
                          f"{MAX_CELLS} cells")
@@ -85,5 +86,5 @@ def stencil3d(x: torch.Tensor, spec: StencilSpec, *,
             int(bc_value is not None), 0.0 if bc_value is None else bc_value,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "stencil3d")
-    _build.LAUNCHES["stencil3d"] += 1
+    _build.LAUNCHES["stencil3d"] += _build.batch_launches(B)
     return out

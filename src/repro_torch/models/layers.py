@@ -1,0 +1,120 @@
+"""Shared model-layer primitives and the declarative parameter tables — the
+port of the JAX package's ``models/layers.py`` (``apply_mrope`` and
+``layer_norm`` come with the families that use them).
+
+Parameters are declared once as ``ParamDef(shape, scale)`` tables, as in
+JAX; :func:`init_params` draws them from an explicit ``torch.Generator``
+with JAX's distributions (not its numbers: the two generators differ).
+Stacked layer tables keep JAX's quirk: ``stack_tables`` prefixes the layer
+axis, and the ``"fan_in"`` rule then reads ``shape[0]``, so every stacked
+layer weight has std ``1/sqrt(n_layers)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """A parameter's shape and init rule: ``"fan_in"`` (normal, std
+    1/sqrt(shape[0])), a float (normal, that std) or ``"one"``.  JAX's
+    other rules ("zero", "const:<v>") come with the families that use
+    them."""
+    shape: tuple[int, ...]
+    scale: float | str = "fan_in"
+
+    def init(self, generator: torch.Generator, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+        if self.scale == "one":
+            return torch.ones(self.shape, dtype=dtype, device=device)
+        if self.scale == "fan_in":
+            s = 1.0 / math.sqrt(max(1, self.shape[0]))
+        else:
+            s = float(self.scale)
+        # Drawn in fp32 on the generator's device, as JAX draws in fp32.
+        x = torch.randn(self.shape, generator=generator,
+                        device=generator.device, dtype=torch.float32)
+        return (x * s).to(device=device, dtype=dtype)
+
+
+def init_params(table: Mapping[str, Any], generator: torch.Generator,
+                dtype: torch.dtype, device: torch.device) -> dict:
+    """Materialize a (nested) ParamDef table into tensors, in the table's
+    order, all from one generator."""
+    out: dict = {}
+    for path, pd in flatten(table):
+        set_path(out, path, pd.init(generator, dtype, device))
+    return out
+
+
+def stack_tables(table: Mapping[str, Any], n: int) -> dict:
+    """Prefix every ParamDef with a leading stacked-layers dim."""
+    out: dict = {}
+    for path, pd in flatten(table):
+        set_path(out, path, ParamDef((n, *pd.shape), pd.scale))
+    return out
+
+
+def flatten(table, prefix=()) -> list[tuple[tuple[str, ...], Any]]:
+    """[(path, leaf)] of a nested dict, in insertion order."""
+    items = []
+    for k, v in table.items():
+        if isinstance(v, Mapping):
+            items.extend(flatten(v, (*prefix, k)))
+        else:
+            items.append(((*prefix, k), v))
+    return items
+
+
+def set_path(tree: dict, path, value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integers.
+
+    Rotates pairs (x[..., :d/2], x[..., d/2:]) — the HF 'split-half'
+    convention used by all assigned LM archs.
+    """
+    hd = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                            device=x.device)                  # (hd/2,)
+    angles = positions[..., None].float() * freqs             # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., None, :]                     # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu2": lambda x: torch.square(F.relu(x)),  # squared ReLU
+}

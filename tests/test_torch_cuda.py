@@ -12,14 +12,24 @@ so fp32 results are expected bit-equal; bf16 2e-2 absolute (one bf16 ulp
 at these magnitudes).  K5 (a GEMM) sums in another order than the library
 product its plain version calls: 1e-4 relative and absolute in fp32, and
 3e-2 relative plus 3e-1 absolute in bf16, the JAX package's tolerances.
+K6/K7 (flash attention) sum in another order than their plain versions:
+out 2e-5 absolute in fp32 and 3e-2 in bf16 (JAX's own bounds), lse 1e-5
+of its max-abs.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import serve
+from repro_torch.models.model_zoo import build
+from repro_torch.models.transformer import Transformer
 from repro_torch.kernels import (_build, dense_jacobi_kernel,
                                  dense_stencil_matmul, dense_stencil_plain,
+                                 flash_attention, flash_fwd, flash_fwd_plain,
                                  jacobi2d, jacobi2d_fused_plain,
                                  jacobi2d_fused_step, stencil2d,
                                  stencil2d_plain, stencil3d, stencil3d_plain)
@@ -215,3 +225,114 @@ def test_3d_and_dense_wrappers_raise_rather_than_fall_back(cuda):
         stencil3d(x.half(), T.laplace_jacobi(3))
     with pytest.raises(ValueError, match="contiguous"):
         dense_stencil_matmul(x[0, 0], x[0, 0].t())
+
+
+# --- batches past gridDim.z's 65,535 (K1-K4) ---------------------------------
+
+BIG_BATCH = 65_536 + 17
+
+
+@pytest.mark.parametrize("kernel", ["stencil2d", "trapezoid", "resident",
+                                    "stencil3d"])
+def test_batches_past_65535_equal_the_plain_versions(cuda, kernel):
+    rng = np.random.default_rng(65_553)
+    shape = (BIG_BATCH, 3, 5, 6) if kernel == "stencil3d" else (BIG_BATCH,
+                                                                  9, 10)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x = x.to(cuda)
+    if kernel == "stencil2d":
+        key, spec = "stencil2d", T.laplace_jacobi(2)
+        run = lambda: stencil2d(x, spec, bc_value=1.5)
+        plain = lambda: stencil2d_plain(x, spec, bc_value=1.5)
+    elif kernel == "stencil3d":
+        key, spec = "stencil3d", T.laplace_jacobi(3)
+        run = lambda: stencil3d(x, spec, bc_value=1.5)
+        plain = lambda: stencil3d_plain(x, spec, bc_value=1.5)
+    else:
+        key, spec = f"jacobi2d_{kernel}", T.laplace_jacobi(2)
+        run = lambda: jacobi2d_fused_step(x, spec, fuse=3, bc_value=1.5,
+                                          rim=kernel)
+        plain = lambda: jacobi2d_fused_plain(x, spec, fuse=3, bc_value=1.5)
+    n = _build.LAUNCHES[key]
+    out = run()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == n + 2   # two slices of the batch
+    assert float((out - plain()).abs().max()) == 0.0
+
+
+# --- K6/K7: the flash-attention forward ---------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # JAX's bounds
+FLASH_CASES = {
+    "mha": ((1, 128, 128, 2, 2, 32), True, 0),
+    "gqa_ragged_96": ((2, 96, 96, 4, 2, 16), True, 0),
+    "mqa": ((1, 256, 256, 8, 1, 32), True, 0),
+    "non_causal": ((1, 64, 64, 2, 2, 16), False, 0),
+    "cross_kv_offset_128": ((1, 32, 160, 2, 2, 16), True, 128),
+    **{f"hd{hd}": ((2, 200, 200, 4, 2, hd), True, 0)
+       for hd in (16, 32, 64, 128)},
+    "serve_shape": ((4, 2048, 2048, 16, 8, 128), True, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    (B, Sq, Skv, H, KV, hd), causal, kv_offset = FLASH_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
+    kw = dict(causal=causal, kv_offset=kv_offset)
+    n6, n7 = _build.LAUNCHES["flash_attention"], _build.LAUNCHES["flash_fwd"]
+    out6 = flash_attention(q, k, v, **kw)
+    out7, lse = flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES["flash_attention"], _build.LAUNCHES["flash_fwd"]
+            ) == (n6 + 1, n7 + 1)
+    ref, ref_lse = flash_fwd_plain(q, k, v, **kw)
+    assert out6.dtype == out7.dtype == dtype and lse.shape == (B, H, Sq)
+    for out in (out6, out7):
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=FLASH_TOL[dtype])
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(
+        ref_lse.abs().max())
+
+
+def test_flash_wrappers_raise_rather_than_fall_back(cuda):
+    q = torch.zeros(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd(q.transpose(1, 2), q, q)
+
+
+SMOKE_FLASH = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
+                                  attn_impl="flash")
+
+
+def test_smoke_prefill_launches_k7_once_a_layer(cuda):
+    cfg = SMOKE_FLASH
+    model = build(cfg, device=cuda, dtype=torch.float32)
+    plain = Transformer(dataclasses.replace(cfg, attn_impl="xla"),
+                        device=cuda)
+    plain.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 70), device=cuda)
+    _build.LAUNCHES.clear()
+    h, _ = model.prefill(tokens, 80)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"flash_fwd": cfg.n_layers}
+    hx, _ = plain.prefill(tokens, 80)
+    assert dict(_build.LAUNCHES) == {"flash_fwd": cfg.n_layers}
+    assert float((h - hx).abs().max()) <= 1e-4 * float(hx.abs().max())
+
+
+def test_smoke_serve_and_its_device_profile(cuda):
+    r = serve(SMOKE_FLASH, batch=2, prompt_len=64, tokens=3, device=cuda,
+              profile=True)
+    assert r["prefill_launches"] == {"flash_fwd": SMOKE_FLASH.n_layers}
+    assert not r["decode_launches"] and r["generated"].shape == (2, 4)
+    prof = r["profile_prefill"]
+    assert 0 < prof["device_ms"] <= prof["wall_ms"]
+    assert any("flash_fwd_kernel" in k[0] for k in prof["kernels"])
+    assert r["profile_decode"]["device_ms"] > 0
