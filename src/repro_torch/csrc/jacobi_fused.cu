@@ -188,29 +188,27 @@ template <typename T>
 int launch(int resident, const void* x, const void* fields, void* out, int B,
            int H, int W, int tile_h, int tile_w, const Taps* taps, int r,
            int steps, int has_bc, float bc, size_t smem, cudaStream_t s) {
-  const size_t plane = (size_t)H * W;
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
   const float* f = static_cast<const float*>(fields);
   return dispatch_taps(taps->n, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    int err = resident ? set_smem(resident_kernel<T, NT>, smem)
-                       : set_smem(trapezoid_kernel<T, NT>, smem);
-    if (err) return err;
-    return for_batch_slices(B, [&](int b0, int nb) {
-      const T* xt = static_cast<const T*>(x) + b0 * plane;
-      T* ot = static_cast<T*>(out) + b0 * plane;
-      if (resident) {
-        const dim3 block(32, RESIDENT_THREADS / 32);
-        resident_kernel<T, NT><<<dim3(1, 1, nb), block, smem, s>>>(
-            xt, f, ot, H, W, *taps, r, steps, has_bc, bc);
-      } else {
-        const dim3 grid((W + tile_w - 1) / tile_w,
-                        (H + tile_h - 1) / tile_h, nb);
-        const dim3 block(32, TRAPEZOID_THREADS / 32);
-        trapezoid_kernel<T, NT><<<grid, block, smem, s>>>(
-            xt, f, ot, H, W, tile_h, tile_w, *taps, r, steps, has_bc, bc);
-      }
-      return (int)cudaGetLastError();
-    });
+    if (resident) {
+      int err = set_smem(resident_kernel<T, NT>, smem);
+      if (err) return err;
+      const dim3 block(32, RESIDENT_THREADS / 32);
+      resident_kernel<T, NT><<<dim3(1, 1, B), block, smem, s>>>(
+          xt, f, ot, H, W, *taps, r, steps, has_bc, bc);
+    } else {
+      int err = set_smem(trapezoid_kernel<T, NT>, smem);
+      if (err) return err;
+      const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h,
+                      B);
+      const dim3 block(32, TRAPEZOID_THREADS / 32);
+      trapezoid_kernel<T, NT><<<grid, block, smem, s>>>(
+          xt, f, ot, H, W, tile_h, tile_w, *taps, r, steps, has_bc, bc);
+    }
+    return (int)cudaGetLastError();
   });
 }
 

@@ -61,18 +61,14 @@ template <typename T>
 int launch(const void* x, const void* fields, void* out, int B, int H, int W,
            int r, const Taps* taps, int has_bc, float bc, cudaStream_t s) {
   const dim3 block(32, THREADS / 32);
-  const size_t plane = (size_t)H * W;
+  const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y,
+                  B);
   return dispatch_taps(taps->n, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    return for_batch_slices(B, [&](int b0, int nb) {
-      const dim3 grid((W + block.x - 1) / block.x,
-                      (H + block.y - 1) / block.y, nb);
-      stencil2d_kernel<T, NT><<<grid, block, 0, s>>>(
-          static_cast<const T*>(x) + b0 * plane,
-          static_cast<const float*>(fields),
-          static_cast<T*>(out) + b0 * plane, H, W, r, *taps, has_bc, bc);
-      return (int)cudaGetLastError();
-    });
+    stencil2d_kernel<T, NT><<<grid, block, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(fields),
+        static_cast<T*>(out), H, W, r, *taps, has_bc, bc);
+    return (int)cudaGetLastError();
   });
 }
 

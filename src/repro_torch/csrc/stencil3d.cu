@@ -118,18 +118,13 @@ int launch(const void* x, const void* fields, void* out, int B, int Z, int X,
   const int y_tiles = (Y + TILE_Y - 1) / TILE_Y;
   const int x_tiles = (X + TILE_X - 1) / TILE_X;
   const dim3 block(TILE_Y, TILE_X);
-  const size_t vol = (size_t)Z * X * Y;
+  const dim3 grid(y_tiles * x_tiles, Z, B);
   return dispatch_taps3(taps->n, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    return for_batch_slices(B, [&](int b0, int nb) {
-      const dim3 grid(y_tiles * x_tiles, Z, nb);
-      stencil3d_kernel<T, NT><<<grid, block, 0, s>>>(
-          static_cast<const T*>(x) + b0 * vol,
-          static_cast<const float*>(fields),
-          static_cast<T*>(out) + b0 * vol, Z, X, Y, r, y_tiles, *taps,
-          has_bc, bc);
-      return (int)cudaGetLastError();
-    });
+    stencil3d_kernel<T, NT><<<grid, block, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(fields),
+        static_cast<T*>(out), Z, X, Y, r, y_tiles, *taps, has_bc, bc);
+    return (int)cudaGetLastError();
   });
 }
 

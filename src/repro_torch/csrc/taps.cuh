@@ -1,4 +1,4 @@
-// Shared by the stencil kernels: the tap table and the batch slicing.
+// Shared by the stencil kernels: the tap table.
 //
 // Taps arrive in the spec's canonical order (sorted by offset) and every
 // kernel sums them in that order, one rounded multiply and one rounded add
@@ -36,24 +36,6 @@ struct Taps3 {
   int field[STENCIL3D_MAX_TAPS];
   float w[STENCIL3D_MAX_TAPS];
 };
-
-// gridDim.z carries the batch and stops at 65,535 (the wrappers' and
-// _build.MAX_GRID_Z's number): the launchers run a larger batch as
-// consecutive launches of at most this many instances each, offsetting x and
-// out by the instances before them (fields are shared by the batch).
-constexpr int MAX_GRID_Z = 65535;
-
-// Calls launch_slice(b0, nb) for each slice of at most MAX_GRID_Z instances
-// of a batch of B; returns the first nonzero CUDA error, else 0.
-template <typename LaunchSlice>
-int for_batch_slices(int B, LaunchSlice launch_slice) {
-  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
-    const int nb = B - b0 < MAX_GRID_Z ? B - b0 : MAX_GRID_Z;
-    const int err = launch_slice(b0, nb);
-    if (err) return err;
-  }
-  return 0;
-}
 
 // Copies the tap table into shared memory, where every thread of the block
 // reads it by broadcast.  Ends with a barrier.

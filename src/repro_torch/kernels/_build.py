@@ -38,14 +38,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # "stencil3d", "dense_stencil_matmul", "flash_attention", "flash_fwd".
 LAUNCHES: collections.Counter = collections.Counter()
 
-# gridDim.z carries the batch of the stencil kernels (csrc/taps.cuh): a
-# larger batch runs as consecutive launches of at most this many instances.
+# gridDim.z carries the batch of the stencil kernels (K1-K4): a larger batch
+# runs as consecutive launches of at most this many instances.
 MAX_GRID_Z = 65_535
 
 
-def batch_launches(batch: int) -> int:
-    """Kernel launches one stencil wrapper call makes for ``batch``."""
-    return -(-batch // MAX_GRID_Z)
+def batch_slices(batch: int):
+    """(first instance, instances) of each launch a stencil wrapper makes
+    for ``batch`` instances."""
+    return [(b0, min(MAX_GRID_Z, batch - b0))
+            for b0 in range(0, batch, MAX_GRID_Z)]
 
 # Sizes of the 2D and 3D tap tables (csrc/taps.cuh), the most taps each
 # holds, and the dtype codes of its DTYPE_* enum.

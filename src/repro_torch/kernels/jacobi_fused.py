@@ -121,14 +121,15 @@ def jacobi2d_fused_step(x: torch.Tensor, spec: StencilSpec, *, fuse: int,
     lib, fn = _launcher()
     out = torch.empty_like(x)
     resident = rim == "resident"
-    rc = fn(int(resident), x.data_ptr(),
-            fields.data_ptr() if fields is not None else None,
-            out.data_ptr(), B, H, W, *TRAPEZOID_TILE,
-            _build.DTYPE_CODES[x.dtype], ctypes.byref(taps), spec.radius,
-            fuse, int(bc_value is not None),
-            0.0 if bc_value is None else bc_value, smem,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, f"jacobi2d_fused_step(rim={rim!r})")
-    _build.LAUNCHES["jacobi2d_resident" if resident
-                    else "jacobi2d_trapezoid"] += _build.batch_launches(B)
+    for b0, nb in _build.batch_slices(B):
+        rc = fn(int(resident), x[b0].data_ptr(),
+                fields.data_ptr() if fields is not None else None,
+                out[b0].data_ptr(), nb, H, W, *TRAPEZOID_TILE,
+                _build.DTYPE_CODES[x.dtype], ctypes.byref(taps), spec.radius,
+                fuse, int(bc_value is not None),
+                0.0 if bc_value is None else bc_value, smem,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, rc, f"jacobi2d_fused_step(rim={rim!r})")
+        _build.LAUNCHES["jacobi2d_resident" if resident
+                        else "jacobi2d_trapezoid"] += 1
     return out

@@ -19,7 +19,7 @@ from repro_torch.core.stencil import StencilSpec, WeightField
 from repro_torch.kernels import _build
 
 # Cells of one grid are indexed in int32.  The batch has no limit: the
-# launchers slice it (_build.MAX_GRID_Z).
+# wrappers launch it in slices (_build.batch_slices).
 MAX_CELLS = 2**31 - 1
 
 
@@ -138,11 +138,14 @@ def stencil2d(x: torch.Tensor, spec: StencilSpec, *,
     taps = _build.tap_table(spec)
     lib, fn = _launcher()
     out = torch.empty_like(x)
-    rc = fn(x.data_ptr(), fields.data_ptr() if fields is not None else None,
-            out.data_ptr(), B, H, W, spec.radius, _build.DTYPE_CODES[x.dtype],
-            ctypes.byref(taps), int(bc_value is not None),
-            0.0 if bc_value is None else bc_value,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "stencil2d")
-    _build.LAUNCHES["stencil2d"] += _build.batch_launches(B)
+    for b0, nb in _build.batch_slices(B):
+        rc = fn(x[b0].data_ptr(),
+                fields.data_ptr() if fields is not None else None,
+                out[b0].data_ptr(), nb, H, W, spec.radius,
+                _build.DTYPE_CODES[x.dtype], ctypes.byref(taps),
+                int(bc_value is not None),
+                0.0 if bc_value is None else bc_value,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, rc, "stencil2d")
+        _build.LAUNCHES["stencil2d"] += 1
     return out

@@ -24,7 +24,7 @@ MAX_DEPTH = 65_535
 def check_launch3(B: int, Z: int, X: int, Y: int) -> None:
     """Raise on a shape the kernel's launch geometry cannot cover: gridDim.y
     carries the Z planes and cells of one grid are indexed in int32 (the
-    launcher slices any batch, _build.MAX_GRID_Z)."""
+    wrapper launches any batch in slices, _build.batch_slices)."""
     if Z > MAX_DEPTH:
         raise ValueError(f"depth {Z} must be at most {MAX_DEPTH}")
     if Z * X * Y > MAX_CELLS:
@@ -80,11 +80,14 @@ def stencil3d(x: torch.Tensor, spec: StencilSpec, *,
     taps = _build.tap_table(spec)
     lib, fn = _launcher()
     out = torch.empty_like(x)
-    rc = fn(x.data_ptr(), fields.data_ptr() if fields is not None else None,
-            out.data_ptr(), B, Z, X, Y, spec.radius,
-            _build.DTYPE_CODES[x.dtype], ctypes.byref(taps),
-            int(bc_value is not None), 0.0 if bc_value is None else bc_value,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "stencil3d")
-    _build.LAUNCHES["stencil3d"] += _build.batch_launches(B)
+    for b0, nb in _build.batch_slices(B):
+        rc = fn(x[b0].data_ptr(),
+                fields.data_ptr() if fields is not None else None,
+                out[b0].data_ptr(), nb, Z, X, Y, spec.radius,
+                _build.DTYPE_CODES[x.dtype], ctypes.byref(taps),
+                int(bc_value is not None),
+                0.0 if bc_value is None else bc_value,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, rc, "stencil3d")
+        _build.LAUNCHES["stencil3d"] += 1
     return out

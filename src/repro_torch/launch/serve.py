@@ -57,37 +57,12 @@ class _Clock:
         return (time.perf_counter() - start) * 1e3
 
 
-def device_profile(fn, top: int = 12) -> dict:
-    """Run ``fn`` once under torch.profiler on the card: its wall ms (the
-    profiler's own cost included), the device ms summed over kernels, the
-    share of the wall the device sat idle, and the ``top`` kernels by
-    device time as [name, ms, calls]."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "device_idle_share": 1 - device_ms / wall_ms,
-            "kernels": [[e.key, e.self_device_time_total / 1e3, e.count]
-                        for e in events[:top]]}
-
-
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
-          device=None, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-          profile: bool = False) -> dict:
+          device=None, dtype: torch.dtype = torch.bfloat16,
+          seed: int = 0) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``tokens`` greedy tokens; returns the generated ids, the timings and
-    the kernel launches of the timed prefill and decode.  ``profile``
-    (card only) then runs both once more under torch.profiler and adds
-    their device time by kernel (``device_profile``)."""
+    the kernel launches of the timed prefill and decode."""
     dev = resolve_device(device)
     model = build(cfg, device=dev, dtype=dtype,
                   generator=torch.Generator(device=dev).manual_seed(seed))
@@ -134,20 +109,6 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
     }
     if dev.type == "cuda":
         result["peak_memory_GB"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    if profile:
-        if dev.type != "cuda":
-            raise ValueError("profile reads device time: it needs the card")
-
-        result["profile_prefill"] = device_profile(
-            lambda: prefill({"tokens": prompts}))
-        first, cache = prefill({"tokens": prompts})
-
-        def decode_loop():
-            tok = first
-            for i in range(tokens):
-                tok, _ = make_decode_step(model, prompt_len + i)(tok, cache)
-
-        result["profile_decode"] = device_profile(decode_loop)
     return result
 
 
@@ -163,16 +124,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", action="store_true",
-                    help="also print device time by kernel (card only)")
     args = ap.parse_args(argv)
 
     cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
                               attn_impl=args.attn_impl)
     r = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
               tokens=args.tokens, device=args.device,
-              dtype=DTYPES[args.dtype], seed=args.seed,
-              profile=args.profile)
+              dtype=DTYPES[args.dtype], seed=args.seed)
     B, S = args.batch, args.prompt_len
     print(f"{r['arch']} on {r['device']} ({r['dtype']}, attn_impl="
           f"{r['attn_impl']}, timed by {r['clock']})")
@@ -181,14 +139,6 @@ def main(argv=None) -> int:
           f"{r['prefill_launches']}")
     print(f"decode: {r['decode_ms_per_token']:.3f} ms/token")
     print("seq0:", r["generated"][0].tolist())
-    for key in ("profile_prefill", "profile_decode"):
-        if key in r:
-            prof = r[key]
-            print(f"{key}: wall {prof['wall_ms']:.3f} ms, device "
-                  f"{prof['device_ms']:.3f} ms (idle share "
-                  f"{prof['device_idle_share']:.3f})")
-            for name, ms, calls in prof["kernels"]:
-                print(f"  {ms:10.3f} ms {calls:6d}x  {name[:90]}")
     return 0
 
 

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.plan import resolve_device
 from repro_torch.models.layers import ACTIVATIONS, ParamDef
 
 
@@ -20,11 +21,13 @@ def mlp_table(d_model: int, d_ff: int, gated: bool) -> dict:
 
 
 class MLP(nn.Module):
+    """``device=None`` means the card (``core.plan.resolve_device``)."""
+
     def __init__(self, d_model: int, d_ff: int, activation: str, gated: bool,
                  *, device=None, dtype=torch.float32):
         super().__init__()
         self.activation = activation
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.up = nn.Parameter(torch.empty(d_model, d_ff, **kw))
         self.down = nn.Parameter(torch.empty(d_ff, d_model, **kw))
         self.gate = (nn.Parameter(torch.empty(d_model, d_ff, **kw))

@@ -24,9 +24,11 @@ ROADMAP queue 1 item 16.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.plan import resolve_device
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import (ParamDef, apply_rope, flatten,
@@ -94,7 +96,7 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.wq = nn.Parameter(torch.empty(D, H, hd, **kw))
         self.wk = nn.Parameter(torch.empty(D, KV, hd, **kw))
         self.wv = nn.Parameter(torch.empty(D, KV, hd, **kw))
@@ -150,7 +152,7 @@ class DenseBlock(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.eps = cfg.norm_eps
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.attn_norm = nn.Parameter(torch.empty(cfg.d_model, **kw))
         self.attn = Attention(cfg, **kw)
         self.mlp_norm = nn.Parameter(torch.empty(cfg.d_model, **kw))
@@ -172,14 +174,16 @@ class DenseBlock(nn.Module):
 class Transformer(nn.Module):
     """The dense decoder.  Its methods are the port's ``ModelApi``
     (``forward``, ``prefill``, ``decode_step``, ``cache_shapes``,
-    ``init_cache``); the parameters live in the module."""
+    ``init_cache``); the parameters live in the module.  ``device=None``
+    means the card, as for every entry point (``core.plan.resolve_device``);
+    the modules below take the same rule."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         V, D = cfg.padded_vocab, cfg.d_model
         self.embed = nn.Parameter(torch.empty(V, D, **kw))
         self.final_norm = nn.Parameter(torch.empty(D, **kw))
@@ -269,10 +273,11 @@ class Transformer(nn.Module):
         return mask_pad_logits(self.logits(x[:, 0]), self.cfg), cache
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """hidden (..., D) @ lm_head.T, returned as fp32.  In fp32 that is
-        JAX's fp32 product; in bf16 the library's bf16 product (fp32 sums)
-        rounds the logits to bf16 once, where JAX keeps them fp32."""
-        return (hidden @ self.lm_head.T).float()
+        """hidden (..., D) @ lm_head.T in fp32, as JAX's
+        ``preferred_element_type=float32``: bf16 operands are exact in fp32,
+        so the product is theirs with fp32 sums and fp32 logits, never
+        rounded to bf16."""
+        return F.linear(hidden.float(), self.lm_head.float())
 
     # -- caches ------------------------------------------------------------
 

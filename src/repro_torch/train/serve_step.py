@@ -10,6 +10,7 @@ from repro_torch.models.transformer import Transformer, mask_pad_logits
 
 
 def make_prefill_step(model: Transformer, max_len: int):
+    @torch.no_grad()
     def prefill_step(batch: dict):
         last_hidden, cache = model.prefill(batch["tokens"], max_len,
                                            positions=batch.get("positions"))
@@ -22,6 +23,7 @@ def make_prefill_step(model: Transformer, max_len: int):
 def make_decode_step(model: Transformer, kv_len: int):
     """kv_len: the cache fill before this step (JAX compiles one step per
     value; here it is a plain argument)."""
+    @torch.no_grad()
     def decode_step(token: torch.Tensor, cache: dict):
         logits, cache = model.decode_step(token, cache, kv_len)
         return torch.argmax(logits, dim=-1), cache

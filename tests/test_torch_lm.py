@@ -8,7 +8,8 @@ The JAX flash path runs its Pallas kernel interpreted, as the JAX tests do;
 the port's runs the kernel's plain version (a CPU tensor).  End-to-end
 tolerances are relative to the tensor's max-abs (the random init lets the
 residual stream grow layer by layer): fp32 hidden and logits 1e-4, caches
-1e-5; bf16 hidden 3e-2.  Layer functions: fp32 1e-6 absolute (the same
+1e-5; bf16 hidden and decode logits 3e-2, and the bf16 LM head's fp32 logits
+1e-5 (JAX keeps them fp32 too).  Layer functions: fp32 1e-6 absolute (the same
 arithmetic), bf16 2e-2 relative.
 """
 import dataclasses
@@ -23,6 +24,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import layers as JL
 from repro.models.attention import attention as jax_attention
 from repro.models.attention import decode_attention as jax_decode_attention
+from repro.models import transformer as JT
 from repro.models.mlp import mlp_apply
 from repro.models.model_zoo import build as jax_build
 from repro.train.serve_step import greedy_generate as jax_greedy
@@ -119,7 +121,7 @@ def test_rms_norm_rope_and_mlp_match_jax(dt):
              "down": _rng.standard_normal((48, 32)).astype(np.float32) / 7}
         if gated:
             p["gate"] = _rng.standard_normal((32, 48)).astype(np.float32) / 6
-        mlp = MLP(32, 48, activation, gated, dtype=td)
+        mlp = MLP(32, 48, activation, gated, device="cpu", dtype=td)
         with torch.no_grad():
             for name, value in p.items():
                 getattr(mlp, name).copy_(torch.from_numpy(value))
@@ -239,6 +241,40 @@ def test_decode_and_greedy_tokens_match_jax(impl):
         tl, tc = model.decode_step(torch.as_tensor(jt[:, i]), tc, S + i)
         assert tl.dtype == torch.float32
         assert _rel(tl, jl) <= 1e-4, i
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_bf16_decode_logits_and_greedy_tokens_match_jax(impl):
+    jcfg, cfg = _cfgs(impl)
+    api = jax_build(jcfg)
+    params = api.init(jax.random.PRNGKey(0), jnp.bfloat16)
+    model = from_jax_params(cfg, jax.tree.map(np.asarray, params),
+                            device="cpu")
+    assert model.dtype == torch.bfloat16
+    batch = {"tokens": jnp.asarray(TOKENS)}
+    jt = np.array(jax_greedy(api, params, batch, steps=STEPS,
+                             max_len=MAX_LEN))
+    tt = greedy_generate(model, {"tokens": torch.as_tensor(TOKENS)},
+                         steps=STEPS, max_len=MAX_LEN)
+    np.testing.assert_array_equal(tt.numpy(), jt)
+    # The LM head keeps fp32 logits from bf16 operands, as JAX's
+    # preferred_element_type=float32: on the same hidden the two agree to
+    # fp32 summation order, far inside one bf16 rounding (2**-9).
+    hidden = _rng.standard_normal((B, cfg.d_model)).astype(np.float32)
+    hidden = torch.from_numpy(hidden).to(torch.bfloat16)
+    jl = JT.logits_from_hidden(params, jnp.asarray(
+        hidden.float().numpy(), jnp.bfloat16)[:, None])[:, 0]
+    with torch.no_grad():
+        tl = model.logits(hidden)
+    assert tl.dtype == torch.float32 and _rel(tl, jl) <= 1e-5
+    # Decode logits over STEPS steps, both fed JAX's greedy tokens.
+    _, jc = api.prefill(params, batch, MAX_LEN)
+    _, tc = model.prefill(torch.as_tensor(TOKENS), MAX_LEN)
+    for i in range(STEPS):
+        jl, jc = api.decode_step(params, jnp.asarray(jt[:, i]), jc, S + i)
+        tl, tc = model.decode_step(torch.as_tensor(jt[:, i]), tc, S + i)
+        assert tl.dtype == torch.float32
+        assert _rel(tl, jl) <= 3e-2, i
 
 
 def test_flash_and_xla_agree_in_the_port():
