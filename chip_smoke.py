@@ -20,7 +20,13 @@ solver):
     random weights from a seed): batched prefill through K7, once a layer,
     then greedy decode, as ``python -m repro_torch.launch.serve --arch
     qwen3-0.6b --batch 4 --prompt-len 2048 --tokens 32`` runs it
-    (phases 13-14).
+    (phases 13-14);
+  - its training path at the same width: bf16 train steps off fp32 masters
+    with layer groups under checkpoint, the chunked cross-entropy and
+    AdamW, attention through K7 (twice a layer: forward and recompute) and
+    the backward kernels K8/K9 (once a layer), as ``python -m
+    repro_torch.launch.train --arch qwen3-0.6b --global-batch 4 --seq-len
+    2048 --steps 5`` runs it (phases 17-18).
 
 Phases, one JSON line each:
 
@@ -82,7 +88,27 @@ Phases, one JSON line each:
  15. K6 and K7 timed by CUDA-graph replay at the serve shape beside their
      bound, their plain version and F.scaled_dot_product_attention (the
      library yardstick, timed here only; the port never calls it).
-The inventory line lists K1-K7.
+ 16. K8 (flash_bwd_dq) and K9 (flash_bwd_dkv) against their plain versions,
+     o and lse from K7: the cases of tests/_torch_flash_cases.py
+     (``FLASH_CASES``: those of phase 12 and the training shape) in fp32
+     and bf16, and ``ds_rounding``, built so that a K8 that does not round
+     ds to k's type misses by 16 times the bound; dq, dk, dv per element
+     within 2e-5 + 1e-5 * |plain| in fp32 and K6/K7's bf16 bound;
+ 17. the loss and gradients of an fp32 train step at full width, batch 2,
+     1000 tokens (ragged against every tile), attn_impl "flash" against
+     "xla" from the same weights and batch: loss within 1e-5 relative,
+     every parameter's grad within 1e-4 of its max-abs, K7 launched 56
+     times and K8/K9 28 each, and nothing on the xla step;
+ 18. the main path: ``launch.train.train`` in bf16, 4 x 2048 tokens, 5
+     steps (ms a step and tokens/s over steps 2-5, peak memory, per-step
+     loss and grad norm, all finite, K7/K8/K9 launched 56/28/28 times a
+     step), then one more step of a fresh model under torch.profiler:
+     device ms by kernel and the device's idle share;
+ 19. K8 and K9 timed by CUDA-graph replay at the training shape in bf16
+     beside their bounds, their plain versions and the backward of
+     F.scaled_dot_product_attention (the library yardstick, timed with
+     torch.autograd.grad; the port never calls it).
+The inventory line lists K1-K9.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -90,6 +116,7 @@ before printing any result.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -133,6 +160,11 @@ LM_SERVE = (4, 2048, 32)  # phase 14: the main path
 # relative to its max-abs.
 FLASH_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-3, 1.6e-2)}
 LSE_RTOL = 1e-5
+# K8/K9: dq, dk, dv per element (atol, rtol): fp32 K6/K7's 2e-5 plus 1e-5
+# relative (gradients reach 10 at the training shape); bf16 K6/K7's bound.
+FLASH_BWD_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 1.6e-2)}
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+LM_TRAIN = (4, 2048, 5)   # phase 18, the main path: batch, seq_len, steps
 DEVICE = "cuda"
 
 
@@ -917,6 +949,166 @@ def main() -> int:
           "fp32_bound_ms": lm_ops / PEAK_FP32_FLOPS * 1e3,
           "k7_TFLOPs": lm_ops / (k7_ms * 1e-3) / 1e12})
 
+    # -- 16. K8 and K9 against their plain versions ---------------------------
+    del qs_, ks_, vs_
+    torch.cuda.empty_cache()
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_flash_cases import FLASH_CASES, ds_rounding_case
+    from repro_torch.data.synthetic import DataConfig, token_batch
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_delta,
+        launch_bwd_dkv, launch_bwd_dq)
+    from repro_torch.launch.train import train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, value_and_grad)
+
+    def bwd_case(label, q, k, v, do, *, causal, kv_offset=0):
+        """K8 and K9 on one case (o and lse from K7), held element by
+        element to their plain versions."""
+        kw = dict(causal=causal, kv_offset=kv_offset)
+        o, lse = flash_fwd(q, k, v, **kw)
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, **kw)
+        sync()
+        delta = flash_delta(o, do)
+        record("flash_bwd_dq", q.dtype, dq,
+               flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw), label,
+               FLASH_BWD_TOL)
+        pdk, pdv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+        record("flash_bwd_dkv", q.dtype, dk, pdk, f"{label} dk",
+               FLASH_BWD_TOL)
+        record("flash_bwd_dkv", q.dtype, dv, pdv, f"{label} dv",
+               FLASH_BWD_TOL)
+
+    gb = torch.Generator(device=dev).manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (shape, causal, kv_offset) in FLASH_CASES.items():
+            B_, Sq_, Skv_, H_, KV_, hd_ = shape
+            q, k, v, do = (torch.randn(s_, generator=gb, device=dev).to(dtype)
+                           for s_ in ((B_, Sq_, H_, hd_), (B_, Skv_, KV_, hd_),
+                                      (B_, Skv_, KV_, hd_), (B_, Sq_, H_, hd_)))
+            bwd_case(label, q, k, v, do, causal=causal, kv_offset=kv_offset)
+    bwd_case("ds_rounding", *ds_rounding_case(dev), causal=False)
+    emit({"phase": 16, "cases": {n: cases[n] for n in BWD_KERNELS},
+          "max_abs_err": {n: worst[n] for n in BWD_KERNELS},
+          "max_err_over_bound": {n: ratio[n] for n in BWD_KERNELS},
+          "tol": FLASH_BWD_TOL})
+
+    # -- 17. an fp32 train step at full width: flash against xla ---------------
+    B17, S17 = LM_FP32[:2]
+    model17 = build(cfg_f, device=dev, dtype=torch.float32,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    state17 = init_train_state(model17)
+    batch17 = token_batch(DataConfig(cfg_f.vocab_size, S17, B17), 0,
+                          device=dev)
+    _build.LAUNCHES.clear()
+    loss_f, _, grads_f = value_and_grad(model17, state17["params"], batch17)
+    sync()
+    launches17 = dict(_build.LAUNCHES)
+    n_layers = cfg_f.n_layers
+    step_launches = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+                     "flash_bwd_dkv": n_layers}
+    check(launches17 == step_launches,
+          f"fp32 flash train step launched {launches17}")
+    model17x = Transformer(cfg_x, device=dev, dtype=torch.float32)
+    loss_x, _, grads_x = value_and_grad(model17x, state17["params"], batch17)
+    sync()
+    check(dict(_build.LAUNCHES) == launches17,
+          "the xla train step launched a kernel")
+    loss_rel = abs(float(loss_f) / float(loss_x) - 1)
+    grad_rel = {n: err(grads_f[n], g) / float(g.abs().max())
+                for n, g in grads_x.items()}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    check(loss_rel <= 1e-5 and bool(torch.isfinite(loss_f)),
+          f"fp32 train loss flash vs xla: {loss_rel} relative")
+    check(grad_rel[worst_grad] <= 1e-4,
+          f"fp32 grad {worst_grad} flash vs xla: {grad_rel[worst_grad]} "
+          f"of max-abs")
+    emit({"phase": 17, "arch": cfg_f.arch, "dtype": "float32",
+          "batch": B17, "seq_len": S17, "loss_flash": float(loss_f),
+          "loss_xla": float(loss_x), "loss_rel_err": loss_rel,
+          "max_grad_rel_err": grad_rel[worst_grad],
+          "worst_grad": worst_grad, "launches": launches17})
+    del model17, model17x, state17, grads_f, grads_x
+    torch.cuda.empty_cache()
+
+    # -- 18. the main path: bf16 training at full width -------------------------
+    B18, S18, T18 = LM_TRAIN
+    _build.LAUNCHES.clear()
+    trained = train(cfg_f, steps=T18, global_batch=B18, seq_len=S18,
+                    device=dev, seed=0)
+    launches18 = dict(_build.LAUNCHES)
+    steps18 = trained.pop("steps")
+    for rec in steps18:
+        check(rec["launches"] == step_launches,
+              f"bf16 train step {rec['step']} launched {rec['launches']}")
+        check(all(math.isfinite(rec[k]) for k in ("loss", "nll",
+                                                   "grad_norm")),
+              f"bf16 train step {rec['step']}: {rec}")
+    timed = steps18[1:]   # the first pays the build and allocator growth
+    ms18 = sum(r["ms"] for r in timed) / len(timed)
+    # Where the device time goes: one more step of a fresh model under the
+    # profiler, after one warm step (the profiler's own cost is in the wall).
+    model18 = build(cfg_f, device=dev, dtype=torch.float32,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    step18 = make_train_step(model18, AdamWConfig(lr=3e-4, total_steps=T18,
+                                                  warmup_steps=1))
+    state18 = init_train_state(model18)
+    batch18 = token_batch(DataConfig(cfg_f.vocab_size, S18, B18), 0,
+                          device=dev)
+    step18(state18, batch18)
+    prof18 = device_profile(lambda: step18(state18, batch18), top=16)
+    del model18, step18, state18
+    torch.cuda.empty_cache()
+    emit({"phase": 18, **trained, "steps": [
+        {k: r[k] for k in ("step", "loss", "nll", "grad_norm", "lr", "ms",
+                           "tokens_per_s", "launches")} for r in steps18],
+        "ms_per_step": ms18,
+        "tokens_per_s": B18 * S18 / (ms18 * 1e-3),
+        "launches_whole_run": launches18, "profile_step": prof18})
+
+    # -- 19. K8 and K9 timed at the training shape ------------------------------
+    q8, k8, v8, do8 = (torch.randn(s_, generator=gq, device=dev)
+                       .to(torch.bfloat16)
+                       for s_ in ((Bm, Sm, Hm, hdm), (Bm, Sm, KVm, hdm),
+                                  (Bm, Sm, KVm, hdm), (Bm, Sm, Hm, hdm)))
+    o8, lse8 = flash_fwd(q8, k8, v8, causal=True)
+    delta8 = flash_delta(o8, do8)
+    kw8 = dict(causal=True, kv_offset=0)
+    k8_ms = graph_ms(lambda: launch_bwd_dq(q8, k8, v8, do8, lse8, delta8,
+                                           **kw8), 5)
+    k9_ms = graph_ms(lambda: launch_bwd_dkv(q8, k8, v8, do8, lse8, delta8,
+                                            **kw8), 5)
+    k8_plain = time_ms(lambda: flash_bwd_dq_plain(q8, k8, v8, do8, lse8,
+                                                  delta8, causal=True), 3)
+    k9_plain = time_ms(lambda: flash_bwd_dkv_plain(q8, k8, v8, do8, lse8,
+                                                   delta8, causal=True), 3)
+    # The library yardstick, timed here only: the backward of SDPA on
+    # (B, H, S, hd) copies, dq, dk and dv together.
+    qs8, ks8, vs8 = (t_.transpose(1, 2).contiguous().requires_grad_()
+                     for t_ in (q8, k8, v8))
+    out8 = F.scaled_dot_product_attention(qs8, ks8, vs8, is_causal=True,
+                                          enable_gqa=True)
+    dout8 = do8.transpose(1, 2).contiguous()
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out8, (qs8, ks8, vs8), dout8, retain_graph=True), 5)
+    del qs8, ks8, vs8, out8, dout8
+    pairs = Bm * Hm * (Sm * (Sm + 1) // 2)
+    k8_ops, k9_ops = 6 * hdm * pairs, 8 * hdm * pairs
+    qkv_bytes = 2 * (2 * Bm * Sm * Hm * hdm + 2 * Bm * Sm * KVm * hdm)
+    stat_bytes = 2 * Bm * Hm * Sm * 4            # lse and delta
+    k8_bytes = qkv_bytes + stat_bytes + 2 * Bm * Sm * Hm * hdm
+    k9_bytes = qkv_bytes + stat_bytes + 2 * 2 * Bm * Sm * KVm * hdm
+    emit({"phase": 19, "shape": list(LM_SHAPE), "dtype": "bfloat16",
+          "k8_ms": k8_ms, "k9_ms": k9_ms, "k8_plain_ms": k8_plain,
+          "k9_plain_ms": k9_plain, "sdpa_bwd_ms": sdpa_bwd_ms,
+          "k8_bound_ms": max(k8_ops / PEAK_BF16_FLOPS,
+                             k8_bytes / PEAK_BYTES) * 1e3,
+          "k9_bound_ms": max(k9_ops / PEAK_BF16_FLOPS,
+                             k9_bytes / PEAK_BYTES) * 1e3,
+          "k8_TFLOPs": k8_ops / (k8_ms * 1e-3) / 1e12,
+          "k9_TFLOPs": k9_ops / (k9_ms * 1e-3) / 1e12})
+
     def entry(name, source, replaces, ms, plain_ms, nbytes, ops, lib_ms,
               extra, path_launches=launches, peak_flops=PEAK_FP32_FLOPS):
         tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak_flops * 1e3
@@ -984,9 +1176,30 @@ def main() -> int:
                "max_abs_err_bf16": worst["flash_fwd"]["bfloat16"],
                "lse_max_rel_err": lse_worst},
               launches7, PEAK_BF16_FLOPS),
+        entry("flash_bwd_dq", "src/repro_torch/csrc/flash_attention_bwd.cu",
+              "src/repro/kernels/flash_attention_bwd.py:223", k8_ms,
+              k8_plain, k8_bytes, k8_ops, sdpa_bwd_ms,
+              {"shape": list(LM_SHAPE), "dtype": "bfloat16",
+               "plain_timing": "eager",
+               "library": "backward of F.scaled_dot_product_attention "
+                          "(dq, dk and dv together)",
+               "max_abs_err_bf16": worst["flash_bwd_dq"]["bfloat16"]},
+              launches18, PEAK_BF16_FLOPS),
+        entry("flash_bwd_dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
+              "src/repro/kernels/flash_attention_bwd.py:249", k9_ms,
+              k9_plain, k9_bytes, k9_ops, sdpa_bwd_ms,
+              {"shape": list(LM_SHAPE), "dtype": "bfloat16",
+               "plain_timing": "eager",
+               "library": "backward of F.scaled_dot_product_attention "
+                          "(dq, dk and dv together)",
+               "max_abs_err_bf16": worst["flash_bwd_dkv"]["bfloat16"]},
+              launches18, PEAK_BF16_FLOPS),
     ]
+    kernels[-3]["train_launches"] = launches18.get("flash_fwd", 0)
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")
+    check(launches18 == {k: T18 * n for k, n in step_launches.items()},
+          f"the train path launched {launches18}")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels (Hopper, sm_90a): the stencil hot path (K1-K5)
-and the LM substrate's attention forward (K6/K7).
+and the LM substrate's attention forward (K6/K7) and backward (K8/K9).
 
 Layout per kernel: ``<name>.py`` holds the wrapper and its plain PyTorch
 version, ``csrc/<name>.cu`` the kernel, ``ops.py`` the iteration loop,
@@ -12,7 +12,8 @@ from repro_torch.kernels.dense_stencil import (dense_stencil_matmul,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_attention_bwd import (
-    flash_attention_trainable, flash_fwd, flash_fwd_plain)
+    flash_attention_trainable, flash_bwd, flash_bwd_plain, flash_fwd,
+    flash_fwd_plain)
 from repro_torch.kernels.jacobi_fused import (jacobi2d_fused_plain,
                                               jacobi2d_fused_step)
 from repro_torch.kernels.ops import dense_jacobi_kernel, jacobi2d, jacobi3d
@@ -26,6 +27,8 @@ __all__ = [
     "flash_attention",
     "flash_attention_plain",
     "flash_attention_trainable",
+    "flash_bwd",
+    "flash_bwd_plain",
     "flash_fwd",
     "flash_fwd_plain",
     "jacobi2d",

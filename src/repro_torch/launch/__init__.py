@@ -1,1 +1,1 @@
-"""Entry points of the LM substrate (``serve``)."""
+"""Entry points of the LM substrate (``serve``, ``train``)."""

@@ -1,0 +1,125 @@
+"""Training launcher: a few AdamW steps of the LM on one device — the port of
+the JAX package's ``launch/train.py`` (its checkpoint, restart and
+failure-injection options come with ``runtime/ft.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+        --global-batch 4 --seq-len 2048 --steps 5           # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+        --smoke --device cpu --steps 3
+
+The fp32 master weights are random, drawn from ``--seed`` with JAX's
+distributions; each step's batch is ``data.synthetic.token_batch`` (JAX's
+numbers); the forward and backward compute in bf16 with layer groups under
+checkpoint.  ``--attn-impl flash`` (the default) runs attention through the
+CUDA kernels: K7 forward (twice a layer, once more in the recompute) and
+K8/K9 backward; ``xla`` through plain PyTorch.  On the card each step is
+timed with CUDA events; on the CPU with the host clock, and the output says
+which.  The first step pays the kernel build and the allocator's growth.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import sys
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.plan import resolve_device
+from repro_torch.data.synthetic import DataConfig, token_batch
+from repro_torch.kernels import _build
+from repro_torch.launch.serve import _Clock
+from repro_torch.models.model_zoo import build
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.train_step import init_train_state, make_train_step
+
+
+def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
+          lr: float = 3e-4, device=None, seed: int = 0,
+          log_every: int = 0) -> dict:
+    """Run ``steps`` train steps from fp32 masters drawn from ``seed``;
+    returns one record a step (loss, nll, lr, grad_norm, ms, tokens/s and
+    the kernel launches of that step) and the peak device memory.  Prints a
+    line every ``log_every`` steps (0: never)."""
+    dev = resolve_device(device)
+    model = build(cfg, device=dev, dtype=torch.float32,
+                  generator=torch.Generator(device=dev).manual_seed(seed))
+    opt = AdamWConfig(lr=lr, total_steps=steps,
+                      warmup_steps=max(1, steps // 10))
+    train_step = make_train_step(model, opt)
+    state = init_train_state(model)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                      global_batch=global_batch)
+    clock = _Clock(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    records = []
+    for i in range(steps):
+        batch = token_batch(data, i, device=dev)
+        before = collections.Counter(_build.LAUNCHES)
+        t0 = clock.start()
+        state, metrics = train_step(state, batch)
+        ms = clock.ms_since(t0)
+        rec = {"step": int(state["step"]), "ms": ms,
+               "tokens_per_s": global_batch * seq_len / (ms * 1e-3),
+               **{k: float(v) for k, v in metrics.items()},
+               "launches": dict(_build.LAUNCHES - before)}
+        records.append(rec)
+        if log_every and rec["step"] % log_every == 0:
+            print(f"step {rec['step']:5d} loss={rec['loss']:.4f} "
+                  f"nll={rec['nll']:.4f} lr={rec['lr']:.2e} "
+                  f"gnorm={rec['grad_norm']:.3f} {ms:.1f}ms "
+                  f"{rec['tokens_per_s']:.0f} tok/s", flush=True)
+    result = {
+        "arch": cfg.arch, "attn_impl": cfg.attn_impl,
+        "global_batch": global_batch, "seq_len": seq_len,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "clock": "cuda events" if dev.type == "cuda" else "host",
+        "steps": records,
+    }
+    if dev.type == "cuda":
+        result["peak_memory_GB"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--attn-impl", choices=("xla", "flash"), default="flash")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=1)
+    args = ap.parse_args(argv)
+
+    cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
+                              attn_impl=args.attn_impl)
+    print(f"{cfg.arch}: {args.global_batch}x{args.seq_len} tokens a step, "
+          f"attn_impl={cfg.attn_impl}", flush=True)
+    r = train(cfg, steps=args.steps, global_batch=args.global_batch,
+              seq_len=args.seq_len, lr=args.lr, device=args.device,
+              seed=args.seed, log_every=args.log_every)
+    total = collections.Counter()
+    for rec in r["steps"]:
+        total.update(rec["launches"])
+    print(f"on {r['device']} (timed by {r['clock']})")
+    if "peak_memory_GB" in r:
+        print(f"peak device memory {r['peak_memory_GB']:.3f} GB")
+    print(f"kernel launches {dict(total)}")
+    losses = [rec["loss"] for rec in r["steps"]]
+    if losses:
+        print(f"done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

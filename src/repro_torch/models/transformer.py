@@ -1,12 +1,13 @@
 """Decoder-only transformer, dense family — the port of the JAX package's
 ``models/transformer.py`` for ``family == "dense"``.
 
-Modes, as in JAX: train-mode ``forward`` (full-sequence causal, no cache),
-``prefill`` (full sequence, returns the KV cache padded to ``max_len``) and
-``decode_step`` (one token against the cache).  ``cfg.attn_impl`` picks the
-prefill attention: ``"flash"`` runs the CUDA kernel K7
-(``kernels/flash_attention_bwd.flash_attention_trainable``, blocks 512 x
-512, as ``transformer.py:168``), ``"xla"`` the plain PyTorch
+Modes, as in JAX: train-mode ``forward`` (full-sequence causal, no cache,
+layer groups under checkpoint), ``prefill`` (full sequence, returns the KV
+cache padded to ``max_len``) and ``decode_step`` (one token against the
+cache).  ``cfg.attn_impl`` picks the full-sequence attention: ``"flash"``
+runs the CUDA kernels (``kernels/flash_attention_bwd.
+flash_attention_trainable``, blocks 512 x 512, as ``transformer.py:168``:
+K7 forward, K8/K9 backward), ``"xla"`` the plain PyTorch
 ``models/attention.attention``.  The port runs on one device and has no
 sharder, so the field alone picks the path.  Decode attention is
 ``decode_attention`` on both (JAX runs no Pallas kernel there).
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
@@ -232,13 +234,32 @@ class Transformer(nn.Module):
         B, S = tokens.shape
         return torch.arange(S, device=tokens.device).expand(B, S)
 
-    def forward(self, tokens: torch.Tensor, positions=None):
-        """Train-mode forward: (final hidden (B, S, D), aux loss 0)."""
+    def _run_layers(self, x: torch.Tensor, positions: torch.Tensor,
+                    start: int, stop: int) -> torch.Tensor:
+        for layer in self.layers[start:stop]:
+            x, _ = layer(x, positions)
+        return x
+
+    def forward(self, tokens: torch.Tensor, positions=None, *,
+                remat: bool = True):
+        """Train-mode forward: (final hidden (B, S, D), aux loss 0).
+
+        With ``remat`` each group of ``cfg.remat_group`` layers (1 where the
+        group does not divide ``n_layers``, as JAX's ``_run_layers``) runs
+        under ``torch.utils.checkpoint``: the backward keeps one residual a
+        group and runs the group's forward again, flash kernel included.
+        """
         x = self._embed(tokens)
         if positions is None:
             positions = self._default_positions(tokens)
-        for layer in self.layers:
-            x, _ = layer(x, positions)
+        n, g = len(self.layers), self.cfg.remat_group
+        if not remat:
+            x = self._run_layers(x, positions, 0, n)
+        else:
+            g = g if g > 1 and n % g == 0 else 1
+            for start in range(0, n, g):
+                x = checkpoint(self._run_layers, x, positions, start,
+                               start + g, use_reentrant=False)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return x, torch.zeros((), device=x.device)
 

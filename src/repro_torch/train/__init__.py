@@ -1,2 +1,2 @@
-"""Serving steps of the LM substrate (``serve_step``); the training steps
-come with the training slice."""
+"""Serving (``serve_step``) and training (``train_step``, ``loss``) steps of
+the LM substrate."""

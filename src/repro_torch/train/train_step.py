@@ -1,0 +1,90 @@
+"""The training step — the port of the JAX package's ``train/train_step.py``
+on one device with no sharder: bf16 compute off fp32 master params, the
+chunked cross-entropy, the AdamW update.
+
+JAX differentiates ``loss_fn`` through ``cast_tree`` (fp32 master -> bf16
+compute copy), so each gradient is the compute-type gradient cast to fp32.
+The port does the same in two halves: a module in the compute type (the
+"compute model") is loaded from the masters at the start of each step, and
+the gradients of its parameters, in the compute type, go to
+``optim.adamw.apply_update``, which casts each to fp32 as JAX's update does.
+``torch.func.functional_call`` with the bf16 copies as its parameters would
+be closer to JAX's form, but the layer checkpoints recompute their forward
+in the backward, after ``functional_call`` has put the module's own
+parameters back, and would silently differentiate those.
+
+Where the compute type is the masters' (fp32 compute), the compute model is
+the master model itself and nothing is copied.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.transformer import Transformer
+from repro_torch.optim.adamw import AdamWConfig, apply_update, init_state
+from repro_torch.train.loss import chunked_xent
+
+MOE_AUX_WEIGHT = 0.01
+
+
+def loss_fn(model: Transformer, batch: dict, *, remat: bool = True):
+    """(loss, {"nll", "aux"}) of ``batch`` ({tokens, labels}) under the
+    model's own parameters, in its type."""
+    hidden, aux = model(batch["tokens"], batch.get("positions"), remat=remat)
+    nll = chunked_xent(model.lm_head, hidden, batch["labels"],
+                       valid_vocab=model.cfg.vocab_size)
+    return nll + MOE_AUX_WEIGHT * aux, {"nll": nll, "aux": aux}
+
+
+def compute_model(model: Transformer,
+                  compute_dtype: torch.dtype) -> Transformer:
+    """``model`` itself if it is in ``compute_dtype``, else an empty module
+    of its config in that type on its device."""
+    if model.dtype == compute_dtype:
+        return model
+    return Transformer(model.cfg, device=model.device, dtype=compute_dtype)
+
+
+@torch.no_grad()
+def load_params(compute: Transformer, params: dict) -> None:
+    """Copy the named fp32 masters into the compute model, cast to its type
+    (JAX's ``cast_tree``)."""
+    for name, p in compute.named_parameters():
+        src = params[name]
+        if p.data_ptr() != src.data_ptr():
+            p.copy_(src)
+
+
+def value_and_grad(compute: Transformer, params: dict, batch: dict):
+    """(loss, {"nll", "aux"}, {name: grad in the compute type}) of the
+    masters ``params`` on ``batch``, through ``compute``."""
+    load_params(compute, params)
+    names, leaves = zip(*compute.named_parameters())
+    loss, parts = loss_fn(compute, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), {k: t.detach() for k, t in parts.items()},
+            dict(zip(names, grads)))
+
+
+def make_train_step(model: Transformer, opt: AdamWConfig,
+                    compute_dtype: torch.dtype = torch.bfloat16):
+    """train_step(state, batch) -> (state, metrics {loss, nll, aux,
+    grad_norm, lr}) for the masters of ``model``'s config; the state is
+    updated in place (``apply_update``)."""
+    compute = compute_model(model, compute_dtype)
+
+    def train_step(state: dict, batch: dict):
+        loss, parts, grads = value_and_grad(compute, state["params"], batch)
+        state, opt_metrics = apply_update(state, grads, opt)
+        return state, {"loss": loss, **parts, **opt_metrics}
+
+    return train_step
+
+
+def init_train_state(model: Transformer) -> dict:
+    """The train state of an fp32 master model (``model_zoo.build(cfg,
+    dtype=torch.float32)``): its parameters, shared, and fp32 zeros for m
+    and v; the step updates the model in place."""
+    if model.dtype != torch.float32:
+        raise ValueError(f"the masters must be float32, got {model.dtype}")
+    return init_state({n: p.detach() for n, p in model.named_parameters()})

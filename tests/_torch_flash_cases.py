@@ -1,10 +1,25 @@
-"""Inputs shared by the flash-attention tests of the port (no JAX here)."""
+"""Inputs shared by the flash-attention tests of the port and by
+``chip_smoke.py``'s phase 16 (no JAX here)."""
 import torch
 
 # bf16 out per element: |out - plain| <= atol + rtol * |plain|.  Two bf16
 # ulps (2**-7 relative each) plus 2e-3 for elements near 0, where tiles of
 # other sizes round p against other running maxima.
 BF16_ATOL, BF16_RTOL = 2e-3, 1.6e-2
+
+# name -> ((B, Sq, Skv, H, KV, hd), causal, kv_offset): MHA, GQA 2:1 on a
+# ragged 96, MQA, non-causal, cross lengths with kv_offset=128, every head
+# dim the kernels take, and the serve and training shape.
+FLASH_CASES = {
+    "mha": ((1, 128, 128, 2, 2, 32), True, 0),
+    "gqa_ragged_96": ((2, 96, 96, 4, 2, 16), True, 0),
+    "mqa": ((1, 256, 256, 8, 1, 32), True, 0),
+    "non_causal": ((1, 64, 64, 2, 2, 16), False, 0),
+    "cross_kv_offset_128": ((1, 32, 160, 2, 2, 16), True, 128),
+    **{f"hd{hd}": ((2, 200, 200, 4, 2, hd), True, 0)
+       for hd in (16, 32, 64, 128)},
+    "serve_shape": ((4, 2048, 2048, 16, 8, 128), True, 0),
+}
 
 
 def p_rounding_case(device="cpu"):
@@ -21,3 +36,24 @@ def p_rounding_case(device="cpu"):
     v = torch.full((1, 1024, 1, 16), 8.0, device=device)
     v[:, 0] = -4800.0
     return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+def ds_rounding_case(device="cpu"):
+    """bf16 q, do (1, 64, 2, 16) and k, v (1, 1024, 1, 16), for a non-causal
+    call, on which rounding ds to k's type before ds . k matters (K8): key 0
+    scores 0 and keys 1-1023 score 1.5 * -1 / 4; v is 49152 on key 0 and 0
+    elsewhere in column 0, which do reads alone, so ds_0 = 17.5 and the 1023
+    other ds are equal and negative, and the row of ds sums to 0 (a softmax
+    gradient).  Column 1 of k is 1 on every key, so dq[..., 1] is that sum:
+    -0.108 after the 1024 roundings to bf16, about -0.048 (what delta's own
+    rounding leaves) without them, 16 times the bf16 bound apart."""
+    q = torch.zeros(1, 64, 2, 16, device=device)
+    q[..., 0] = 1.5
+    k = torch.zeros(1, 1024, 1, 16, device=device)
+    k[:, 1:, :, 0] = -1.0
+    k[..., 1] = 1.0
+    v = torch.zeros(1, 1024, 1, 16, device=device)
+    v[:, 0, :, 0] = 49152.0
+    do = torch.zeros(1, 64, 2, 16, device=device)
+    do[..., 0] = 1.0
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v, do))

@@ -17,7 +17,9 @@ out 2e-5 absolute in fp32 (JAX's own bound) and, per element, 2e-3 + 1.6e-2
 * |plain| in bf16 (two bf16 ulps; the kernel's 64-key tiles round p against
 other running maxima than the plain version's blocks), lse 1e-5 of its
 max-abs.  Three faults planted in the kernel's source, each built on its
-own, must fail that bf16 bound.
+own, must fail that bf16 bound.  K8/K9 (the flash backward) are held per
+element to 2e-5 + 1e-5 * |plain| in fp32 and to the same bf16 bound as
+K6/K7, and three faults planted in their source must fail it too.
 """
 import ctypes
 import dataclasses
@@ -39,7 +41,12 @@ from repro_torch.kernels import (_build, dense_jacobi_kernel,
                                  jacobi2d, jacobi2d_fused_plain,
                                  jacobi2d_fused_step, stencil2d,
                                  stencil2d_plain, stencil3d, stencil3d_plain)
-from _torch_flash_cases import BF16_ATOL, BF16_RTOL, p_rounding_case
+from repro_torch.kernels.flash_attention_bwd import (flash_bwd,
+                                                     flash_bwd_plain)
+from repro_torch.data.synthetic import DataConfig, token_batch
+from repro_torch.train.train_step import init_train_state, value_and_grad
+from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, FLASH_CASES,
+                                ds_rounding_case, p_rounding_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -272,16 +279,6 @@ def test_batches_past_65535_equal_the_plain_versions(cuda, kernel):
 # (atol, rtol) per element.
 FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (BF16_ATOL,
                                                           BF16_RTOL)}
-FLASH_CASES = {
-    "mha": ((1, 128, 128, 2, 2, 32), True, 0),
-    "gqa_ragged_96": ((2, 96, 96, 4, 2, 16), True, 0),
-    "mqa": ((1, 256, 256, 8, 1, 32), True, 0),
-    "non_causal": ((1, 64, 64, 2, 2, 16), False, 0),
-    "cross_kv_offset_128": ((1, 32, 160, 2, 2, 16), True, 128),
-    **{f"hd{hd}": ((2, 200, 200, 4, 2, hd), True, 0)
-       for hd in (16, 32, 64, 128)},
-    "serve_shape": ((4, 2048, 2048, 16, 8, 128), True, 0),
-}
 
 
 def _flash_inputs(case, dtype, device):
@@ -400,3 +397,130 @@ def test_smoke_serve_launches_k7_in_prefill_only(cuda):
     assert not r["decode_launches"] and r["generated"].shape == (2, 4)
     assert r["clock"] == "cuda events" and r["prefill_ms"] > 0
     assert r["decode_ms_per_token"] > 0 and r["peak_memory_GB"] > 0
+
+
+# --- K8/K9: the flash-attention backward ---------------------------------------
+
+# (atol, rtol) per element.
+FLASH_BWD_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (BF16_ATOL,
+                                                               BF16_RTOL)}
+
+
+def _bwd_inputs(case, dtype, device):
+    """(q, k, v, do, call keywords) of a FLASH_CASES case, or of
+    ``ds_rounding_case`` (bf16 only); o and lse come from K7."""
+    if case == "ds_rounding":
+        return (*ds_rounding_case(device), dict(causal=False))
+    q, k, v, kw = _flash_inputs(case, dtype, device)
+    g = torch.Generator(device=device).manual_seed(q.shape[1] + 1)
+    return q, k, v, torch.randn(q.shape, generator=g, device=device).to(
+        dtype), kw
+
+
+def _bwd_ratios(case, dtype, device):
+    """max |kernel - plain| / (atol + rtol * |plain|) for dq, dk, dv."""
+    q, k, v, do, kw = _bwd_inputs(case, dtype, device)
+    o, lse = flash_fwd(q, k, v, **kw)
+    got = flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    ref = flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    atol, rtol = FLASH_BWD_TOL[dtype]
+    for a, b, x in zip(got, ref, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape
+    return [float(((a.float() - b.float()).abs()
+                   / (atol + rtol * b.float().abs())).max())
+            for a, b in zip(got, ref)]
+
+
+@pytest.mark.parametrize("case,dtype", [
+    *((c, d) for d in (torch.float32, torch.bfloat16) for c in FLASH_CASES),
+    ("ds_rounding", torch.bfloat16)])
+def test_flash_backward_kernels_match_plain(cuda, case, dtype):
+    n8, n9 = (_build.LAUNCHES["flash_bwd_dq"],
+              _build.LAUNCHES["flash_bwd_dkv"])
+    ratios = _bwd_ratios(case, dtype, cuda)
+    assert (_build.LAUNCHES["flash_bwd_dq"],
+            _build.LAUNCHES["flash_bwd_dkv"]) == (n8 + 1, n9 + 1)
+    print(f"{case} {dtype}: dq, dk, dv error / bound {ratios}")
+    assert max(ratios) <= 1, ratios
+
+
+def test_flash_backward_is_deterministic(cuda):
+    """K9 folds the GQA group without atomics: a rerun is bit-equal."""
+    q, k, v, do, kw = _bwd_inputs("gqa_ragged_96", torch.bfloat16, cuda)
+    o, lse = flash_fwd(q, k, v, **kw)
+    first = flash_bwd(q, k, v, o, lse, do, **kw)
+    for a, b in zip(first, flash_bwd(q, k, v, o, lse, do, **kw)):
+        assert torch.equal(a, b)
+
+
+# One edit of csrc/flash_attention_bwd.cu each: (text, replacement).
+PLANTED_BWD_FAULTS = {
+    "ds_not_rounded_in_dq": ("round_to<T>(ds)", "ds"),
+    "group_reset_per_head": ("for (int g = 0; g < G; ++g) {",
+                             "for (int g = 0; g < G; ++g) {\n"
+                             "    zero_acc<HD>(dk_acc, dv_acc);"),
+    "last_q_tile_dropped": ("tq < n_q; ++tq", "tq < n_q - 1; ++tq"),
+}
+
+
+@pytest.mark.parametrize("fault", list(PLANTED_BWD_FAULTS))
+def test_flash_bwd_bf16_bound_rejects_planted_faults(cuda, fault, tmp_path,
+                                                     monkeypatch):
+    """Build K8/K9 with one fault planted, run them on the bf16 cases in
+    place of the real ones, and require some case to fail the bound.
+    Prints each case's largest error / bound over dq, dk, dv."""
+    old, new = PLANTED_BWD_FAULTS[fault]
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    cu = src / "flash_attention_bwd.cu"
+    text = cu.read_text()
+    assert text.count(old) == 1
+    cu.write_text(text.replace(old, new))
+    so = tmp_path / "libflash_attention_bwd.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(cu)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    monkeypatch.setitem(_build._libraries, "flash_attention_bwd", lib)
+    ratios = {case: max(_bwd_ratios(case, torch.bfloat16, cuda))
+              for case in (*FLASH_CASES, "ds_rounding")}
+    print(f"planted fault {fault}: {ratios}")
+    assert max(ratios.values()) > 1, ratios
+
+
+def test_flash_bwd_raises_rather_than_fall_back(cuda):
+    q = torch.zeros(1, 8, 2, 48, device=cuda)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_bwd(q, q, q, q, lse, q)
+    q = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_bwd(q, q, q, q, lse, q.transpose(1, 2).contiguous()
+                  .transpose(1, 2))
+
+
+def test_smoke_train_step_launches_k7_k8_k9(cuda):
+    """The fp32 loss and grads of one train step of the smoke config: K7
+    twice a layer (the forward and the remat recompute), K8 and K9 once,
+    and the plain-attention step's numbers."""
+    cfg = dataclasses.replace(SMOKE_FLASH, remat_group=2)
+    model = build(cfg, device=cuda, dtype=torch.float32)
+    plain = Transformer(dataclasses.replace(cfg, attn_impl="xla"),
+                        device=cuda)
+    params = init_train_state(model)["params"]
+    batch = token_batch(DataConfig(cfg.vocab_size, 70, 2), 0, device=cuda)
+    _build.LAUNCHES.clear()
+    loss, _, grads = value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert dict(_build.LAUNCHES) == {"flash_fwd": 2 * n, "flash_bwd_dq": n,
+                                     "flash_bwd_dkv": n}
+    loss_x, _, grads_x = value_and_grad(plain, params, batch)
+    assert dict(_build.LAUNCHES) == {"flash_fwd": 2 * n, "flash_bwd_dq": n,
+                                     "flash_bwd_dkv": n}
+    assert abs(float(loss) / float(loss_x) - 1) <= 1e-5
+    for name, g in grads_x.items():
+        assert float((grads[name] - g).abs().max()) <= 1e-4 * float(
+            g.abs().max()), name

@@ -1,18 +1,24 @@
-"""The port's flash-attention forward, K6 (``flash_attention``) and K7
-(``flash_fwd``, which also returns the row logsumexp), against the JAX
-package's Pallas kernels run interpreted on the CPU, on the shapes of
-tests/test_flash_attention.py.
+"""The port's flash attention against the JAX package's Pallas kernels run
+interpreted on the CPU, on the shapes of tests/test_flash_attention.py: the
+forward, K6 (``flash_attention``) and K7 (``flash_fwd``, which also returns
+the row logsumexp), and the backward, K8/K9 (``flash_bwd``) through
+``flash_attention_trainable``'s autograd Function against JAX's
+``custom_vjp``.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (the TPU
-kernels' online softmax over their own blocks), so these hold the plain
-versions against the TPU kernels; test_torch_cuda.py holds the CUDA kernel
+kernels' arithmetic over their own blocks), so these hold the plain
+versions against the TPU kernels; test_torch_cuda.py holds the CUDA kernels
 against the plain versions on the card.
 
 Tolerances: out 2e-5 absolute in fp32 (JAX's own bound,
 tests/test_flash_attention.py:31) and, per element, 2e-3 + 1.6e-2 * |ref|
 in bf16 (two bf16 ulps; JAX's own 3e-2 absolute is as large as the output
-of a row that sees a thousand keys); lse 1e-5 relative.
+of a row that sees a thousand keys); lse 1e-5 relative.  Gradients: each of
+dq, dk, dv within 1e-5 of its max-abs in fp32 (the same arithmetic in
+another summation order reads under 1e-6), and per element within the bf16
+bound above in bf16 (dq and dk read bit-equal, dv under 0.01 of the bound).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,11 +26,17 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention_bwd import _fwd_rule
+from repro.kernels.flash_attention_bwd import \
+    flash_attention_trainable as jax_trainable
 from repro.models.attention import attention as jax_attention
 from repro_torch.kernels import (_build, flash_attention,
                                  flash_attention_trainable, flash_fwd)
+from repro_torch.kernels.flash_attention_bwd import (flash_bwd,
+                                                     flash_bwd_dq_plain,
+                                                     flash_delta)
 from repro_torch.models.attention import attention
-from _torch_flash_cases import BF16_ATOL, BF16_RTOL, p_rounding_case
+from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, ds_rounding_case,
+                                p_rounding_case)
 
 TOL = {"f32": (2e-5, 0.0), "bf16": (BF16_ATOL, BF16_RTOL)}  # (atol, rtol)
 LSE_RTOL = 1e-5
@@ -160,13 +172,118 @@ def test_bf16_rounds_p_to_v_type():
 
 
 def test_trainable_raises_rather_than_return_a_wrong_gradient():
+    """Under autograd the op returns attention's gradients (through the
+    plain K8/K9 on the CPU) and refuses operands the kernels do not take,
+    before computing anything."""
     q, k, v = (torch.from_numpy(a) for a in _mk(1, 16, 16, 2, 2, 16))
     with torch.no_grad():
         out = flash_attention_trainable(q.requires_grad_(), k, v, True, 512,
                                         512, 0)
     assert out.shape == q.shape
-    with pytest.raises(NotImplementedError, match="K8/K9"):
-        flash_attention_trainable(q, k, v, True, 512, 512, 0)
+    k.requires_grad_()
+    v.requires_grad_()
+    grads = torch.autograd.grad(
+        flash_attention_trainable(q, k, v, True, 512, 512, 0).sum(),
+        (q, k, v))
+    refs = torch.autograd.grad(
+        attention(q, k, v, causal=True, q_chunk=16).sum(), (q, k, v))
+    for g, r in zip(grads, refs):
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_attention_trainable(q.half(), k.half(), v.half())
+
+
+# -- the backward (K8/K9) ------------------------------------------------------
+
+# (B, Sq, Skv, H, KV, hd), causal, kv_offset: TestFlashBackward's MHA, GQA
+# and MQA, its non-causal case, a ragged Sq/Skv, and cross lengths.
+BWD_CASES = {
+    "mha": ((1, 128, 128, 2, 2, 32), True, 0),
+    "gqa": ((2, 96, 96, 4, 2, 16), True, 0),
+    "mqa": ((1, 64, 64, 4, 1, 16), True, 0),
+    "non_causal": ((1, 64, 64, 2, 2, 16), False, 0),
+    "ragged_100x70": ((1, 100, 70, 2, 1, 16), True, 0),
+    "cross_kv_offset_128": ((1, 32, 160, 2, 2, 16), True, 128),
+}
+
+
+def _port_grads(arrays, do, dt, causal, bq, bk, kv_offset):
+    """(dq, dk, dv) of sum(out * do) through the port's autograd Function."""
+    qkv = [torch.from_numpy(a).to(DT[dt][1]).requires_grad_() for a in arrays]
+    out = flash_attention_trainable(*qkv, causal, bq, bk, kv_offset)
+    return torch.autograd.grad(out, qkv, torch.from_numpy(do).to(DT[dt][1]))
+
+
+def _jax_grads(arrays, do, dt, causal, bq, bk, kv_offset):
+    """The same through JAX's custom_vjp (Pallas interpreted)."""
+    f = lambda q, k, v: jnp.sum(jax_trainable(
+        q, k, v, causal, bq, bk, kv_offset).astype(jnp.float32) * do)
+    return jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a, DT[dt][0])
+                                            for a in arrays))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("blocks", [(32, 128), (512, 512)])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_backward_matches_the_tpu_kernels(case, blocks, dt):
+    shape, causal, kv_offset = BWD_CASES[case]
+    arrays = _mk(*shape)
+    do = _rng.standard_normal(arrays[0].shape).astype(np.float32)
+    kw = dict(causal=causal, bq=blocks[0], bk=blocks[1], kv_offset=kv_offset)
+    before = dict(_build.LAUNCHES)
+    ours = _port_grads(arrays, do, dt, **kw)
+    assert dict(_build.LAUNCHES) == before   # the CPU runs no kernel
+    ref = _jax_grads(arrays, do, dt, **kw)
+    for name, a, b, want in zip("qkv", ours, ref, arrays):
+        assert a.dtype == DT[dt][1] and a.shape == want.shape, name
+        a, b = _f32(a), _f32(b)
+        if dt == "f32":
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), name
+        else:
+            np.testing.assert_allclose(a, b, rtol=BF16_RTOL, atol=BF16_ATOL,
+                                       err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", ["mha", "gqa", "ragged_100x70"])
+def test_backward_matches_attention_autograd(case):
+    """The same gradients as autograd through the plain ``attention``."""
+    shape, causal, _ = BWD_CASES[case]
+    arrays = _mk(*shape)
+    do = torch.from_numpy(
+        _rng.standard_normal(arrays[0].shape).astype(np.float32))
+    qkv = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    ours = torch.autograd.grad(flash_attention_trainable(*qkv, causal), qkv,
+                               do)
+    ref = torch.autograd.grad(attention(*qkv, causal=causal,
+                                        q_chunk=shape[1]), qkv, do)
+    for a, b in zip(ours, ref):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_bf16_rounds_ds_to_k_type():
+    """JAX rounds ds to k's type before ds . k (flash_attention_bwd.py:150);
+    on ``ds_rounding_case`` that moves dq[..., 1] from about -0.048 to
+    -0.108, so a dq that skips the rounding fails the bf16 bound there."""
+    q, k, v, do = ds_rounding_case()
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (q, k, v))
+    jdq = jax.grad(lambda q: jnp.sum(jax_trainable(
+        q, jk, jv, False, 512, 512, 0).astype(jnp.float32)
+        * jnp.asarray(do.float().numpy())))(jq)
+    out, lse = flash_fwd(q, k, v, causal=False)
+    dq = flash_bwd(q, k, v, out, lse, do, causal=False)[0]
+    np.testing.assert_allclose(_f32(dq), _f32(jdq), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    ref = _f32(jdq)
+    np.testing.assert_allclose(ref[..., 1], -0.108, rtol=0, atol=2e-3)
+    # The same numbers with ds kept in fp32, as a dq that skips the rounding
+    # computes them.
+    unrounded = flash_bwd_dq_plain(
+        q.float(), k.float(), v.float(), do.float(), lse,
+        flash_delta(out, do), causal=False).to(torch.bfloat16)
+    miss = np.abs(_f32(unrounded) - ref) / (BF16_ATOL + BF16_RTOL
+                                             * np.abs(ref))
+    assert miss.max() > 10
 
 
 def test_wrappers_reject_what_the_kernel_cannot_run():

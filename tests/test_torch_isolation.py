@@ -28,8 +28,8 @@ def _imported_modules(path):
 
 def test_no_jax_or_repro_import_anywhere_in_the_port():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
-             if f.endswith(".py")]
-    assert len(files) >= 30, files
+             if f.endswith((".py", ".cu"))]
+    assert len(files) >= 40, files
     for module in ("kernels/stencil3d.py", "kernels/dense_stencil.py",
                    "kernels/flash_attention.py",
                    "kernels/flash_attention_bwd.py", "configs/base.py",
@@ -37,10 +37,12 @@ def test_no_jax_or_repro_import_anywhere_in_the_port():
                    "models/attention.py", "models/mlp.py",
                    "models/transformer.py", "models/model_zoo.py",
                    "models/convert.py", "train/serve_step.py",
-                   "launch/serve.py"):
+                   "launch/serve.py", "train/loss.py", "train/train_step.py",
+                   "optim/adamw.py", "data/synthetic.py", "launch/train.py",
+                   "csrc/flash_attention_bwd.cu"):
         assert os.path.join(PKG, *module.split("/")) in files, module
     bad = []
-    for path in files:
+    for path in (f for f in files if f.endswith(".py")):
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             if top in ("jax", "jaxlib", "repro"):
@@ -81,6 +83,10 @@ def test_port_imports_and_solves_with_jax_blocked():
         toks = greedy_generate(model, dict(tokens=prompts), steps=3,
                                max_len=12)
         assert toks.shape == (2, 3)
+        from repro_torch.launch.train import train
+        tr = train(get_config("qwen3-0.6b", smoke=True), steps=1,
+                   global_batch=2, seq_len=8, device="cpu")
+        assert tr["steps"][0]["loss"] > 0
         assert "jax" not in [m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None]
         print(r.converged, r.iterations)

@@ -294,9 +294,15 @@ def test_flash_and_xla_agree_in_the_port():
         hidden, aux = mf(tokens)
     assert hidden.shape == (B, S, cfg_f.d_model) and float(aux) == 0.0
     assert _rel(hidden[:, -1], hf) <= 1e-5
-    # With autograd on, the flash path has no backward yet and says so.
-    with pytest.raises(NotImplementedError, match="K8/K9"):
-        mf(tokens)
+    # With autograd on, the flash path's gradients (K8/K9's plain versions
+    # here) are the plain attention's.
+    used = lambda m: [p for n, p in m.named_parameters() if n != "lm_head"]
+    r = torch.from_numpy(_rng.standard_normal(hidden.shape)
+                         .astype(np.float32))
+    gf = torch.autograd.grad((mf(tokens)[0] * r).sum(), used(mf))
+    gx = torch.autograd.grad((mx(tokens)[0] * r).sum(), used(mx))
+    for a, b in zip(gf, gx):
+        assert _rel(a, b) <= 1e-4
 
 
 def test_serve_cli_on_the_cpu(capsys):
