@@ -34,8 +34,11 @@ Phases, one JSON line each:
      CUDA versions, then every ``csrc/*.cu`` compiled with nvcc;
   2. each kernel against its plain PyTorch version on the card (K1
      stencil2d, K2 trapezoid, K3 resident, K4 stencil3d: fp32 within 1e-5
-     and bf16 within 2e-2 absolute; K5 dense_stencil_matmul, a GEMM whose
-     sums run in another order than its plain version's library product:
+     and bf16 within 2e-2 absolute; past the kernels' former limits, the
+     49-tap 2D and 343-tap 3D radius-3 boxes through K1, K2 and K4 and K2
+     at fuse 64 at radius 1 and 2, fp32 to 0.0; K5 dense_stencil_matmul,
+     a GEMM whose sums run in another order than its plain version's
+     library product:
      each element within 1e-4 + 1e-4 * |plain| in fp32, 2e-2 + 1e-2 *
      |plain| in bf16, about one bf16 ulp plus the summation order);
   3. the Table-1 solve through cuda_fused, cuda, conv and reference (7960
@@ -66,14 +69,16 @@ Phases, one JSON line each:
      bounds, their plain versions, and F.conv3d, the channels-trick
      F.conv2d and torch.matmul (TF32 off); K5 also held against its plain
      version at the dense path's shape;
- 12. K6 (flash_attention) and K7 (flash_fwd) against their plain versions:
-     MHA, GQA 2:1 on a ragged 96, MQA, non-causal, cross lengths with
-     kv_offset=128, head_dim 16/32/64/128, fp32 and bf16, and the serve
-     prefill's shape (4 x 2048, 16 heads, 8 kv heads, hd 128, bf16), and
-     ``p_rounding``, built so that a kernel that does not round p to v's
-     type before p . v misses by about 0.026; out per element within 2e-5
-     in fp32 and 2e-3 + 1.6e-2 * |plain| in bf16 (two bf16 ulps), lse
-     within 1e-5 of its max-abs;
+ 12. K6 (flash_attention) and K7 (flash_fwd) against their plain versions
+     (bf16 runs the tensor-core kernel, fp32 the SIMT one): MHA, GQA 2:1 on
+     a ragged 96, MQA, non-causal, cross lengths with kv_offset=128,
+     head_dim 16/32/64/128, fp32 and bf16, and the serve prefill's shape (4
+     x 2048, 16 heads, 8 kv heads, hd 128, bf16), and ``p_rounding``, built
+     so that a kernel that does not round p to v's type before p . v misses
+     by about 0.026; out per element within 2e-5 in fp32 and 2e-3 + 1.6e-2
+     * |plain| in bf16 (two bf16 ulps), lse within 1e-5 of its max-abs;
+     beside it, as a diagnostic, the serve shape against the plain version
+     at the bf16 kernel's own 128 x 128 tiles;
  13. the serve path in fp32 at full width, batch 2, a 1000-token prompt
      (ragged against every block), 16 greedy tokens, attn_impl "flash"
      against "xla": the last prefill hidden within 1e-4 of its max-abs, K7
@@ -87,7 +92,9 @@ Phases, one JSON line each:
      share;
  15. K6 and K7 timed by CUDA-graph replay at the serve shape beside their
      bound, their plain version and F.scaled_dot_product_attention (the
-     library yardstick, timed here only; the port never calls it).
+     library yardstick, timed here only; the port never calls it); the
+     HGMMA instructions of each bf16 instance (``cuobjdump -sass`` of the
+     built library: none fails) and its ptxas report (a spill fails);
  16. K8 (flash_bwd_dq) and K9 (flash_bwd_dkv) against their plain versions,
      o and lse from K7: the cases of tests/_torch_flash_cases.py
      (``FLASH_CASES``: those of phase 12 and the training shape) in fp32
@@ -115,6 +122,7 @@ Any failed check raises and the script exits nonzero.  The last line is
 before printing any result.
 """
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -192,6 +200,23 @@ def p_rounding_case(device):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def sass_counts(library, opcode):
+    """{kernel: count of ``opcode`` in its SASS} over the kernels of a built
+    library, from ``cuobjdump -sass`` (next to nvcc)."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
 
 
 def main() -> int:
@@ -396,6 +421,52 @@ def main() -> int:
     check(worst["stencil3d"]["float32"] == 0.0,
           f"K4 fp32 is not bit-equal: {worst['stencil3d']['float32']}")
 
+    # Past the kernels' former limits: tap tables larger than the
+    # parameter space holds (the radius-3 boxes, 49 taps in 2D and 343 in
+    # 3D, from a device array), and trapezoids deeper than one CTA's shared
+    # memory (fuse 64: passes of 32 + 32 at radius 1, 22 + 21 + 21 at
+    # radius 2, handing each other fp32).  fp32 to 0.0, bf16 within TOL.
+    def box_r3(ndim):
+        n = 7 ** ndim
+        return T.StencilSpec({o: 1.0 / n for o in itertools.product(
+            range(-3, 4), repeat=ndim)})
+
+    limits = {}
+
+    def limit_case(kernel, label, dtype, out, plain):
+        e = record(kernel, dtype, out, plain, label)
+        check(dtype == torch.bfloat16 or e == 0.0,
+              f"{kernel} {label} fp32 is not bit-equal: {e}")
+        limits[f"{kernel} {label} {str(dtype).split('.')[1]}"] = e
+
+    for dtype in (torch.float32, torch.bfloat16):
+        box2, box3 = box_r3(2), box_r3(3)
+        x = field((2, 64, 64), dtype)
+        out = stencil2d(x, box2, bc_value=1.5)
+        sync()
+        limit_case("stencil2d", "box_r3 49 taps", dtype, out,
+                   stencil2d_plain(x, box2, bc_value=1.5))
+        out = jacobi2d_fused_step(x, box2, fuse=4, bc_value=1.5)
+        sync()
+        limit_case("jacobi2d_trapezoid", "box_r3 49 taps fuse=4", dtype, out,
+                   jacobi2d_fused_plain(x, box2, fuse=4, bc_value=1.5))
+        x = field((2, *FIG6_GRID), dtype)
+        out = stencil3d(x, box3, bc_value=1.5)
+        sync()
+        limit_case("stencil3d", "box_r3 343 taps", dtype, out,
+                   stencil3d_plain(x, box3, bc_value=1.5))
+        for r, spec in ((1, T.laplace_jacobi(2)),
+                        (2, T.star(2, [0.15, 0.05], center=0.2))):
+            x = field((2, 300, 260), dtype)
+            k2_before = _build.LAUNCHES["jacobi2d_trapezoid"]
+            out = jacobi2d_fused_step(x, spec, fuse=64, bc_value=1.5)
+            sync()
+            passes = _build.LAUNCHES["jacobi2d_trapezoid"] - k2_before
+            check(passes == r + 1, f"fuse 64 radius {r}: {passes} launches")
+            limit_case("jacobi2d_trapezoid", f"fuse=64 radius {r}", dtype,
+                       out, jacobi2d_fused_plain(x, spec, fuse=64,
+                                                 bc_value=1.5))
+
     def gemm_case(s_rows, n, dtype):
         x = field((s_rows, n), dtype)
         w = field((n, n), dtype) / n ** 0.5
@@ -409,7 +480,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             gemm_case(s_rows, n, dtype)
     emit({"phase": 2, "cases": cases, "max_abs_err": worst, "tol": TOL,
-          "gemm_tol": GEMM_TOL})
+          "gemm_tol": GEMM_TOL, "past_former_limits": limits})
 
     # -- 3-6. the main path, with the launch counts from zero ----------------
     _build.LAUNCHES.clear()
@@ -805,6 +876,7 @@ def main() -> int:
         e = err(lse7, plain_lse) / float(plain_lse.abs().max())
         check(e <= LSE_RTOL, f"flash_fwd lse {label} {key}: {e} relative")
         lse_worst[key] = max(lse_worst[key], e)
+        return q, k, v, out7
 
     for dtype in (torch.float32, torch.bfloat16):
         flash_case("mha", (1, 128, 128, 2, 2, 32), dtype)
@@ -818,10 +890,22 @@ def main() -> int:
     flash_case("p_rounding", (1, 64, 1024, 2, 1, 16), torch.bfloat16,
                causal=False, qkv=p_rounding_case(dev))
     Bm, Sm, Hm, KVm, hdm = LM_SHAPE
-    flash_case("serve_shape", (Bm, Sm, Sm, Hm, KVm, hdm), torch.bfloat16,
-               blocks=(512, 512))
+    qm, km, vm, out_m = flash_case("serve_shape", (Bm, Sm, Sm, Hm, KVm, hdm),
+                                   torch.bfloat16, blocks=(512, 512))
+    # A diagnostic, not a check: the bf16 kernel's own schedule is the plain
+    # version at its 128 x 128 tiles (p rounded against the same running
+    # maxima), so what is left there is the order of the fp32 sums.
+    tiles128 = flash_fwd_plain(qm, km, vm, causal=True, block_q=128,
+                               block_k=128)[0].float()
+    own_tiles = {"max_abs_err": err(out_m, tiles128),
+                 "max_err_over_bound": float(
+                     ((out_m.float() - tiles128).abs()
+                      / (FLASH_TOL["bfloat16"][0] + FLASH_TOL["bfloat16"][1]
+                         * tiles128.abs())).max())}
+    del qm, km, vm, out_m, tiles128
     emit({"phase": 12, "cases": {n: cases[n] for n in ("flash_attention",
                                                        "flash_fwd")},
+          "serve_shape_vs_plain_at_kernel_tiles": own_tiles,
           "max_abs_err": {n: worst[n] for n in ("flash_attention",
                                                 "flash_fwd")},
           "max_err_over_bound": {n: ratio[n] for n in ("flash_attention",
@@ -940,6 +1024,17 @@ def main() -> int:
     lm_ops = 4 * Bm * Hm * hdm * (Sm * (Sm + 1) // 2)
     lm_bytes = 2 * (2 * Bm * Sm * Hm * hdm + 2 * Bm * Sm * KVm * hdm)
     lse_bytes = Bm * Hm * Sm * 4
+    # The bf16 kernels run on the tensor cores: HGMMA (wgmma) instructions
+    # in every instance of the built library, and no spills (ptxas -v).
+    hgmma = sass_counts(libs["flash_attention_sm90"], "HGMMA")
+    check(len(hgmma) == 8 and min(hgmma.values()) > 0,
+          f"HGMMA instructions by bf16 instance: {hgmma}")
+    sm90_ptxas = [ln.strip() for ln in
+                  _build.build_log("flash_attention_sm90").splitlines()
+                  if "registers" in ln or "spill" in ln]
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in sm90_ptxas if "spill" in ln),
+          f"the bf16 flash kernels spill: {sm90_ptxas}")
     emit({"phase": 15, "shape": list(LM_SHAPE), "dtype": "bfloat16",
           "k6_ms": k6_ms, "k7_ms": k7_ms, "plain_ms": k67_plain,
           "sdpa_ms": sdpa_ms, "k7_fp32_ms": k7_fp32_ms,
@@ -947,7 +1042,8 @@ def main() -> int:
           "bound_ms": max(lm_ops / PEAK_BF16_FLOPS,
                           lm_bytes / PEAK_BYTES) * 1e3,
           "fp32_bound_ms": lm_ops / PEAK_FP32_FLOPS * 1e3,
-          "k7_TFLOPs": lm_ops / (k7_ms * 1e-3) / 1e12})
+          "k7_TFLOPs": lm_ops / (k7_ms * 1e-3) / 1e12,
+          "hgmma_by_instance": hgmma, "ptxas": sm90_ptxas})
 
     # -- 16. K8 and K9 against their plain versions ---------------------------
     del qs_, ks_, vs_
@@ -1157,21 +1253,25 @@ def main() -> int:
                "library": "torch.matmul",
                "max_abs_err_bf16": worst["dense_stencil_matmul"]["bfloat16"]},
               launches5),
-        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        entry("flash_attention",
+              "src/repro_torch/csrc/flash_attention_sm90.cu",
               "src/repro/kernels/flash_attention.py:122", k6_ms, k67_plain,
               lm_bytes, lm_ops, sdpa_ms,
               {"shape": list(LM_SHAPE), "dtype": "bfloat16",
                "plain_timing": "eager",
+               "fp32_source": "src/repro_torch/csrc/flash_attention.cu",
                "library": "F.scaled_dot_product_attention",
                "path": "not on the serve path (K7 is); held on the card "
                        "in phase 12",
                "max_abs_err_bf16": worst["flash_attention"]["bfloat16"]},
               launches7, PEAK_BF16_FLOPS),
-        entry("flash_fwd", "src/repro_torch/csrc/flash_attention.cu",
+        entry("flash_fwd", "src/repro_torch/csrc/flash_attention_sm90.cu",
               "src/repro/kernels/flash_attention_bwd.py:86", k7_ms,
               k67_plain, lm_bytes + lse_bytes, lm_ops, sdpa_ms,
               {"shape": list(LM_SHAPE), "dtype": "bfloat16",
                "plain_timing": "eager", "fp32_ms": k7_fp32_ms,
+               "fp32_source": "src/repro_torch/csrc/flash_attention.cu",
+               "hgmma": sum(hgmma.values()),
                "library": "F.scaled_dot_product_attention",
                "max_abs_err_bf16": worst["flash_fwd"]["bfloat16"],
                "lse_max_rel_err": lse_worst},

@@ -6,9 +6,13 @@
 //       :122, body _kernel) — the output only;
 //   K7  kernels/flash_attention_bwd.py::_flash_fwd (pl.pallas_call at :86,
 //       body _fwd_kernel) — the output and the row logsumexp lse, which the
-//       backward kernels (K8/K9, not ported yet) read.
+//       backward kernels (K8/K9, flash_attention_bwd.cu) read.
 //
-// One template serves both; LSE switches the lse output on.
+// One template serves both; LSE switches the lse output on.  This file is
+// the fp32 kernel: bf16 runs on the tensor cores (flash_attention_sm90.cu),
+// and no fp32 format of the tensor cores keeps fp32's bound of 2e-5 (TF32
+// keeps a 10-bit mantissa), so fp32, the parity path of the serve and train
+// checks, stays on the CUDA cores here.
 //
 // Computes, for query row i of head h and the keys j of kv head h / G
 // (G = H / KV, no K/V broadcast in memory):
@@ -17,8 +21,9 @@
 //   causal, j - kv_offset <= i (the TPU kernel's k_pos, :47: kv_offset is
 //   subtracted from the kv index);
 //   m, l, acc updated per kv tile as the TPU kernel does (m_new = max,
-//   p = exp(s - m_new), alpha = exp(m - m_new)), with p rounded to v's type
-//   before p . v (p.astype(v.dtype), :73) and summed in fp32;
+//   p = exp(s - m_new), alpha = exp(m - m_new)), with p in v's type (fp32
+//   here: the TPU kernel's p.astype(v.dtype), :73, rounds nothing) and
+//   summed in fp32;
 //   out_i = acc / l (l = 0 read as 1), lse_i = m + log(l).
 // On every row with at least one unmasked key that is softmax(s) . v.  A row
 // with none gets what the tiles that ran leave (0 if none ran), as in JAX,
@@ -28,10 +33,8 @@
 // (q . k and p . v) while q, k, v and out are each read or written once: at
 // the serve shape (S = 2048, hd = 128) that is over 600 flops a byte, past
 // the card's ridge point.  The TPU kernel keeps the scores in VMEM for that
-// reason, and so does this one (registers and shared memory).  This first
-// port runs on the CUDA cores (fp32 multiply-adds, the 67 TFLOP/s rate, not
-// the tensor cores' 989); the tensor-core route (mma.sync, or wgmma with
-// TMA) is later work.  Design:
+// reason, and so does this one (registers and shared memory).  It runs on
+// the CUDA cores (fp32 multiply-adds, the 67 TFLOP/s rate).  Design:
 //   - one CTA of 256 threads per (batch, head, 64-row q tile); the q tile
 //     stays in shared memory as fp32 for the whole kv loop;
 //   - kv tiles of 64 rows: K, then V, staged as fp32 through one shared
@@ -57,20 +60,16 @@ constexpr int BK = 64;         // kv rows per tile
 constexpr int THREADS = 256;   // 16 x 16
 constexpr float NEG_INF = -1e30f;
 
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
 template <int HD>
 constexpr size_t smem_bytes() {
   return (size_t)(2 * BQ * (HD + 4) + BQ * (BK + 4)) * sizeof(float);
 }
 
-template <typename T, int HD, bool LSE>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 2)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
+    flash_fwd_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int Sq, int Skv, int H, int KV,
                      int causal, int kv_offset, float scale) {
   constexpr int QS = HD + 4;   // row stride of the q and kv tiles (floats)
@@ -88,14 +87,14 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int kvh = h / (H / KV);
   const size_t q_stride = (size_t)H * HD;    // between tokens of q and out
   const size_t kv_stride = (size_t)KV * HD;  // between tokens of k and v
-  const T* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
-  const T* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
-  const T* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  const float* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const float* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  const float* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
 
   for (int e = tid; e < BQ * HD; e += THREADS) {
     const int r = e / HD, d = e % HD;
     qs[r * QS + d] =
-        q0 + r < Sq ? to_f32(qb[(size_t)(q0 + r) * q_stride + d]) : 0.f;
+        q0 + r < Sq ? qb[(size_t)(q0 + r) * q_stride + d] : 0.f;
   }
 
   // Tiles past the last one holding a key at or before the tile's last
@@ -121,7 +120,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int e = tid; e < BK * HD; e += THREADS) {
       const int r = e / HD, d = e % HD;
       kvs[r * QS + d] =
-          kv0 + r < Skv ? to_f32(kb[(size_t)(kv0 + r) * kv_stride + d]) : 0.f;
+          kv0 + r < Skv ? kb[(size_t)(kv0 + r) * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -187,11 +186,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        ps[(4 * ty + i) * PS + tx + 16 * j] = round_to<T>(s[i][j]);
+        ps[(4 * ty + i) * PS + tx + 16 * j] = s[i][j];  // fp32: v's type
     for (int e = tid; e < BK * HD; e += THREADS) {
       const int r = e / HD, d = e % HD;
       kvs[r * QS + d] =
-          kv0 + r < Skv ? to_f32(vb[(size_t)(kv0 + r) * kv_stride + d]) : 0.f;
+          kv0 + r < Skv ? vb[(size_t)(kv0 + r) * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -227,66 +226,56 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int row = q0 + 4 * ty + i;
     if (row >= Sq) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* ob = out + (size_t)b * Sq * q_stride + (size_t)row * q_stride +
+    float* ob = out + (size_t)b * Sq * q_stride + (size_t)row * q_stride +
             (size_t)h * HD;
 #pragma unroll
     for (int n = 0; n < NC; ++n)
-      ob[tx + 16 * n] = from_f32<T>(acc[i][n] / l_safe);
+      ob[tx + 16 * n] = acc[i][n] / l_safe;
     if (LSE && tx == 0)
       lse[((size_t)b * H + h) * Sq + row] = m[i] + logf(l_safe);
   }
 }
 
-template <typename T, int HD, bool LSE>
+template <int HD, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int Sq, int Skv, int H, int KV, int causal,
            int kv_offset, float scale, cudaStream_t s) {
-  auto kernel = flash_fwd_kernel<T, HD, LSE>;
+  auto kernel = flash_fwd_kernel<HD, LSE>;
   constexpr size_t smem = smem_bytes<HD>();
   const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, H, KV,
-      causal, kv_offset, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv,
+      H, KV, causal, kv_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool LSE>
+template <bool LSE>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
               float* lse, int B, int Sq, int Skv, int H, int KV, int causal,
               int kv_offset, float scale, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16, LSE>(q, k, v, out, lse, B, Sq, Skv, H, KV,
-                                       causal, kv_offset, scale, s);
-    case 32: return launch<T, 32, LSE>(q, k, v, out, lse, B, Sq, Skv, H, KV,
-                                       causal, kv_offset, scale, s);
-    case 64: return launch<T, 64, LSE>(q, k, v, out, lse, B, Sq, Skv, H, KV,
-                                       causal, kv_offset, scale, s);
-    case 128: return launch<T, 128, LSE>(q, k, v, out, lse, B, Sq, Skv, H,
-                                         KV, causal, kv_offset, scale, s);
+    case 16: return launch<16, LSE>(q, k, v, out, lse, B, Sq, Skv, H, KV,
+                                    causal, kv_offset, scale, s);
+    case 32: return launch<32, LSE>(q, k, v, out, lse, B, Sq, Skv, H, KV,
+                                    causal, kv_offset, scale, s);
+    case 64: return launch<64, LSE>(q, k, v, out, lse, B, Sq, Skv, H, KV,
+                                    causal, kv_offset, scale, s);
+    case 128: return launch<128, LSE>(q, k, v, out, lse, B, Sq, Skv, H, KV,
+                                      causal, kv_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int launch_t(int hd, const void* q, const void* k, const void* v, void* out,
-             float* lse, int B, int Sq, int Skv, int H, int KV, int causal,
-             int kv_offset, float scale, cudaStream_t s) {
-  if (lse)
-    return launch_hd<T, true>(hd, q, k, v, out, lse, B, Sq, Skv, H, KV,
-                              causal, kv_offset, scale, s);
-  return launch_hd<T, false>(hd, q, k, v, out, lse, B, Sq, Skv, H, KV,
-                             causal, kv_offset, scale, s);
-}
-
 }  // namespace
 
-// q, out: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), contiguous, of one dtype;
-// lse: (B, H, Sq) fp32, or null for K6 (no lse).  hd is 16, 32, 64 or 128;
-// the wrapper checks the shapes and that H, B fit gridDim.y/z.  Returns
+// q, out: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), contiguous fp32 (any
+// other dtype is refused: bf16 is flash_attention_sm90.cu's); lse: (B, H,
+// Sq) fp32, or null for K6 (no lse).  hd is 16, 32, 64 or 128; the wrapper
+// checks the shapes and that H, B fit gridDim.y/z.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
@@ -294,12 +283,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int hd, int dtype, int causal,
                                       int kv_offset, float scale,
                                       void* stream) {
+  if (dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32)
-    return launch_t<float>(hd, q, k, v, out, lse, B, Sq, Skv, H, KV, causal,
+  if (lse)
+    return launch_hd<true>(hd, q, k, v, out, lse, B, Sq, Skv, H, KV, causal,
                            kv_offset, scale, s);
-  if (dtype == DTYPE_BF16)
-    return launch_t<__nv_bfloat16>(hd, q, k, v, out, lse, B, Sq, Skv, H, KV,
-                                   causal, kv_offset, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_hd<false>(hd, q, k, v, out, lse, B, Sq, Skv, H, KV, causal,
+                          kv_offset, scale, s);
 }

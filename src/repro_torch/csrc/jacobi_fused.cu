@@ -17,7 +17,12 @@
 // Semantics of every step, both geometries: cells outside the grid are zero;
 // with a bc the Dirichlet shell is pinned to it (before step 1 too); taps
 // are scalar or per-cell fields read at the cell's global index.  The T
-// steps run in fp32 and the result is rounded to x's type once per pass.
+// steps run in fp32 and the result is rounded to the output's type once per
+// pass.  A trapezoid of depth T whose halo does not fit one CTA runs as
+// several passes of the deepest depth that fits; the wrapper hands them fp32
+// through a scratch buffer (a pass reads Tin and writes Tout, each fp32 or
+// bf16), so a bf16 grid is still rounded once, after step T, as the TPU
+// kernel rounds it.
 //
 // Bound: bytes.  A pass must read x once and write it once,
 // 2 * B * H * W * itemsize, for T steps of a few FLOPs per cell, so at T=1
@@ -50,25 +55,28 @@ template <int NT>
 __device__ __forceinline__ float step_cell(const float* buf, int idx, int SW,
                                            int gi, int gj, int H, int W,
                                            const TapRegs<NT>& rt,
-                                           const Taps& taps,
+                                           const Taps& taps, const Tap* big,
                                            const float* __restrict__ fields,
                                            int has_bc, float bc) {
   if (gi < 0 || gi >= H || gj < 0 || gj >= W) return 0.f;
   if (has_bc && on_shell(gi, gj, H, W)) return bc;
-  return sum_taps<NT>(buf, idx, rt, taps, SW, fields, (size_t)H * W,
+  return sum_taps<NT>(buf, idx, rt, taps, big, SW, fields, (size_t)H * W,
                       (size_t)gi * W + gj);
 }
 
-template <typename T, int NT>
+template <typename Tin, typename Tout, int NT>
 __global__ void __launch_bounds__(TRAPEZOID_THREADS)
-    trapezoid_kernel(const T* __restrict__ x,
+    trapezoid_kernel(const Tin* __restrict__ x,
                                  const float* __restrict__ fields,
-                                 T* __restrict__ out, int H, int W,
+                                 Tout* __restrict__ out, int H, int W,
                                  int tile_h, int tile_w,
-                                 const __grid_constant__ Taps taps, int r,
+                                 const __grid_constant__ Taps taps,
+                                 const Tap* __restrict__ big_taps, int r,
                                  int steps, int has_bc, float bc) {
   __shared__ Taps s_taps;
   load_taps(s_taps, taps);
+  // A table past Taps' capacity takes the generic kernel (dispatch_taps).
+  const Tap* big = NT == 0 ? big_taps : nullptr;
   extern __shared__ float smem[];
   const int halo = steps * r;
   const int SH = tile_h + 2 * halo, SW = tile_w + 2 * halo;
@@ -76,7 +84,7 @@ __global__ void __launch_bounds__(TRAPEZOID_THREADS)
   float* nxt = smem + SH * SW;
   const int row0 = blockIdx.y * tile_h - halo;  // global row of cur[0]
   const int col0 = blockIdx.x * tile_w - halo;
-  const T* xb = x + blockIdx.z * (size_t)H * W;
+  const Tin* xb = x + blockIdx.z * (size_t)H * W;
   TapRegs<NT> rt;
   rt.init(s_taps, SW);
   // Every cell of this CTA's region off the grid's edge and shell: no cell
@@ -98,15 +106,15 @@ __global__ void __launch_bounds__(TRAPEZOID_THREADS)
       for (int li = lo + threadIdx.y; li < SH - lo; li += blockDim.y) {
         const size_t grow = (size_t)(row0 + li) * W + col0;
         for (int lj = lo + threadIdx.x; lj < SW - lo; lj += blockDim.x)
-          nxt[li * SW + lj] = sum_taps<NT>(cur, li * SW + lj, rt, s_taps, SW,
-                                           fields, plane, grow + lj);
+          nxt[li * SW + lj] = sum_taps<NT>(cur, li * SW + lj, rt, s_taps,
+                                           big, SW, fields, plane, grow + lj);
       }
     } else {
       for (int li = lo + threadIdx.y; li < SH - lo; li += blockDim.y)
         for (int lj = lo + threadIdx.x; lj < SW - lo; lj += blockDim.x)
           nxt[li * SW + lj] =
               step_cell<NT>(cur, li * SW + lj, SW, row0 + li, col0 + lj, H,
-                            W, rt, s_taps, fields, has_bc, bc);
+                            W, rt, s_taps, big, fields, has_bc, bc);
     }
     __syncthreads();
     float* tmp = cur;
@@ -114,7 +122,7 @@ __global__ void __launch_bounds__(TRAPEZOID_THREADS)
     nxt = tmp;
   }
 
-  T* ob = out + blockIdx.z * plane;
+  Tout* ob = out + blockIdx.z * plane;
   for (int ti = threadIdx.y; ti < tile_h; ti += blockDim.y) {
     const int gi = row0 + halo + ti;
     if (gi >= H) break;
@@ -122,7 +130,7 @@ __global__ void __launch_bounds__(TRAPEZOID_THREADS)
       const int gj = col0 + halo + tj;
       if (gj < W)
         ob[(size_t)gi * W + gj] =
-            from_f32<T>(cur[(halo + ti) * SW + halo + tj]);
+            from_f32<Tout>(cur[(halo + ti) * SW + halo + tj]);
     }
   }
 }
@@ -132,10 +140,12 @@ __global__ void __launch_bounds__(RESIDENT_THREADS)
     resident_kernel(const T* __restrict__ x,
                                 const float* __restrict__ fields,
                                 T* __restrict__ out, int H, int W,
-                                const __grid_constant__ Taps taps, int r,
+                                const __grid_constant__ Taps taps,
+                                const Tap* __restrict__ big_taps, int r,
                                 int steps, int has_bc, float bc) {
   __shared__ Taps s_taps;
   load_taps(s_taps, taps);
+  const Tap* big = NT == 0 ? big_taps : nullptr;
   extern __shared__ float smem[];
   const int SH = H + 2 * r, SW = W + 2 * r;
   float* cur = smem;
@@ -161,8 +171,8 @@ __global__ void __launch_bounds__(RESIDENT_THREADS)
         const int idx = (i + r) * SW + j + r;
         nxt[idx] = has_bc && on_shell(i, j, H, W)
                        ? bc
-                       : sum_taps<NT>(cur, idx, rt, s_taps, SW, fields,
-                                      plane, (size_t)i * W + j);
+                       : sum_taps<NT>(cur, idx, rt, s_taps, big, SW,
+                                      fields, plane, (size_t)i * W + j);
       }
     __syncthreads();
     float* tmp = cur;
@@ -184,53 +194,80 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T>
+template <typename Tin, typename Tout>
 int launch(int resident, const void* x, const void* fields, void* out, int B,
-           int H, int W, int tile_h, int tile_w, const Taps* taps, int r,
-           int steps, int has_bc, float bc, size_t smem, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
+           int H, int W, int tile_h, int tile_w, const Taps* taps,
+           const Tap* big, int r, int steps, int has_bc, float bc,
+           size_t smem, cudaStream_t s) {
+  const Tin* xt = static_cast<const Tin*>(x);
+  Tout* ot = static_cast<Tout*>(out);
   const float* f = static_cast<const float*>(fields);
   return dispatch_taps(taps->n, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    if (resident) {
-      int err = set_smem(resident_kernel<T, NT>, smem);
-      if (err) return err;
-      const dim3 block(32, RESIDENT_THREADS / 32);
-      resident_kernel<T, NT><<<dim3(1, 1, B), block, smem, s>>>(
-          xt, f, ot, H, W, *taps, r, steps, has_bc, bc);
-    } else {
-      int err = set_smem(trapezoid_kernel<T, NT>, smem);
-      if (err) return err;
-      const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h,
-                      B);
-      const dim3 block(32, TRAPEZOID_THREADS / 32);
-      trapezoid_kernel<T, NT><<<grid, block, smem, s>>>(
-          xt, f, ot, H, W, tile_h, tile_w, *taps, r, steps, has_bc, bc);
+    if constexpr (std::is_same_v<Tin, Tout>) {
+      if (resident) {
+        int err = set_smem(resident_kernel<Tin, NT>, smem);
+        if (err) return err;
+        const dim3 block(32, RESIDENT_THREADS / 32);
+        resident_kernel<Tin, NT><<<dim3(1, 1, B), block, smem, s>>>(
+            xt, f, ot, H, W, *taps, big, r, steps, has_bc, bc);
+        return (int)cudaGetLastError();
+      }
+    } else if (resident) {
+      return (int)cudaErrorInvalidValue;  // one pass: x's type in and out
     }
+    int err = set_smem(trapezoid_kernel<Tin, Tout, NT>, smem);
+    if (err) return err;
+    const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h, B);
+    const dim3 block(32, TRAPEZOID_THREADS / 32);
+    trapezoid_kernel<Tin, Tout, NT><<<grid, block, smem, s>>>(
+        xt, f, ot, H, W, tile_h, tile_w, *taps, big, r, steps, has_bc, bc);
     return (int)cudaGetLastError();
   });
+}
+
+template <typename Tin>
+int launch_in(int out_dtype, int resident, const void* x, const void* fields,
+              void* out, int B, int H, int W, int tile_h, int tile_w,
+              const Taps* taps, const Tap* big, int r, int steps, int has_bc,
+              float bc, size_t smem, cudaStream_t s) {
+  if (out_dtype == DTYPE_F32)
+    return launch<Tin, float>(resident, x, fields, out, B, H, W, tile_h,
+                              tile_w, taps, big, r, steps, has_bc, bc, smem,
+                              s);
+  if (out_dtype == DTYPE_BF16)
+    return launch<Tin, __nv_bfloat16>(resident, x, fields, out, B, H, W,
+                                      tile_h, tile_w, taps, big, r, steps,
+                                      has_bc, bc, smem, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // resident = 0: trapezoid geometry with a tile_h x tile_w output tile;
-// 1: resident geometry (tile ignored).  smem is the dynamic shared memory in
-// bytes (two fp32 buffers), computed and checked by the wrapper.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// 1: resident geometry (tile ignored; in_dtype == out_dtype).  in_dtype and
+// out_dtype are the types of x and out (one pass of several hands the next
+// one fp32).  big: the whole tap table on the device when it has more than
+// STENCIL_MAX_TAPS taps (taps->n then counts them), else null.  smem is the
+// dynamic shared memory in bytes (two fp32 buffers), computed and checked by
+// the wrapper.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int jacobi_fused_launch(int resident, const void* x,
                                    const void* fields, void* out, int B,
                                    int H, int W, int tile_h, int tile_w,
-                                   int dtype, const Taps* taps, int r,
+                                   int in_dtype, int out_dtype,
+                                   const Taps* taps, const Tap* big, int r,
                                    int steps, int has_bc, float bc,
                                    long long smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32)
-    return launch<float>(resident, x, fields, out, B, H, W, tile_h, tile_w,
-                         taps, r, steps, has_bc, bc, (size_t)smem, s);
-  if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(resident, x, fields, out, B, H, W, tile_h,
-                                 tile_w, taps, r, steps, has_bc, bc,
-                                 (size_t)smem, s);
+  if ((taps->n > STENCIL_MAX_TAPS) != (big != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (in_dtype == DTYPE_F32)
+    return launch_in<float>(out_dtype, resident, x, fields, out, B, H, W,
+                            tile_h, tile_w, taps, big, r, steps, has_bc, bc,
+                            (size_t)smem, s);
+  if (in_dtype == DTYPE_BF16)
+    return launch_in<__nv_bfloat16>(out_dtype, resident, x, fields, out, B,
+                                    H, W, tile_h, tile_w, taps, big, r, steps,
+                                    has_bc, bc, (size_t)smem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,10 +25,13 @@ __global__ void __launch_bounds__(THREADS)
     stencil2d_kernel(const T* __restrict__ x,
                                  const float* __restrict__ fields,
                                  T* __restrict__ out, int H, int W, int r,
-                                 const __grid_constant__ Taps taps, int has_bc,
+                                 const __grid_constant__ Taps taps,
+                                 const Tap* __restrict__ big_taps, int has_bc,
                                  float bc) {
   __shared__ Taps s_taps;
   load_taps(s_taps, taps);
+  // A table past Taps' capacity takes the generic kernel (dispatch_taps).
+  const Tap* big = NT == 0 ? big_taps : nullptr;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= H || j >= W) return;
@@ -42,15 +45,15 @@ __global__ void __launch_bounds__(THREADS)
     // Every neighbour inside the grid: no bounds checks.
     TapRegs<NT> rt;
     rt.init(s_taps, W);
-    acc = sum_taps<NT>(xb, cell, rt, s_taps, W, fields, plane, cell);
+    acc = sum_taps<NT>(xb, cell, rt, s_taps, big, W, fields, plane, cell);
   } else {
     for (int k = 0; k < s_taps.n; ++k) {
-      const int ii = i + s_taps.dr[k], jj = j + s_taps.dc[k];
+      const Tap e = tap_at(s_taps, big, k);
+      const int ii = i + e.dr, jj = j + e.dc;
       const float v = (ii >= 0 && ii < H && jj >= 0 && jj < W)
                           ? to_f32(xb[ii * W + jj])
                           : 0.f;
-      const int f = s_taps.field[k];
-      const float w = f < 0 ? s_taps.w[k] : fields[f * plane + cell];
+      const float w = e.field < 0 ? e.w : fields[e.field * plane + cell];
       acc = __fadd_rn(acc, __fmul_rn(v, w));
     }
   }
@@ -59,7 +62,8 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T>
 int launch(const void* x, const void* fields, void* out, int B, int H, int W,
-           int r, const Taps* taps, int has_bc, float bc, cudaStream_t s) {
+           int r, const Taps* taps, const Tap* big, int has_bc, float bc,
+           cudaStream_t s) {
   const dim3 block(32, THREADS / 32);
   const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y,
                   B);
@@ -67,24 +71,28 @@ int launch(const void* x, const void* fields, void* out, int B, int H, int W,
     constexpr int NT = decltype(nt)::value;
     stencil2d_kernel<T, NT><<<grid, block, 0, s>>>(
         static_cast<const T*>(x), static_cast<const float*>(fields),
-        static_cast<T*>(out), H, W, r, *taps, has_bc, bc);
+        static_cast<T*>(out), H, W, r, *taps, big, has_bc, bc);
     return (int)cudaGetLastError();
   });
 }
 
 }  // namespace
 
-// r is the spec's radius.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// r is the spec's radius.  big: the whole table on the device when it has
+// more than STENCIL_MAX_TAPS taps (taps->n then counts them), else null.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int stencil2d_launch(const void* x, const void* fields, void* out,
                                 int B, int H, int W, int r, int dtype,
-                                const Taps* taps, int has_bc, float bc,
-                                void* stream) {
+                                const Taps* taps, const Tap* big, int has_bc,
+                                float bc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((taps->n > STENCIL_MAX_TAPS) != (big != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return launch<float>(x, fields, out, B, H, W, r, taps, has_bc, bc, s);
+    return launch<float>(x, fields, out, B, H, W, r, taps, big, has_bc, bc,
+                         s);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(x, fields, out, B, H, W, r, taps, has_bc,
-                                 bc, s);
+    return launch<__nv_bfloat16>(x, fields, out, B, H, W, r, taps, big,
+                                 has_bc, bc, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,8 +42,11 @@ __global__ void __launch_bounds__(THREADS)
     stencil3d_kernel(const T* __restrict__ x,
                      const float* __restrict__ fields, T* __restrict__ out,
                      int Z, int X, int Y, int r, int y_tiles,
-                     const __grid_constant__ Taps3 taps, int has_bc,
+                     const __grid_constant__ Taps3 taps,
+                     const Tap* __restrict__ big_taps, int has_bc,
                      float bc) {
+  // A table past Taps3's capacity takes the generic kernel (NT == 0).
+  const Tap* big = NT == 0 ? big_taps : nullptr;
   const int j = (blockIdx.x % y_tiles) * TILE_Y + threadIdx.x;
   const int i = (blockIdx.x / y_tiles) * TILE_X + threadIdx.y;
   const int z = blockIdx.y;
@@ -75,22 +78,21 @@ __global__ void __launch_bounds__(THREADS)
       }
     } else {
       for (int k = 0; k < n; ++k) {
-        const int f = taps.field[k];
-        const float w = f < 0 ? taps.w[k] : fields[f * vol + cell];
-        const int off = taps.dz[k] * plane + taps.dr[k] * Y + taps.dc[k];
+        const Tap e = tap_at(taps, big, k);
+        const float w = e.field < 0 ? e.w : fields[e.field * vol + cell];
+        const int off = e.dz * plane + e.dr * Y + e.dc;
         acc = __fadd_rn(acc, __fmul_rn(to_f32(xb[cell + off]), w));
       }
     }
   } else {
     for (int k = 0; k < n; ++k) {
-      const int zz = z + taps.dz[k], ii = i + taps.dr[k],
-                jj = j + taps.dc[k];
+      const Tap e = tap_at(taps, big, k);
+      const int zz = z + e.dz, ii = i + e.dr, jj = j + e.dc;
       const float v = (zz >= 0 && zz < Z && ii >= 0 && ii < X && jj >= 0 &&
                        jj < Y)
                           ? to_f32(xb[(zz * X + ii) * Y + jj])
                           : 0.f;
-      const int f = taps.field[k];
-      const float w = f < 0 ? taps.w[k] : fields[f * vol + cell];
+      const float w = e.field < 0 ? e.w : fields[e.field * vol + cell];
       acc = __fadd_rn(acc, __fmul_rn(v, w));
     }
   }
@@ -113,8 +115,8 @@ int dispatch_taps3(int n, Launch launch_fn) {
 
 template <typename T>
 int launch(const void* x, const void* fields, void* out, int B, int Z, int X,
-           int Y, int r, const Taps3* taps, int has_bc, float bc,
-           cudaStream_t s) {
+           int Y, int r, const Taps3* taps, const Tap* big, int has_bc,
+           float bc, cudaStream_t s) {
   const int y_tiles = (Y + TILE_Y - 1) / TILE_Y;
   const int x_tiles = (X + TILE_X - 1) / TILE_X;
   const dim3 block(TILE_Y, TILE_X);
@@ -123,24 +125,28 @@ int launch(const void* x, const void* fields, void* out, int B, int Z, int X,
     constexpr int NT = decltype(nt)::value;
     stencil3d_kernel<T, NT><<<grid, block, 0, s>>>(
         static_cast<const T*>(x), static_cast<const float*>(fields),
-        static_cast<T*>(out), Z, X, Y, r, y_tiles, *taps, has_bc, bc);
+        static_cast<T*>(out), Z, X, Y, r, y_tiles, *taps, big, has_bc, bc);
     return (int)cudaGetLastError();
   });
 }
 
 }  // namespace
 
-// r is the spec's radius.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// r is the spec's radius.  big: the whole table on the device when it has
+// more than STENCIL3D_MAX_TAPS taps (taps->n then counts them), else null.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int stencil3d_launch(const void* x, const void* fields, void* out,
                                 int B, int Z, int X, int Y, int r, int dtype,
-                                const Taps3* taps, int has_bc, float bc,
-                                void* stream) {
+                                const Taps3* taps, const Tap* big, int has_bc,
+                                float bc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((taps->n > STENCIL3D_MAX_TAPS) != (big != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return launch<float>(x, fields, out, B, Z, X, Y, r, taps, has_bc, bc, s);
+    return launch<float>(x, fields, out, B, Z, X, Y, r, taps, big, has_bc, bc,
+                         s);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(x, fields, out, B, Z, X, Y, r, taps, has_bc,
-                                 bc, s);
+    return launch<__nv_bfloat16>(x, fields, out, B, Z, X, Y, r, taps, big,
+                                 has_bc, bc, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,8 +11,8 @@
 
 #include "common.cuh"
 
-// Radius 2 in full (a 5x5 box, a 5x5x5 box) fits.  The Python side raises
-// beyond it.
+// Radius 2 in full (a 5x5 box, a 5x5x5 box) fits the kernels' parameter
+// tables.  A spec with more taps arrives as a device array of Tap (below).
 #define STENCIL_MAX_TAPS 25
 #define STENCIL3D_MAX_TAPS 125
 
@@ -36,6 +36,26 @@ struct Taps3 {
   int field[STENCIL3D_MAX_TAPS];
   float w[STENCIL3D_MAX_TAPS];
 };
+
+// One tap of a table too large for Taps/Taps3: the wrapper copies such a
+// table whole to the device as an array of these (dz = 0 in 2D), and the
+// kernels' generic path (NT == 0) reads it through L1 by broadcast.  Its n
+// stays in the Taps/Taps3 parameter.
+struct Tap {
+  int dz, dr, dc, field;
+  float w;
+};
+
+// Tap k of a 2D or 3D table: from `big` where the wrapper passed one, else
+// from the parameter table.
+__device__ __forceinline__ Tap tap_at(const Taps& t, const Tap* big, int k) {
+  if (big) return big[k];
+  return Tap{0, t.dr[k], t.dc[k], t.field[k], t.w[k]};
+}
+__device__ __forceinline__ Tap tap_at(const Taps3& t, const Tap* big, int k) {
+  if (big) return big[k];
+  return Tap{t.dz[k], t.dr[k], t.dc[k], t.field[k], t.w[k]};
+}
 
 // Copies the tap table into shared memory, where every thread of the block
 // reads it by broadcast.  Ends with a barrier.
@@ -78,11 +98,13 @@ struct TapRegs {
 };
 
 // sum_k w_k * buf[idx + off_k] in tap order, every neighbour inside buf.
-// Field taps read fields[field_k * plane + cell].
+// Field taps read fields[field_k * plane + cell].  NT == 0 reads tap k
+// from big where it is not null (more taps than Taps holds).
 template <int NT, typename E>
 __device__ __forceinline__ float sum_taps(const E* buf, int idx,
                                           const TapRegs<NT>& rt,
-                                          const Taps& t, int SW,
+                                          const Taps& t, const Tap* big,
+                                          int SW,
                                           const float* __restrict__ fields,
                                           size_t plane, size_t cell) {
   float acc = 0.f;
@@ -95,10 +117,10 @@ __device__ __forceinline__ float sum_taps(const E* buf, int idx,
     }
   } else {
     for (int k = 0; k < t.n; ++k) {
-      const int f = t.field[k];
-      const float wk = f < 0 ? t.w[k] : fields[f * plane + cell];
+      const Tap e = tap_at(t, big, k);
+      const float wk = e.field < 0 ? e.w : fields[e.field * plane + cell];
       acc = __fadd_rn(acc,
-                      __fmul_rn(to_f32(buf[idx + t.dr[k] * SW + t.dc[k]]), wk));
+                      __fmul_rn(to_f32(buf[idx + e.dr * SW + e.dc]), wk));
     }
   }
   return acc;

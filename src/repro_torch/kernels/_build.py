@@ -23,6 +23,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.core.stencil import StencilSpec, WeightField
@@ -51,7 +52,8 @@ def batch_slices(batch: int):
             for b0 in range(0, batch, MAX_GRID_Z)]
 
 # Sizes of the 2D and 3D tap tables (csrc/taps.cuh), the most taps each
-# holds, and the dtype codes of its DTYPE_* enum.
+# holds in the kernels' parameter space (a spec with more comes as a device
+# array, ``big_taps``), and the dtype codes of its DTYPE_* enum.
 MAX_TAPS = 25
 MAX_TAPS_3D = 125
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,24 +85,49 @@ _libraries: dict[str, ctypes.CDLL] = {}
 _build_log: dict[str, str] = {}
 
 
+def _tap_rows(spec: StencilSpec):
+    """(dz, dr, dc, field, w) of each tap in canonical order: dz is 0 in
+    2D, field the tap's index in the field stack or -1 for a scalar w."""
+    rows, k = [], 0
+    for off, w in spec.taps:
+        dz = off[0] if spec.ndim == 3 else 0
+        if isinstance(w, WeightField):
+            rows.append((dz, *off[-2:], k, 0.0))
+            k += 1
+        else:
+            rows.append((dz, *off[-2:], -1, float(w)))
+    return rows
+
+
 @functools.lru_cache(maxsize=64)
 def tap_table(spec: StencilSpec) -> Taps | Taps3:
     """The spec's taps in canonical order, as the kernels read them: a
     ``Taps`` for a 2D spec, a ``Taps3`` for a 3D one (the wrappers have
-    checked the rank and the tap count)."""
+    checked the rank).  Past the table's size only ``n`` is set: the taps
+    come from ``big_taps``."""
     t = Taps() if spec.ndim == 2 else Taps3()
     t.n = len(spec.taps)
-    k = 0
-    for i, (off, w) in enumerate(spec.taps):
+    if t.n > len(t.dr):
+        return t
+    for i, (dz, dr, dc, f, w) in enumerate(_tap_rows(spec)):
         if spec.ndim == 3:
-            t.dz[i] = off[0]
-        t.dr[i], t.dc[i] = off[-2:]
-        if isinstance(w, WeightField):
-            t.field[i], t.w[i] = k, 0.0
-            k += 1
-        else:
-            t.field[i], t.w[i] = -1, w
+            t.dz[i] = dz
+        t.dr[i], t.dc[i], t.field[i], t.w[i] = dr, dc, f, w
     return t
+
+
+@functools.lru_cache(maxsize=16)
+def big_taps(spec: StencilSpec, device: torch.device) -> torch.Tensor | None:
+    """The whole tap table on ``device`` as the kernels' ``Tap`` array
+    (csrc/taps.cuh: int32 dz, dr, dc, field and the fp32 w, 20 bytes a
+    tap) for a spec with more taps than ``tap_table`` holds; None for any
+    other."""
+    if len(spec.taps) <= len(tap_table(spec).dr):
+        return None
+    rows = _tap_rows(spec)
+    table = np.array([r[:4] for r in rows], dtype=np.int32)
+    w = np.array([r[4] for r in rows], dtype=np.float32).view(np.int32)
+    return torch.from_numpy(np.column_stack([table, w])).to(device)
 
 
 def _nvcc() -> str:

@@ -2,18 +2,21 @@
 kernel ``kernels/flash_attention.py::flash_attention``.
 
 ``flash_attention`` dispatches on the device of ``q``: a CPU tensor goes
-through ``flash_attention_plain``, a CUDA tensor launches
-``csrc/flash_attention.cu`` and raises if it cannot.  The same CUDA source
-carries K7 (``flash_attention_bwd.flash_fwd``, which also writes the row
-logsumexp); ``online_softmax_plain`` is the plain version of both.
+through ``flash_attention_plain``, a CUDA tensor launches a kernel and raises
+if it cannot: bf16 ``csrc/flash_attention_sm90.cu`` (the tensor cores:
+``wgmma`` fed by TMA, 128 x 128 tiles), fp32 ``csrc/flash_attention.cu`` (the
+CUDA cores, 64 x 64 tiles; no fp32 tensor-core format keeps fp32's bound),
+each refusing the other's dtype.  The same sources carry K7
+(``flash_attention_bwd.flash_fwd``, which also writes the row logsumexp);
+``online_softmax_plain`` is the plain version of both.
 
 The plain version is the TPU kernel's arithmetic in PyTorch ops, over the
 TPU kernel's own (bq, bk) blocks: ``bq = min(block_q, round_up(Sq, 8))``,
 ``bk = min(block_k, round_up(Skv, 128))``, inputs padded to whole blocks,
 blocks wholly above the causal diagonal skipped, the mask value a finite
 -1e30.  So it matches JAX on every row, including rows with no valid key
-(whose value depends on the blocks).  The kernel has its own 64 x 64 tiles
-and takes ``block_q``/``block_k`` only to keep the signature: it computes the
+(whose value depends on the blocks).  The kernels have their own tiles and
+take ``block_q``/``block_k`` only to keep the signature: they compute the
 same function on every row that has at least one valid key.
 
 ``kv_offset`` follows the TPU kernel's code, not its docstring: kv index j
@@ -35,8 +38,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.tiling import round_up
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
-MAX_GRID_YZ = 65_535            # gridDim.y carries the heads, .z the batch
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
+MAX_GRID_YZ = 65_535            # gridDim.y/.z: heads and batch (SIMT);
+                                # batch and q tiles (tensor cores)
+TC_TILE_Q = 128                 # q rows a tensor-core CTA takes
+# The CUDA source and entry point of each dtype.
+KERNELS = {torch.bfloat16: ("flash_attention_sm90",
+                            "flash_attention_sm90_launch"),
+           torch.float32: ("flash_attention", "flash_attention_launch")}
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -127,9 +136,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                                 block_k=block_k, kv_offset=kv_offset)[0]
 
 
-def _launcher():
-    lib = _build.library("flash_attention")
-    fn = lib.flash_attention_launch
+def _launcher(dtype: torch.dtype):
+    source, symbol = KERNELS[dtype]
+    lib = _build.library(source)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
@@ -139,8 +149,8 @@ def _launcher():
 
 def launch(q, k, v, *, causal: bool, kv_offset: int, with_lse: bool,
            name: str):
-    """Launch csrc/flash_attention.cu on CUDA tensors; returns (out, lse or
-    None) and counts the launch under ``name``."""
+    """Launch the kernel of q's dtype (``KERNELS``) on CUDA tensors;
+    returns (out, lse or None) and counts the launch under ``name``."""
     check_operands(q, k, v)
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
@@ -156,7 +166,15 @@ def launch(q, k, v, *, causal: bool, kv_offset: int, with_lse: bool,
                          f"most {MAX_GRID_YZ}")
     if Sq == 0 or Skv == 0:
         raise ValueError(f"{name}: empty sequence (Sq={Sq}, Skv={Skv})")
-    lib, fn = _launcher()
+    if q.dtype == torch.bfloat16:
+        # TMA reads from 16-byte aligned tensors, and gridDim.z carries the
+        # q tiles.
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError(f"{name}: bf16 q, k, v must be 16-byte aligned")
+        if -(-Sq // TC_TILE_Q) > MAX_GRID_YZ:
+            raise ValueError(f"{name}: Sq={Sq} is past "
+                             f"{MAX_GRID_YZ * TC_TILE_Q} rows")
+    lib, fn = _launcher(q.dtype)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -176,7 +194,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     kv_offset: subtracted from a kv index to give its position (the TPU
     kernel's code; see the module docstring).  block_q/block_k are the
-    plain version's blocks; the kernel tiles by 64 whatever they are.
+    plain version's blocks; the kernels tile by their own sizes whatever
+    they are.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,

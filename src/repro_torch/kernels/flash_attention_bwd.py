@@ -5,9 +5,10 @@ dq, and dk/dv with the GQA group folded in), and ``flash_attention_trainable``,
 the op the transformer calls, joined as a ``torch.autograd.Function``.
 
 ``flash_fwd`` and ``flash_bwd`` dispatch on the device of ``q``: a CPU tensor
-goes through the plain versions, a CUDA tensor launches
-``csrc/flash_attention.cu`` (K7) or ``csrc/flash_attention_bwd.cu`` (K8,
-K9) and raises if it cannot.
+goes through the plain versions, a CUDA tensor launches K7
+(``csrc/flash_attention_sm90.cu`` in bf16, ``csrc/flash_attention.cu`` in
+fp32; see ``flash_attention.launch``) or ``csrc/flash_attention_bwd.cu``
+(K8, K9) and raises if it cannot.
 
 The plain versions are the TPU kernels' arithmetic in PyTorch ops over the
 TPU kernels' own blocks (``flash_attention.layout``: inputs padded to whole
@@ -17,8 +18,9 @@ p = exp(s - lse); dp = do·vᵀ with do and v in fp32; ds = p·(dp - delta)·
 scale, rounded to k's type before ds·k (dq) and to q's type before dsᵀ·q
 (dk); p not rounded before pᵀ·do (dv).  ``delta = sum(do·o)`` is a PyTorch
 reduction on both paths, as JAX computes it outside its kernels
-(flash_attention_bwd.py:221).  The CUDA kernels tile by 64 and compute the
-same function on every row that has at least one valid key
+(flash_attention_bwd.py:221).  The CUDA kernels tile by their own sizes
+(K8/K9 by 64) and compute the same function on every row that has at least
+one valid key
 (``flash_attention``'s module docstring says why rows with none differ).
 """
 from __future__ import annotations

@@ -8,6 +8,12 @@ steps in fp32 and one rounding to x's type at the end of the pass.  So one
 plain version, ``jacobi2d_fused_plain``, serves both.  ``jacobi2d_fused_step``
 dispatches on the device of ``x``: a CPU tensor takes the plain version, a
 CUDA tensor launches ``csrc/jacobi_fused.cu`` and raises if it cannot.
+
+A trapezoid deeper than one CTA's shared memory holds (``trapezoid_passes``:
+past fuse 53 at radius 1, 26 at radius 2) runs as several launches of the
+deepest fuse that fits, which hand each other the grid in fp32 through
+scratch buffers, so the result is still rounded to x's type once, as the TPU
+kernel rounds it after its T steps.
 """
 from __future__ import annotations
 
@@ -37,8 +43,27 @@ def trapezoid_smem_bytes(fuse: int, r: int) -> int:
     return 2 * (th + 2 * halo) * (tw + 2 * halo) * 4
 
 
-def _check_geometry(H: int, W: int, fuse: int, r: int, rim: str) -> int:
-    """Raise on a schedule the kernels cannot run; return its shared memory."""
+def trapezoid_passes(fuse: int, r: int) -> list[int]:
+    """The steps of each launch a depth-``fuse`` trapezoid runs as: one
+    launch while the tile and its fuse*r-deep halo fit one CTA's shared
+    memory, else the fewest launches of at most the deepest fuse that fits,
+    as even as they go.  Raises for a radius whose halo does not fit even
+    at fuse 1."""
+    deepest = 0
+    while (trapezoid_smem_bytes(deepest + 1, r) + STATIC_SMEM_BYTES
+           <= MAX_SMEM_BYTES):
+        deepest += 1
+    if deepest == 0:
+        raise ValueError(
+            f"a radius-{r} trapezoid tile needs "
+            f"{trapezoid_smem_bytes(1, r)} bytes of shared memory at fuse 1, "
+            f"past one CTA's {MAX_SMEM_BYTES}")
+    n = -(-fuse // deepest)
+    return [fuse // n + (i < fuse % n) for i in range(n)]
+
+
+def _check_geometry(H: int, W: int, fuse: int, r: int, rim: str) -> None:
+    """Raise on a schedule the kernels cannot run."""
     if rim not in RIMS:
         raise ValueError(f"unknown rim strategy {rim!r} "
                          f"(expected 'trapezoid' or 'resident')")
@@ -50,14 +75,8 @@ def _check_geometry(H: int, W: int, fuse: int, r: int, rim: str) -> int:
                 f"rim='resident' needs the whole {H}x{W} grid in one CTA's "
                 f"shared memory ({resident_smem_bytes((H, W), r)} bytes > "
                 f"{MAX_SMEM_BYTES}); use rim='trapezoid' for grids this large")
-        return resident_smem_bytes((H, W), r)
-    smem = trapezoid_smem_bytes(fuse, r)
-    if smem + STATIC_SMEM_BYTES > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"a fuse={fuse} radius-{r} trapezoid tile needs {smem} bytes of "
-            f"shared memory, past one CTA's {MAX_SMEM_BYTES}; use a smaller "
-            f"fuse or rim='resident'")
-    return smem
+    else:
+        trapezoid_passes(fuse, r)
 
 
 def jacobi2d_fused_plain(x: torch.Tensor, spec: StencilSpec, *, fuse: int,
@@ -83,7 +102,8 @@ def _launcher():
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.POINTER(_build.Taps),
+                       ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(_build.Taps), ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -98,12 +118,13 @@ def jacobi2d_fused_step(x: torch.Tensor, spec: StencilSpec, *, fuse: int,
 
     With bc_value=None computes ``fuse`` raw zero-padded stencil steps.
     ``rim`` selects the geometry; "resident" needs the grid to fit one CTA
-    (``tiling.resident_fits``), "trapezoid" needs the fuse*r-deep halo tile
-    to fit one CTA.  ``fields`` overrides a variable spec's baked per-cell
-    weights with a (V, H, W) stack.
+    (``tiling.resident_fits``); "trapezoid" takes any fuse, in several
+    launches where its halo tile does not fit one CTA
+    (``trapezoid_passes``).  ``fields`` overrides a variable spec's baked
+    per-cell weights with a (V, H, W) stack.
     """
     H, W = x.shape[-2:]
-    smem = _check_geometry(H, W, fuse, spec.radius, rim)
+    _check_geometry(H, W, fuse, spec.radius, rim)
     if x.device.type == "cpu":
         return jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc_value,
                                     fields=fields)
@@ -118,18 +139,35 @@ def jacobi2d_fused_step(x: torch.Tensor, spec: StencilSpec, *, fuse: int,
     check_launch(*x.shape)
     B = x.shape[0]
     taps = _build.tap_table(spec)
+    big = _build.big_taps(spec, x.device)
     lib, fn = _launcher()
     out = torch.empty_like(x)
     resident = rim == "resident"
-    for b0, nb in _build.batch_slices(B):
-        rc = fn(int(resident), x[b0].data_ptr(),
-                fields.data_ptr() if fields is not None else None,
-                out[b0].data_ptr(), nb, H, W, *TRAPEZOID_TILE,
-                _build.DTYPE_CODES[x.dtype], ctypes.byref(taps), spec.radius,
-                fuse, int(bc_value is not None),
-                0.0 if bc_value is None else bc_value, smem,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(lib, rc, f"jacobi2d_fused_step(rim={rim!r})")
-        _build.LAUNCHES["jacobi2d_resident" if resident
-                        else "jacobi2d_trapezoid"] += 1
+    r = spec.radius
+    if resident:
+        passes, smem = [fuse], resident_smem_bytes((H, W), r)
+    else:
+        passes = trapezoid_passes(fuse, r)
+        smem = trapezoid_smem_bytes(max(passes), r)
+    # Between passes the grid stays fp32, in two scratch buffers taken in
+    # turn: x -> s0 -> s1 -> s0 ... -> out.
+    scratch = [torch.empty(x.shape, dtype=torch.float32, device=x.device)
+               for _ in range(min(len(passes) - 1, 2))]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    src = x
+    for i, steps in enumerate(passes):
+        dst = out if i == len(passes) - 1 else scratch[i % 2]
+        for b0, nb in _build.batch_slices(B):
+            rc = fn(int(resident), src[b0].data_ptr(),
+                    fields.data_ptr() if fields is not None else None,
+                    dst[b0].data_ptr(), nb, H, W, *TRAPEZOID_TILE,
+                    _build.DTYPE_CODES[src.dtype],
+                    _build.DTYPE_CODES[dst.dtype], ctypes.byref(taps),
+                    big.data_ptr() if big is not None else None, r, steps,
+                    int(bc_value is not None),
+                    0.0 if bc_value is None else bc_value, smem, stream)
+            _build.check(lib, rc, f"jacobi2d_fused_step(rim={rim!r})")
+            _build.LAUNCHES["jacobi2d_resident" if resident
+                            else "jacobi2d_trapezoid"] += 1
+        src = dst
     return out

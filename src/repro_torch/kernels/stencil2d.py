@@ -48,10 +48,6 @@ def check_operands(x: torch.Tensor, spec: StencilSpec,
     if x.ndim != ndim + 1:
         dims = "H, W" if ndim == 2 else "Z, X, Y"
         raise ValueError(f"x must be (batch, {dims}), got {tuple(x.shape)}")
-    max_taps = _build.MAX_TAPS if ndim == 2 else _build.MAX_TAPS_3D
-    if len(spec.taps) > max_taps:
-        raise ValueError(f"{spec.name} has {len(spec.taps)} taps; the CUDA "
-                         f"kernels take at most {max_taps}")
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     want = (spec.num_variable_taps, *x.shape[1:])
@@ -109,8 +105,8 @@ def _launcher():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(_build.Taps), ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p]
+                       ctypes.POINTER(_build.Taps), ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -136,6 +132,7 @@ def stencil2d(x: torch.Tensor, spec: StencilSpec, *,
     B, H, W = x.shape
     check_launch(B, H, W)
     taps = _build.tap_table(spec)
+    big = _build.big_taps(spec, x.device)
     lib, fn = _launcher()
     out = torch.empty_like(x)
     for b0, nb in _build.batch_slices(B):
@@ -143,6 +140,7 @@ def stencil2d(x: torch.Tensor, spec: StencilSpec, *,
                 fields.data_ptr() if fields is not None else None,
                 out[b0].data_ptr(), nb, H, W, spec.radius,
                 _build.DTYPE_CODES[x.dtype], ctypes.byref(taps),
+                big.data_ptr() if big is not None else None,
                 int(bc_value is not None),
                 0.0 if bc_value is None else bc_value,
                 torch.cuda.current_stream(x.device).cuda_stream)

@@ -50,8 +50,8 @@ def _launcher():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(_build.Taps3), ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p]
+                       ctypes.POINTER(_build.Taps3), ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -78,6 +78,7 @@ def stencil3d(x: torch.Tensor, spec: StencilSpec, *,
     B, Z, X, Y = x.shape
     check_launch3(B, Z, X, Y)
     taps = _build.tap_table(spec)
+    big = _build.big_taps(spec, x.device)
     lib, fn = _launcher()
     out = torch.empty_like(x)
     for b0, nb in _build.batch_slices(B):
@@ -85,6 +86,7 @@ def stencil3d(x: torch.Tensor, spec: StencilSpec, *,
                 fields.data_ptr() if fields is not None else None,
                 out[b0].data_ptr(), nb, Z, X, Y, spec.radius,
                 _build.DTYPE_CODES[x.dtype], ctypes.byref(taps),
+                big.data_ptr() if big is not None else None,
                 int(bc_value is not None),
                 0.0 if bc_value is None else bc_value,
                 torch.cuda.current_stream(x.device).cuda_stream)

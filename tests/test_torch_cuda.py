@@ -14,15 +14,16 @@ product its plain version calls: 1e-4 relative and absolute in fp32, and
 3e-2 relative plus 3e-1 absolute in bf16, the JAX package's tolerances.
 K6/K7 (flash attention) sum in another order than their plain versions:
 out 2e-5 absolute in fp32 (JAX's own bound) and, per element, 2e-3 + 1.6e-2
-* |plain| in bf16 (two bf16 ulps; the kernel's 64-key tiles round p against
-other running maxima than the plain version's blocks), lse 1e-5 of its
-max-abs.  Three faults planted in the kernel's source, each built on its
-own, must fail that bf16 bound.  K8/K9 (the flash backward) are held per
+* |plain| in bf16 (two bf16 ulps; the bf16 kernel's 128-key tiles round p
+against other running maxima than the plain version's blocks), lse 1e-5 of
+its max-abs.  Four faults planted in the bf16 (tensor-core) kernel's
+source, each built on its own, must fail that bf16 bound.  K8/K9 (the flash backward) are held per
 element to 2e-5 + 1e-5 * |plain| in fp32 and to the same bf16 bound as
 K6/K7, and three faults planted in their source must fail it too.
 """
 import ctypes
 import dataclasses
+import itertools
 import shutil
 import subprocess
 
@@ -129,6 +130,67 @@ def test_fused_step_bf16_rounds_once_per_pass(cuda):
     ref = jacobi2d_fused_plain(x, spec, fuse=8, bc_value=bc)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=TOL[torch.bfloat16])
+
+
+def _radius3_box(ndim):
+    n = 7 ** ndim
+    return T.StencilSpec({o: 1.0 / n for o in itertools.product(
+        range(-3, 4), repeat=ndim)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["stencil2d", "trapezoid", "stencil3d"])
+def test_tables_past_the_parameter_taps_equal_the_plain_versions(
+        cuda, kernel, dtype):
+    """49 taps (the 2D radius-3 box) through K1 and K2, 343 (the 3D one)
+    through K4: the table comes as a device array, bit-equal in fp32."""
+    rng = np.random.default_rng(49)
+    if kernel == "stencil3d":
+        spec, shape = _radius3_box(3), (2, 10, 64, 64)
+    else:
+        spec, shape = _radius3_box(2), (2, 64, 64)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda, dtype)
+    if kernel == "stencil2d":
+        key, out = "stencil2d", lambda: stencil2d(x, spec, bc_value=1.5)
+        ref = stencil2d_plain(x, spec, bc_value=1.5)
+    elif kernel == "stencil3d":
+        key, out = "stencil3d", lambda: stencil3d(x, spec, bc_value=1.5)
+        ref = stencil3d_plain(x, spec, bc_value=1.5)
+    else:
+        key = "jacobi2d_trapezoid"
+        out = lambda: jacobi2d_fused_step(x, spec, fuse=4, bc_value=1.5)
+        ref = jacobi2d_fused_plain(x, spec, fuse=4, bc_value=1.5)
+    n = _build.LAUNCHES[key]
+    got = out()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == n + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=0 if dtype == torch.float32
+                               else TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius,passes", [(1, 2), (2, 3)])
+def test_fuse_64_runs_in_passes_that_keep_fp32(cuda, radius, passes, dtype):
+    """A trapezoid past one CTA's shared memory runs in passes (32 + 32 at
+    radius 1; 22 + 21 + 21 at radius 2) that hand each other fp32: the
+    plain version, which keeps fp32 across all 64 steps and rounds once, is
+    met to 0.0 in fp32 and within the bf16 bound."""
+    spec = (T.laplace_jacobi(2) if radius == 1
+            else T.star(2, [0.15, 0.05], center=0.2))
+    x = torch.from_numpy(np.random.default_rng(64).standard_normal(
+        (2, 300, 260)).astype(np.float32)).to(cuda, dtype)
+    n = _build.LAUNCHES["jacobi2d_trapezoid"]
+    out = jacobi2d_fused_step(x, spec, fuse=64, bc_value=1.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["jacobi2d_trapezoid"] == n + passes
+    ref = jacobi2d_fused_plain(x, spec, fuse=64, bc_value=1.5)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=0 if dtype == torch.float32
+                               else TOL[dtype])
 
 
 def test_table1_on_the_card_takes_the_cpu_iteration_count(cuda):
@@ -323,34 +385,71 @@ def test_flash_kernels_round_p_to_v_type(cuda):
     assert float((ref + 0.0078).abs().max()) <= 1e-4
 
 
-# One edit of csrc/flash_attention.cu each: (text, replacement).
+def test_flash_bf16_kernels_rerun_bit_equal(cuda):
+    """The tensor-core kernel sums each row in a fixed order (no atomics,
+    no split over kv): a rerun is bit-equal, out and lse."""
+    q, k, v, kw = _flash_inputs("gqa_ragged_96", torch.bfloat16, cuda)
+    first6 = flash_attention(q, k, v, **kw)
+    first7, lse = flash_fwd(q, k, v, **kw)
+    assert torch.equal(first6, flash_attention(q, k, v, **kw))
+    again7, again_lse = flash_fwd(q, k, v, **kw)
+    assert torch.equal(first7, again7) and torch.equal(lse, again_lse)
+
+
+# One edit of csrc/flash_attention_sm90.cu (the bf16 kernel) each: (text,
+# replacement).  p_not_rounded adds to each P . V product the part of p
+# that rounding to bf16 took off (a second bf16 product), so p . v runs on
+# p to about 16 bits, as a kernel that skips the rounding does.
 PLANTED_FAULTS = {
-    "p_not_rounded": ("round_to<T>(s[i][j])", "s[i][j]"),
-    "no_alpha_rescale": ("acc[i][n] *= alpha[i];", "acc[i][n] *= 1.f;"),
-    "last_kv_tile_dropped": ("t < n_tiles; ++t", "t < n_tiles - 1; ++t"),
+    "p_not_rounded": (
+        """        wgmma_rs<HD>(o, p + 4 * kk,
+                     desc<HD>(sv + s * G::BYTES + kk * 16 * G::ROW, G::BLOCK));
+""",
+        """      {
+        uint32_t lo[4];
+        for (int j = 0; j < 4; ++j) {
+          const int i = 4 * kk + j;
+          const float2 hi = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&p[i]));
+          lo[j] = pack_bf16(sc[2 * i] - hi.x, sc[2 * i + 1] - hi.y);
+        }
+        const uint64_t d =
+            desc<HD>(sv + s * G::BYTES + kk * 16 * G::ROW, G::BLOCK);
+        wgmma_rs<HD>(o, p + 4 * kk, d);
+        wgmma_rs<HD>(o, lo, d);
+      }
+"""),
+    "no_alpha_rescale": ("o[i] *= alpha[(i / 2) % 2];", "o[i] *= 1.f;"),
+    "last_kv_tile_dropped": (
+        "n_tiles = last < 0 ? 0 : min(n_tiles, last / BK + 1);\n  }\n",
+        "n_tiles = last < 0 ? 0 : min(n_tiles, last / BK + 1);\n  }\n"
+        "  n_tiles = max(n_tiles - 1, 0);\n"),
+    "causal_mask_skipped_on_diagonal": (
+        "(causal && kv0 + BK - 1 - kv_offset > q0 + wg * 64)", "false"),
 }
 
 
 @pytest.mark.parametrize("fault", list(PLANTED_FAULTS))
 def test_flash_bf16_bound_rejects_planted_faults(cuda, fault, tmp_path,
                                                  monkeypatch):
-    """Build the kernel with one fault planted, run it on the bf16 cases in
-    place of the real one, and require some case to fail the bound.
-    Prints each case's max of |out - plain| / (atol + rtol * |plain|)."""
+    """Build the bf16 kernel with one fault planted, run it on the bf16
+    cases in place of the real one, and require some case to fail the
+    bound.  Prints each case's max of |out - plain| / (atol + rtol *
+    |plain|)."""
     old, new = PLANTED_FAULTS[fault]
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
-    cu = src / "flash_attention.cu"
+    cu = src / "flash_attention_sm90.cu"
     text = cu.read_text()
     assert text.count(old) == 1
     cu.write_text(text.replace(old, new))
-    so = tmp_path / "libflash_attention.so"
+    so = tmp_path / "libflash_attention_sm90.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                     str(cu)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
-    monkeypatch.setitem(_build._libraries, "flash_attention", lib)
+    monkeypatch.setitem(_build._libraries, "flash_attention_sm90", lib)
     ratios = {}
     for case in (*FLASH_CASES, "p_rounding"):
         q, k, v, kw = _flash_inputs(case, torch.bfloat16, cuda)
@@ -369,6 +468,11 @@ def test_flash_wrappers_raise_rather_than_fall_back(cuda):
     q = torch.zeros(1, 8, 2, 16, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         flash_fwd(q.transpose(1, 2), q, q)
+    # TMA needs 16-byte aligned bf16 operands: an offset view is refused.
+    flat = torch.zeros(1 + 8 * 2 * 16, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_fwd(q, q, q)
 
 
 SMOKE_FLASH = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),

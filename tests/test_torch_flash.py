@@ -18,6 +18,8 @@ dq, dk, dv within 1e-5 of its max-abs in fp32 (the same arithmetic in
 another summation order reads under 1e-6), and per element within the bf16
 bound above in bf16 (dq and dk read bit-equal, dv under 0.01 of the bound).
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,8 +37,8 @@ from repro_torch.kernels.flash_attention_bwd import (flash_bwd,
                                                      flash_bwd_dq_plain,
                                                      flash_delta)
 from repro_torch.models.attention import attention
-from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, ds_rounding_case,
-                                p_rounding_case)
+from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, FLASH_CASES,
+                                ds_rounding_case, p_rounding_case)
 
 TOL = {"f32": (2e-5, 0.0), "bf16": (BF16_ATOL, BF16_RTOL)}  # (atol, rtol)
 LSE_RTOL = 1e-5
@@ -169,6 +171,79 @@ def test_bf16_rounds_p_to_v_type():
     miss = np.abs(_f32(unrounded) - ref) / (BF16_ATOL + BF16_RTOL
                                              * np.abs(ref))
     assert miss.min() > 10
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES
+                                  if c != "serve_shape"])
+def test_bf16_tensor_core_tiling_stays_in_the_bound(case):
+    """The bf16 kernel's schedule is the plain version at 128 x 128 tiles
+    (one 128-row q tile a CTA, 128-key kv tiles, p rounded per tile): that
+    schedule stays within the per-element bf16 bound of JAX's kernel at its
+    own blocks, and its lse within 1e-5 relative."""
+    shape, causal, kv_offset = FLASH_CASES[case]
+    (jq, jk, jv), (tq, tk, tv) = _both(_mk(*shape), "bf16")
+    out, lse = flash_fwd(tq, tk, tv, causal=causal, kv_offset=kv_offset,
+                         block_q=128, block_k=128)
+    ref, (*_, ref_lse) = _fwd_rule(jq, jk, jv, causal, 512, 512, kv_offset)
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    np.testing.assert_allclose(_f32(lse), _f32(ref_lse)[:, :, :shape[1]],
+                               rtol=LSE_RTOL, atol=0)
+
+
+class _StubKernel:
+    """A ctypes function of a library that is not built: records its
+    arguments and returns 0 (no CUDA error)."""
+
+    def __init__(self, calls, symbol):
+        self.argtypes = self.restype = None
+        self.calls, self.symbol = calls, symbol
+
+    def __call__(self, *args):
+        self.calls.append((self.symbol, args))
+        return 0
+
+
+class _StubLibrary:
+    def __init__(self, calls, *symbols):
+        for name in symbols:
+            setattr(self, name, _StubKernel(calls, name))
+
+
+def test_wrapper_sends_bf16_to_the_tensor_cores_and_fp32_to_simt(
+        monkeypatch):
+    """``flash_attention.launch`` picks the kernel by dtype, with no
+    fallback: bf16 calls flash_attention_sm90.cu's entry point, fp32
+    flash_attention.cu's, each with its dtype code.  The card is stubbed:
+    libraries that record their calls, and a stream lookup."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    calls = []
+    monkeypatch.setitem(_build._libraries, "flash_attention_sm90",
+                        _StubLibrary(calls, "flash_attention_sm90_launch"))
+    monkeypatch.setitem(_build._libraries, "flash_attention",
+                        _StubLibrary(calls, "flash_attention_launch"))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    q, k, v = (torch.from_numpy(a) for a in _mk(1, 16, 16, 4, 2, 32))
+    n6, n7 = _build.LAUNCHES["flash_attention"], _build.LAUNCHES["flash_fwd"]
+    monkeypatch.setitem(_build.LAUNCHES, "flash_attention", n6)  # restored
+    monkeypatch.setitem(_build.LAUNCHES, "flash_fwd", n7)
+    for dtype in (torch.bfloat16, torch.float32):
+        out, lse = fa.launch(q.to(dtype), k.to(dtype), v.to(dtype),
+                             causal=True, kv_offset=0, with_lse=True,
+                             name="flash_fwd")
+        assert out.dtype == dtype and lse.shape == (1, 4, 16)
+        fa.launch(q.to(dtype), k.to(dtype), v.to(dtype), causal=False,
+                  kv_offset=0, with_lse=False, name="flash_attention")
+    assert [c[0] for c in calls] == ["flash_attention_sm90_launch"] * 2 + [
+        "flash_attention_launch"] * 2
+    # (B, Sq, Skv, H, KV, hd, dtype code, causal, ...) after the 5 pointers
+    assert [c[1][5:13] for c in calls] == [
+        (1, 16, 16, 4, 2, 32, 1, 1), (1, 16, 16, 4, 2, 32, 1, 0),
+        (1, 16, 16, 4, 2, 32, 0, 1), (1, 16, 16, 4, 2, 32, 0, 0)]
+    assert [c[1][4] is None for c in calls] == [False, True, False, True]
+    assert (_build.LAUNCHES["flash_attention"], _build.LAUNCHES["flash_fwd"]
+            ) == (n6 + 2, n7 + 2)
 
 
 def test_trainable_raises_rather_than_return_a_wrong_gradient():

@@ -159,12 +159,17 @@ def test_wrappers_reject_what_the_kernels_cannot_run():
     with pytest.raises(ValueError, match="resident"):
         jacobi2d_fused_step(torch.zeros(1, 200, 200), lap, fuse=2,
                             rim="resident")
-    with pytest.raises(ValueError, match="shared memory"):
-        jacobi2d_fused_step(x, lap, fuse=60)
-    wide = T.StencilSpec({(i, j): 0.01 for i in range(-2, 3)
-                          for j in range(-3, 3)})
-    with pytest.raises(ValueError, match="at most 25"):
-        stencil2d(x, wide)
+    # A trapezoid deeper than one CTA's shared memory runs (in passes), and
+    # a table past the kernels' 25 parameter taps too: both as JAX.
+    jx = jnp.asarray(X)
+    _close(JK.jacobi2d_fused_step(jx, J.laplace_jacobi(2), fuse=60),
+           jacobi2d_fused_step(x, lap, fuse=60), "f32")
+    jwide = J.StencilSpec({(i, j): 0.01 for i in range(-2, 3)
+                           for j in range(-3, 3)})
+    _close(JK.stencil2d(jx, jwide), stencil2d(x, to_torch_spec(jwide)),
+           "f32")
+    with pytest.raises(ValueError, match="past one CTA"):
+        jacobi2d_fused_step(x, T.StencilSpec({(60, 0): 1.0}), fuse=1)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         stencil2d(x.double(), lap)
     with pytest.raises(ValueError, match="fields must be shaped"):
@@ -173,6 +178,27 @@ def test_wrappers_reject_what_the_kernels_cannot_run():
     box5 = T.StencilSpec({(i, j): 0.04 for i in range(-2, 3)
                           for j in range(-2, 3)})
     assert stencil2d(x, box5).shape == x.shape  # 25 taps fit
+
+
+def test_deep_trapezoids_run_in_passes_that_fit():
+    from repro_torch.kernels.jacobi_fused import (trapezoid_passes,
+                                                  trapezoid_smem_bytes)
+    from repro_torch.kernels.tiling import MAX_SMEM_BYTES, STATIC_SMEM_BYTES
+    assert trapezoid_passes(53, 1) == [53] and trapezoid_passes(54, 1) == [
+        27, 27]
+    assert trapezoid_passes(64, 1) == [32, 32]
+    assert trapezoid_passes(64, 2) == [22, 21, 21]
+    assert trapezoid_passes(26, 2) == [26]
+    for fuse in (1, 8, 53, 54, 64, 200):
+        for r in (1, 2, 3):
+            passes = trapezoid_passes(fuse, r)
+            assert sum(passes) == fuse and max(passes) - min(passes) <= 1
+            assert (trapezoid_smem_bytes(max(passes), r) + STATIC_SMEM_BYTES
+                    <= MAX_SMEM_BYTES)
+            if len(passes) > 1:   # one pass fewer would not fit
+                deeper = -(-fuse // (len(passes) - 1))
+                assert (trapezoid_smem_bytes(deeper, r) + STATIC_SMEM_BYTES
+                        > MAX_SMEM_BYTES)
 
 
 def test_plain_path_launches_no_kernel():
@@ -343,10 +369,14 @@ def test_3d_and_dense_wrappers_reject_what_the_kernels_cannot_run():
         stencil3d(x, T.laplace_jacobi(2))
     with pytest.raises(ValueError, match="batch, Z, X, Y"):
         stencil3d(x[0], T.laplace_jacobi(3))
-    wide = T.StencilSpec({(i, j, k): 0.001 for i in range(-3, 4)
-                          for j in range(-2, 3) for k in range(-2, 3)})
-    with pytest.raises(ValueError, match="at most 125"):
-        stencil3d(x, wide)
+    # A table past the kernel's 125 parameter taps runs, as JAX's does.
+    jwide = J.StencilSpec({(i, j, k): 0.001 for i in range(-3, 4)
+                           for j in range(-2, 3) for k in range(-2, 3)})
+    xr = _x3((1, 4, 9, 7))
+    np.testing.assert_allclose(
+        stencil3d(torch.from_numpy(xr), to_torch_spec(jwide)).numpy(),
+        np.asarray(JK.stencil3d(jnp.asarray(xr), jwide, block_x=8)),
+        rtol=0, atol=TOL["f32"])
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         stencil3d(x.double(), T.laplace_jacobi(3))
     box5 = T.StencilSpec({(i, j, k): 0.008 for i in range(-2, 3)

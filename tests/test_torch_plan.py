@@ -307,3 +307,59 @@ def test_3d_fields_operand_matches_jax():
     jout = jplan(jnp.asarray(x), fields=jnp.asarray(f))
     tout = tplan(torch.tensor(x), fields=torch.tensor(f))
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-5)
+
+
+# --- stencils past the kernels' former limits ---------------------------------
+# The CUDA kernels once refused more than 25 taps (2D) or 125 (3D) and a
+# trapezoid past one CTA's shared memory; JAX's pallas/pallas_fused run
+# them.  fp32 within 1e-6 (same arithmetic, same tap order), bf16 within
+# 2e-2 (one bf16 ulp at these magnitudes), as test_torch_kernels.py.
+LIMIT_TOL = {"f32": 1e-6, "bf16": 2e-2}
+
+
+def _radius3_box(ndim):
+    n = 7 ** ndim
+    return J.StencilSpec({o: 1.0 / n for o in itertools.product(
+        range(-3, 4), repeat=ndim)}, name=f"box{ndim}d_r3")
+
+
+@pytest.mark.parametrize("backend,grid,fuse", [
+    ("cuda", (64, 64), 1), ("cuda_fused", (64, 64), 2),
+    ("cuda", (10, 64, 64), 1)])
+def test_radius3_boxes_run_as_jax(backend, grid, fuse):
+    jspec = _radius3_box(len(grid))
+    assert len(jspec.taps) == 7 ** len(grid)   # 49 and 343 taps
+    x = np.random.default_rng(18).standard_normal((1, *grid))
+    jout = J.stencil_apply(jspec, jnp.asarray(x, jnp.float32),
+                           backend=PORT_TO_JAX[backend], bc=BC_VALUE,
+                           iters=2, fuse=fuse, tuned=None)
+    tout = T.stencil_apply(to_torch_spec(jspec), torch.tensor(x).float(),
+                           backend=backend, bc=BC_VALUE, iters=2, fuse=fuse,
+                           device="cpu")
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
+                               atol=LIMIT_TOL["f32"])
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("radius", [1, 2])
+def test_fuse_64_runs_as_jax(radius, dtype_name):
+    # The 5-point Laplace Jacobi, and the radius-2 averaging star of the
+    # kernel tests (weights summing to 1).  The fourth-order Laplace Jacobi
+    # star (16/60, -1/60) is no test of this: its weights' absolute sum is
+    # 68/60, so 64 steps grow the grid to ~100, where JAX's own pallas and
+    # reference backends already differ by 1.5e-5.
+    jspec = (J.laplace_jacobi(2) if radius == 1
+             else J.star(2, [0.15, 0.05], center=0.2))
+    jd, td, _ = DTYPES[dtype_name]
+    x = np.random.default_rng(19).standard_normal((1, 24, 24))
+    jout = J.stencil_apply(jspec, jnp.asarray(x, jd), backend="pallas_fused",
+                           bc=BC_VALUE, iters=64, fuse=64, tuned=None)
+    plan = T.make_plan(to_torch_spec(jspec), (24, 24), backend="cuda_fused",
+                       bc=BC_VALUE, iters=64, fuse=64, dtype=td,
+                       device="cpu")
+    assert (plan.fuse, plan.rim) == (64, "trapezoid")
+    tout = plan(torch.tensor(x).to(td))
+    assert tout.dtype == td
+    np.testing.assert_allclose(tout.float().numpy(),
+                               np.asarray(jout.astype(jnp.float32)), rtol=0,
+                               atol=LIMIT_TOL[dtype_name])
