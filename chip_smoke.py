@@ -95,12 +95,16 @@ Phases, one JSON line each:
      library yardstick, timed here only; the port never calls it); the
      HGMMA instructions of each bf16 instance (``cuobjdump -sass`` of the
      built library: none fails) and its ptxas report (a spill fails);
- 16. K8 (flash_bwd_dq) and K9 (flash_bwd_dkv) against their plain versions,
-     o and lse from K7: the cases of tests/_torch_flash_cases.py
-     (``FLASH_CASES``: those of phase 12 and the training shape) in fp32
-     and bf16, and ``ds_rounding``, built so that a K8 that does not round
-     ds to k's type misses by 16 times the bound; dq, dk, dv per element
-     within 2e-5 + 1e-5 * |plain| in fp32 and K6/K7's bf16 bound;
+ 16. K8 (flash_bwd_dq) and K9 (flash_bwd_dkv) against their plain versions
+     (bf16 runs the tensor-core kernels, fp32 the SIMT ones), o and lse
+     from K7: the cases of tests/_torch_flash_cases.py (``FLASH_CASES``:
+     those of phase 12 and the training shape) in fp32 and bf16,
+     ``ds_rounding``, built so that a K8 that does not round ds to k's type
+     misses by 16 times the bound, and ``dv_p_rounding``, built so that a
+     K9 that rounds p before p^T . do misses by 86 times; dq, dk, dv per
+     element within 2e-5 + 1e-5 * |plain| in fp32 and K6/K7's bf16 bound;
+     and a rerun of the bf16 kernels at the training shape, bit-equal (no
+     atomics);
  17. the loss and gradients of an fp32 train step at full width, batch 2,
      1000 tokens (ragged against every tile), attn_impl "flash" against
      "xla" from the same weights and batch: loss within 1e-5 relative,
@@ -114,7 +118,9 @@ Phases, one JSON line each:
  19. K8 and K9 timed by CUDA-graph replay at the training shape in bf16
      beside their bounds, their plain versions and the backward of
      F.scaled_dot_product_attention (the library yardstick, timed with
-     torch.autograd.grad; the port never calls it).
+     torch.autograd.grad; the port never calls it); the HGMMA instructions
+     of each bf16 instance (none fails) and its ptxas report (a spill
+     fails).
 The inventory line lists K1-K9.
 
 Any failed check raises and the script exits nonzero.  The last line is
@@ -1049,7 +1055,8 @@ def main() -> int:
     del qs_, ks_, vs_
     torch.cuda.empty_cache()
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from _torch_flash_cases import FLASH_CASES, ds_rounding_case
+    from _torch_flash_cases import (FLASH_CASES, ds_rounding_case,
+                                    dv_p_rounding_case)
     from repro_torch.data.synthetic import DataConfig, token_batch
     from repro_torch.kernels.flash_attention_bwd import (
         flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_delta,
@@ -1059,13 +1066,23 @@ def main() -> int:
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step, value_and_grad)
 
-    def bwd_case(label, q, k, v, do, *, causal, kv_offset=0):
+    rerun_equal = {}
+
+    def bwd_case(label, q, k, v, do, *, causal, kv_offset=0, rerun=False):
         """K8 and K9 on one case (o and lse from K7), held element by
-        element to their plain versions."""
+        element to their plain versions; with ``rerun``, run again and
+        required bit-equal."""
         kw = dict(causal=causal, kv_offset=kv_offset)
         o, lse = flash_fwd(q, k, v, **kw)
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do, **kw)
         sync()
+        if rerun:
+            again = flash_bwd(q, k, v, o, lse, do, **kw)
+            same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv),
+                                                          again))
+            check(same, f"K8/K9 {label} {q.dtype}: a rerun differs")
+            rerun_equal[label] = same
+            del again
         delta = flash_delta(o, do)
         record("flash_bwd_dq", q.dtype, dq,
                flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw), label,
@@ -1083,12 +1100,14 @@ def main() -> int:
             q, k, v, do = (torch.randn(s_, generator=gb, device=dev).to(dtype)
                            for s_ in ((B_, Sq_, H_, hd_), (B_, Skv_, KV_, hd_),
                                       (B_, Skv_, KV_, hd_), (B_, Sq_, H_, hd_)))
-            bwd_case(label, q, k, v, do, causal=causal, kv_offset=kv_offset)
+            bwd_case(label, q, k, v, do, causal=causal, kv_offset=kv_offset,
+                     rerun=dtype == torch.bfloat16 and label == "serve_shape")
     bwd_case("ds_rounding", *ds_rounding_case(dev), causal=False)
+    bwd_case("dv_p_rounding", *dv_p_rounding_case(dev), causal=False)
     emit({"phase": 16, "cases": {n: cases[n] for n in BWD_KERNELS},
           "max_abs_err": {n: worst[n] for n in BWD_KERNELS},
           "max_err_over_bound": {n: ratio[n] for n in BWD_KERNELS},
-          "tol": FLASH_BWD_TOL})
+          "bf16_rerun_bit_equal": rerun_equal, "tol": FLASH_BWD_TOL})
 
     # -- 17. an fp32 train step at full width: flash against xla ---------------
     B17, S17 = LM_FP32[:2]
@@ -1195,6 +1214,17 @@ def main() -> int:
     stat_bytes = 2 * Bm * Hm * Sm * 4            # lse and delta
     k8_bytes = qkv_bytes + stat_bytes + 2 * Bm * Sm * Hm * hdm
     k9_bytes = qkv_bytes + stat_bytes + 2 * 2 * Bm * Sm * KVm * hdm
+    # The bf16 backward runs on the tensor cores: HGMMA instructions in
+    # every instance of its library, and no spills (ptxas -v).
+    hgmma_bwd = sass_counts(libs["flash_attention_bwd_sm90"], "HGMMA")
+    check(len(hgmma_bwd) == 8 and min(hgmma_bwd.values()) > 0,
+          f"HGMMA instructions by bf16 backward instance: {hgmma_bwd}")
+    bwd_ptxas = [ln.strip() for ln in
+                 _build.build_log("flash_attention_bwd_sm90").splitlines()
+                 if "registers" in ln or "spill" in ln]
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in bwd_ptxas if "spill" in ln),
+          f"the bf16 backward kernels spill: {bwd_ptxas}")
     emit({"phase": 19, "shape": list(LM_SHAPE), "dtype": "bfloat16",
           "k8_ms": k8_ms, "k9_ms": k9_ms, "k8_plain_ms": k8_plain,
           "k9_plain_ms": k9_plain, "sdpa_bwd_ms": sdpa_bwd_ms,
@@ -1203,7 +1233,8 @@ def main() -> int:
           "k9_bound_ms": max(k9_ops / PEAK_BF16_FLOPS,
                              k9_bytes / PEAK_BYTES) * 1e3,
           "k8_TFLOPs": k8_ops / (k8_ms * 1e-3) / 1e12,
-          "k9_TFLOPs": k9_ops / (k9_ms * 1e-3) / 1e12})
+          "k9_TFLOPs": k9_ops / (k9_ms * 1e-3) / 1e12,
+          "hgmma_by_instance": hgmma_bwd, "ptxas": bwd_ptxas})
 
     def entry(name, source, replaces, ms, plain_ms, nbytes, ops, lib_ms,
               extra, path_launches=launches, peak_flops=PEAK_FP32_FLOPS):
@@ -1276,20 +1307,28 @@ def main() -> int:
                "max_abs_err_bf16": worst["flash_fwd"]["bfloat16"],
                "lse_max_rel_err": lse_worst},
               launches7, PEAK_BF16_FLOPS),
-        entry("flash_bwd_dq", "src/repro_torch/csrc/flash_attention_bwd.cu",
+        entry("flash_bwd_dq",
+              "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
               "src/repro/kernels/flash_attention_bwd.py:223", k8_ms,
               k8_plain, k8_bytes, k8_ops, sdpa_bwd_ms,
               {"shape": list(LM_SHAPE), "dtype": "bfloat16",
                "plain_timing": "eager",
+               "fp32_source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "hgmma": sum(n for f, n in hgmma_bwd.items()
+                            if "flash_bwd_dq_" in f),
                "library": "backward of F.scaled_dot_product_attention "
                           "(dq, dk and dv together)",
                "max_abs_err_bf16": worst["flash_bwd_dq"]["bfloat16"]},
               launches18, PEAK_BF16_FLOPS),
-        entry("flash_bwd_dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
+        entry("flash_bwd_dkv",
+              "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
               "src/repro/kernels/flash_attention_bwd.py:249", k9_ms,
               k9_plain, k9_bytes, k9_ops, sdpa_bwd_ms,
               {"shape": list(LM_SHAPE), "dtype": "bfloat16",
                "plain_timing": "eager",
+               "fp32_source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "hgmma": sum(n for f, n in hgmma_bwd.items()
+                            if "flash_bwd_dkv_" in f),
                "library": "backward of F.scaled_dot_product_attention "
                           "(dq, dk and dv together)",
                "max_abs_err_bf16": worst["flash_bwd_dkv"]["bfloat16"]},

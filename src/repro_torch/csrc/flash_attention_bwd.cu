@@ -1,5 +1,5 @@
-// The flash-attention backward: the Hopper port of the two TPU kernels of
-// the JAX package's kernels/flash_attention_bwd.py::_flash_bwd,
+// The fp32 flash-attention backward: the Hopper port of the two TPU
+// kernels of the JAX package's kernels/flash_attention_bwd.py::_flash_bwd,
 //
 //   K8  pl.pallas_call at :223, body _dq_kernel (:119) — dq, kv innermost;
 //   K9  pl.pallas_call at :249, body _dkv_kernel (:163) — dk and dv, q
@@ -29,9 +29,12 @@
 // v, do and the outputs are each read or written once: at the training
 // shape (S = 2048, hd = 128) hundreds of flops a byte, past the card's
 // ridge point.  The TPU kernels keep s, p and ds in VMEM for that reason;
-// these keep them in registers and shared memory.  This first port runs on
-// the CUDA cores (fp32 multiply-adds, the 67 TFLOP/s rate, not the tensor
-// cores' 989), as K7 does; the tensor-core route is later work.  Design:
+// these keep them in registers and shared memory.  This file is the fp32
+// kernel only, on the CUDA cores (fp32 multiply-adds, the 67 TFLOP/s rate):
+// fp32 is the parity path, and no tensor-core format keeps its bound.  bf16
+// runs the tensor-core kernels of flash_attention_bwd_sm90.cu, and this file
+// refuses it.  In fp32 the roundings of ds to q's and k's type are the
+// identity.  Design:
 //   - K8: one CTA of 256 threads per (batch, head, 64-row q tile), q and do
 //     resident in shared memory as fp32; per 64-row kv tile, V is staged
 //     (dp = do . V^T), then K into the same buffer (s = q . K^T, ds, then
@@ -63,20 +66,16 @@ constexpr int THREADS = 256;   // 16 x 16
 constexpr int PS = BK + 4;     // row stride of the score tiles (floats)
 constexpr float NEG_INF = -1e30f;
 
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
 // Rows r0..r0+63 of one head of a (S, heads, HD) tensor into a 64 x (HD+4)
 // fp32 tile; rows past S read as 0.  ``src`` points at row 0 of the head.
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src,
                                       int r0, int S, size_t stride) {
   for (int e = threadIdx.x; e < 64 * HD; e += THREADS) {
     const int r = e / HD, d = e % HD;
     dst[r * (HD + 4) + d] =
-        r0 + r < S ? to_f32(src[(size_t)(r0 + r) * stride + d]) : 0.f;
+        r0 + r < S ? src[(size_t)(r0 + r) * stride + d] : 0.f;
   }
 }
 
@@ -160,12 +159,15 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // K8: dq for one (batch, head, q tile).
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq,
                         int Sq, int Skv, int H, int KV, int causal,
                         int kv_offset, float scale) {
   constexpr int RS = HD + 4;
@@ -174,7 +176,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* qs = reinterpret_cast<float*>(smem4);  // BQ x RS
   float* dos = qs + BQ * RS;                    // BQ x RS
   float* kvs = dos + BQ * RS;                   // BK x RS: V, then K
-  float* dss = kvs + BK * RS;                   // BQ x PS: ds in k's type
+  float* dss = kvs + BK * RS;                   // BQ x PS: ds
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -184,10 +186,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   const size_t q_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)KV * HD;
   const size_t q_head = (size_t)b * Sq * q_stride + (size_t)h * HD;
-  const T* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
-  const T* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
-  stage<T, HD>(qs, q + q_head, q0, Sq, q_stride);
-  stage<T, HD>(dos, dout + q_head, q0, Sq, q_stride);
+  const float* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  const float* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  stage<HD>(qs, q + q_head, q0, Sq, q_stride);
+  stage<HD>(dos, dout + q_head, q0, Sq, q_stride);
 
   float lse_r[4], delta_r[4];
   const size_t row_stat = ((size_t)b * H + h) * Sq;
@@ -215,12 +217,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * BK;
     __syncthreads();  // q, do staged; the last tile's ds . K reads are done
-    stage<T, HD>(kvs, vb, kv0, Skv, kv_stride);
+    stage<HD>(kvs, vb, kv0, Skv, kv_stride);
     __syncthreads();
     float dp[4][4];
     tile_dot<HD>(dos, kvs, ty, tx, dp);
     __syncthreads();  // every thread is done reading V
-    stage<T, HD>(kvs, kb, kv0, Skv, kv_stride);
+    stage<HD>(kvs, kb, kv0, Skv, kv_stride);
     __syncthreads();
     float s[4][4];
     tile_dot<HD>(qs, kvs, ty, tx, s);
@@ -235,7 +237,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float sv = ok ? s[i][j] * scale : NEG_INF;
         const float p = expf(sv - lse_r[i]);
         const float ds = p * (dp[i][j] - delta_r[i]) * scale;
-        dss[(4 * ty + i) * PS + tx + 16 * j] = round_to<T>(ds);
+        dss[(4 * ty + i) * PS + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -246,21 +248,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= Sq) continue;
-    T* out = dq + q_head + (size_t)row * q_stride;
+    float* out = dq + q_head + (size_t)row * q_stride;
 #pragma unroll
-    for (int n = 0; n < NC; ++n) out[tx + 16 * n] = from_f32<T>(acc[i][n]);
+    for (int n = 0; n < NC; ++n) out[tx + 16 * n] = acc[i][n];
   }
 }
 
 // K9: dk and dv for one (batch, kv head, k tile), summed over the G query
 // heads of the group and every q tile.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int Sq,
+                         float* __restrict__ dk, float* __restrict__ dv, int Sq,
                          int Skv, int H, int KV, int causal, int kv_offset,
                          float scale) {
   constexpr int RS = HD + 4;
@@ -280,8 +284,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const size_t q_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)KV * HD;
   const size_t kv_head = (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
-  stage<T, HD>(ks, k + kv_head, k0, Skv, kv_stride);
-  stage<T, HD>(vs, v + kv_head, k0, Skv, kv_stride);
+  stage<HD>(ks, k + kv_head, k0, Skv, kv_stride);
+  stage<HD>(vs, v + kv_head, k0, Skv, kv_stride);
 
   // q tiles holding a row at or past the tile's first key position.
   const int n_q = (Sq + BQ - 1) / BQ;
@@ -300,8 +304,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int tq = t0; tq < n_q; ++tq) {
       const int q0 = tq * BQ;
       __syncthreads();  // K, V staged; the last tile's reads are done
-      stage<T, HD>(qs, q + q_head, q0, Sq, q_stride);
-      stage<T, HD>(dos, dout + q_head, q0, Sq, q_stride);
+      stage<HD>(qs, q + q_head, q0, Sq, q_stride);
+      stage<HD>(dos, dout + q_head, q0, Sq, q_stride);
       float lse_c[4], delta_c[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -336,7 +340,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          pt[(4 * ty + i) * PS + tx + 16 * j] = round_to<T>(s[i][j]);
+          pt[(4 * ty + i) * PS + tx + 16 * j] = s[i][j];
       __syncthreads();
       tile_acc<HD>(pt, qs, ty, tx, dk_acc);  // dk += ds^T . q
     }
@@ -349,8 +353,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const size_t off = kv_head + (size_t)row * kv_stride;
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
-      dk[off + tx + 16 * n] = from_f32<T>(dk_acc[i][n]);
-      dv[off + tx + 16 * n] = from_f32<T>(dv_acc[i][n]);
+      dk[off + tx + 16 * n] = dk_acc[i][n];
+      dv[off + tx + 16 * n] = dv_acc[i][n];
     }
   }
 }
@@ -364,64 +368,60 @@ struct Args {
   cudaStream_t s;
 };
 
-template <typename T, int HD>
+template <int HD>
 int launch_dq(const Args& a) {
-  auto kernel = flash_bwd_dq_kernel<T, HD>;
+  auto kernel = flash_bwd_dq_kernel<HD>;
   constexpr size_t smem = dq_smem_bytes<HD>();
   const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
   kernel<<<grid, THREADS, smem, a.s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.out0), a.Sq, a.Skv, a.H, a.KV, a.causal,
-      a.kv_offset, a.scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.out0), a.Sq, a.Skv, a.H, a.KV,
+      a.causal, a.kv_offset, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_dkv(const Args& a) {
-  auto kernel = flash_bwd_dkv_kernel<T, HD>;
+  auto kernel = flash_bwd_dkv_kernel<HD>;
   constexpr size_t smem = dkv_smem_bytes<HD>();
   const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   const dim3 grid((a.Skv + BK - 1) / BK, a.KV, a.B);
   kernel<<<grid, THREADS, smem, a.s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.Sq,
-      a.Skv, a.H, a.KV, a.causal, a.kv_offset, a.scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.out0),
+      static_cast<float*>(a.out1), a.Sq, a.Skv, a.H, a.KV, a.causal,
+      a.kv_offset, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool DQ>
-int launch_hd(int hd, const Args& a) {
+template <bool DQ>
+int launch_hd(int dtype, int hd, const Args& a) {
+  if (dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return DQ ? launch_dq<T, 16>(a) : launch_dkv<T, 16>(a);
-    case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+    case 16: return DQ ? launch_dq<16>(a) : launch_dkv<16>(a);
+    case 32: return DQ ? launch_dq<32>(a) : launch_dkv<32>(a);
+    case 64: return DQ ? launch_dq<64>(a) : launch_dkv<64>(a);
+    case 128: return DQ ? launch_dq<128>(a) : launch_dkv<128>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool DQ>
-int launch_dtype(int dtype, int hd, const Args& a) {
-  if (dtype == DTYPE_F32) return launch_hd<float, DQ>(hd, a);
-  if (dtype == DTYPE_BF16) return launch_hd<__nv_bfloat16, DQ>(hd, a);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// q, dout: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), contiguous, of one
-// dtype; lse, delta: (B, H, Sq) fp32.  hd is 16, 32, 64 or 128; the wrapper
-// checks the shapes and that H, KV and B fit gridDim.y/z.  Each returns
-// cudaGetLastError() after its launch (0 on success).
+// q, dout: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), contiguous fp32 (any
+// other dtype is refused); lse, delta: (B, H, Sq) fp32.  hd is 16, 32, 64
+// or 128; the wrapper checks the shapes and that H, KV and B fit
+// gridDim.y/z.  Each returns cudaGetLastError() after its launch (0 on
+// success).
 
-// K8: dq (B, Sq, H, hd) in q's dtype.
+// K8: dq (B, Sq, H, hd) in fp32.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
@@ -430,10 +430,10 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    int kv_offset, float scale, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, Sq, Skv, H, KV,
                causal, kv_offset, scale, static_cast<cudaStream_t>(stream)};
-  return launch_dtype<true>(dtype, hd, a);
+  return launch_hd<true>(dtype, hd, a);
 }
 
-// K9: dk, dv (B, Skv, KV, hd) in k's dtype.
+// K9: dk, dv (B, Skv, KV, hd) in fp32.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const float* lse, const float* delta,
@@ -443,5 +443,5 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     void* stream) {
   const Args a{q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, KV,
                causal, kv_offset, scale, static_cast<cudaStream_t>(stream)};
-  return launch_dtype<false>(dtype, hd, a);
+  return launch_hd<false>(dtype, hd, a);
 }

@@ -49,12 +49,8 @@
 //     layout, MN-major (the descriptor's transpose bit);
 //   - the epilogue divides by l, writes bf16 with the ragged q rows
 //     predicated off, and lse per row.
-#include <cuda.h>
-
-#include <cstdint>
-#include <cstdio>
-
-#include "common.cuh"
+// TMA, mbarrier and wgmma plumbing, shared with flash_attention_bwd_sm90.cu.
+#include "sm90.cuh"
 
 namespace {
 
@@ -67,103 +63,20 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float MASKED = -1e30f * LOG2E;  // the TPU kernels' -1e30, log2 units
 
-// A Q, K or V tile of 128 rows in shared memory: NCB column blocks of CB
-// columns, each 128 rows of ROW bytes, swizzled as TMA writes them.
+// A Q, K or V tile of 128 rows in shared memory, and the kernel's shared
+// memory: Q, the K ring, the V ring, the mbarriers, and slack to align to
+// 1 KB.
 template <int HD>
-struct Tile {
-  static constexpr int CB = HD < 64 ? HD : 64;
-  static constexpr int ROW = CB * 2;  // 32, 64 or 128 bytes: the swizzle
-  static constexpr int NCB = HD / CB;
-  static constexpr int BLOCK = 128 * ROW;
-  static constexpr int BYTES = 128 * HD * 2;
-  // wgmma's layout code and TMA's mode for that swizzle.
-  static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
-  static constexpr CUtensorMapSwizzle SWIZZLE =
-      ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                  : CU_TENSOR_MAP_SWIZZLE_32B;
-  // Q, the K ring, the V ring, the mbarriers, and slack to align to 1 KB.
-  static constexpr size_t SMEM =
-      (size_t)(1 + 2 * STAGES) * BYTES + 8 * (1 + 3 * STAGES) + 1024;
+struct Tile : SwizzledTile<HD, 128> {
+  static constexpr size_t SMEM = (size_t)(1 + 2 * STAGES) *
+                                     SwizzledTile<HD, 128>::BYTES +
+                                 8 * (1 + 3 * STAGES) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA box of a 4D tensor map into shared memory, counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's accumulator
-// registers across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma's shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle code.  K-major tiles (Q, K):
-// LBO unused, SBO = 8 rows.  MN-major tiles (V as the B of P . V): LBO =
-// one column block (the next CB columns of hd), SBO = 8 rows.
+// wgmma's descriptor of a Q, K or V tile (sm90.cuh's smem_desc).
 template <int HD>
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  using G = Tile<HD>;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((8 * G::ROW) >> 4) << 32) | (G::LAYOUT << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
+  return smem_desc<Tile<HD>::ROW>(addr, lbo);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -173,109 +86,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// D (+)= A . B on the tensor cores: A (64 x 16) and B (16 x 128) bf16, both
-// K-major in shared memory; accumulate = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D += A . B on the tensor cores: A (64 x 16 bf16) in registers, B (16 x N)
-// bf16 MN-major in shared memory (the last immediate, the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}"
-      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
-  if constexpr (N == 32) wgmma_rs_n32(d, a, b);
-  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-  if constexpr (N == 128) wgmma_rs_n128(d, a, b);
 }
 
 template <int HD, bool LSE>
@@ -326,19 +136,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == CONSUMERS * 128) {
       mbar_expect_tx(q_full, G::BYTES);
-      for (int c = 0; c < G::NCB; ++c)
-        tma_load(sq + c * G::BLOCK, &tq, q_full, c * G::CB, h, q0, b);
+      tma_load_tile<HD, BQ>(sq, &tq, q_full, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES, use = t / STAGES;
         mbar_wait(kv_empty + 8 * s, (use & 1) ^ 1);
         mbar_expect_tx(k_full + 8 * s, G::BYTES);
-        for (int c = 0; c < G::NCB; ++c)
-          tma_load(sk + s * G::BYTES + c * G::BLOCK, &tk, k_full + 8 * s,
-                   c * G::CB, kvh, t * BK, b);
+        tma_load_tile<HD, BK>(sk + s * G::BYTES, &tk, k_full + 8 * s, kvh,
+                              t * BK, b);
         mbar_expect_tx(v_full + 8 * s, G::BYTES);
-        for (int c = 0; c < G::NCB; ++c)
-          tma_load(sv + s * G::BYTES + c * G::BLOCK, &tv, v_full + 8 * s,
-                   c * G::CB, kvh, t * BK, b);
+        tma_load_tile<HD, BK>(sv + s * G::BYTES, &tv, v_full + 8 * s, kvh,
+                              t * BK, b);
       }
     }
   } else {
@@ -366,9 +173,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        // 16 columns of hd: a 32-byte step inside a swizzled row.
-        const uint32_t off =
-            (kk * 16) / G::CB * G::BLOCK + (kk * 16) % G::CB * 2;
+        const uint32_t off = G::col16(16 * kk);  // 16 columns of hd
         wgmma_ss_n128(sc, desc<HD>(q_wg + off, 16),
                       desc<HD>(sk + s * G::BYTES + off, 16), kk > 0);
       }
@@ -447,71 +252,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, a driver API function, through the runtime's
-// entry-point lookup: the library links no libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The 4D map (hd, heads, seq, batch) of a contiguous (batch, seq, heads, hd)
-// bf16 tensor, boxes of (CB, 1, 128, 1); rows past seq read as zeros.
-template <int HD>
-bool encode(CUtensorMap* map, const void* ptr, int heads, int seq,
-            int batch) {
-  using G = Tile<HD>;
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) {
-    fprintf(stderr, "flash_attention_sm90: no cuTensorMapEncodeTiled\n");
-    return false;
-  }
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
-                              (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2,
-                                 (cuuint64_t)heads * HD * 2,
-                                 (cuuint64_t)seq * heads * HD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)G::CB, 1, 128, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                          const_cast<void*>(ptr), dims, strides, box, unit,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, G::SWIZZLE,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (res != CUDA_SUCCESS) {
-    fprintf(stderr, "flash_attention_sm90: cuTensorMapEncodeTiled error %d\n",
-            (int)res);
-    return false;
-  }
-  return true;
-}
-
 template <int HD, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int B, int Sq, int Skv, int H, int KV, int causal, int kv_offset,
            float scale, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
-  if (!encode<HD>(&tq, q, H, Sq, B) || !encode<HD>(&tk, k, KV, Skv, B) ||
-      !encode<HD>(&tv, v, KV, Skv, B))
+  if (!encode<HD, BQ>(&tq, q, H, Sq, B) ||
+      !encode<HD, BK>(&tk, k, KV, Skv, B) ||
+      !encode<HD, BK>(&tv, v, KV, Skv, B))
     return (int)cudaErrorInvalidValue;
   auto kernel = flash_fwd_sm90<HD, LSE>;
   constexpr size_t smem = Tile<HD>::SMEM;

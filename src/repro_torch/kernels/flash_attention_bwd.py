@@ -7,8 +7,10 @@ the op the transformer calls, joined as a ``torch.autograd.Function``.
 ``flash_fwd`` and ``flash_bwd`` dispatch on the device of ``q``: a CPU tensor
 goes through the plain versions, a CUDA tensor launches K7
 (``csrc/flash_attention_sm90.cu`` in bf16, ``csrc/flash_attention.cu`` in
-fp32; see ``flash_attention.launch``) or ``csrc/flash_attention_bwd.cu``
-(K8, K9) and raises if it cannot.
+fp32; see ``flash_attention.launch``) or K8 and K9 (``KERNELS``:
+``csrc/flash_attention_bwd_sm90.cu`` in bf16, on the tensor cores;
+``csrc/flash_attention_bwd.cu`` in fp32, on the CUDA cores) and raises if
+it cannot: there is no fallback from one to the other.
 
 The plain versions are the TPU kernels' arithmetic in PyTorch ops over the
 TPU kernels' own blocks (``flash_attention.layout``: inputs padded to whole
@@ -19,8 +21,8 @@ scale, rounded to k's type before ds·k (dq) and to q's type before dsᵀ·q
 (dk); p not rounded before pᵀ·do (dv).  ``delta = sum(do·o)`` is a PyTorch
 reduction on both paths, as JAX computes it outside its kernels
 (flash_attention_bwd.py:221).  The CUDA kernels tile by their own sizes
-(K8/K9 by 64) and compute the same function on every row that has at least
-one valid key
+(fp32: 64 x 64; bf16: 128-row CTAs over 64-row tiles) and compute the same
+function on every row that has at least one valid key
 (``flash_attention``'s module docstring says why rows with none differ).
 """
 from __future__ import annotations
@@ -31,9 +33,17 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, MAX_GRID_YZ,
-                                                 NEG_INF, check_operands,
-                                                 launch, layout,
+                                                 NEG_INF, TC_TILE_Q,
+                                                 check_operands, launch,
+                                                 layout,
                                                  online_softmax_plain)
+
+# The CUDA source and entry points (K8, K9) of each dtype.
+KERNELS = {torch.bfloat16: ("flash_attention_bwd_sm90",
+                            "flash_bwd_dq_sm90_launch",
+                            "flash_bwd_dkv_sm90_launch"),
+           torch.float32: ("flash_attention_bwd", "flash_bwd_dq_launch",
+                           "flash_bwd_dkv_launch")}
 
 
 def flash_fwd_plain(q, k, v, *, causal: bool = True, block_q: int = 512,
@@ -180,12 +190,14 @@ def flash_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     return (dq, *flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
 
 
-def _launcher(symbol: str, n_ptrs: int):
-    lib = _build.library("flash_attention_bwd")
-    fn = getattr(lib, symbol)
+def _launcher(dtype: torch.dtype, dkv: bool):
+    """(library, entry point) of K8 (``dkv`` False) or K9 for ``dtype``."""
+    source, *symbols = KERNELS[dtype]
+    lib = _build.library(source)
+    fn = getattr(lib, symbols[dkv])
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (8 if dkv else 7) + [
+            ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -217,6 +229,15 @@ def _prepare(q, k, v, do, lse, delta, causal, kv_offset):
                          f"at most {MAX_GRID_YZ}")
     if Sq == 0 or Skv == 0:
         raise ValueError(f"flash_bwd: empty sequence (Sq={Sq}, Skv={Skv})")
+    if q.dtype == torch.bfloat16:
+        # TMA reads from 16-byte aligned tensors, and gridDim.z carries the
+        # 128-row q tiles (K8) and k tiles (K9).
+        if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+            raise ValueError("flash_bwd: bf16 q, k, v, do must be 16-byte "
+                             "aligned")
+        if -(-max(Sq, Skv) // TC_TILE_Q) > MAX_GRID_YZ:
+            raise ValueError(f"flash_bwd: Sq={Sq} or Skv={Skv} is past "
+                             f"{MAX_GRID_YZ * TC_TILE_Q} rows")
     inputs = tuple(t.data_ptr() for t in ops)
     shape = (B, Sq, Skv, H, KV, hd, _build.DTYPE_CODES[q.dtype], int(causal),
              kv_offset, hd ** -0.5,
@@ -229,7 +250,7 @@ def launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
     """Launch K8 on CUDA tensors: dq; counts under ``flash_bwd_dq``."""
     inputs, shape = _prepare(q, k, v, do, lse, delta, causal, kv_offset)
     dq = torch.empty_like(q)
-    lib, fn = _launcher("flash_bwd_dq_launch", 7)
+    lib, fn = _launcher(q.dtype, dkv=False)
     _build.check(lib, fn(*inputs, dq.data_ptr(), *shape), "flash_bwd_dq")
     _build.LAUNCHES["flash_bwd_dq"] += 1
     return dq
@@ -242,7 +263,7 @@ def launch_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
     inputs, shape = _prepare(q, k, v, do, lse, delta, causal, kv_offset)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib, fn = _launcher("flash_bwd_dkv_launch", 8)
+    lib, fn = _launcher(q.dtype, dkv=True)
     _build.check(lib, fn(*inputs, dk.data_ptr(), dv.data_ptr(), *shape),
                  "flash_bwd_dkv")
     _build.LAUNCHES["flash_bwd_dkv"] += 1
@@ -256,7 +277,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients of flash attention: q, o, do (B, Sq, H, hd), k/v (B,
     Skv, KV, hd), lse (B, H, Sq) fp32 (``flash_fwd``'s) -> (dq, dk, dv) in
     the layouts and types of q, k, v.  block_q/block_k are the plain
-    version's blocks; the kernels tile by 64 whatever they are."""
+    version's blocks; the kernels tile by their own sizes whatever they
+    are."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                block_q=block_q, block_k=block_k,

@@ -57,3 +57,25 @@ def ds_rounding_case(device="cpu"):
     do = torch.zeros(1, 64, 2, 16, device=device)
     do[..., 0] = 1.0
     return tuple(t.to(torch.bfloat16) for t in (q, k, v, do))
+
+
+def dv_p_rounding_case(device="cpu"):
+    """bf16 q, do (1, 1024, 2, 16) and k, v (1, 64, 1, 16), for a non-causal
+    call, on which rounding p to do's type before pᵀ·do matters (K9's dv;
+    JAX keeps p in fp32 there, flash_attention_bwd.py:196): key 0 scores
+    9.25 / 4 against queries 1-1023, whose 63 other keys score 0, so their
+    p on key 0 is exp(2.3125) / (exp(2.3125) + 63) = 0.13816, which bf16
+    rounds down by 0.34%; query 0 scores 0 on every key (p = 1/64 exactly).
+    do is 8 on queries 1-1023 and -72192 on query 0 in column 0, which
+    nearly cancels their sum: dv[0, 0] is about 5.45, and a dv that rounds
+    p once gives -2.20, 86 times the bf16 bound away.  v is 0, so o, delta, ds, dq
+    and dk are 0."""
+    q = torch.zeros(1, 1024, 2, 16, device=device)
+    q[:, 1:, :, 0] = 9.25
+    k = torch.zeros(1, 64, 1, 16, device=device)
+    k[:, 0, :, 0] = 1.0
+    v = torch.zeros(1, 64, 1, 16, device=device)
+    do = torch.zeros(1, 1024, 2, 16, device=device)
+    do[:, 1:, :, 0] = 8.0
+    do[:, 0, :, 0] = -72192.0
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v, do))

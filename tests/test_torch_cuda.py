@@ -17,9 +17,10 @@ out 2e-5 absolute in fp32 (JAX's own bound) and, per element, 2e-3 + 1.6e-2
 * |plain| in bf16 (two bf16 ulps; the bf16 kernel's 128-key tiles round p
 against other running maxima than the plain version's blocks), lse 1e-5 of
 its max-abs.  Four faults planted in the bf16 (tensor-core) kernel's
-source, each built on its own, must fail that bf16 bound.  K8/K9 (the flash backward) are held per
-element to 2e-5 + 1e-5 * |plain| in fp32 and to the same bf16 bound as
-K6/K7, and three faults planted in their source must fail it too.
+source, each built on its own, must fail that bf16 bound.  K8/K9 (the flash
+backward) are held per element to 2e-5 + 1e-5 * |plain| in fp32 and to the
+same bf16 bound as K6/K7, and four faults planted in their bf16
+(tensor-core) source must fail it too.
 """
 import ctypes
 import dataclasses
@@ -47,7 +48,8 @@ from repro_torch.kernels.flash_attention_bwd import (flash_bwd,
 from repro_torch.data.synthetic import DataConfig, token_batch
 from repro_torch.train.train_step import init_train_state, value_and_grad
 from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, FLASH_CASES,
-                                ds_rounding_case, p_rounding_case)
+                                ds_rounding_case, dv_p_rounding_case,
+                                p_rounding_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -512,9 +514,12 @@ FLASH_BWD_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (BF16_ATOL,
 
 def _bwd_inputs(case, dtype, device):
     """(q, k, v, do, call keywords) of a FLASH_CASES case, or of
-    ``ds_rounding_case`` (bf16 only); o and lse come from K7."""
+    ``ds_rounding_case`` or ``dv_p_rounding_case`` (bf16 only); o and lse
+    come from K7."""
     if case == "ds_rounding":
         return (*ds_rounding_case(device), dict(causal=False))
+    if case == "dv_p_rounding":
+        return (*dv_p_rounding_case(device), dict(causal=False))
     q, k, v, kw = _flash_inputs(case, dtype, device)
     g = torch.Generator(device=device).manual_seed(q.shape[1] + 1)
     return q, k, v, torch.randn(q.shape, generator=g, device=device).to(
@@ -538,7 +543,7 @@ def _bwd_ratios(case, dtype, device):
 
 @pytest.mark.parametrize("case,dtype", [
     *((c, d) for d in (torch.float32, torch.bfloat16) for c in FLASH_CASES),
-    ("ds_rounding", torch.bfloat16)])
+    ("ds_rounding", torch.bfloat16), ("dv_p_rounding", torch.bfloat16)])
 def test_flash_backward_kernels_match_plain(cuda, case, dtype):
     n8, n9 = (_build.LAUNCHES["flash_bwd_dq"],
               _build.LAUNCHES["flash_bwd_dkv"])
@@ -550,46 +555,79 @@ def test_flash_backward_kernels_match_plain(cuda, case, dtype):
 
 
 def test_flash_backward_is_deterministic(cuda):
-    """K9 folds the GQA group without atomics: a rerun is bit-equal."""
-    q, k, v, do, kw = _bwd_inputs("gqa_ragged_96", torch.bfloat16, cuda)
-    o, lse = flash_fwd(q, k, v, **kw)
-    first = flash_bwd(q, k, v, o, lse, do, **kw)
-    for a, b in zip(first, flash_bwd(q, k, v, o, lse, do, **kw)):
-        assert torch.equal(a, b)
+    """K8 and K9 sum without atomics (K9 folds the GQA group in
+    registers): a rerun is bit-equal, on a ragged GQA case and at the
+    training shape."""
+    for case in ("gqa_ragged_96", "serve_shape"):
+        q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16, cuda)
+        o, lse = flash_fwd(q, k, v, **kw)
+        first = flash_bwd(q, k, v, o, lse, do, **kw)
+        for a, b in zip(first, flash_bwd(q, k, v, o, lse, do, **kw)):
+            assert torch.equal(a, b), case
 
 
-# One edit of csrc/flash_attention_bwd.cu each: (text, replacement).
+# One edit of csrc/flash_attention_bwd_sm90.cu (the bf16 K8/K9) each:
+# (text, replacement).  ds_not_rounded_in_dq adds to each dS . K product the
+# part of ds that rounding to bf16 took off (a second bf16 product), as a
+# dq that skips the rounding computes it; group_reset_per_head zeroes dk and
+# dv at the first q tile of each head of the group; last_q_tile_dropped
+# stops K9's producer and consumers one q tile early; dv_p_lo_dropped feeds
+# dv with bf16(p) alone.
 PLANTED_BWD_FAULTS = {
-    "ds_not_rounded_in_dq": ("round_to<T>(ds)", "ds"),
-    "group_reset_per_head": ("for (int g = 0; g < G; ++g) {",
-                             "for (int g = 0; g < G; ++g) {\n"
-                             "    zero_acc<HD>(dk_acc, dv_acc);"),
-    "last_q_tile_dropped": ("tq < n_q; ++tq", "tq < n_q - 1; ++tq"),
+    "ds_not_rounded_in_dq": (
+        """        wgmma_rs<HD>(dq_acc, ds + 4 * kk,
+                     smem_desc<KT::ROW>(sk + kk * 16 * KT::ROW, KT::BLOCK));
+""",
+        """      {
+        uint32_t lo[4];
+        for (int j = 0; j < 4; ++j) {
+          const int i = 4 * kk + j;
+          const float2 hi = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&ds[i]));
+          lo[j] = pack_bf16(sc[2 * i] - hi.x, sc[2 * i + 1] - hi.y);
+        }
+        const uint64_t d =
+            smem_desc<KT::ROW>(sk + kk * 16 * KT::ROW, KT::BLOCK);
+        wgmma_rs<HD>(dq_acc, ds + 4 * kk, d);
+        wgmma_rs<HD>(dq_acc, lo, d);
+      }
+"""),
+    "group_reset_per_head": (
+        "        mbar_wait(q_full + 8 * s, use & 1);\n",
+        "        mbar_wait(q_full + 8 * s, use & 1);\n"
+        "        if (iq == t0) {\n"
+        "          zero(dk_acc);\n"
+        "          zero(dv_acc);\n"
+        "        }\n"),
+    "last_q_tile_dropped": ("const int n_q = (Sq + DKV_Q - 1) / DKV_Q;",
+                            "const int n_q = (Sq + DKV_Q - 1) / DKV_Q - 1;"),
+    "dv_p_lo_dropped": (
+        "          wgmma_rs<HD>(dv_acc, p_lo + 4 * kk, d_do);\n", ""),
 }
 
 
 @pytest.mark.parametrize("fault", list(PLANTED_BWD_FAULTS))
 def test_flash_bwd_bf16_bound_rejects_planted_faults(cuda, fault, tmp_path,
                                                      monkeypatch):
-    """Build K8/K9 with one fault planted, run them on the bf16 cases in
-    place of the real ones, and require some case to fail the bound.
-    Prints each case's largest error / bound over dq, dk, dv."""
+    """Build the bf16 K8/K9 with one fault planted, run them on the bf16
+    cases in place of the real ones, and require some case to fail the
+    bound.  Prints each case's largest error / bound over dq, dk, dv."""
     old, new = PLANTED_BWD_FAULTS[fault]
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
-    cu = src / "flash_attention_bwd.cu"
+    cu = src / "flash_attention_bwd_sm90.cu"
     text = cu.read_text()
     assert text.count(old) == 1
     cu.write_text(text.replace(old, new))
-    so = tmp_path / "libflash_attention_bwd.so"
+    so = tmp_path / "libflash_attention_bwd_sm90.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                     str(cu)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
-    monkeypatch.setitem(_build._libraries, "flash_attention_bwd", lib)
+    monkeypatch.setitem(_build._libraries, "flash_attention_bwd_sm90", lib)
     ratios = {case: max(_bwd_ratios(case, torch.bfloat16, cuda))
-              for case in (*FLASH_CASES, "ds_rounding")}
+              for case in (*FLASH_CASES, "ds_rounding", "dv_p_rounding")}
     print(f"planted fault {fault}: {ratios}")
     assert max(ratios.values()) > 1, ratios
 
@@ -603,6 +641,11 @@ def test_flash_bwd_raises_rather_than_fall_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_bwd(q, q, q, q, lse, q.transpose(1, 2).contiguous()
                   .transpose(1, 2))
+    # TMA needs 16-byte aligned bf16 operands: an offset view is refused.
+    flat = torch.zeros(1 + 8 * 2 * 16, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_bwd(q, q, q, q, lse, q)
 
 
 def test_smoke_train_step_launches_k7_k8_k9(cuda):

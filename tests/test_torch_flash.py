@@ -3,7 +3,8 @@ interpreted on the CPU, on the shapes of tests/test_flash_attention.py: the
 forward, K6 (``flash_attention``) and K7 (``flash_fwd``, which also returns
 the row logsumexp), and the backward, K8/K9 (``flash_bwd``) through
 ``flash_attention_trainable``'s autograd Function against JAX's
-``custom_vjp``.
+``custom_vjp``, with the designed cases on which each bf16 rounding (p
+before p·v, ds before ds·k, none on p before pᵀ·do) shows.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (the TPU
 kernels' arithmetic over their own blocks), so these hold the plain
@@ -38,7 +39,8 @@ from repro_torch.kernels.flash_attention_bwd import (flash_bwd,
                                                      flash_delta)
 from repro_torch.models.attention import attention
 from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, FLASH_CASES,
-                                ds_rounding_case, p_rounding_case)
+                                ds_rounding_case, dv_p_rounding_case,
+                                p_rounding_case)
 
 TOL = {"f32": (2e-5, 0.0), "bf16": (BF16_ATOL, BF16_RTOL)}  # (atol, rtol)
 LSE_RTOL = 1e-5
@@ -359,6 +361,92 @@ def test_bf16_rounds_ds_to_k_type():
     miss = np.abs(_f32(unrounded) - ref) / (BF16_ATOL + BF16_RTOL
                                              * np.abs(ref))
     assert miss.max() > 10
+
+
+def test_bf16_keeps_p_unrounded_in_dv(monkeypatch):
+    """JAX does not round p before pᵀ·do (flash_attention_bwd.py:196: do is
+    already fp32 there); on ``dv_p_rounding_case`` the plain K9 meets JAX's
+    ``_flash_bwd`` (interpreted) within the bf16 bound, and the same plain
+    version with p rounded to bf16 misses by more than ten times the
+    bound."""
+    q, k, v, do = dv_p_rounding_case()
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (q, k, v))
+    jdv = jax.grad(lambda v: jnp.sum(jax_trainable(
+        jq, jk, v, False, 512, 512, 0).astype(jnp.float32)
+        * jnp.asarray(do.float().numpy())))(jv)
+    out, lse = flash_fwd(q, k, v, causal=False)
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, do, causal=False)
+    ref = _f32(jdv)
+    np.testing.assert_allclose(_f32(dv), ref, rtol=BF16_RTOL, atol=BF16_ATOL)
+    # About 5.45 before the cast to bf16 (whose ulp there is 1/32).
+    np.testing.assert_allclose(ref[0, 0, 0, 0], 5.45, rtol=0, atol=1 / 32)
+    assert float(dq.abs().max()) == float(dk.abs().max()) == 0.0
+    # The plain version with p rounded to bf16 before pᵀ·do.
+    fab = importlib.import_module("repro_torch.kernels.flash_attention_bwd")
+    block_ds = fab._block_ds
+
+    def p_rounded(*args, **kw):
+        p, ds = block_ds(*args, **kw)
+        return p.to(torch.bfloat16).float(), ds
+
+    monkeypatch.setattr(fab, "_block_ds", p_rounded)
+    rounded = fab.flash_bwd_dkv_plain(q, k, v, do, lse, flash_delta(out, do),
+                                      causal=False)[1]
+    miss = np.abs(_f32(rounded) - ref) / (BF16_ATOL + BF16_RTOL
+                                           * np.abs(ref))
+    assert miss.max() > 10
+
+
+def test_backward_wrapper_sends_bf16_to_the_tensor_cores_and_fp32_to_simt(
+        monkeypatch):
+    """K8/K9's launchers pick the kernels by dtype (``KERNELS``), with no
+    fallback: bf16 calls flash_attention_bwd_sm90.cu's two entry points,
+    fp32 flash_attention_bwd.cu's, each counted once under
+    ``flash_bwd_dq``/``flash_bwd_dkv``; a bf16 operand that TMA cannot read
+    (not 16-byte aligned) raises before any launch.  The card is stubbed:
+    libraries that record their calls, and a stream lookup."""
+    fab = importlib.import_module("repro_torch.kernels.flash_attention_bwd")
+    calls = []
+    monkeypatch.setitem(_build._libraries, "flash_attention_bwd_sm90",
+                        _StubLibrary(calls, "flash_bwd_dq_sm90_launch",
+                                     "flash_bwd_dkv_sm90_launch"))
+    monkeypatch.setitem(_build._libraries, "flash_attention_bwd",
+                        _StubLibrary(calls, "flash_bwd_dq_launch",
+                                     "flash_bwd_dkv_launch"))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    q, k, v = (torch.from_numpy(a) for a in _mk(1, 16, 16, 4, 2, 32))
+    do = torch.from_numpy(_rng.standard_normal(q.shape).astype(np.float32))
+    stats = dict(lse=torch.zeros(1, 4, 16), delta=torch.zeros(1, 4, 16))
+    n8, n9 = _build.LAUNCHES["flash_bwd_dq"], _build.LAUNCHES["flash_bwd_dkv"]
+    monkeypatch.setitem(_build.LAUNCHES, "flash_bwd_dq", n8)  # restored
+    monkeypatch.setitem(_build.LAUNCHES, "flash_bwd_dkv", n9)
+    kw = dict(causal=True, kv_offset=0)
+    for dtype in (torch.bfloat16, torch.float32):
+        ops = [t.to(dtype) for t in (q, k, v, do)]
+        dq = fab.launch_bwd_dq(*ops, **stats, **kw)
+        dk, dv = fab.launch_bwd_dkv(*ops, **stats, **kw)
+        assert dq.dtype == dk.dtype == dv.dtype == dtype
+        assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert [c[0] for c in calls] == [
+        "flash_bwd_dq_sm90_launch", "flash_bwd_dkv_sm90_launch",
+        "flash_bwd_dq_launch", "flash_bwd_dkv_launch"]
+    # (B, Sq, Skv, H, KV, hd, dtype code, causal) after the 7 (K8) or 8
+    # (K9) pointers
+    assert [c[1][7 + ("dkv" in c[0]):][:8] for c in calls] == [
+        (1, 16, 16, 4, 2, 32, 1, 1)] * 2 + [(1, 16, 16, 4, 2, 32, 0, 1)] * 2
+    assert (_build.LAUNCHES["flash_bwd_dq"], _build.LAUNCHES["flash_bwd_dkv"]
+            ) == (n8 + 2, n9 + 2)
+    flat = torch.zeros(1 + q.numel(), dtype=torch.bfloat16)
+    odd = flat[1:].view(q.shape)
+    b16 = [t.to(torch.bfloat16) for t in (k, v, do)]
+    for launch_bwd in (fab.launch_bwd_dq, fab.launch_bwd_dkv):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            launch_bwd(odd, *b16, **stats, **kw)
+    assert len(calls) == 4
+    assert (_build.LAUNCHES["flash_bwd_dq"], _build.LAUNCHES["flash_bwd_dkv"]
+            ) == (n8 + 2, n9 + 2)
 
 
 def test_wrappers_reject_what_the_kernel_cannot_run():
