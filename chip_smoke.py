@@ -37,10 +37,14 @@ Phases, one JSON line each:
      and bf16 within 2e-2 absolute; past the kernels' former limits, the
      49-tap 2D and 343-tap 3D radius-3 boxes through K1, K2 and K4 and K2
      at fuse 64 at radius 1 and 2, fp32 to 0.0; K5 dense_stencil_matmul,
-     a GEMM whose sums run in another order than its plain version's
-     library product:
-     each element within 1e-4 + 1e-4 * |plain| in fp32, 2e-2 + 1e-2 *
-     |plain| in bf16, about one bf16 ulp plus the summation order);
+     a GEMM on the tensor cores whose sums run in another order than its
+     plain version's library product: each element within 1e-4 + 1e-4 *
+     |plain| in fp32, 2e-2 + 1e-2 * |plain| in bf16, about one bf16 ulp
+     plus the summation order; the fp32 route's split kernel bit-equal to
+     ``split_bf16x3``; fp32 K5 within 2^-20 of |x| . |W| from
+     ``dense_stencil_split_plain``, the same six piece products in plain
+     PyTorch; and fp32 K5's designed cases of tests/_torch_dense_cases.py,
+     ``perm_exact`` to 0.0 and ``w_pieces`` within 2 fp32 ulps);
   3. the Table-1 solve through cuda_fused, cuda, conv and reference (7960
      iterations on the CPU; within one 20-iteration chunk here), each solved
      twice and the second timed, then the same number of fixed iterations
@@ -64,11 +68,22 @@ Phases, one JSON line each:
      ``ops.dense_jacobi_kernel`` on 65,536 instances, held against one
      ``jacobi2d`` call (K2 at fuse 1) on the whole batch to 1e-5 absolute:
      past gridDim.z's 65,535 the wrapper launches the batch in slices (two
-     K2 launches an iteration);
+     K2 launches an iteration); fp32 K5 splits x and W each iteration (two
+     split launches);
  11. K4 and K5 timed at those shapes by CUDA-graph replay, against their
      bounds, their plain versions, and F.conv3d, the channels-trick
-     F.conv2d and torch.matmul (TF32 off); K5 also held against its plain
-     version at the dense path's shape;
+     F.conv2d and torch.matmul (TF32 off); K4 also with its cell kernel
+     asked for by name (the kernel of every K4 launch before the streaming
+     one), and on 1, 16 and 32 Fig-6 grids with the kernel the shape picks
+     and each of the two by name; fp32 K5's bound is 2 S N^2 at the bf16
+     tensor-core rate, its six products' time at that rate beside it; K5
+     also held against its plain
+     version at the dense path's shape in fp32 and bf16, timed in bf16
+     beside torch.matmul in bf16, its split pass timed on its own, and
+     fp32 K5 and torch.matmul held to an fp64 product with random W (max
+     |y - y64| / (|x| . |W|), at most 2^-20 for K5); the HGMMA
+     instructions of each K5 instance (none fails) and its ptxas report (a
+     spill fails);
  12. K6 (flash_attention) and K7 (flash_fwd) against their plain versions
      (bf16 runs the tensor-core kernel, fp32 the SIMT one): MHA, GQA 2:1 on
      a ragged 96, MQA, non-causal, cross lengths with kv_offset=128,
@@ -121,7 +136,7 @@ Phases, one JSON line each:
      torch.autograd.grad; the port never calls it); the HGMMA instructions
      of each bf16 instance (none fails) and its ptxas report (a spill
      fails).
-The inventory line lists K1-K9.
+The inventory line lists K1-K9 and K5's split kernel.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -147,6 +162,10 @@ PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # K5: (absolute, relative to |plain|) per element, per dtype.
 GEMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
+# fp32 K5 runs six bf16 products of the same size on the tensor cores: its
+# bound counts the one product the function needs, at the bf16 rate, and
+# the time of all six at that rate stands beside it.
+K5_PRODUCTS = 6
 TABLE1 = dict(bc=1.0, rtol=1e-6, check_every=20, max_iters=20_000)
 TABLE1_ITERS = 7960  # the JAX package's and the port's count on the CPU
 HET_GRID = (1024, 1024)   # phase 4
@@ -160,6 +179,7 @@ HET3D_ITERS = 640
 PAPER_BATCH = 50_000      # phase 9: 2048 M elements, 8.19 GB in fp32
 DEEP_GRID = (256, 512, 512)   # phase 9: one grid, 256 MiB
 ITERS_3D = 20             # phase 9
+K4_SMALL_BATCHES = (1, 16, 32)   # phase 11: Fig-6 grids, K4's two kernels
 CHECK_SLICE = 256         # phase 9: instances held against the plain version
 DENSE_BATCH = 65_536      # phase 10: Table-1 dense row instances
 DENSE_ITERS = 7           # phase 10: configs/jacobi.py's dense row
@@ -235,9 +255,15 @@ def main() -> int:
                                      dense_stencil_matmul,
                                      dense_stencil_plain, jacobi2d,
                                      jacobi2d_fused_plain,
-                                     jacobi2d_fused_step, stencil2d,
-                                     stencil2d_plain, stencil3d,
+                                     jacobi2d_fused_step, split_bf16x3,
+                                     stencil2d, stencil2d_plain, stencil3d,
                                      stencil3d_plain)
+    from repro_torch.kernels.dense_stencil import (dense_stencil_split_plain,
+                                                   launch_split, padded_cols)
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_dense_cases import (GEMM_SHAPES, K5_NORM_ERR, W_PIECES_ULPS,
+                                    max_ulps, perm_exact_case, w_pieces_case)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -481,12 +507,42 @@ def main() -> int:
         record("dense_stencil_matmul", dtype, out, dense_stencil_plain(x, w),
                f"({s_rows},{n})", GEMM_TOL)
 
-    for s_rows, n in ((1, 64), (8, 130), (300, 257), (1000, 4096),
-                      (4097, 1000)):
+    designed = {}
+    for s_rows, n in GEMM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             gemm_case(s_rows, n, dtype)
+        # fp32 K5 against dense_stencil_split_plain, the same six piece
+        # products in plain PyTorch: within K5_NORM_ERR of |x| . |W|.
+        x = field((s_rows, n))
+        w = field((n, n)) / n ** 0.5
+        gap = (dense_stencil_matmul(x, w).double()
+               - dense_stencil_split_plain(x, w).double()).abs()
+        gap = float((gap / (x.double().abs() @ w.double().abs())).max())
+        check(gap <= K5_NORM_ERR,
+              f"K5 ({s_rows},{n}) vs its split arithmetic: {gap}")
+        designed[f"vs split_plain ({s_rows},{n}) norm_err"] = gap
+        # The split kernel against its plain version: bit-equal.
+        v = field((s_rows, n))
+        cols = padded_cols(n)
+        record("split_bf16x3", torch.float32, launch_split(v, cols).float(),
+               split_bf16x3(v, cols).float(), f"({s_rows},{n})")
+        check(worst["split_bf16x3"]["float32"] == 0.0,
+              f"split_bf16x3 ({s_rows},{n}) is not bit-equal")
+    # fp32 K5's designed cases: W a permutation (0.0) and W a permutation
+    # times full-mantissa scalars (within W_PIECES_ULPS fp32 ulps).
+    for s_rows, n in GEMM_SHAPES[2:4]:
+        x, w, exact = perm_exact_case(s_rows, n, seed=n, device=dev)
+        e = err(dense_stencil_matmul(x, w), exact)
+        check(e == 0.0 and err(dense_stencil_split_plain(x, w), exact)
+              == 0.0, f"K5 perm_exact ({s_rows},{n}): {e}")
+        designed[f"perm_exact ({s_rows},{n}) max_abs_err"] = e
+        x, w, exact = w_pieces_case(s_rows, n, seed=n, device=dev)
+        u = max_ulps(dense_stencil_matmul(x, w), exact)
+        check(u <= W_PIECES_ULPS, f"K5 w_pieces ({s_rows},{n}): {u} ulps")
+        designed[f"w_pieces ({s_rows},{n}) max_ulps"] = u
     emit({"phase": 2, "cases": cases, "max_abs_err": worst, "tol": TOL,
-          "gemm_tol": GEMM_TOL, "past_former_limits": limits})
+          "gemm_tol": GEMM_TOL, "k5_designed": designed,
+          "past_former_limits": limits})
 
     # -- 3-6. the main path, with the launch counts from zero ----------------
     _build.LAUNCHES.clear()
@@ -762,7 +818,8 @@ def main() -> int:
     sync()
     dense_wall = (time.perf_counter() - t0) * 1e3
     launches5 = dict(_build.LAUNCHES)
-    check(launches5.get("dense_stencil_matmul", 0) == DENSE_ITERS,
+    check(launches5.get("dense_stencil_matmul", 0) == DENSE_ITERS
+          and launches5.get("split_bf16x3", 0) == 2 * DENSE_ITERS,
           f"the dense path launched K5 {launches5}")
     # One jacobi2d call on all 65,536 instances: past gridDim.z's 65,535,
     # K2's wrapper launches the batch in slices (two launches an iteration).
@@ -789,6 +846,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     n3 = xs3.numel()
     k4_ms = graph_ms(k4_step, 3, xs3)
+    k4_cell_ms = graph_ms(lambda y: stencil3d(y, lap3, bc_value=1.0,
+                                              kernel="cell"), 3, xs3)
     k4_eager = time_ms(lambda: k4_step(xs3), 3)
     k4_plain = time_ms(lambda: stencil3d_plain(xs3, lap3, bc_value=1.0), 1)
     k333 = torch.as_tensor(lap3.to_kernel(), device=dev)[None, None]
@@ -805,12 +864,29 @@ def main() -> int:
     deep = T.DirichletBC(1.0).set_boundary(xp_deep, 3)
     n_deep = deep.numel()
     k4_deep_ms = graph_ms(k4_step, 10, deep)
+    k4_deep_cell_ms = graph_ms(lambda y: stencil3d(y, lap3, bc_value=1.0,
+                                                   kernel="cell"), 10, deep)
     k4_deep_plain = time_ms(lambda: stencil3d_plain(deep, lap3,
                                                     bc_value=1.0), 3)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         conv3d_deep_ms = time_ms(
             lambda: F.conv3d(deep[:, None], k333, padding=1), 3)
     del deep, xp_deep
+    # One Fig-6 grid (the single-grid solves of phase 8) and a few, where
+    # the kernel the shape picks changes: that kernel and each of the two
+    # by name, 200 steps a replay.
+    k4_small = {}
+    for nb in K4_SMALL_BATCHES:
+        few = T.DirichletBC(1.0).set_boundary(
+            torch.rand((nb, *FIG6_GRID), generator=g3, device=dev), 3)
+        k4_small[nb] = {
+            name: graph_ms(lambda y, k=k: stencil3d(y, lap3, bc_value=1.0,
+                                                     kernel=k), 200, few)
+            for name, k in (("ms", None), ("cell_kernel_ms", "cell"),
+                            ("stream_kernel_ms", "stream"))}
+        k4_small[nb]["bound_ms"] = 2 * few.numel() * 4 / PEAK_BYTES * 1e3
+    del few
+    k4_one = k4_small[1]
 
     # K5 against its plain version at the dense path's shape, then timed.
     xd2 = xd.reshape(DENSE_BATCH, -1)
@@ -822,12 +898,61 @@ def main() -> int:
     del out
     k5_ms = graph_ms(lambda y: dense_stencil_matmul(y, matrix), 3, xd2)
     k5_plain = time_ms(lambda: dense_stencil_plain(xd2, matrix), 3)
+    torch.backends.cuda.matmul.allow_tf32 = False   # the default, stated
     matmul_ms = time_ms(lambda: torch.matmul(xd2, matrix), 3)
     nd_ = 64 * 64
+    split_ms = graph_ms(lambda: launch_split(xd2, nd_), 3)
+    split_plain_ms = time_ms(lambda: split_bf16x3(xd2, nd_), 3)
+    # fp32 K5 and torch.matmul against an fp64 product, with random W:
+    # max |y - y64| / (|x| . |W|), the latter in fp64.
+    wr = field((nd_, nd_)) / 64
+    x64 = xd2.double()
+    y64 = x64 @ wr.double()
+    den = x64.abs() @ wr.double().abs()
+    del x64
+    norm_err = {}
+    for name, fn in (("k5", dense_stencil_matmul), ("torch_matmul",
+                                                    torch.matmul)):
+        norm_err[name] = float(((fn(xd2, wr).double() - y64).abs()
+                                / den).max())
+    del y64, den
+    # The Laplace matrix is mostly zeros, on which the tensor cores draw
+    # less power: the times with the random W beside it.
+    k5_rand_ms = graph_ms(lambda: dense_stencil_matmul(xd2, wr), 3)
+    matmul_rand_ms = time_ms(lambda: torch.matmul(xd2, wr), 3)
+    del wr
+    check(norm_err["k5"] <= K5_NORM_ERR,
+          f"fp32 K5 against fp64: {norm_err['k5']} of |x| . |W|")
+    # bf16 K5 at the same shape: against its plain version, then timed
+    # beside torch.matmul in bf16.
+    xb16, mb16 = xd2.bfloat16(), matrix.bfloat16()
+    out = dense_stencil_matmul(xb16, mb16)
+    sync()
+    k5_bf16_err = record("dense_stencil_matmul", torch.bfloat16, out,
+                         dense_stencil_plain(xb16, mb16),
+                         f"{tuple(xd2.shape)}", GEMM_TOL)
+    del out
+    k5_bf16_ms = graph_ms(lambda y: dense_stencil_matmul(y, mb16), 5, xb16)
+    matmul_bf16_ms = graph_ms(lambda: torch.matmul(xb16, mb16), 5)
+    del xb16, mb16
     k5_ops = 2 * DENSE_BATCH * nd_ * nd_
     k5_bytes = (2 * DENSE_BATCH * nd_ + nd_ * nd_) * 4
+    split_bytes = DENSE_BATCH * nd_ * (4 + 3 * 2)
+    # The tensor-core instances: HGMMA in each, and no spills (ptxas -v).
+    hgmma_k5 = {f: n for f, n in sass_counts(libs["dense_stencil_sm90"],
+                                              "HGMMA").items()
+                if "dense_gemm" in f}
+    check(len(hgmma_k5) == 2 and min(hgmma_k5.values()) > 0,
+          f"HGMMA instructions by K5 instance: {hgmma_k5}")
+    k5_ptxas = [ln.strip() for ln in
+                _build.build_log("dense_stencil_sm90").splitlines()
+                if "registers" in ln or "spill" in ln]
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in k5_ptxas if "spill" in ln),
+          f"the K5 kernels spill: {k5_ptxas}")
     emit({"phase": 11, "k4": {
         "paper_batch": {"shape": [PAPER_BATCH, *FIG6_GRID], "ms": k4_ms,
+                        "cell_kernel_ms": k4_cell_ms,
                         "eager_ms": k4_eager, "plain_ms": k4_plain,
                         "bound_ms": 2 * n3 * 4 / PEAK_BYTES * 1e3,
                         "conv3d_ms": conv3d_ms,
@@ -835,13 +960,27 @@ def main() -> int:
                         "library_batch": PAPER_BATCH,
                         "peak_memory_GB": peak_gb},
         "deep_grid": {"shape": [1, *DEEP_GRID], "ms": k4_deep_ms,
+                      "cell_kernel_ms": k4_deep_cell_ms,
                       "plain_ms": k4_deep_plain,
                       "bound_ms": 2 * n_deep * 4 / PEAK_BYTES * 1e3,
-                      "conv3d_ms": conv3d_deep_ms}},
+                      "conv3d_ms": conv3d_deep_ms},
+        "fig6_grids": {str(nb): {"shape": [nb, *FIG6_GRID], **t}
+                       for nb, t in k4_small.items()}},
         "k5": {"shape": [DENSE_BATCH, nd_], "ms": k5_ms, "plain_ms": k5_plain,
                "matmul_ms": matmul_ms, "max_abs_err_vs_plain": k5_err,
-               "bound_ms": k5_ops / PEAK_FP32_FLOPS * 1e3,
-               "TFLOPs": k5_ops / (k5_ms * 1e-3) / 1e12}})
+               "bound_ms": k5_ops / PEAK_BF16_FLOPS * 1e3,
+               "six_product_bound_ms":
+                   K5_PRODUCTS * k5_ops / PEAK_BF16_FLOPS * 1e3,
+               "simt_fp32_bound_ms": k5_ops / PEAK_FP32_FLOPS * 1e3,
+               "TFLOPs": k5_ops / (k5_ms * 1e-3) / 1e12,
+               "norm_err_vs_fp64": norm_err, "norm_err_limit": K5_NORM_ERR,
+               "random_w_ms": k5_rand_ms,
+               "random_w_matmul_ms": matmul_rand_ms,
+               "split_ms": split_ms, "split_plain_ms": split_plain_ms,
+               "bf16_ms": k5_bf16_ms, "bf16_matmul_ms": matmul_bf16_ms,
+               "bf16_bound_ms": k5_ops / PEAK_BF16_FLOPS * 1e3,
+               "bf16_max_abs_err_vs_plain": k5_bf16_err,
+               "hgmma_by_instance": hgmma_k5, "ptxas": k5_ptxas}})
 
 
     # -- 12. K6 and K7 against their plain versions ---------------------------
@@ -1054,7 +1193,6 @@ def main() -> int:
     # -- 16. K8 and K9 against their plain versions ---------------------------
     del qs_, ks_, vs_
     torch.cuda.empty_cache()
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
     from _torch_flash_cases import (FLASH_CASES, ds_rounding_case,
                                     dv_p_rounding_case)
     from repro_torch.data.synthetic import DataConfig, token_batch
@@ -1275,14 +1413,35 @@ def main() -> int:
                "conv2d_channels_ms": conv2d_ch_ms,
                "deep_grid_ms": k4_deep_ms,
                "deep_grid_bound_ms": 2 * n_deep * 4 / PEAK_BYTES * 1e3,
+               "cell_kernel_ms": k4_cell_ms,
+               "deep_grid_cell_kernel_ms": k4_deep_cell_ms,
+               "fig6_grid_ms": k4_one["ms"],
+               "fig6_grid_cell_kernel_ms": k4_one["cell_kernel_ms"],
+               "fig6_grid_stream_kernel_ms": k4_one["stream_kernel_ms"],
                "max_abs_err_bf16": worst["stencil3d"]["bfloat16"]},
               launches3),
-        entry("dense_stencil_matmul", "src/repro_torch/csrc/dense_stencil.cu",
+        entry("dense_stencil_matmul",
+              "src/repro_torch/csrc/dense_stencil_sm90.cu",
               "src/repro/kernels/dense_stencil.py:61", k5_ms, k5_plain,
               k5_bytes, k5_ops, matmul_ms,
               {"shape": [DENSE_BATCH, nd_, nd_], "plain_timing": "eager",
-               "library": "torch.matmul",
+               "library": "torch.matmul (TF32 off)",
+               "bound": "2 S N^2 at the bf16 tensor-core rate",
+               "six_product_bound_ms":
+                   K5_PRODUCTS * k5_ops / PEAK_BF16_FLOPS * 1e3,
+               "simt_fp32_bound_ms": k5_ops / PEAK_FP32_FLOPS * 1e3,
+               "norm_err_vs_fp64": norm_err,
+               "hgmma": sum(hgmma_k5.values()),
+               "bf16_ms": k5_bf16_ms, "bf16_library_ms": matmul_bf16_ms,
+               "bf16_bound_ms": k5_ops / PEAK_BF16_FLOPS * 1e3,
                "max_abs_err_bf16": worst["dense_stencil_matmul"]["bfloat16"]},
+              launches5, PEAK_BF16_FLOPS),
+        entry("split_bf16x3", "src/repro_torch/csrc/dense_stencil_sm90.cu",
+              "src/repro/kernels/dense_stencil.py:61", split_ms,
+              split_plain_ms, split_bytes, 0, None,
+              {"shape": [DENSE_BATCH, nd_], "plain_timing": "eager",
+               "part_of": "dense_stencil_matmul (fp32 route: x and W "
+                          "split into three bf16 pieces)"},
               launches5),
         entry("flash_attention",
               "src/repro_torch/csrc/flash_attention_sm90.cu",

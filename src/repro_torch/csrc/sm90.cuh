@@ -1,9 +1,10 @@
 // Hopper (sm_90a) plumbing shared by the tensor-core kernels
-// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu): the geometry of a
-// bf16 tile as TMA writes it into shared memory, the 4D tensor maps over the
-// public (batch, seq, heads, hd) layout, mbarriers, TMA loads, wgmma's
-// shared-memory descriptors and the wgmma instructions with their fence,
-// commit and wait.
+// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu,
+// dense_stencil_sm90.cu): the geometry of a bf16 tile as TMA writes it into
+// shared memory, the 4D tensor maps over the attention kernels' public
+// (batch, seq, heads, hd) layout and a tensor map of any rank, mbarriers,
+// TMA loads, wgmma's shared-memory descriptors and the wgmma instructions
+// with their fence, commit and wait.
 #pragma once
 
 #include <cuda.h>
@@ -92,6 +93,19 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst,
     tma_load(dst + c * T::BLOCK, map, bar, c * T::CB, head, row, b);
 }
 
+// One box of a 3D tensor map into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -100,6 +114,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are pending
+// (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of wgmma's accumulator
@@ -147,7 +167,9 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// The same with B 16 x 128.
+// The same with B 16 x 128; TRANS_B = 1 takes B MN-major (its 128 columns
+// contiguous, the transpose bit).
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
                                               uint64_t b, int accumulate) {
   asm volatile(
@@ -157,7 +179,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -169,7 +191,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
 // D += A . B on the tensor cores: A (64 x 16 bf16) in registers, B (16 x N)
@@ -276,32 +298,45 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 4D map (hd, heads, seq, batch) of a contiguous (batch, seq, heads, hd)
-// bf16 tensor, boxes of (CB, 1, ROWS, 1); rows past seq read as zeros.
-template <int HD, int ROWS>
-bool encode(CUtensorMap* map, const void* ptr, int heads, int seq,
-            int batch) {
-  using T = SwizzledTile<HD, ROWS>;
+// A tensor map of RANK dimensions, innermost first: dims[i] elements,
+// strides[i] the bytes between consecutive indices of dimension i + 1 (each
+// a multiple of 16), boxes of box[i] elements; reads outside dims fill
+// zeros.
+template <int RANK>
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                const cuuint64_t (&dims)[RANK],
+                const cuuint64_t (&strides)[RANK - 1],
+                const cuuint32_t (&box)[RANK], CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) {
     fprintf(stderr, "sm90: no cuTensorMapEncodeTiled\n");
     return false;
   }
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
-                              (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2,
-                                 (cuuint64_t)heads * HD * 2,
-                                 (cuuint64_t)seq * heads * HD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::CB, 1, (cuuint32_t)ROWS, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                          const_cast<void*>(ptr), dims, strides, box, unit,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, T::SWIZZLE,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  cuuint32_t unit[RANK];
+  for (int i = 0; i < RANK; ++i) unit[i] = 1;
+  const CUresult res = fn(map, type, RANK, const_cast<void*>(ptr), dims,
+                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) {
     fprintf(stderr, "sm90: cuTensorMapEncodeTiled error %d\n", (int)res);
     return false;
   }
   return true;
+}
+
+// The 4D map (hd, heads, seq, batch) of a contiguous (batch, seq, heads, hd)
+// bf16 tensor, boxes of (CB, 1, ROWS, 1); rows past seq read as zeros.
+template <int HD, int ROWS>
+bool encode(CUtensorMap* map, const void* ptr, int heads, int seq,
+            int batch) {
+  using T = SwizzledTile<HD, ROWS>;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2,
+                                 (cuuint64_t)heads * HD * 2,
+                                 (cuuint64_t)seq * heads * HD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::CB, 1, (cuuint32_t)ROWS, 1};
+  return encode_map<4>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims,
+                       strides, box, T::SWIZZLE);
 }

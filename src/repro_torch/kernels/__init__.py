@@ -8,7 +8,9 @@ binding.  A wrapper runs its plain version on a CPU tensor and launches the
 kernel on a CUDA tensor; ``_build.LAUNCHES`` counts the launches.
 """
 from repro_torch.kernels.dense_stencil import (dense_stencil_matmul,
-                                               dense_stencil_plain)
+                                               dense_stencil_plain,
+                                               dense_stencil_split_plain,
+                                               split_bf16x3)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_attention_bwd import (
@@ -24,6 +26,7 @@ __all__ = [
     "dense_jacobi_kernel",
     "dense_stencil_matmul",
     "dense_stencil_plain",
+    "dense_stencil_split_plain",
     "flash_attention",
     "flash_attention_plain",
     "flash_attention_trainable",
@@ -35,6 +38,7 @@ __all__ = [
     "jacobi2d_fused_plain",
     "jacobi2d_fused_step",
     "jacobi3d",
+    "split_bf16x3",
     "stencil2d",
     "stencil2d_plain",
     "stencil3d",

@@ -36,8 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launches per kernel, counted by the wrappers where they launch (never on
 # the plain path), so a run can show which kernels its main path went
 # through.  Keys: "stencil2d", "jacobi2d_trapezoid", "jacobi2d_resident",
-# "stencil3d", "dense_stencil_matmul", "flash_attention", "flash_fwd",
-# "flash_bwd_dq", "flash_bwd_dkv".
+# "stencil3d", "dense_stencil_matmul", "split_bf16x3" (the fp32 route's
+# split, two a product), "flash_attention", "flash_fwd", "flash_bwd_dq",
+# "flash_bwd_dkv".
 LAUNCHES: collections.Counter = collections.Counter()
 
 # gridDim.z carries the batch of the stencil kernels (K1-K4): a larger batch

@@ -4,7 +4,9 @@
 ``stencil3d`` dispatches on the device of ``x``: a CPU tensor goes through
 ``stencil3d_plain`` (the 2D kernels' ``sweep`` on a rank-3 grid: the same
 arithmetic in plain PyTorch), a CUDA tensor launches ``csrc/stencil3d.cu``
-and raises if it cannot.
+and raises if it cannot.  That source holds two kernels, the cell kernel
+and the Z-streaming one; ``stencil3d_kernel_for`` there picks one by the
+tap table, Y and the batch.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from repro_torch.kernels.stencil2d import (MAX_CELLS, check_operands,
 
 # gridDim.y carries the Z planes.
 MAX_DEPTH = 65_535
+# csrc/stencil3d.cu's two kernels, by the codes of its K4_* enum.
+KERNELS = {"cell": 1, "stream": 2}
 
 
 def check_launch3(B: int, Z: int, X: int, Y: int) -> None:
@@ -43,30 +47,40 @@ def stencil3d_plain(x: torch.Tensor, spec: StencilSpec, *,
     return sweep(x.float(), spec, fields, inside, bc_value).to(x.dtype)
 
 
-def _launcher():
+def _library():
     lib = _build.library("stencil3d")
-    fn = lib.stencil3d_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(_build.Taps3), ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib, fn
+    if lib.stencil3d_launch.argtypes is None:
+        lib.stencil3d_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.POINTER(_build.Taps3), ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.stencil3d_launch.restype = ctypes.c_int
+        lib.stencil3d_kernel_for.argtypes = [ctypes.c_int] * 6
+        lib.stencil3d_kernel_for.restype = ctypes.c_int
+    return lib
 
 
 def stencil3d(x: torch.Tensor, spec: StencilSpec, *,
               bc_value: float | None = None,
-              fields: torch.Tensor | None = None) -> torch.Tensor:
+              fields: torch.Tensor | None = None,
+              kernel: str | None = None) -> torch.Tensor:
     """Apply one 3D stencil step to x: (batch, Z, X, Y).
 
     bc_value=None → raw stencil with zero padding; bc_value=v → one Jacobi
     step with the shell (all six faces) pinned to v.  ``fields`` overrides
     a variable spec's baked per-cell weights with a (V, Z, X, Y) stack,
-    shared by the batch.
+    shared by the batch.  ``kernel`` ("cell" or "stream", CUDA only) asks
+    for one of the two kernels, to time one against the other; by default
+    the shape picks it.  The streaming kernel needs x aligned to its 4-cell
+    copies (16 bytes in fp32, 8 in bf16).
     """
+    if kernel is not None and kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {list(KERNELS)}, got "
+                         f"{kernel!r}")
     if x.device.type == "cpu":
+        if kernel is not None:
+            raise ValueError("kernel names a CUDA kernel; x is on the cpu")
         return stencil3d_plain(x, spec, bc_value=bc_value, fields=fields)
     if x.device.type != "cuda":
         raise ValueError(f"stencil3d runs on cpu or cuda, not {x.device}")
@@ -79,17 +93,27 @@ def stencil3d(x: torch.Tensor, spec: StencilSpec, *,
     check_launch3(B, Z, X, Y)
     taps = _build.tap_table(spec)
     big = _build.big_taps(spec, x.device)
-    lib, fn = _launcher()
+    lib = _library()
+    slices = _build.batch_slices(B)
+    which = [KERNELS[kernel] if kernel is not None else
+             lib.stencil3d_kernel_for(taps.n, spec.radius, nb, Z, X, Y)
+             for _, nb in slices]
+    # Y % 4 == 0 where the streaming kernel runs, so every slice of the
+    # batch is aligned as x is.
+    align = 4 * x.element_size()
+    if KERNELS["stream"] in which and x.data_ptr() % align:
+        raise ValueError(f"stencil3d: x must be {align}-byte aligned for "
+                         f"the streaming kernel")
     out = torch.empty_like(x)
-    for b0, nb in _build.batch_slices(B):
-        rc = fn(x[b0].data_ptr(),
-                fields.data_ptr() if fields is not None else None,
-                out[b0].data_ptr(), nb, Z, X, Y, spec.radius,
-                _build.DTYPE_CODES[x.dtype], ctypes.byref(taps),
-                big.data_ptr() if big is not None else None,
-                int(bc_value is not None),
-                0.0 if bc_value is None else bc_value,
-                torch.cuda.current_stream(x.device).cuda_stream)
+    for (b0, nb), k in zip(slices, which):
+        rc = lib.stencil3d_launch(
+            x[b0].data_ptr(),
+            fields.data_ptr() if fields is not None else None,
+            out[b0].data_ptr(), nb, Z, X, Y, spec.radius,
+            _build.DTYPE_CODES[x.dtype], ctypes.byref(taps),
+            big.data_ptr() if big is not None else None, k,
+            int(bc_value is not None), 0.0 if bc_value is None else bc_value,
+            torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, rc, "stencil3d")
         _build.LAUNCHES["stencil3d"] += 1
     return out

@@ -47,6 +47,13 @@ from repro_torch.kernels.flash_attention_bwd import (flash_bwd,
                                                      flash_bwd_plain)
 from repro_torch.data.synthetic import DataConfig, token_batch
 from repro_torch.train.train_step import init_train_state, value_and_grad
+from repro_torch.kernels.dense_stencil import (dense_stencil_split_plain,
+                                               launch_split, padded_cols,
+                                               split_bf16x3)
+from repro_torch.kernels.stencil3d import KERNELS
+from _torch_dense_cases import (GEMM_SHAPES, K5_NORM_ERR, W_PIECES_ULPS,
+                                full_mantissa, max_ulps, norm_err,
+                                perm_exact_case, w_pieces_case)
 from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, FLASH_CASES,
                                 ds_rounding_case, dv_p_rounding_case,
                                 p_rounding_case)
@@ -241,6 +248,95 @@ def test_stencil3d_matches_plain(cuda, case, dtype, shape):
                                atol=TOL[dtype])
 
 
+# The Z-streaming kernel takes the unrolled tap counts up to radius 2 on
+# grids whose Y is a multiple of 4: fp32 0.0 from the plain version, bf16
+# within TOL.  name -> (shape, spec factory, bc).
+STREAM_CASES = {
+    "paper_slice": ((512, 10, 64, 64), lambda g: T.laplace_jacobi(3), 1.0),
+    "deep_grid": ((1, 256, 512, 512), lambda g: T.laplace_jacobi(3), 1.0),
+    "raw": ((3, 10, 64, 64), lambda g: T.laplace_jacobi(3), None),
+    "hetero_bc": ((2, 10, 64, 64), lambda g: T.heterogeneous_jacobi(
+        1.0 + 9.0 * _rng.random(g)), 1.0),
+    "hetero_raw": ((2, 12, 40, 68), lambda g: T.heterogeneous_jacobi(
+        1.0 + 9.0 * _rng.random(g)), None),
+    "star_r2_13": ((2, 17, 33, 36), lambda g: T.star(3, [0.15, 0.05],
+                                                      center=0.2), 1.5),
+    "star_r2_13_raw": ((1, 9, 70, 132), lambda g: T.star(3, [0.15, 0.05],
+                                                           center=0.2), None),
+    "box_27": ((2, 11, 20, 72), lambda g: T.box(3), None),
+    "box_27_bc": ((1, 37, 19, 8), lambda g: T.box(3), 1.5),
+    "one_instance": ((1, 10, 64, 64), lambda g: T.laplace_jacobi(3), 1.0),
+    "batch_past_65535": ((65_536 + 17, 3, 5, 8),
+                         lambda g: T.laplace_jacobi(3), 1.5),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(STREAM_CASES))
+def test_stencil3d_stream_matches_plain(cuda, case, dtype):
+    # The streaming kernel asked for by name (a small batch takes the cell
+    # kernel by shape), then the kernel the shape picks.
+    shape, make_spec, bc = STREAM_CASES[case]
+    spec = make_spec(shape[1:])
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(shape)
+                         .astype(np.float32)).to(cuda, dtype)
+    ref = stencil3d_plain(x, spec, bc_value=bc)
+    for kernel in ("stream", None):
+        n = _build.LAUNCHES["stencil3d"]
+        out = stencil3d(x, spec, bc_value=bc, kernel=kernel)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["stencil3d"] == n + len(
+            _build.batch_slices(shape[0]))
+        e = float((out.float() - ref.float()).abs().max())
+        assert e == 0.0 if dtype == torch.float32 else e <= TOL[dtype], e
+
+
+def test_stencil3d_kernel_follows_the_batch(cuda):
+    # The paper batch and the deep grid stream down Z; one Fig-6 grid (a
+    # step of a few microseconds either way), a Y the copies cannot take
+    # and a table past the unrolled counts take the cell kernel.
+    lib = _build.library("stencil3d")
+    lib.stencil3d_kernel_for.restype = ctypes.c_int
+    stream, cell = KERNELS["stream"], KERNELS["cell"]
+    assert lib.stencil3d_kernel_for(6, 1, 50_000, 10, 64, 64) == stream
+    assert lib.stencil3d_kernel_for(6, 1, 1, 256, 512, 512) == stream
+    assert lib.stencil3d_kernel_for(13, 2, 32, 10, 64, 64) == stream
+    assert lib.stencil3d_kernel_for(6, 1, 1, 10, 64, 64) == cell
+    assert lib.stencil3d_kernel_for(6, 1, 50_000, 10, 64, 66) == cell
+    assert lib.stencil3d_kernel_for(343, 3, 50_000, 10, 64, 64) == cell
+
+
+def test_kernels_refuse_misaligned_operands(cuda):
+    # A contiguous view 4 bytes past an aligned base: the streaming K4 and
+    # K5 raise before they launch, the cell K4 takes it, and the context
+    # stays usable.
+    lap3 = T.laplace_jacobi(3)
+    buf = torch.rand(1 + 512 * 10 * 64 * 64, device=cuda)
+    x = buf[1:].view(512, 10, 64, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="aligned"):
+        stencil3d(x, lap3, bc_value=1.0, kernel="stream")
+    with pytest.raises(ValueError, match="aligned"):
+        stencil3d(x, lap3, bc_value=1.0)
+    out = stencil3d(x, lap3, bc_value=1.0, kernel="cell")
+    torch.cuda.synchronize()
+    assert float((out - stencil3d_plain(x, lap3, bc_value=1.0))
+                 .abs().max()) == 0.0
+    v = buf[1:1 + 300 * 256].view(300, 256)
+    w = torch.rand(256, 256, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        launch_split(v, 256)
+    for dtype in (torch.float32, torch.bfloat16):
+        vb = buf.to(dtype)[1:1 + 300 * 256].view(300, 256)
+        with pytest.raises(ValueError, match="aligned"):
+            dense_stencil_matmul(vb, w.to(dtype))
+        with pytest.raises(ValueError, match="aligned"):
+            dense_stencil_matmul(w[:8].to(dtype), vb[:256])
+    torch.cuda.synchronize()
+    assert torch.equal(dense_stencil_matmul(v.clone(), w),
+                       dense_stencil_matmul(v.clone(), w))
+
+
 @pytest.mark.parametrize("s,n", [(1, 64), (8, 130), (300, 257),
                                  (129, 1024)])
 def test_dense_stencil_matches_plain(cuda, s, n):
@@ -249,11 +345,90 @@ def test_dense_stencil_matches_plain(cuda, s, n):
     w = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32))
     x, w = x.to(cuda), w.to(cuda)
     k = _build.LAUNCHES["dense_stencil_matmul"]
+    split = _build.LAUNCHES["split_bf16x3"]
     out = dense_stencil_matmul(x, w)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["dense_stencil_matmul"] == k + 1
+    assert _build.LAUNCHES["split_bf16x3"] == split + 2   # x and w
     torch.testing.assert_close(out, dense_stencil_plain(x, w), rtol=1e-4,
                                atol=1e-4)
+
+
+def _gemm_inputs(cuda, s, n, dtype):
+    """x (s, n) and w (n, n) / sqrt(n), normal from a seed, as chip_smoke.py
+    phase 2 makes them: out is O(1) at every n."""
+    rng = np.random.default_rng(s + n)
+    x = torch.from_numpy(rng.standard_normal((s, n)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((n, n)) / n ** 0.5)
+                         .astype(np.float32))
+    return x.to(cuda, dtype), w.to(cuda, dtype)
+
+
+@pytest.mark.parametrize("s,n", GEMM_SHAPES)
+def test_dense_stencil_fp32_matches_plain_per_element(cuda, s, n):
+    # Per element within 1e-4 + 1e-4 * |plain| (chip_smoke.py's GEMM_TOL).
+    x, w = _gemm_inputs(cuda, s, n, torch.float32)
+    torch.testing.assert_close(dense_stencil_matmul(x, w),
+                               dense_stencil_plain(x, w), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("s,n", GEMM_SHAPES)
+def test_dense_stencil_fp32_against_fp64(cuda, s, n):
+    # fp32-grade at any scale: normal x and W, unscaled.
+    rng = np.random.default_rng(s * n + 1)
+    x = torch.from_numpy(rng.standard_normal((s, n))).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((n, n))).to(cuda)
+    y = dense_stencil_matmul(x.float(), w.float())
+    assert norm_err(y, x, w) <= K5_NORM_ERR
+
+
+@pytest.mark.parametrize("s,n", GEMM_SHAPES)
+def test_dense_stencil_fp32_repeats_its_plain_arithmetic(cuda, s, n):
+    # dense_stencil_split_plain sums the same six piece products: within
+    # K5_NORM_ERR of the kernel on random inputs (only the order of the
+    # fp32 sums inside a product differs), and equal to it where each
+    # output is one exact product (perm_exact).
+    x, w = _gemm_inputs(cuda, s, n, torch.float32)
+    gap = (dense_stencil_matmul(x, w).double()
+           - dense_stencil_split_plain(x, w).double()).abs()
+    assert float((gap / (x.double().abs() @ w.double().abs())).max()) \
+        <= K5_NORM_ERR
+    x, w, exact = perm_exact_case(s, n, seed=n, device=cuda)
+    out = dense_stencil_matmul(x, w)
+    assert torch.equal(out, dense_stencil_split_plain(x, w))
+    assert torch.equal(out, exact)
+
+
+@pytest.mark.parametrize("s,n", GEMM_SHAPES)
+def test_dense_stencil_bf16_matches_plain(cuda, s, n):
+    # One bf16 product on the tensor cores: per element within 2e-2 +
+    # 1e-2 * |plain| (one bf16 ulp plus the order of the fp32 sums).
+    x, w = _gemm_inputs(cuda, s, n, torch.bfloat16)
+    split = _build.LAUNCHES["split_bf16x3"]
+    out = dense_stencil_matmul(x, w)
+    again = dense_stencil_matmul(x, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["split_bf16x3"] == split
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    torch.testing.assert_close(out.float(), dense_stencil_plain(x, w).float(),
+                               rtol=1e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("s,n", GEMM_SHAPES)
+def test_split_kernel_equals_plain(cuda, s, n):
+    rng = np.random.default_rng(s * n)
+    v = torch.from_numpy(full_mantissa(rng, (s, n), -60, 60)).to(cuda)
+    cols = padded_cols(n)
+    assert torch.equal(launch_split(v, cols), split_bf16x3(v, cols))
+
+
+@pytest.mark.parametrize("s,n", [(300, 257), (1000, 4096), (129, 1000)])
+def test_dense_stencil_fp32_designed_cases(cuda, s, n):
+    x, w, exact = perm_exact_case(s, n, seed=n, device=cuda)
+    assert float((dense_stencil_matmul(x, w) - exact).abs().max()) == 0.0
+    x, w, exact = w_pieces_case(s, n, seed=n, device=cuda)
+    assert max_ulps(dense_stencil_matmul(x, w), exact) <= W_PIECES_ULPS
 
 
 def test_dense_stencil_bf16_accumulates_fp32(cuda):
