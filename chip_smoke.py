@@ -33,10 +33,15 @@ Phases, one JSON line each:
   1. the card and the build: nvidia-smi's name and power limit, torch and
      CUDA versions, then every ``csrc/*.cu`` compiled with nvcc;
   2. each kernel against its plain PyTorch version on the card (K1
-     stencil2d, K2 trapezoid, K3 resident, K4 stencil3d: fp32 within 1e-5
-     and bf16 within 2e-2 absolute; past the kernels' former limits, the
-     49-tap 2D and 343-tap 3D radius-3 boxes through K1, K2 and K4 and K2
-     at fuse 64 at radius 1 and 2, fp32 to 0.0; K5 dense_stencil_matmul,
+     stencil2d; K2 trapezoid, its stream kernel and the tile kernel before
+     it by name; K3 resident, its register kernel, the cta kernel and the
+     one-CTA kernel before both by name; K4 stencil3d: fp32 within 1e-5
+     and bf16 within
+     2e-2 absolute; past the kernels' former limits, the 49-tap 2D and
+     343-tap 3D radius-3 boxes through K1, K2 and K4, K2 at fuse 64 at
+     radius 1 and 2, and resident grids past one CTA up to the JAX
+     package's 8 MiB (169x169, 512x512, 1024x2048 at fuse 1, 8 and 512)
+     through the grid-wide kernel, fp32 to 0.0; K5 dense_stencil_matmul,
      a GEMM on the tensor cores whose sums run in another order than its
      plain version's library product: each element within 1e-4 + 1e-4 *
      |plain| in fp32, 2e-2 + 1e-2 * |plain| in bf16, about one bf16 ulp
@@ -51,12 +56,21 @@ Phases, one JSON line each:
      in one resident pass;
   4. a heterogeneous 1024x1024 solve through K1, against the plain version;
   5. full size: an 8192x8192 fp32 grid, 1024 iterations through cuda_fused
-     (trapezoid, fuse 16) and 64 through cuda at fuse 1;
+     (trapezoid, fuse 16) and 64 through cuda at fuse 1, and a resident
+     plan of 512 iterations on a 1024x1024 grid (one pass of the
+     grid-wide kernel) against its plain version;
   6. a batch of 1024 Table-1 instances in one Solver call;
   7. K1-K3 timed: launches on their path (phases 3-6), errors, and times
      of each kernel, its plain version and a library call, the kernels'
      read from CUDA-graph replays (device time without the host's gaps
-     between launches), with the eager times beside them;
+     between launches), with the eager times beside them; K2 at 8192x8192
+     fuse 1 and 16 and at the Table-1 launch (which the shape sends to the
+     register kernel; its row is named for that kernel and counts the
+     Table-1 solve's own launches) and K3 at 7960 steps each beside the
+     kernels it replaced, asked for by name; phase 6's launch (1024
+     Table-1 grids, fuse 4) through each kernel; the grid-wide resident
+     kernel at 1024x1024 fuse 512 (its cooperative launch replays in a
+     graph) beside the stream kernel's passes on the same request;
   8. Fig 6 through cuda, conv, conv3d_native and reference (620 iterations
      on the CPU: exactly that, with the CPU's residual, through cuda and
      reference; within one chunk through the cuDNN paths), and a
@@ -66,10 +80,11 @@ Phases, one JSON line each:
      the plain version on a slice of the batch;
  10. the dense row of Table 1 (64x64, N=4096, 7 iterations) through
      ``ops.dense_jacobi_kernel`` on 65,536 instances, held against one
-     ``jacobi2d`` call (K2 at fuse 1) on the whole batch to 1e-5 absolute:
-     past gridDim.z's 65,535 the wrapper launches the batch in slices (two
-     K2 launches an iteration); fp32 K5 splits x and W each iteration (two
-     split launches);
+     ``jacobi2d`` call (fuse 1, which the shape sends to K3's register
+     kernel) on the whole batch to 1e-5 absolute: past gridDim.z's 65,535
+     the wrapper launches the batch in slices (two launches an
+     iteration); fp32 K5 splits x and W each iteration (two split
+     launches);
  11. K4 and K5 timed at those shapes by CUDA-graph replay, against their
      bounds, their plain versions, and F.conv3d, the channels-trick
      F.conv2d and torch.matmul (TF32 off); K4 also with its cell kernel
@@ -171,6 +186,12 @@ TABLE1_ITERS = 7960  # the JAX package's and the port's count on the CPU
 HET_GRID = (1024, 1024)   # phase 4
 BIG_GRID = (8192, 8192)   # phase 5: 256 MiB a sweep, far past the 50 MB L2
 BATCH = 1024              # phase 6
+# Phase 2: resident grids past one CTA (up to the JAX package's 8 MiB) and
+# their fuse depths; phase 5: the resident plan through the grid-wide kernel.
+RESIDENT_GRIDS = (((169, 169), (1, 8, 512)), ((512, 512), (1, 8, 512)),
+                  ((1024, 2048), (1, 8, 512)))
+RESIDENT_BIG = (1024, 1024)
+RESIDENT_BIG_ITERS = 512
 FIG6 = dict(rtol=1e-6, check_every=20, max_iters=10_000)
 FIG6_GRID = (10, 64, 64)  # (Z, X, Y): configs/jacobi.py's Fig-6 grid
 FIG6_ITERS = 620          # the JAX package's and the port's count on the CPU
@@ -260,6 +281,9 @@ def main() -> int:
                                      stencil3d_plain)
     from repro_torch.kernels.dense_stencil import (dense_stencil_split_plain,
                                                    launch_split, padded_cols)
+    from repro_torch.kernels.jacobi_fused import COUNTERS as K23_COUNTERS
+    from repro_torch.kernels.jacobi_fused import (kernel_for,
+                                                  trapezoid_passes)
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from _torch_dense_cases import (GEMM_SHAPES, K5_NORM_ERR, W_PIECES_ULPS,
@@ -269,6 +293,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def sync():
         torch.cuda.synchronize()
@@ -400,35 +425,58 @@ def main() -> int:
                 record("stencil2d", dtype, out,
                        stencil2d_plain(x, spec, bc_value=bc),
                        f"{name} {shape}")
+        # K2 by name: the stream kernel, and the tile kernel before it.
         sp = specs(shape[1:])
-        for fuse in (1, 2, 4, 8, 16):
-            for name in ("laplace_bc", "fields_bc"):
-                spec, bc = sp[name]
-                x = field(shape)
-                out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc)
-                sync()
-                record("jacobi2d_trapezoid", torch.float32, out,
-                       jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc),
-                       f"{name} fuse={fuse} {shape}")
-        x = field(shape, torch.bfloat16)
-        spec, bc = sp["star_r2_bc"]
-        out = jacobi2d_fused_step(x, spec, fuse=8, bc_value=bc)
-        sync()
-        record("jacobi2d_trapezoid", torch.bfloat16, out,
-               jacobi2d_fused_plain(x, spec, fuse=8, bc_value=bc),
-               f"star_r2_bc fuse=8 {shape}")
-    for grid in ((64, 64), (160, 160)):
-        sp = specs(grid)
-        for fuse in (1, 8, 64, 512):
-            for name in ("laplace_bc", "fields_bc", "star_r2_bc", "box_raw"):
-                spec, bc = sp[name]
-                x = field((2, *grid))
-                out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc,
-                                          rim="resident")
-                sync()
-                record("jacobi2d_resident", torch.float32, out,
-                       jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc),
-                       f"{name} fuse={fuse} {grid}")
+        for kernel in ("stream", "tile"):
+            for fuse in (1, 2, 4, 8, 16):
+                for name in ("laplace_bc", "fields_bc"):
+                    spec, bc = sp[name]
+                    x = field(shape)
+                    out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc,
+                                              kernel=kernel)
+                    sync()
+                    record(K23_COUNTERS[kernel], torch.float32, out,
+                           jacobi2d_fused_plain(x, spec, fuse=fuse,
+                                                bc_value=bc),
+                           f"{name} fuse={fuse} {shape}")
+            x = field(shape, torch.bfloat16)
+            spec, bc = sp["star_r2_bc"]
+            out = jacobi2d_fused_step(x, spec, fuse=8, bc_value=bc,
+                                      kernel=kernel)
+            sync()
+            record(K23_COUNTERS[kernel], torch.bfloat16, out,
+                   jacobi2d_fused_plain(x, spec, fuse=8, bc_value=bc),
+                   f"star_r2_bc fuse=8 {shape}")
+    # K3 by name: the register kernel on the tables and grids it takes, the
+    # cta kernel and the one-CTA kernel before both on every table.
+    one_cta = {"resident_regs": ((64, 64), (128, 128)),
+               "resident_cta": ((64, 64), (160, 160)),
+               "resident_smem": ((64, 64), (160, 160))}
+    for kernel, grids in one_cta.items():
+        for grid in grids:
+            sp = specs(grid)
+            names = (("laplace_bc", "fields_bc", "box_raw")
+                     if kernel == "resident_regs" else
+                     ("laplace_bc", "fields_bc", "star_r2_bc", "box_raw"))
+            for fuse in (1, 8, 64, 512):
+                for name in names:
+                    spec, bc = sp[name]
+                    x = field((2, *grid))
+                    out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc,
+                                              rim="resident", kernel=kernel)
+                    sync()
+                    record(K23_COUNTERS[kernel], torch.float32, out,
+                           jacobi2d_fused_plain(x, spec, fuse=fuse,
+                                                bc_value=bc),
+                           f"{name} fuse={fuse} {grid}")
+            x = field((2, *grid), torch.bfloat16)
+            spec, bc = sp["laplace_bc"]
+            out = jacobi2d_fused_step(x, spec, fuse=64, bc_value=bc,
+                                      rim="resident", kernel=kernel)
+            sync()
+            record(K23_COUNTERS[kernel], torch.bfloat16, out,
+                   jacobi2d_fused_plain(x, spec, fuse=64, bc_value=bc),
+                   f"laplace_bc fuse=64 {grid}")
 
     def specs3(grid):
         kappa = 1.0 + 9.0 * rng.random(grid)
@@ -478,7 +526,8 @@ def main() -> int:
         sync()
         limit_case("stencil2d", "box_r3 49 taps", dtype, out,
                    stencil2d_plain(x, box2, bc_value=1.5))
-        out = jacobi2d_fused_step(x, box2, fuse=4, bc_value=1.5)
+        out = jacobi2d_fused_step(x, box2, fuse=4, bc_value=1.5,
+                                  kernel="stream")
         sync()
         limit_case("jacobi2d_trapezoid", "box_r3 49 taps fuse=4", dtype, out,
                    jacobi2d_fused_plain(x, box2, fuse=4, bc_value=1.5))
@@ -490,14 +539,29 @@ def main() -> int:
         for r, spec in ((1, T.laplace_jacobi(2)),
                         (2, T.star(2, [0.15, 0.05], center=0.2))):
             x = field((2, 300, 260), dtype)
-            k2_before = _build.LAUNCHES["jacobi2d_trapezoid"]
+            key = K23_COUNTERS[kernel_for("trapezoid", spec, 64, *x.shape)]
+            k2_before = _build.LAUNCHES[key]
             out = jacobi2d_fused_step(x, spec, fuse=64, bc_value=1.5)
             sync()
-            passes = _build.LAUNCHES["jacobi2d_trapezoid"] - k2_before
+            passes = _build.LAUNCHES[key] - k2_before
             check(passes == r + 1, f"fuse 64 radius {r}: {passes} launches")
-            limit_case("jacobi2d_trapezoid", f"fuse=64 radius {r}", dtype,
-                       out, jacobi2d_fused_plain(x, spec, fuse=64,
-                                                 bc_value=1.5))
+            limit_case(key, f"fuse=64 radius {r}", dtype, out,
+                       jacobi2d_fused_plain(x, spec, fuse=64, bc_value=1.5))
+        # Resident grids past one CTA, up to the JAX package's 8 MiB
+        # (1024x2048): the grid-wide kernel.
+        for grid, fuses in RESIDENT_GRIDS:
+            for fuse in fuses:
+                x = field((1, *grid), dtype)
+                k_before = _build.LAUNCHES["jacobi2d_resident_grid"]
+                out = jacobi2d_fused_step(x, T.laplace_jacobi(2), fuse=fuse,
+                                          bc_value=1.5, rim="resident")
+                sync()
+                check(_build.LAUNCHES["jacobi2d_resident_grid"]
+                      == k_before + 1, f"resident {grid} took another kernel")
+                limit_case("jacobi2d_resident_grid",
+                           f"resident {grid[0]}x{grid[1]} fuse={fuse}", dtype,
+                           out, jacobi2d_fused_plain(x, T.laplace_jacobi(2),
+                                                     fuse=fuse, bc_value=1.5))
 
     def gemm_case(s_rows, n, dtype):
         x = field((s_rows, n), dtype)
@@ -556,7 +620,12 @@ def main() -> int:
                           **TABLE1)
         cold_ms[backend] = solver.solve(
             torch.zeros(64, 64)).wall_seconds * 1e3
+        before = dict(_build.LAUNCHES)
         r = solver.solve(torch.zeros(64, 64))
+        if backend == "cuda_fused":   # this solve's own launches
+            t1_launches = {k: v - before.get(k, 0)
+                           for k, v in _build.LAUNCHES.items()
+                           if v != before.get(k, 0)}
         check(r.converged and r.x.shape == (64, 64)
               and bool(torch.isfinite(r.x).all()), f"table1 {backend}")
         check(abs(r.iterations - TABLE1_ITERS) <= TABLE1["check_every"],
@@ -632,6 +701,23 @@ def main() -> int:
         conv_big_ms = graph_ms(lambda: F.conv2d(xb[None], k33, padding=1),
                                5)
     full["library_ms_conv2d_one_sweep"] = conv_big_ms
+    # A resident plan past one CTA's shared memory: all its iterations in
+    # one pass of the grid-wide kernel.
+    res_big = T.make_plan(lap, RESIDENT_BIG, backend="cuda_fused", bc=1.0,
+                          iters=RESIDENT_BIG_ITERS, rim="resident",
+                          device=dev)
+    xr = torch.rand((1, *RESIDENT_BIG), generator=g, device=dev)
+    res_big_ms = time_ms(lambda: outs.__setitem__("resident", res_big(xr)),
+                         1)
+    res_big_err = err(outs["resident"], jacobi2d_fused_plain(
+        xr, lap, fuse=RESIDENT_BIG_ITERS, bc_value=1.0))
+    check(res_big.fuse == RESIDENT_BIG_ITERS
+          and res_big_err <= TOL["float32"],
+          f"resident plan {RESIDENT_BIG} vs plain: {res_big_err}")
+    full["resident_plan"] = {"grid": list(RESIDENT_BIG),
+                             "iters": RESIDENT_BIG_ITERS,
+                             "fuse": res_big.fuse, "ms": res_big_ms,
+                             "max_abs_err_vs_plain": res_big_err}
     emit({"phase": 5, "grid": list(big), **full})
 
     batch = T.Solver(lap, (64, 64), backend="cuda_fused", device=dev,
@@ -648,7 +734,8 @@ def main() -> int:
           "wall_ms": batch_ms, "fuse": br.fuse})
 
     launches = dict(_build.LAUNCHES)
-    for k in ("stencil2d", "jacobi2d_trapezoid", "jacobi2d_resident"):
+    for k in ("stencil2d", "jacobi2d_trapezoid", "jacobi2d_resident",
+              "jacobi2d_resident_grid"):
         check(launches.get(k, 0) > 0, f"main path never launched {k}")
 
     # -- 7. kernel inventory: times at the main path's shapes ----------------
@@ -667,48 +754,83 @@ def main() -> int:
     k1_bytes = 2 * n1 * 4 + het_fields.numel() * 4
     k1_ops = (2 * len(het.taps) - 1) * n1
     # K2 at the 8192x8192 fuse-1 sweep (the cuda backend's pass), where
-    # F.conv2d computes the same 5-point sweep (less the shell pinning).
+    # F.conv2d computes the same 5-point sweep (less the shell pinning), and
+    # at fuse 16 (phase 5's pass): the stream kernel the shape picks, and the
+    # tile kernel before it asked for by name.
     xs = T.DirichletBC(1.0).set_boundary(xb, 2)
 
-    def k2():
-        jacobi2d_fused_step(xs, lap, fuse=1, bc_value=1.0)
-    k2_ms, k2_eager = graph_ms(k2, 10), time_ms(k2, 10)
+    def k2(fuse, kernel=None, x=xs, rim="trapezoid"):
+        return lambda: jacobi2d_fused_step(x, lap, fuse=fuse, bc_value=1.0,
+                                           rim=rim, kernel=kernel)
+    k2_ms, k2_eager = graph_ms(k2(1), 10), time_ms(k2(1), 10)
+    k2_tile_ms = graph_ms(k2(1, "tile"), 10)
     k2_plain = graph_ms(lambda: jacobi2d_fused_plain(xs, lap, fuse=1,
                                                      bc_value=1.0), 3)
-    k2_err = err(jacobi2d_fused_step(xs, lap, fuse=16, bc_value=1.0),
-                 jacobi2d_fused_plain(xs, lap, fuse=16, bc_value=1.0))
+    k2_f16_plain = time_ms(lambda: jacobi2d_fused_plain(xs, lap, fuse=16,
+                                                        bc_value=1.0), 1)
+    k2_err = err(k2(16)(), jacobi2d_fused_plain(xs, lap, fuse=16,
+                                                bc_value=1.0))
     check(k2_err <= TOL["float32"], f"K2 fuse 16 at full size: {k2_err}")
-    k2_f16 = graph_ms(lambda: jacobi2d_fused_step(xs, lap, fuse=16,
-                                                  bc_value=1.0), 5)
+    k2_f16, k2_f16_tile = graph_ms(k2(16), 5), graph_ms(k2(16, "tile"), 5)
     k2_ops = (2 * len(lap.taps) - 1) * n_big
-    # K3 at the Table-1 resident pass: n_iters steps on one 64x64 grid.  Its
-    # plain version (n_iters sweeps of a dozen small ops) is timed eagerly.
+    # K3 at the Table-1 resident pass: n_iters steps on one 64x64 grid, the
+    # register kernel the shape picks, the cta kernel and the one-CTA kernel
+    # before both.  Its plain version (n_iters sweeps of a dozen small ops)
+    # is timed eagerly.
     x3 = T.DirichletBC(1.0).set_boundary(torch.zeros(1, 64, 64, device=dev),
                                          2)
-    k3_ms = graph_ms(lambda: jacobi2d_fused_step(x3, lap, fuse=n_iters,
-                                                 bc_value=1.0,
-                                                 rim="resident"), 3)
+    k3_ms = graph_ms(k2(n_iters, x=x3, rim="resident"), 3)
+    k3_smem_ms = graph_ms(k2(n_iters, "resident_smem", x3, "resident"), 3)
+    k3_cta_ms = graph_ms(k2(n_iters, "resident_cta", x3, "resident"), 3)
     k3_plain = time_ms(lambda: jacobi2d_fused_plain(x3, lap, fuse=n_iters,
                                                     bc_value=1.0), 1, 0)
     k3_ops = n_iters * (2 * len(lap.taps) - 1) * 64 * 64
-    # K2 as the Table-1 solve runs it (64x64, fuse 4): with the launch count
-    # this splits the solve's wall time into kernel time and the rest.
+    # K2 as the Table-1 solve runs it (64x64, fuse 4): the shape sends it to
+    # the register kernel; the stream and tile kernels by name beside it.
+    # With the launch count this splits the solve's wall time into kernel
+    # time and the rest.
     t1_fuse = solves["cuda_fused"].fuse
-
-    def k2_t1():
-        jacobi2d_fused_step(x3, lap, fuse=t1_fuse, bc_value=1.0)
-    k2_t1_ms, k2_t1_eager = graph_ms(k2_t1, 200), time_ms(k2_t1, 200)
+    t1_kernel = kernel_for("trapezoid", lap, t1_fuse, 1, 64, 64)
+    k2_t1_ms = graph_ms(k2(t1_fuse, x=x3), 200)
+    k2_t1_eager = time_ms(k2(t1_fuse, x=x3), 200)
+    k2_t1_by_name = {k: graph_ms(k2(t1_fuse, k, x3), 200)
+                     for k in ("stream", "tile", "resident_cta",
+                               "resident_smem")}
+    k2_t1_plain = graph_ms(lambda: jacobi2d_fused_plain(
+        x3, lap, fuse=t1_fuse, bc_value=1.0), 50)
     t1_kernel_ms = n_iters // t1_fuse * k2_t1_ms
+    # Phase 6's launch: the batch of 1024 Table-1 grids at fuse 4, by shape
+    # and each kernel by name (where the dispatch's batch rule is read).
+    xB = T.DirichletBC(1.0).set_boundary(
+        torch.zeros(BATCH, 64, 64, device=dev), 2)
+    batch_kernel = kernel_for("trapezoid", lap, t1_fuse, BATCH, 64, 64)
+    k2_batch = {k or "by_shape": graph_ms(k2(t1_fuse, k, xB), 20)
+                for k in (None, "stream", "tile", "resident_regs",
+                          "resident_cta", "resident_smem")}
+    # The grid-wide resident kernel at phase 5's resident plan (its
+    # cooperative launch replays in a CUDA graph), and the stream kernel's
+    # passes (by name) on the same request.
+    x0 = T.DirichletBC(1.0).set_boundary(xr, 2)
+    kg_ms = graph_ms(k2(RESIDENT_BIG_ITERS, x=x0, rim="resident"), 3)
+    kg_stream_ms = graph_ms(k2(RESIDENT_BIG_ITERS, "stream", x0, "resident"),
+                            3)
+    kg_eager = time_ms(k2(RESIDENT_BIG_ITERS, x=x0, rim="resident"), 3)
+    kg_plain = time_ms(lambda: jacobi2d_fused_plain(
+        x0, lap, fuse=RESIDENT_BIG_ITERS, bc_value=1.0), 1, 0)
+    n_res = RESIDENT_BIG[0] * RESIDENT_BIG[1]
+    kg_ops = RESIDENT_BIG_ITERS * (2 * len(lap.taps) - 1) * n_res
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         conv64_ms = graph_ms(lambda: F.conv2d(x3[None], k33, padding=1), 50)
     emit({"phase": 7, "launches": launches, "table1_cuda_fused": {
         "wall_ms": solves["cuda_fused"].wall_seconds * 1e3,
-        "launches": n_iters // t1_fuse, "kernel_ms": t1_kernel_ms,
+        "launches": t1_launches, "kernel": t1_kernel,
+        "kernel_ms": t1_kernel_ms,
         "kernel_share": t1_kernel_ms
-        / (solves["cuda_fused"].wall_seconds * 1e3)}})
+        / (solves["cuda_fused"].wall_seconds * 1e3)},
+        "batch_launch_ms": {"by_shape": batch_kernel, **k2_batch}})
 
     # Free the 2D path's large tensors before the 3D path's 8 GB batch.
-    del xb, xs, outs, br, batch
+    del xb, xs, xB, outs, br, batch, k2  # k2 holds xs as its default
     torch.cuda.empty_cache()
 
     # -- 8-9. the 3D path (Fig 6), with the launch counts from zero ---------
@@ -823,18 +945,21 @@ def main() -> int:
           f"the dense path launched K5 {launches5}")
     # One jacobi2d call on all 65,536 instances: past gridDim.z's 65,535,
     # K2's wrapper launches the batch in slices (two launches an iteration).
-    k2_before = _build.LAUNCHES["jacobi2d_trapezoid"]
+    k23 = K23_COUNTERS[kernel_for("trapezoid", lap, 1, DENSE_BATCH, 64,
+                                  64)]
+    k2_before = _build.LAUNCHES[k23]
     yk = jacobi2d(xd, lap, bc_value=1.0, iterations=DENSE_ITERS)
-    k2_sliced = _build.LAUNCHES["jacobi2d_trapezoid"] - k2_before
+    k2_sliced = _build.LAUNCHES[k23] - k2_before
     check(k2_sliced == 2 * DENSE_ITERS,
-          f"jacobi2d on {DENSE_BATCH} instances: {k2_sliced} K2 launches")
+          f"jacobi2d on {DENSE_BATCH} instances: {k2_sliced} {k23} launches")
     dense_err = err(yd, yk)
     check(yd.shape == xd.shape and dense_err <= 1e-5,
           f"dense path vs jacobi2d: {dense_err}")
     emit({"phase": 10, "instances": DENSE_BATCH, "grid": [64, 64],
           "N": 64 * 64, "iterations": DENSE_ITERS, "wall_ms": dense_wall,
           "launches": launches5, "max_abs_err_vs_jacobi2d": dense_err,
-          "jacobi2d_one_call_k2_launches": k2_sliced})
+          "jacobi2d_one_call_kernel": k23,
+          "jacobi2d_one_call_launches": k2_sliced})
     del yd, yk
 
     # -- 11. K4 and K5 timed at the 3D and dense paths' shapes ---------------
@@ -1393,18 +1518,48 @@ def main() -> int:
         entry("jacobi2d_trapezoid", "src/repro_torch/csrc/jacobi_fused.cu",
               "src/repro/kernels/jacobi_fused.py:247", k2_ms, k2_plain,
               2 * n_big * 4, k2_ops, conv_big_ms,
-              {"shape": [1, *big], "fuse": 1, "eager_ms": k2_eager,
-               "fuse16_ms": k2_f16,
-               "table1_launch_ms": k2_t1_ms,
-               "table1_launch_eager_ms": k2_t1_eager,
-               "fuse16_bound_ms": max(2 * n_big * 4 / PEAK_BYTES,
-                                      16 * k2_ops / PEAK_FP32_FLOPS) * 1e3,
+              {"case": "8192x8192 fuse 1", "kernel": "stream",
+               "shape": [1, *big], "fuse": 1, "eager_ms": k2_eager,
+               "tile_kernel_ms": k2_tile_ms,
                "max_abs_err_bf16": worst["jacobi2d_trapezoid"]["bfloat16"]}),
+        entry("jacobi2d_trapezoid", "src/repro_torch/csrc/jacobi_fused.cu",
+              "src/repro/kernels/jacobi_fused.py:247", k2_f16, k2_f16_plain,
+              2 * n_big * 4, 16 * k2_ops, None,
+              {"case": "8192x8192 fuse 16", "kernel": "stream",
+               "shape": [1, *big], "fuse": 16, "tile_kernel_ms": k2_f16_tile,
+               "plain_timing": "eager",
+               "fuse1_bound_ms_x16": 16 * 2 * n_big * 4 / PEAK_BYTES * 1e3,
+               "max_abs_err_fuse16": k2_err}),
+        # Table 1's trapezoid request, named for the kernel the shape sends
+        # it to; its launches are the Table-1 solve's own.
+        entry(K23_COUNTERS[t1_kernel], "src/repro_torch/csrc/jacobi_fused.cu",
+              "src/repro/kernels/jacobi_fused.py:247", k2_t1_ms, k2_t1_plain,
+              2 * 64 * 64 * 4, t1_fuse * k3_ops // n_iters, None,
+              {"case": "Table-1 launch, 64x64 trapezoid fuse 4, batch 1",
+               "kernel": t1_kernel, "eager_ms": k2_t1_eager,
+               **{f"{k}_kernel_ms": v for k, v in k2_t1_by_name.items()}},
+              t1_launches),
         entry("jacobi2d_resident", "src/repro_torch/csrc/jacobi_fused.cu",
               "src/repro/kernels/jacobi_fused.py:215", k3_ms, k3_plain,
               2 * 64 * 64 * 4, k3_ops, None,
-              {"shape": [1, 64, 64], "fuse": n_iters,
-               "plain_timing": "eager", "conv2d_one_sweep_ms": conv64_ms}),
+              {"case": "64x64 fuse 7960", "kernel": "resident_regs",
+               "shape": [1, 64, 64], "fuse": n_iters,
+               "one_sm_bound_ms": k3_ops / (PEAK_FP32_FLOPS / sms) * 1e3,
+               "smem_kernel_ms": k3_smem_ms, "cta_kernel_ms": k3_cta_ms,
+               "plain_timing": "eager", "conv2d_one_sweep_ms": conv64_ms,
+               "max_abs_err_bf16": worst["jacobi2d_resident"]["bfloat16"]}),
+        entry("jacobi2d_resident_grid",
+              "src/repro_torch/csrc/jacobi_fused.cu",
+              "src/repro/kernels/jacobi_fused.py:215", kg_ms, kg_plain,
+              2 * n_res * 4, kg_ops, None,
+              {"case": f"{RESIDENT_BIG[0]}x{RESIDENT_BIG[1]} fuse "
+                       f"{RESIDENT_BIG_ITERS}", "kernel": "resident_grid",
+               "shape": [1, *RESIDENT_BIG], "fuse": RESIDENT_BIG_ITERS,
+               "eager_ms": kg_eager, "plain_timing": "eager",
+               "stream_kernel_ms": kg_stream_ms,
+               "stream_passes": len(trapezoid_passes(RESIDENT_BIG_ITERS, 1)),
+               "max_abs_err_bf16":
+                   worst["jacobi2d_resident_grid"]["bfloat16"]}),
         entry("stencil3d", "src/repro_torch/csrc/stencil3d.cu",
               "src/repro/kernels/stencil3d.py:117", k4_ms, k4_plain,
               2 * n3 * 4, k4_ops, conv3d_ms,

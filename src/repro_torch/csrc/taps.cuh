@@ -99,8 +99,10 @@ struct TapRegs {
 
 // sum_k w_k * buf[idx + off_k] in tap order, every neighbour inside buf.
 // Field taps read fields[field_k * plane + cell].  NT == 0 reads tap k
-// from big where it is not null (more taps than Taps holds).
-template <int NT, typename E>
+// from big where it is not null (more taps than Taps holds).  FIELDS =
+// false promises an NT > 0 table with no field tap: the weights come from
+// registers with no per-tap test.
+template <int NT, typename E, bool FIELDS = true>
 __device__ __forceinline__ float sum_taps(const E* buf, int idx,
                                           const TapRegs<NT>& rt,
                                           const Taps& t, const Tap* big,
@@ -111,8 +113,9 @@ __device__ __forceinline__ float sum_taps(const E* buf, int idx,
   if constexpr (NT > 0) {
 #pragma unroll
     for (int k = 0; k < NT; ++k) {
-      const float wk =
-          rt.field[k] < 0 ? rt.w[k] : fields[rt.field[k] * plane + cell];
+      const float wk = !FIELDS || rt.field[k] < 0
+                           ? rt.w[k]
+                           : fields[rt.field[k] * plane + cell];
       acc = __fadd_rn(acc, __fmul_rn(to_f32(buf[idx + rt.off[k]]), wk));
     }
   } else {

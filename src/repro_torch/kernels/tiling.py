@@ -3,9 +3,11 @@
 ``round_up``, ``fused_block_geometry``, ``fuse_redundancy``,
 ``halo_fuse_redundancy`` and ``halo_exchange_bytes`` are the JAX package's
 functions, kept equal to them so that the roofline prices schedules the same
-way in both packages.  ``resident_fits`` is re-derived for Hopper: the
-resident kernel keeps two fp32 ping-pong copies of the zero-ringed grid in
-one CTA's shared memory.
+way in both packages.  ``resident_fits`` is the JAX package's rule too, so
+that ``rim="resident"`` takes the same grids in both; ``resident_cta_fits``
+is the port's own: whether the two fp32 ping-pong copies of the zero-ringed
+grid fit one CTA's shared memory, where the one-CTA resident kernels run
+(a larger grid takes the grid-wide kernel, csrc/jacobi_fused.cu).
 """
 from __future__ import annotations
 
@@ -15,6 +17,11 @@ from __future__ import annotations
 # it, rounded up for alignment.
 MAX_SMEM_BYTES = 232_448
 STATIC_SMEM_BYTES = 512
+
+# The JAX package's limit on a resident grid (src/repro/kernels/tiling.py,
+# RESIDENT_VMEM_BYTES: the padded grid in one VMEM block), copied so that
+# the port admits exactly the grids JAX admits.
+RESIDENT_VMEM_BYTES = 8 * 1024 * 1024
 
 
 def round_up(v: int, m: int) -> int:
@@ -29,10 +36,17 @@ def resident_smem_bytes(grid_shape: tuple[int, int], radius: int = 1) -> int:
     return 2 * (H + 2 * radius) * (W + 2 * radius) * 4
 
 
-def resident_fits(grid_shape: tuple[int, int], radius: int = 1) -> bool:
+def resident_fits(grid_shape: tuple[int, int], itemsize: int = 4) -> bool:
+    """Whether ``rim="resident"`` takes the grid: the JAX package's rule,
+    round_up(H, 8) * round_up(W, 128) * itemsize <= 8 MiB (up to 1024x2048
+    or 1448x1408)."""
+    H, W = grid_shape
+    return round_up(H, 8) * round_up(W, 128) * itemsize <= RESIDENT_VMEM_BYTES
+
+
+def resident_cta_fits(grid_shape: tuple[int, int], radius: int = 1) -> bool:
     """Whether the whole grid fits one CTA's shared memory (up to 168×168
-    at radius 1).  Thread-block clusters with distributed shared memory
-    would lift the limit; they are not used yet."""
+    at radius 1): where the one-CTA resident kernels can run."""
     return (resident_smem_bytes(grid_shape, radius) + STATIC_SMEM_BYTES
             <= MAX_SMEM_BYTES)
 

@@ -50,6 +50,8 @@ from repro_torch.train.train_step import init_train_state, value_and_grad
 from repro_torch.kernels.dense_stencil import (dense_stencil_split_plain,
                                                launch_split, padded_cols,
                                                split_bf16x3)
+from repro_torch.kernels.jacobi_fused import (COUNTERS, KERNELS as K23,
+                                              kernel_for, trapezoid_passes)
 from repro_torch.kernels.stencil3d import KERNELS
 from _torch_dense_cases import (GEMM_SHAPES, K5_NORM_ERR, W_PIECES_ULPS,
                                 full_mantissa, max_ulps, norm_err,
@@ -123,14 +125,22 @@ def test_stencil2d_matches_plain(cuda, case, dtype, shape):
 @pytest.mark.parametrize("case", ["laplace_bc", "fields_bc", "radius2_bc",
                                   "box_raw"])
 def test_fused_step_matches_plain(cuda, case, rim, fuse, shape):
+    # The launch count is the kernel's the shape sends the request to: a
+    # trapezoid on a one-CTA grid with a small batch runs the resident
+    # register kernel (kernel_for).
     spec, bc, x = _inputs(cuda, case, shape, torch.float32)
-    key = f"jacobi2d_{rim}"
+    key = _counter(rim, spec, fuse, shape)
     n = _build.LAUNCHES[key]
     out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc, rim=rim)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[key] == n + 1
     ref = jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc)
     torch.testing.assert_close(out, ref, rtol=0, atol=TOL[torch.float32])
+
+
+def _counter(rim, spec, fuse, shape):
+    """The LAUNCHES key of the kernel a request takes by shape."""
+    return COUNTERS[kernel_for(rim, spec, fuse, *shape)]
 
 
 def test_fused_step_bf16_rounds_once_per_pass(cuda):
@@ -167,7 +177,7 @@ def test_tables_past_the_parameter_taps_equal_the_plain_versions(
         key, out = "stencil3d", lambda: stencil3d(x, spec, bc_value=1.5)
         ref = stencil3d_plain(x, spec, bc_value=1.5)
     else:
-        key = "jacobi2d_trapezoid"
+        key = _counter("trapezoid", spec, 4, shape)
         out = lambda: jacobi2d_fused_step(x, spec, fuse=4, bc_value=1.5)
         ref = jacobi2d_fused_plain(x, spec, fuse=4, bc_value=1.5)
     n = _build.LAUNCHES[key]
@@ -191,15 +201,152 @@ def test_fuse_64_runs_in_passes_that_keep_fp32(cuda, radius, passes, dtype):
             else T.star(2, [0.15, 0.05], center=0.2))
     x = torch.from_numpy(np.random.default_rng(64).standard_normal(
         (2, 300, 260)).astype(np.float32)).to(cuda, dtype)
-    n = _build.LAUNCHES["jacobi2d_trapezoid"]
+    key = _counter("trapezoid", spec, 64, x.shape)
+    n = _build.LAUNCHES[key]
     out = jacobi2d_fused_step(x, spec, fuse=64, bc_value=1.5)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["jacobi2d_trapezoid"] == n + passes
+    assert _build.LAUNCHES[key] == n + passes
     ref = jacobi2d_fused_plain(x, spec, fuse=64, bc_value=1.5)
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=0 if dtype == torch.float32
                                else TOL[dtype])
+
+
+# The stream kernel (K2), asked for by name and by shape: ragged shapes (W
+# not a multiple of the strip, H not of the chunk), batches of 1 and 3, fuse
+# 1-16 and the deepest fuse of one pass +- 1 (37 at radius 1, 22 at radius
+# 2, 16 at radius 3: one pass and two), radius 1, 2 and 3 (the 49-tap box),
+# fields.  fp32 0.0 from the plain version, bf16 within TOL.
+STREAM_SHAPES = [(1, 300, 517), (3, 129, 260)]
+STREAM_FUSES = {"laplace_bc": (1, 2, 4, 8, 16, 36, 37, 38),
+                "fields_bc": (1, 2, 8), "fields_raw": (4,),
+                "radius2_bc": (1, 8, 21, 22, 23), "box_r3": (1, 4, 15, 16, 17)}
+
+
+def _stream_spec(case, grid):
+    if case == "box_r3":
+        return _radius3_box(2), 1.5
+    return _specs(grid)[case]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+@pytest.mark.parametrize("case,fuse", [(c, f) for c, fs in
+                                       STREAM_FUSES.items() for f in fs])
+def test_stream_trapezoid_matches_plain(cuda, case, fuse, shape, dtype):
+    # By shape these small grids may take the tile kernel: the count is the
+    # kernel's that ran.
+    spec, bc = _stream_spec(case, shape[1:])
+    x = torch.from_numpy(np.random.default_rng(fuse).standard_normal(
+        shape).astype(np.float32)).to(cuda, dtype)
+    ref = jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc)
+    for name in ("stream", None):
+        kernel = name or kernel_for("trapezoid", spec, fuse, *shape)
+        passes = len(trapezoid_passes(fuse, spec.radius, kernel))
+        n = _build.LAUNCHES[COUNTERS[kernel]]
+        out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc,
+                                  kernel=name)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[COUNTERS[kernel]] == n + passes
+        assert out.dtype == dtype
+        e = float((out.float() - ref.float()).abs().max())
+        assert e == 0.0 if dtype == torch.float32 else e <= TOL[dtype], e
+
+
+# The register kernel (K3) at 33x57, 64x64 and its largest patches
+# (128x128, 256x64 and 16x1024: 512 threads of 16x2 cells), for the 5-point
+# star with and without fields and the 3x3 box; the cta kernel on the
+# largest one-CTA grids (168x168 at radius 1, 160x160 at radius 2) and a
+# radius-2 64x64 grid; each by name and by shape (rim="resident").  The
+# grid-wide kernel at 169x169, 512x512 and 1024x2048 (JAX's 8 MiB limit),
+# past one CTA.  fp32 0.0, bf16 within TOL.
+RESIDENT_CASES = (
+    [("resident_regs", g, c, f)
+     for g in ((33, 57), (64, 64), (128, 128), (256, 64), (16, 1024))
+     for c in ("laplace_bc", "fields_bc", "fields_raw", "box_raw")
+     for f in (1, 8, 517)]
+    + [("resident_cta", (168, 168), c, f)
+       for c in ("laplace_bc", "fields_bc", "box_raw") for f in (1, 8, 517)]
+    + [("resident_cta", g, "radius2_bc", f) for g in ((160, 160), (64, 64))
+       for f in (1, 8, 517)]
+    + [("resident_grid", g, c, f) for g in ((169, 169), (512, 512))
+       for c in ("laplace_bc", "fields_bc", "radius2_bc", "box_raw")
+       for f in (1, 8, 512)]
+    + [("resident_grid", (1024, 2048), "laplace_bc", f) for f in (1, 8, 512)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,grid,case,fuse", RESIDENT_CASES)
+def test_resident_kernels_match_plain(cuda, kernel, grid, case, fuse, dtype):
+    spec, bc = _specs(grid)[case]
+    B = 1 if grid[0] * grid[1] > 2 ** 18 else 2
+    x = torch.from_numpy(np.random.default_rng(fuse).standard_normal(
+        (B, *grid)).astype(np.float32)).to(cuda, dtype)
+    ref = jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc)
+    for name in (kernel, None):
+        n = _build.LAUNCHES[COUNTERS[kernel]]
+        out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc,
+                                  rim="resident", kernel=name)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[COUNTERS[kernel]] == n + 1
+        e = float((out.float() - ref.float()).abs().max())
+        assert e == 0.0 if dtype == torch.float32 else e <= TOL[dtype], e
+
+
+@pytest.mark.parametrize("kernel", ["tile", "resident_smem"])
+@pytest.mark.parametrize("case", ["laplace_bc", "fields_bc", "radius2_bc",
+                                  "box_raw"])
+def test_earlier_kernels_by_name_match_plain(cuda, kernel, case):
+    # The kernels before the stream and register ones, kept by name.
+    shape = (3, 33, 57) if kernel == "resident_smem" else (2, 300, 260)
+    spec, bc, x = _inputs(cuda, case, shape, torch.float32)
+    n = _build.LAUNCHES[COUNTERS[kernel]]
+    out = jacobi2d_fused_step(x, spec, fuse=16, bc_value=bc, kernel=kernel)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[COUNTERS[kernel]] == n + 1
+    ref = jacobi2d_fused_plain(x, spec, fuse=16, bc_value=bc)
+    assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kernel", ["stream_r0", "stream_u1"])
+@pytest.mark.parametrize("case,fuse", [("laplace_bc", 1), ("laplace_bc", 4),
+                                       ("laplace_bc", 16), ("box_raw", 8),
+                                       ("radius2_bc", 8)])
+def test_stream_variants_by_name_match_plain(cuda, kernel, case, fuse):
+    # The stream kernel with the radius a runtime value, and with one level
+    # at a time: by name only, counted as the stream kernel.
+    spec, bc, x = _inputs(cuda, case, (2, 300, 260), torch.float32)
+    n = _build.LAUNCHES["jacobi2d_trapezoid"]
+    out = jacobi2d_fused_step(x, spec, fuse=fuse, bc_value=bc, kernel=kernel)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["jacobi2d_trapezoid"] == n + 1
+    ref = jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc)
+    assert float((out - ref).abs().max()) == 0.0
+
+
+def test_trapezoid_on_a_small_grid_runs_resident(cuda):
+    # Table 1's launch (one 64x64 grid, fuse 4) takes the register kernel,
+    # a batch of them too; a grid past one CTA takes the stream kernel: the
+    # same bits.
+    spec, bc = T.laplace_jacobi(2), 1.0
+    x = torch.rand(1024, 64, 64, device=cuda)
+    for batch, key in ((1, "jacobi2d_resident"), (1024, "jacobi2d_resident")):
+        n = dict(_build.LAUNCHES)
+        out = jacobi2d_fused_step(x[:batch], spec, fuse=4, bc_value=bc)
+        torch.cuda.synchronize()
+        grew = {k: v - n.get(k, 0) for k, v in _build.LAUNCHES.items()
+                if v != n.get(k, 0)}
+        assert grew == {key: 1}, grew
+        ref = jacobi2d_fused_plain(x[:batch], spec, fuse=4, bc_value=bc)
+        assert float((out - ref).abs().max()) == 0.0
+    x = torch.rand(1, 300, 260, device=cuda)
+    n = _build.LAUNCHES["jacobi2d_trapezoid"]
+    out = jacobi2d_fused_step(x, spec, fuse=4, bc_value=bc)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["jacobi2d_trapezoid"] == n + 1
+    ref = jacobi2d_fused_plain(x, spec, fuse=4, bc_value=bc)
+    assert float((out - ref).abs().max()) == 0.0
 
 
 def test_table1_on_the_card_takes_the_cpu_iteration_count(cuda):
@@ -502,7 +649,8 @@ def test_batches_past_65535_equal_the_plain_versions(cuda, kernel):
         run = lambda: stencil3d(x, spec, bc_value=1.5)
         plain = lambda: stencil3d_plain(x, spec, bc_value=1.5)
     else:
-        key, spec = f"jacobi2d_{kernel}", T.laplace_jacobi(2)
+        spec = T.laplace_jacobi(2)
+        key = _counter(kernel, spec, 3, shape)
         run = lambda: jacobi2d_fused_step(x, spec, fuse=3, bc_value=1.5,
                                           rim=kernel)
         plain = lambda: jacobi2d_fused_plain(x, spec, fuse=3, bc_value=1.5)

@@ -156,8 +156,9 @@ def test_wrappers_reject_what_the_kernels_cannot_run():
     lap = T.laplace_jacobi(2)
     with pytest.raises(ValueError, match="not divisible"):
         jacobi2d(x, lap, bc_value=1.0, iterations=10, fuse=4)
+    # A resident grid past the JAX package's 8 MiB (padded to (8, 128)).
     with pytest.raises(ValueError, match="resident"):
-        jacobi2d_fused_step(torch.zeros(1, 200, 200), lap, fuse=2,
+        jacobi2d_fused_step(torch.zeros(1, 1032, 2048), lap, fuse=2,
                             rim="resident")
     # A trapezoid deeper than one CTA's shared memory runs (in passes), and
     # a table past the kernels' 25 parameter taps too: both as JAX.
@@ -181,24 +182,181 @@ def test_wrappers_reject_what_the_kernels_cannot_run():
 
 
 def test_deep_trapezoids_run_in_passes_that_fit():
-    from repro_torch.kernels.jacobi_fused import (trapezoid_passes,
+    from repro_torch.kernels.jacobi_fused import (tile_smem_bytes,
+                                                  trapezoid_passes,
                                                   trapezoid_smem_bytes)
     from repro_torch.kernels.tiling import MAX_SMEM_BYTES, STATIC_SMEM_BYTES
-    assert trapezoid_passes(53, 1) == [53] and trapezoid_passes(54, 1) == [
-        27, 27]
+    # The stream kernel (K2): fuse levels of 4r + 2 rows of 256 fp32 each.
+    assert trapezoid_passes(37, 1) == [37] and trapezoid_passes(38, 1) == [
+        19, 19]
     assert trapezoid_passes(64, 1) == [32, 32]
     assert trapezoid_passes(64, 2) == [22, 21, 21]
-    assert trapezoid_passes(26, 2) == [26]
-    for fuse in (1, 8, 53, 54, 64, 200):
-        for r in (1, 2, 3):
-            passes = trapezoid_passes(fuse, r)
-            assert sum(passes) == fuse and max(passes) - min(passes) <= 1
-            assert (trapezoid_smem_bytes(max(passes), r) + STATIC_SMEM_BYTES
-                    <= MAX_SMEM_BYTES)
-            if len(passes) > 1:   # one pass fewer would not fit
-                deeper = -(-fuse // (len(passes) - 1))
-                assert (trapezoid_smem_bytes(deeper, r) + STATIC_SMEM_BYTES
-                        > MAX_SMEM_BYTES)
+    assert trapezoid_passes(22, 2) == [22]
+    # The tile kernel, by name: a 64x64 tile with its fuse*r-deep halo.
+    assert trapezoid_passes(53, 1, "tile") == [53]
+    assert trapezoid_passes(54, 1, "tile") == [27, 27]
+    assert trapezoid_passes(26, 2, "tile") == [26]
+    for kernel, smem in (("stream", trapezoid_smem_bytes),
+                         ("tile", tile_smem_bytes)):
+        for fuse in (1, 8, 37, 38, 53, 54, 64, 200):
+            for r in (1, 2, 3):
+                passes = trapezoid_passes(fuse, r, kernel)
+                assert sum(passes) == fuse and max(passes) - min(passes) <= 1
+                assert (smem(max(passes), r) + STATIC_SMEM_BYTES
+                        <= MAX_SMEM_BYTES)
+                if len(passes) > 1:   # one pass fewer would not fit
+                    deeper = -(-fuse // (len(passes) - 1))
+                    assert (smem(deeper, r) + STATIC_SMEM_BYTES
+                            > MAX_SMEM_BYTES)
+
+
+def test_kernels_follow_the_shape():
+    # The dispatch by shape (no card needed: it is arithmetic on shapes).
+    from repro_torch.kernels.jacobi_fused import kernel_for, trapezoid_passes
+    lap, box = T.laplace_jacobi(2), T.box(2)
+    star2 = T.star(2, [0.15, 0.05], center=0.2)
+    # Table 1 (one 64x64 grid, fuse 4, or a batch of them): the register
+    # kernel, in either geometry; the box too; up to its largest patches.
+    for batch in (1, 1024):
+        for rim in ("trapezoid", "resident"):
+            assert kernel_for(rim, lap, 4, batch, 64, 64) == "resident_regs"
+            assert kernel_for(rim, box, 4, batch, 64, 64) == "resident_regs"
+    for grid in ((33, 57), (128, 128), (256, 64), (16, 1024)):
+        assert kernel_for("resident", lap, 8, 1, *grid) == "resident_regs"
+    # Past the register kernel's patch or masks, one CTA: the cta kernel.
+    assert kernel_for("resident", lap, 8, 1, 160, 160) == "resident_cta"
+    assert kernel_for("resident", star2, 8, 1, 64, 64) == "resident_cta"
+    # Past one CTA: the grid-wide resident kernel.
+    for grid in ((169, 169), (512, 512), (1024, 2048)):
+        assert kernel_for("resident", lap, 8, 1, *grid) == "resident_grid"
+    # A one-CTA grid wider than the cta kernel's 512 columns.
+    assert kernel_for("resident", lap, 8, 1, 20, 1000) == "resident_grid"
+    # Trapezoids past the register kernel: the stream kernel on large
+    # launches at fuse 1-3 ...
+    assert kernel_for("trapezoid", lap, 1, 1, 8192, 8192) == "stream"
+    assert kernel_for("trapezoid", lap, 1, 1, 4096, 4096) == "stream"
+    assert kernel_for("trapezoid", lap, 1, 1, 2048, 2048) == "tile"
+    assert kernel_for("trapezoid", lap, 2, 4, 1024, 1024) == "stream"
+    assert kernel_for("trapezoid", lap, 3, 1, 1024, 1024) == "tile"
+    # ... at fuse 4-8 on any grid ...
+    assert kernel_for("trapezoid", star2, 4, 1, 64, 64) == "stream"
+    assert kernel_for("trapezoid", lap, 4, 1, 40, 700) == "stream"
+    assert kernel_for("trapezoid", lap, 8, 3, 129, 260) == "stream"
+    # ... and deeper on grids of 8 fills' rows (a pass's T (2r + 1)).
+    assert kernel_for("trapezoid", lap, 16, 1, 8192, 8192) == "stream"
+    assert kernel_for("trapezoid", lap, 16, 1, 1024, 1024) == "stream"
+    assert kernel_for("trapezoid", lap, 16, 1, 300, 517) == "tile"
+    assert kernel_for("trapezoid", lap, 4, 3, 129, 260) == "stream"
+    assert kernel_for("trapezoid", lap, 64, 1, 1024, 1024) == "stream"
+    # Radius 54-56: only the stream kernel fits (the tile stops at 53);
+    # past 56 no kernel does, and the trapezoid's passes raise.
+    far = T.StencilSpec({(0, -56): 0.5, (0, 56): 0.5})
+    assert kernel_for("trapezoid", far, 1, 1, 512, 512) == "stream"
+    assert trapezoid_passes(1, 56) == [1]
+    with pytest.raises(ValueError, match="past one CTA"):
+        trapezoid_passes(1, 57)
+    with pytest.raises(ValueError, match="past one CTA"):
+        trapezoid_passes(1, 54, "tile")
+
+
+@pytest.mark.parametrize("H,W", [(1, 1), (9, 10), (33, 57), (64, 64),
+                                 (168, 168), (160, 160), (20, 1000),
+                                 (2048, 8), (2800, 8), (50, 512)])
+def test_register_patch_covers_the_grid(H, W):
+    # The register kernel's patch: KC rows of two columns a thread, the
+    # first KC of REGS_ROWS within its threads; none past them.
+    from repro_torch.kernels.jacobi_fused import (REGS_MAX_THREADS,
+                                                  REGS_ROWS, regs_patch)
+    tx = -(-(-(-W // 2)) // 32) * 32
+    patch = regs_patch(T.laplace_jacobi(2), H, W)
+    fits = [kc for kc in REGS_ROWS if tx * -(-H // kc) <= REGS_MAX_THREADS]
+    if patch is None:
+        assert not fits
+        return
+    ty, kc = patch
+    assert kc == fits[0] and ty == -(-H // kc) and ty * kc >= H
+    assert tx * ty <= REGS_MAX_THREADS and 2 * tx >= W
+    assert (H, W) != (64, 64) or patch == (16, 4)   # 16 warps, 8 cells
+    # A table past the 3x3 window, or whose mask has no instance, has none.
+    assert regs_patch(T.star(2, [0.15, 0.05]), H, W) is None
+    assert regs_patch(T.star(2, [0.25], center=0.5), H, W) is None
+
+
+@pytest.mark.parametrize("H,W", [(1, 1), (9, 10), (33, 57), (64, 64),
+                                 (168, 168), (160, 160), (20, 1000),
+                                 (2048, 8), (2800, 8), (50, 512)])
+def test_cta_patch_covers_the_grid(H, W):
+    from repro_torch.kernels.jacobi_fused import cta_patch
+    patch = cta_patch(H, W)
+    if patch is None:   # past 512 columns
+        assert W > 512
+        return
+    ty, kc = patch
+    assert kc % 8 == 0 and ty * kc >= H > ty * (kc - 8)
+    assert (-(-W // 32) * 32) * ty <= 512
+    assert (-(-W // 32) * 32) * ty > 512 - (-(-W // 32) * 32) or ty == H
+    assert (H, W) != (64, 64) or patch == (8, 8)
+
+
+@pytest.mark.parametrize("W,fuse,r", [(8192, 1, 1), (8192, 16, 1), (64, 4, 1),
+                                    (57, 37, 1), (260, 22, 2), (4096, 1, 56),
+                                    (10, 3, 1), (517, 16, 3)])
+def test_stream_strips_cover_the_grid(W, fuse, r):
+    from repro_torch.kernels.jacobi_fused import STREAM_W, stream_geometry
+    strip_w, strips, waves, min_rows = stream_geometry(W, fuse, r)
+    assert 1 <= strip_w <= STREAM_W - 2 * fuse * r
+    assert strips * strip_w >= W > (strips - 1) * strip_w
+    assert waves >= 1 and min_rows >= 1
+
+
+def _resident_cases(grid):
+    """name -> (JAX spec on this grid, bc_value), the cases of
+    test_plain_fused_step_matches_pallas past one CTA's shared memory."""
+    rng = np.random.default_rng(176)
+    return {
+        "laplace_bc": (J.laplace_jacobi(2), 1.5),
+        "fields_bc": (J.heterogeneous_jacobi(1.0 + 9.0 * rng.random(grid)),
+                      1.5),
+        "radius2_bc": (J.star(2, [0.15, 0.05], center=0.2), 1.5),
+        "box_raw": (J.box(2), None),
+    }
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["laplace_bc", "fields_bc", "radius2_bc",
+                                  "box_raw"])
+@pytest.mark.parametrize("shape", [(1, 176, 200), (2, 264, 136)])
+def test_resident_past_one_cta_matches_pallas(shape, case, dtype_name):
+    # Grids JAX's resident geometry takes and one CTA's shared memory does
+    # not (past 168x168): the port takes them too.
+    jspec, bc = _resident_cases(shape[1:])[case]
+    jd, td = DT[dtype_name]
+    x = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+    jout = JK.jacobi2d_fused_step(jnp.asarray(x, jd), jspec, fuse=8,
+                                  bc_value=bc, rim="resident")
+    tout = jacobi2d_fused_step(torch.from_numpy(x).to(td),
+                               to_torch_spec(jspec), fuse=8, bc_value=bc,
+                               rim="resident")
+    assert tout.dtype == td and tout.shape == shape
+    _close(jout, tout, dtype_name)
+
+
+def test_both_packages_raise_just_past_8_mib():
+    # 1032x2048 pads to 8.06 MiB: both refuse the resident geometry there;
+    # 1024x2048 (8 MiB) both take.
+    from repro.kernels.tiling import resident_fits as jax_fits
+    from repro_torch.kernels.tiling import resident_fits
+    lap = T.laplace_jacobi(2)
+    with pytest.raises(ValueError, match="resident"):
+        JK.jacobi2d_fused_step(jnp.zeros((1, 1032, 2048)),
+                               J.laplace_jacobi(2), fuse=2, rim="resident")
+    with pytest.raises(ValueError, match="8388608"):
+        jacobi2d_fused_step(torch.zeros(1, 1032, 2048), lap, fuse=2,
+                            rim="resident")
+    assert jax_fits((1024, 2048)) and resident_fits((1024, 2048))
+    x = torch.zeros(1, 1024, 2048)
+    assert jacobi2d_fused_step(x, lap, fuse=1, bc_value=1.0,
+                               rim="resident").shape == x.shape
 
 
 def test_plain_path_launches_no_kernel():

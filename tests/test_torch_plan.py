@@ -232,6 +232,24 @@ def test_raw_kernel_plans_match_jax():
                                    atol=1e-6)
 
 
+def test_resident_plan_past_one_cta_runs_as_jax():
+    # A 256x256 grid is past one CTA's shared memory and inside JAX's 8 MiB:
+    # a plan with rim="resident" builds and runs, and equals JAX's
+    # pallas_fused plan with the same schedule.
+    x = np.random.default_rng(256).standard_normal((256, 256))
+    jplan = J.make_plan(J.laplace_jacobi(2), (256, 256),
+                        backend="pallas_fused", bc=BC_VALUE, iters=16,
+                        rim="resident", tuned=None)
+    plan = T.make_plan(T.laplace_jacobi(2), (256, 256), backend="cuda_fused",
+                       bc=BC_VALUE, iters=16, rim="resident", device="cpu")
+    assert (plan.fuse, plan.rim) == (jplan.fuse, "resident") == (16,
+                                                                 "resident")
+    jout = jplan(jnp.asarray(x, jnp.float32))
+    tout = plan(torch.tensor(x).float())
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
+                               atol=1e-6)
+
+
 def test_plan_contract():
     lap = T.laplace_jacobi(2)
     x = torch.zeros(12, 17)

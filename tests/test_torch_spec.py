@@ -169,13 +169,30 @@ def test_tiling_functions_equal_jax():
 
 
 def test_resident_fits_is_hopper_shared_memory():
-    # Two fp32 buffers of the r-ringed grid plus the tap table in 232,448
-    # bytes: 168x168 is the largest square grid at radius 1.
-    assert TT.resident_fits((168, 168), 1)
-    assert not TT.resident_fits((169, 169), 1)
-    assert TT.resident_fits((160, 160), 2)
-    assert not TT.resident_fits((168, 168), 2)
+    # The one-CTA resident kernels: two fp32 buffers of the r-ringed grid
+    # plus the tap table in 232,448 bytes: 168x168 is the largest square
+    # grid at radius 1.
+    assert TT.resident_cta_fits((168, 168), 1)
+    assert not TT.resident_cta_fits((169, 169), 1)
+    assert TT.resident_cta_fits((160, 160), 2)
+    assert not TT.resident_cta_fits((168, 168), 2)
     assert TT.resident_smem_bytes((64, 64), 1) == 2 * 66 * 66 * 4
     # The reserve for the static tap table covers csrc/taps.cuh's struct.
     assert _build.MAX_TAPS == 25
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_resident_fits_equals_jax(itemsize):
+    # rim="resident" takes exactly the grids the JAX package takes: up to
+    # 8 MiB padded to (8, 128), 1024x2048 and 1448x1408 in fp32.
+    shapes = [(8, 8), (33, 57), (168, 168), (169, 169), (176, 200),
+              (264, 136), (1024, 1024), (1024, 2048), (1025, 2048),
+              (1032, 2048), (1448, 1408), (1449, 1408), (2048, 1024),
+              (2048, 1025), (4096, 512), (4097, 512), (2896, 2896)]
+    for shape in shapes:
+        assert TT.resident_fits(shape, itemsize) == \
+            JT.resident_fits(shape, itemsize), shape
+    assert TT.RESIDENT_VMEM_BYTES == JT.RESIDENT_VMEM_BYTES
+    assert TT.resident_fits((1024, 2048)) and TT.resident_fits((1448, 1408))
+    assert not TT.resident_fits((1032, 2048))
     assert 404 == _build.ctypes.sizeof(_build.Taps) <= TT.STATIC_SMEM_BYTES
