@@ -26,7 +26,10 @@ solver):
     AdamW, attention through K7 (twice a layer: forward and recompute) and
     the backward kernels K8/K9 (once a layer), as ``python -m
     repro_torch.launch.train --arch qwen3-0.6b --global-batch 4 --seq-len
-    2048 --steps 5`` runs it (phases 17-18).
+    2048 --steps 5`` runs it (phases 17-18);
+  - the stencil serving tier: the measured autotuner, the multigrid
+    V-cycle, and the coalescing engine over the bucketed plan cache, as
+    ``repro_torch.serve.ServingEngine`` serves it (phases 20-22).
 
 Phases, one JSON line each:
 
@@ -150,8 +153,28 @@ Phases, one JSON line each:
      F.scaled_dot_product_attention (the library yardstick, timed with
      torch.autograd.grad; the port never calls it); the HGMMA instructions
      of each bf16 instance (none fails) and its ptxas report (a spill
-     fails).
-The inventory line lists K1-K9 and K5's split kernel.
+     fails);
+ 20. the autotuner: ``autotune_cell`` on Table 1 (64x64, 32 iterations),
+     the heterogeneous 1024x1024, 8192x8192 (16) and Fig 6 (10x64x64):
+     every legal candidate measured (none failing, none interpreted), µs an
+     iteration each, the lookup under this card's name returning the
+     fastest, and the JAX package's CPU table winning no cell here;
+ 21. multigrid V-cycles, bc 1 from zeros: Table 1 and the heterogeneous
+     65x65 at rtol 1e-5 (13 and 5 cycles, BENCH_stencil.json's rows) and
+     1e-6 (18 and 6, the CPU's), each against the reference backend on the
+     card (the same cycles, fields within 1e-6), then 4097x4097 through K2
+     (11 levels) and 257^3 through K4 at rtol 1e-6: cycles, levels, work
+     units, wall and residual;
+ 22. the serving engine over one PlanCache: 256 Jacobi requests (64, 60,
+     56 and 48 square at bc 1 and 0.5, each with its own source: eight
+     groups on one 64x64 bucket entry), 16 ``cuda_fused`` requests (an
+     exact entry, K3's register kernel) and 4 multigrid requests on
+     1025x1025, all at once: solves/s, p50/p99 latency, mean batch and the
+     cache's stats; every result against its request solved on its own
+     shape, 3 cache misses and no rebuild or dropped probe candidate, and
+     coalesced solves/s at least 5x cold-serial (a fresh cache a request).
+The line after phase 22 lists the kernels phases 20-22 launched; the
+inventory line lists K1-K9 and K5's split kernel.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -221,6 +244,37 @@ FLASH_BWD_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 1.6e-2)}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 LM_TRAIN = (4, 2048, 5)   # phase 18, the main path: batch, seq_len, steps
 DEVICE = "cuda"
+# Phases 20-22, the stencil serving tier.  Autotune cells: (name, spec,
+# grid, iterations a timed call); Table 1's and Fig 6's go to the committed
+# table (--write-tuned).
+TUNE_CELLS = (("table1", "laplace2d", (64, 64), 32),
+              ("hetero", "hetero2d", HET_GRID, 32),
+              ("big", "laplace2d", BIG_GRID, 16),
+              ("fig6", "laplace3d", FIG6_GRID, 32))
+TUNE_COMMITTED = ("table1", "fig6")
+# Multigrid problems, bc 1 from zeros: (name, spec, grid, rtol, backend,
+# transfer backend, cycles and levels the CPU takes or None).  13 and 5
+# cycles at rtol 1e-5 are BENCH_stencil.json's rows; 18 and 6 at 1e-6 the
+# CPU tests' counts (tests/test_torch_multigrid.py).
+MG_PROBLEMS = (
+    ("table1", "laplace2d", (64, 64), 1e-5, "auto", "reference", (13, 4)),
+    ("table1", "laplace2d", (64, 64), 1e-6, "auto", "reference", (18, 4)),
+    ("hetero65", "hetero2d", (65, 65), 1e-5, "auto", "reference", (5, 5)),
+    ("hetero65", "hetero2d", (65, 65), 1e-6, "auto", "reference", (6, 5)),
+    ("full2d", "laplace2d", (4097, 4097), 1e-6, "cuda", "cuda", (None, 11)),
+    ("full3d", "laplace3d", (257, 257, 257), 1e-6, "cuda", "cuda",
+     (None, 7)),
+)
+# Serving traffic: Jacobi requests per (grid, bc) group, the groups' grids
+# (one 64x64 bucket) and Dirichlet values; kernel-backend requests; the
+# multigrid requests' grid and count; requests timed cold-serial.
+SERVE_PER_GROUP = 32
+SERVE_GRIDS = (64, 60, 56, 48)
+SERVE_BCS = (1.0, 0.5)
+SERVE_FUSED = 16
+SERVE_MG = ((1025, 1025), 4)
+SERVE_COLD = 4
+SERVE_BAR = 5.0   # coalesced solves/s over cold-serial (serving_bench.py)
 
 
 def emit(obj):
@@ -266,7 +320,301 @@ def sass_counts(library, opcode):
     return counts
 
 
-def main() -> int:
+def stencil_serving_phases(dev, write_tuned=None):
+    """Phases 20-22, the stencil serving tier on the card: the measured
+    autotuner, the multigrid V-cycle and the coalescing engine over the
+    bucketed plan cache.  Each phase zeroes the launch counts before it and
+    reads them after; returns {"launches": {phase: launches}, "seconds",
+    "peak_gb"}.  ``write_tuned`` saves the
+    Table-1 and Fig-6 cells' measurements there (TUNED_stencil_cuda.json's
+    source)."""
+    import asyncio
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import repro_torch.core as T
+    from repro_torch.core import autotune
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ServingEngine
+
+    t_tier = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    het_kappa = {}
+
+    def spec_of(name, grid):
+        if name == "laplace2d":
+            return T.laplace_jacobi(2)
+        if name == "laplace3d":
+            return T.laplace_jacobi(3)
+        if grid not in het_kappa:   # multigrid_bench.py's problem
+            het_kappa[grid] = 1.0 + 9.0 * np.random.default_rng(0).random(
+                grid).astype(np.float32)
+        return T.heterogeneous_jacobi(het_kappa[grid])
+
+    launches = {}
+
+    # -- 20. the autotuner on the card ---------------------------------------
+    _build.LAUNCHES.clear()
+    kind = autotune.device_kind(dev)
+    jax_table = autotune.TunedTable.load(os.path.join(ROOT,
+                                                      "TUNED_stencil.json"))
+    check(len(jax_table) == 10, "the JAX package's table did not load")
+    committed = autotune.TunedTable()
+    cells = {}
+    for name, sname, grid, iters in TUNE_CELLS:
+        spec = spec_of(sname, grid)
+        fam = autotune.spec_family(spec)
+        cands = autotune.schedule_candidates(spec, grid, iters, bc=1.0,
+                                             device=dev)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as failed:
+            warnings.simplefilter("always")
+            table = autotune.autotune_cell(spec, grid, iters=iters, bc=1.0,
+                                           device=dev)
+        tune_s = time.perf_counter() - t0
+        failed = [str(w.message) for w in failed
+                  if "autotune: candidate" in str(w.message)]
+        check(not failed and len(table) == len(cands),
+              f"autotune {name}: {len(table)} of {len(cands)} candidates "
+              f"measured; failed: {failed}")
+        check(not any(e.interpreted for e in table.entries),
+              f"autotune {name}: an interpreted entry on the card")
+        best = table.lookup(kind, fam, grid, "float32")
+        check(best is not None and best.us_per_iter
+              == min(e.us_per_iter for e in table.entries),
+              f"autotune {name}: lookup did not return the fastest entry")
+        # The JAX package's CPU entries never price this card.
+        plan = T.make_plan(spec, grid, bc=1.0, iters=iters, device=dev,
+                           tuned=jax_table)
+        check(jax_table.lookup(kind, fam, grid, "float32") is None
+              and plan.source != "tuned",
+              f"autotune {name}: a CPU entry won on the card")
+        tuned_plan = T.make_plan(spec, grid, bc=1.0, iters=iters,
+                                 device=dev, tuned=table)
+        check(tuned_plan.source == "tuned"
+              and tuned_plan.backend == best.backend,
+              f"autotune {name}: make_plan did not take the winner")
+        if name in TUNE_COMMITTED:
+            for e in table.entries:
+                committed.add(e)
+        cells[name] = {
+            "family": fam, "bucket": list(autotune.shape_bucket(grid)),
+            "grid": list(grid), "iters": iters, "tune_s": tune_s,
+            "us_per_iter": {f"{e.backend}/f{e.fuse}"
+                            f"{'/' + e.rim if e.rim else ''}": e.us_per_iter
+                            for e in table.entries},
+            "winner": f"{best.backend}/f{best.fuse}"
+                      f"{'/' + best.rim if best.rim else ''}",
+            "roofline_pick": T.make_plan(spec, grid, bc=1.0, iters=iters,
+                                         device=dev, tuned=None).backend}
+    if write_tuned:
+        committed.save(write_tuned)
+    launches[20] = dict(_build.LAUNCHES)
+    emit({"phase": 20, "device_kind": kind, "cells": cells,
+          "launches": launches[20]})
+
+    # -- 21. multigrid V-cycles ------------------------------------------------
+    _build.LAUNCHES.clear()
+    mg_rows, mg_fields = [], {}
+    for name, sname, grid, rtol, backend, transfer, want in MG_PROBLEMS:
+        spec = spec_of(sname, grid)
+        t0 = time.perf_counter()
+        mg = T.Multigrid(spec, grid, bc=1.0, rtol=rtol, backend=backend,
+                         transfer_backend=transfer, device=dev)
+        build_s = time.perf_counter() - t0
+        x0 = torch.zeros(grid, device=dev)
+        cold = mg.solve(x0)
+        r = mg.solve(x0)
+        ok = (r.converged and r.cycles == cold.cycles
+              and tuple(r.x.shape) == grid
+              and bool(torch.isfinite(r.x).all()))
+        check(ok, f"multigrid {name} rtol {rtol}: converged {r.converged} "
+                  f"in {r.cycles} cycles")
+        cycles, levels = want
+        check(len(r.level_shapes) == levels
+              and (cycles is None or r.cycles == cycles),
+              f"multigrid {name} rtol {rtol}: {r.cycles} cycles, "
+              f"{len(r.level_shapes)} levels, expected {want}")
+        row = {"problem": name, "grid": list(grid), "rtol": rtol,
+               "backend": r.backend, "transfer_backend": transfer,
+               "cycles": r.cycles, "levels": len(r.level_shapes),
+               "work_per_cycle": r.work_per_cycle,
+               "work_units": r.work_units, "residual": r.residual,
+               "build_s": build_s, "cold_wall_ms": cold.wall_seconds * 1e3,
+               "wall_ms": r.wall_seconds * 1e3,
+               "ms_per_cycle": r.wall_seconds * 1e3 / r.cycles}
+        if cycles is not None:
+            # Against the reference backend on the card: the same cycles,
+            # the fields within 1e-6 of their max-abs.
+            ref = T.Multigrid(spec, grid, bc=1.0, rtol=rtol,
+                              backend="reference",
+                              transfer_backend="reference",
+                              device=dev).solve(x0)
+            d = float((r.x - ref.x).abs().max())
+            scale = float(ref.x.abs().max())
+            check(ref.cycles == r.cycles and d <= 1e-6 * max(scale, 1.0),
+                  f"multigrid {name} rtol {rtol} vs reference: cycles "
+                  f"{r.cycles}/{ref.cycles}, max diff {d}")
+            row.update(reference_cycles=ref.cycles,
+                       reference_max_abs_diff=d,
+                       reference_wall_ms=ref.wall_seconds * 1e3)
+        mg_rows.append(row)
+        del mg, r, cold, x0
+        torch.cuda.empty_cache()
+    launches[21] = dict(_build.LAUNCHES)
+    emit({"phase": 21, "problems": mg_rows, "launches": launches[21]})
+
+    # -- 22. the coalescing engine over the bucketed plan cache ---------------
+    _build.LAUNCHES.clear()
+    rng = np.random.default_rng(22)
+    lap = T.laplace_jacobi(2)
+    jac_kw = dict(rtol=1e-6)
+    traffic = []   # (group, x0, source, submit kwargs)
+    for g in SERVE_GRIDS:
+        for bc in SERVE_BCS:
+            for _ in range(SERVE_PER_GROUP):
+                traffic.append((
+                    ("auto", g, bc),
+                    rng.standard_normal((g, g)).astype(np.float32),
+                    (rng.standard_normal((g, g)) * 1e-3).astype(np.float32),
+                    dict(bc=bc, **jac_kw)))
+    for _ in range(SERVE_FUSED):
+        traffic.append((("cuda_fused", 64, 1.0),
+                        rng.standard_normal((64, 64)).astype(np.float32),
+                        None, dict(bc=1.0, backend="cuda_fused", **jac_kw)))
+    mg_grid, n_mg = SERVE_MG
+    for _ in range(n_mg):
+        traffic.append((("multigrid",) + mg_grid,
+                        rng.standard_normal(mg_grid).astype(np.float32),
+                        None, dict(bc=1.0, method="multigrid", **jac_kw)))
+    cache = T.PlanCache(device=dev)
+
+    async def serve_all():
+        eng = ServingEngine(cache, max_batch=64, max_wait=0.01,
+                            max_queue=len(traffic))
+
+        async def one(x0, src, kw):
+            t0 = time.perf_counter()
+            r = await eng.submit(lap, x0, source=src, **kw)
+            return time.perf_counter() - t0, r
+
+        async with eng:
+            t0 = time.perf_counter()
+            out = await asyncio.gather(*(one(x0, src, kw)
+                                         for _, x0, src, kw in traffic))
+            wall = time.perf_counter() - t0
+        return eng, out, wall
+
+    eng, out, wall = asyncio.run(serve_all())
+    lat = sorted(t for t, _ in out)
+    results = [r for _, r in out]
+    st = cache.stats
+    check(st.misses == 3 and st.rebuilds == 0 and st.probe_dropped == 0,
+          f"serving cache: {st.as_dict()} (3 distinct keys: the 64x64 "
+          f"bucket, the exact cuda_fused entry, the multigrid hierarchy)")
+    check(eng.stats.coalesced > 0 and eng.stats.failed == 0
+          and eng.stats.completed == len(traffic),
+          f"serving engine: {eng.stats.as_dict()}")
+    check(all(r.converged for r in results), "a served solve diverged")
+    # Each result against its request solved on its own exact shape by the
+    # port's Solver (Multigrid for multigrid requests): every group's
+    # requests in one batched call (per-instance freezing), and alone the
+    # multigrid requests and the first request of the cuda_fused group and
+    # of the first and last Jacobi groups (64x64 at bc 1, 48x48 at bc 0.5).
+    groups = {}
+    for i, (key, *_rest) in enumerate(traffic):
+        groups.setdefault(key, []).append(i)
+    jacobi_keys = [k for k in groups if k[0] == "auto"]
+    alone_keys = {jacobi_keys[0], jacobi_keys[-1], ("cuda_fused", 64, 1.0)}
+    worst_batch, worst_alone, served_backend = 0.0, 0.0, {}
+    for key, idx in groups.items():
+        kw = dict(traffic[idx[0]][3])
+        if key[0] == "multigrid":
+            kw.pop("method")
+            mg = T.Multigrid(lap, mg_grid, device=dev, **kw)
+            for i in idx:
+                alone = mg.solve(traffic[i][1])
+                d = float((results[i].x - alone.x).abs().max())
+                check(results[i].cycles == alone.cycles and d <= 1e-6,
+                      f"served multigrid {i}: {results[i].cycles} cycles "
+                      f"vs {alone.cycles}, max diff {d}")
+                worst_alone = max(worst_alone, d)
+            continue
+        backend = results[idx[0]].backend
+        served_backend["/".join(map(str, key))] = backend
+        kw.pop("backend", None)
+        g = key[1]
+        solver = T.Solver(lap, (g, g), backend=backend, device=dev, **kw)
+        srcs = [traffic[i][2] for i in idx]
+        xs = np.stack([traffic[i][1] for i in idx])
+        batched = solver.solve(xs, source=None if srcs[0] is None
+                               else np.stack(srcs))
+        for j, i in enumerate(idx):
+            d = float((results[i].x - batched.x[j]).abs().max())
+            check(results[i].iterations == int(batched.iterations[j])
+                  and d <= 1e-6,
+                  f"served {key} request {i}: {results[i].iterations} "
+                  f"iterations vs {int(batched.iterations[j])} on its own "
+                  f"shape, max diff {d}")
+            worst_batch = max(worst_batch, d)
+        if key not in alone_keys:
+            continue
+        i = idx[0]
+        alone = solver.solve(traffic[i][1], source=traffic[i][2])
+        d = float((results[i].x - alone.x).abs().max())
+        check(results[i].iterations == alone.iterations and d <= 1e-6,
+              f"served {key} request {i} vs alone: {results[i].iterations} "
+              f"vs {alone.iterations} iterations, max diff {d}")
+        worst_alone = max(worst_alone, d)
+    # Cold-serial: a fresh cache a request (build, probe and solve), as
+    # benchmarks/serving_bench.py defines it, over the first requests.
+    cold_lat, cold_iters = [], []
+    for key, x0, src, kw in traffic[:SERVE_COLD]:
+        t0 = time.perf_counter()
+        r = T.PlanCache(device=dev).solve(lap, x0, source=src, **kw)
+        cold_lat.append(time.perf_counter() - t0)
+        cold_iters.append(r.iterations)
+        check(r.converged, "a cold-serial solve diverged")
+    served = len(traffic) / wall
+    cold = len(cold_lat) / sum(cold_lat)
+    check(served >= SERVE_BAR * cold,
+          f"coalesced {served:.2f} solves/s < {SERVE_BAR}x cold-serial "
+          f"{cold:.2f}")
+    p99 = lat[min(len(lat) - 1, int(np.ceil(0.99 * len(lat))) - 1)]
+    launches[22] = dict(_build.LAUNCHES)
+    emit({"phase": 22, "requests": len(traffic),
+          "jacobi_groups": len(SERVE_GRIDS) * len(SERVE_BCS),
+          "wall_s": wall, "solves_per_s": served,
+          "p50_ms": lat[len(lat) // 2] * 1e3, "p99_ms": p99 * 1e3,
+          "cold_serial_solves_per_s": cold,
+          "cold_serial_ms": [t * 1e3 for t in cold_lat],
+          "cold_serial_iterations": cold_iters,
+          "coalesced_over_cold": served / cold, "bar": SERVE_BAR,
+          "engine": eng.stats.as_dict(), "cache": st.as_dict(),
+          "served_backend": served_backend,
+          "iterations_by_group": {
+              "/".join(map(str, k)): sorted({
+                  results[i].cycles if k[0] == "multigrid"
+                  else results[i].iterations for i in idx})
+              for k, idx in groups.items()},
+          "max_abs_diff_vs_own_shape_batched": worst_batch,
+          "max_abs_diff_vs_alone": worst_alone,
+          "launches": launches[22]})
+    torch.cuda.synchronize(dev)
+    return {"launches": launches, "seconds": time.perf_counter() - t_tier,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--write-tuned", metavar="PATH", default=None,
+                    help="save phase 20's Table-1 and Fig-6 measurements "
+                         "there (the source of TUNED_stencil_cuda.json)")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -615,9 +963,11 @@ def main() -> int:
     solves, cold_ms = {}, {}
     for backend in ("cuda_fused", "cuda", "conv", "reference"):
         # Twice: the first solve pays one-time costs (library load, cuDNN
-        # set-up, allocator growth); the second is the one reported.
+        # set-up, allocator growth); the second is the one reported.  The
+        # fuse depth is the roofline's (tuned=None), the schedule phases 3-7
+        # have always measured; the tuned table's is the auto solve below.
         solver = T.Solver(lap, (64, 64), backend=backend, device=dev,
-                          **TABLE1)
+                          tuned=None, **TABLE1)
         cold_ms[backend] = solver.solve(
             torch.zeros(64, 64)).wall_seconds * 1e3
         before = dict(_build.LAUNCHES)
@@ -638,6 +988,18 @@ def main() -> int:
         check(err(r.x, ref.x) <= TOL["float32"] + chunks * 2 * ref.residual,
               f"table1 {backend} field vs reference")
     n_iters = solves["cuda_fused"].iterations
+    # backend="auto" through the committed tuned table
+    # (TUNED_stencil_cuda.json, measured on an H100 by phase 20's
+    # autotune_cell): the schedule it picked, at the CPU's exact count.
+    auto = T.Solver(lap, (64, 64), backend="auto", device=dev, **TABLE1)
+    auto_r = auto.solve(torch.zeros(64, 64))
+    check(auto_r.converged and auto_r.iterations == TABLE1_ITERS,
+          f"table1 auto ({auto.plan.source} {auto.backend} fuse "
+          f"{auto.fuse}): {auto_r.iterations} iterations")
+    tuned_pick = {"source": auto.plan.source, "backend": auto.backend,
+                  "fuse": auto.fuse, "rim": auto.plan.rim,
+                  "iterations": auto_r.iterations,
+                  "wall_ms": auto_r.wall_seconds * 1e3}
     resident = T.make_plan(lap, (64, 64), backend="cuda_fused", bc=1.0,
                            iters=n_iters, rim="resident", device=dev)
     res_x = resident(torch.zeros(64, 64, device=dev))
@@ -651,7 +1013,7 @@ def main() -> int:
             "fuse": r.fuse}
         for b, r in solves.items()},
         "resident": {"iterations": n_iters, "max_abs_err_vs_converged":
-                     res_err}})
+                     res_err}, "auto": tuned_pick})
 
     kappa = 1.0 + 9.0 * np.random.default_rng(0).random(HET_GRID)
     het = T.heterogeneous_jacobi(kappa)
@@ -721,7 +1083,7 @@ def main() -> int:
     emit({"phase": 5, "grid": list(big), **full})
 
     batch = T.Solver(lap, (64, 64), backend="cuda_fused", device=dev,
-                     **TABLE1)
+                     tuned=None, **TABLE1)
     t0 = time.perf_counter()
     br = batch.solve(torch.zeros(BATCH, 64, 64, device=dev))
     batch_ms = (time.perf_counter() - t0) * 1e3
@@ -1648,6 +2010,18 @@ def main() -> int:
                "max_abs_err_bf16": worst["flash_bwd_dkv"]["bfloat16"]},
               launches18, PEAK_BF16_FLOPS),
     ]
+    # -- 20-22. the stencil serving tier ----------------------------------------
+    torch.cuda.empty_cache()
+    tier = stencil_serving_phases(dev, args.write_tuned)
+    named = set().union(*tier["launches"].values())
+    check("stencil2d" in named and "stencil3d" in named
+          and any(k.startswith("jacobi2d_") for k in named),
+          f"the serving tier's phases did not launch K1, K2/K3 and K4: "
+          f"{sorted(named)}")
+    emit({"serving_tier_launches": {str(k): v for k, v
+                                    in tier["launches"].items()},
+          "seconds": tier["seconds"], "peak_gb": tier["peak_gb"]})
+
     kernels[-3]["train_launches"] = launches18.get("flash_fwd", 0)
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")

@@ -7,9 +7,22 @@ through any backend (reference oracle, dense, conv, native Conv3D, direct
 CUDA kernels, temporally-fused CUDA kernel); ``make_plan`` prepares a
 reusable executor and ``backend_support`` reports which backends are legal
 for a cell.
-``solve``/``Solver`` run the Jacobi time loop to convergence.  Entry points
+``solve``/``Solver`` run the Jacobi time loop to convergence;
+``autotune.py`` measures schedules into the tuned table ``auto`` consults
+first; ``multigrid.py`` composes the plans into a geometric-multigrid
+V-cycle; ``plan_cache.py`` is the serving tier's bucketed cache of built
+solvers (``serve/engine.py`` coalesces requests over it).  Entry points
 run on the card unless given ``device="cpu"``.
 """
+from repro_torch.core.autotune import (
+    TunedEntry,
+    TunedTable,
+    autotune_cell,
+    default_tuned_table,
+    set_default_tuned_table,
+    shape_bucket,
+    spec_family,
+)
 from repro_torch.core.boundary import BoundaryMode, DirichletBC, runtime_bc_grids
 from repro_torch.core.conv_encoding import (
     conv2d_apply,
@@ -29,6 +42,23 @@ from repro_torch.core.dense_encoding import (
     var_tap_indices,
 )
 from repro_torch.core.metrics import DeliveredPerf, encoding_flops_per_point
+from repro_torch.core.multigrid import (
+    MGResult,
+    Multigrid,
+    coarse_shape,
+    coarsen_spec,
+    multigrid_solve,
+    prolongation_spec,
+    red_black_step,
+    restriction_spec,
+)
+from repro_torch.core.plan_cache import (
+    CachedSolver,
+    CacheStats,
+    PlanCache,
+    default_plan_cache,
+    set_default_plan_cache,
+)
 from repro_torch.core.plan import (
     BACKENDS,
     DEVICE_PROFILES,
@@ -56,22 +86,32 @@ from repro_torch.core.stencil import (
 
 __all__ = [
     "BACKENDS",
-    "DEVICE_PROFILES",
     "BackendSupport",
     "BoundaryMode",
+    "CachedSolver",
+    "CacheStats",
     "DeliveredPerf",
+    "DEVICE_PROFILES",
     "DeviceProfile",
     "DirichletBC",
-    "SolveResult",
+    "MGResult",
+    "Multigrid",
+    "PlanCache",
     "Solver",
+    "SolveResult",
     "StencilPlan",
     "StencilSpec",
+    "TunedEntry",
+    "TunedTable",
     "WeightField",
     "apply_stencil",
+    "autotune_cell",
     "backend_support",
     "box",
     "build_dense_matrix",
     "choose_backend",
+    "coarse_shape",
+    "coarsen_spec",
     "conv2d_apply",
     "conv2d_kernel",
     "conv3d_channels_kernel",
@@ -80,6 +120,8 @@ __all__ = [
     "conv_jacobi_3d_channels",
     "conv_jacobi_3d_native",
     "conv_var_jacobi",
+    "default_plan_cache",
+    "default_tuned_table",
     "dense_jacobi",
     "dense_layer_bytes",
     "encoding_flops_per_point",
@@ -89,9 +131,17 @@ __all__ = [
     "jacobi_step",
     "laplace_jacobi",
     "make_plan",
+    "multigrid_solve",
+    "prolongation_spec",
+    "red_black_step",
+    "restriction_spec",
     "runtime_bc_grids",
     "select_fuse",
+    "set_default_plan_cache",
+    "set_default_tuned_table",
+    "shape_bucket",
     "solve",
+    "spec_family",
     "spec_from_taps",
     "split_var_kernels",
     "star",

@@ -15,11 +15,13 @@ any of the port's executable encodings:
 ``cuda``/``cuda_fused`` are the JAX package's ``pallas``/``pallas_fused``.
 Its ``halo`` backend is not ported yet; ``backend_support`` says so.
 
-``backend="auto"`` picks via a small analytic cost model: per-point FLOPs for
-the encoding (core/metrics.py), bytes streamed per iteration, the device's
-vector/matmul throughput and memory bandwidth, and the arithmetic-intensity
-boost temporal fusion buys.  ``backend_support`` answers *which backends are
-legal* for a (spec, grid, boundary mode) cell, with a reason when not.
+``backend="auto"`` picks from the measured tuned table (core/autotune.py)
+where it holds an entry for the cell on this device, else via a small
+analytic cost model: per-point FLOPs for the encoding (core/metrics.py),
+bytes streamed per iteration, the device's vector/matmul throughput and
+memory bandwidth, and the arithmetic-intensity boost temporal fusion buys.
+``backend_support`` answers *which backends are legal* for a (spec, grid,
+boundary mode) cell, with a reason when not.
 
 Entry points run on the card: ``device=None`` means ``cuda`` and raises
 where there is none.  Pass ``device="cpu"`` to run on the CPU, where the
@@ -275,16 +277,48 @@ def choose_backend(
     iters: int = 1,
     device_kind: str = "cuda",
     fuse: int | None = None,
+    dtype=torch.float32,
+    tuned="default",
 ) -> tuple[str, dict[str, float]]:
-    """Pick the cheapest supported backend by the roofline; returns (name,
-    cost table).  A tie goes to a kernel backend (on the card K4 and native
-    Conv3D move the same bytes; the library call is the slower one).
-    ``reference`` is the cross-validation oracle, so auto only
+    """Pick the cheapest supported backend; returns (name, cost table).
+
+    Measured entries take priority over the roofline: when the tuned table
+    (``tuned="default"``: the committed ``TUNED_stencil_cuda.json``; pass a
+    ``TunedTable`` to override or ``None`` to disable) holds measurements
+    for this (device, family, shape-bucket, dtype) cell, the returned cost
+    table holds those *measured* per-backend seconds and the pick is their
+    argmin; entries measured on the CPU through the plain versions
+    (``interpreted``) never count.  When no entry applies the roofline is
+    the explicit fallback, and a tie there goes to a kernel backend (on the
+    card K4 and native Conv3D move the same bytes; the library call is the
+    slower one).  ``reference`` is the cross-validation oracle, so auto only
     falls back to it when no real encoding supports the cell.  ``fuse``
     prices the kernel paths at an explicit temporal depth; None prices the
-    depth make_plan itself would resolve for ``iters``.
+    depth make_plan itself would resolve for ``iters``.  ``device_kind`` is
+    the device type ("cuda" or "cpu").
     """
     device = DEVICE_PROFILES[device_kind]
+
+    # -- measured table first ---------------------------------------------
+    from repro_torch.core import autotune
+    table = autotune.resolve_table(tuned)
+    if table is not None and len(table):
+        cell = table.lookup_cell(autotune.device_kind(device_kind),
+                                 autotune.spec_family(spec),
+                                 tuple(grid_shape), autotune.dtype_key(dtype))
+        measured: dict[str, float] = {}
+        for e in cell:
+            if e.interpreted or e.backend in measured and \
+                    e.seconds(iters) >= measured[e.backend]:
+                continue
+            if not backend_support(e.backend, spec, grid_shape=grid_shape,
+                                   mode=mode, bc=bc):
+                continue
+            measured[e.backend] = e.seconds(iters)
+        if measured:
+            return min(measured, key=measured.__getitem__), measured
+
+    # -- explicit roofline fallback ---------------------------------------
     costs: dict[str, float] = {}
     for b in BACKENDS:
         if b == "reference" or not backend_support(
@@ -333,11 +367,18 @@ class StencilPlan:
     costs: dict[str, float]
     device: torch.device
     _fn: Callable[..., torch.Tensor]
-    # Where the backend choice came from: "explicit" (caller named it) or
-    # "roofline" (the analytic cost model).
+    # Where the backend choice came from: "explicit" (caller named it),
+    # "tuned" (a measured table entry) or "roofline" (the analytic model).
     source: str = "explicit"
     rim: str | None = None
     operands: frozenset = frozenset()
+
+    @property
+    def interpreted(self) -> bool:
+        """A kernel backend on the CPU: it runs the plain versions (the JAX
+        package's interpret mode), so its times are not the kernels'."""
+        return self.backend in KERNEL_BACKENDS and \
+            not DEVICE_PROFILES[self.device.type].kernels_native
 
     def __call__(self, x: torch.Tensor, *, fields=None, source=None,
                  bc_value=None) -> torch.Tensor:
@@ -421,13 +462,16 @@ def make_plan(
     dtype=torch.float32,
     device=None,
     rim: str | None = None,
+    tuned="default",
 ) -> StencilPlan:
     """Lower ``spec`` on ``grid_shape`` through one backend into a callable.
 
-    backend="auto" routes through :func:`choose_backend` (the roofline, for
-    this device).  ``bc=None`` means raw zero-padded stencil application
-    (no Dirichlet fixup) — only the reference and kernel backends can
-    express it.  ``fuse`` and ``rim`` set the 2D kernel schedule: the fuse
+    backend="auto" routes through :func:`choose_backend`: a measured
+    tuned-table entry (``tuned``) for this device supplies the whole
+    schedule (backend, fuse depth, rim strategy) when one applies; the
+    roofline is the fallback.  ``bc=None`` means raw zero-padded stencil
+    application (no Dirichlet fixup) — only the reference and kernel
+    backends can express it.  ``fuse`` and ``rim`` set the 2D kernel schedule: the fuse
     depth (iterations per pass) and the fusion geometry ("trapezoid" or
     "resident"; "resident" with no fuse runs all ``iters`` in one pass).
     ``device=None`` means the card.
@@ -448,8 +492,20 @@ def make_plan(
     source = "explicit"
     if backend == "auto":
         backend, costs = choose_backend(spec, grid_shape, mode=mode, bc=bc,
-                                        iters=iters, device_kind=dev.type)
+                                        iters=iters, device_kind=dev.type,
+                                        dtype=dtype, tuned=tuned)
         source = "roofline"
+        # A measured entry carries the whole schedule, not just the backend:
+        # inherit its fuse depth and rim strategy where the caller left them
+        # open.
+        from repro_torch.core import autotune
+        entry = autotune.lookup_entry(tuned, spec, grid_shape, dtype, dev)
+        if entry is not None and entry.backend == backend:
+            source = "tuned"
+            if fuse is None and entry.fuse > 1 and iters % entry.fuse == 0:
+                fuse = entry.fuse
+            if rim is None:
+                rim = entry.rim
     sup = backend_support(backend, spec, grid_shape=grid_shape, mode=mode,
                           bc=bc)
     if not sup:

@@ -31,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.core.boundary import BoundaryMode, DirichletBC
 from repro_torch.core.plan import (
     DEVICE_PROFILES,
@@ -83,15 +84,25 @@ class SolveResult:
 
 
 def select_fuse(backend: str, spec: StencilSpec, grid_shape: tuple[int, ...],
-                check_every: int, device_kind: str = "cuda") -> int | None:
-    """Temporal fuse depth for one chunk, priced by the roofline.
+                check_every: int, device_kind: str = "cuda", tuned="default",
+                dtype=torch.float32) -> int | None:
+    """Temporal fuse depth for one chunk: measured if tuned, else roofline.
 
     The 2D kernel paths fuse; every other backend gets ``None`` (the plan
-    records fuse=1).  Candidates divide ``check_every`` so chunk boundaries
-    land on whole fused passes.
+    records fuse=1).  A tuned-table entry for this cell on this device whose
+    backend matches supplies the measured depth first (clamped to the
+    largest divisor of ``check_every`` so chunk boundaries land on whole
+    fused passes); the roofline prices the candidate depths otherwise.
     """
     if backend not in KERNEL_BACKENDS or spec.ndim != 2:
         return None
+    entry = autotune.lookup_entry(tuned, spec, grid_shape, dtype,
+                                  device_kind)
+    if entry is not None and entry.backend == backend and entry.fuse >= 1:
+        f = min(entry.fuse, check_every)
+        while check_every % f:
+            f -= 1
+        return f
     device = DEVICE_PROFILES[device_kind]
     candidates = [f for f in _FUSE_CANDIDATES if check_every % f == 0]
     return min(candidates,
@@ -114,6 +125,9 @@ class Solver:
     ``check_every`` iterations.  ``rtol=None, atol=None`` disables checking
     entirely: the solve runs exactly ``max_iters`` iterations as one chunk
     (the benchmark / fixed-step mode).  ``device=None`` means the card.
+    ``tuned`` names the measured table (core/autotune.py) that prices
+    ``backend="auto"`` and the fuse depth and rim strategy before the
+    roofline: "default" (the committed one), a ``TunedTable``, or None.
     """
 
     def __init__(
@@ -135,6 +149,7 @@ class Solver:
         fuse: int | None = None,
         dtype=torch.float32,
         device=None,
+        tuned="default",
     ):
         if norm not in ("l2", "linf"):
             raise ValueError(f"norm must be 'l2' or 'linf', got {norm!r}")
@@ -177,21 +192,32 @@ class Solver:
             if pricing_fuse is None:
                 pricing_fuse = select_fuse("cuda_fused", spec,
                                            self.grid_shape, self.check_every,
-                                           kind)
+                                           kind, tuned=tuned, dtype=dtype)
             backend, self.costs = choose_backend(
                 spec, self.grid_shape, mode=mode, bc=bc,
-                iters=self.max_iters, device_kind=kind, fuse=pricing_fuse)
+                iters=self.max_iters, device_kind=kind, fuse=pricing_fuse,
+                dtype=dtype, tuned=tuned)
         if fuse is None:
             fuse = select_fuse(backend, spec, self.grid_shape,
-                               self.check_every, kind)
+                               self.check_every, kind, tuned=tuned,
+                               dtype=dtype)
+        # A measured entry for this cell carries the rim strategy beside the
+        # fuse depth select_fuse already took from it.
+        entry = autotune.lookup_entry(tuned, spec, self.grid_shape, dtype,
+                                      self.device)
+        tuned_hit = entry is not None and entry.backend == backend
         # (an explicit fuse that does not divide check_every is rejected by
         # make_plan's iters/fuse divisibility check)
         self.plan: StencilPlan = make_plan(
             spec, self.grid_shape, backend=backend, bc=bc, mode=mode,
             iters=self.check_every, fuse=fuse, dtype=dtype,
-            device=self.device)
+            device=self.device, rim=entry.rim if tuned_hit else None,
+            tuned=tuned)
         if was_auto:
-            self.plan.source = "roofline"
+            # The solver resolved "auto" itself (to price the whole solve),
+            # so the plan saw an explicit backend name: restore where the
+            # choice came from.
+            self.plan.source = "tuned" if tuned_hit else "roofline"
         self.backend = self.plan.backend
         self.fuse = self.plan.fuse
 
@@ -232,10 +258,9 @@ class Solver:
             k += 1
         return k, x, active, res, iters, hist
 
-    def solve(self, x0, *, fields=None, source=None,
-              bc_value=None) -> SolveResult:
-        """Run the time loop from ``x0`` ((batch, *grid) or bare (*grid), a
-        tensor or an array; moved to the solver's device)."""
+    def _batched(self, x0) -> tuple[torch.Tensor, bool]:
+        """x0 on the solver's device as (batch, *grid), and whether it came
+        as a bare grid."""
         x0 = torch.as_tensor(x0, device=self.device).to(self.dtype)
         squeeze = x0.ndim == self.spec.ndim
         if squeeze:
@@ -244,6 +269,33 @@ class Solver:
             raise ValueError(
                 f"solver built for grid {self.grid_shape}, got "
                 f"{tuple(x0.shape[1:])}")
+        return x0, squeeze
+
+    def run(self, x0, *, fields=None, source=None, bc_value=None):
+        """``(x, iterations, converged, residual)`` as device tensors: the
+        core of :meth:`solve` without the host copies, history or timing
+        (the JAX package's trace-safe ``run``)."""
+        x0, squeeze = self._batched(x0)
+        b, dev = x0.shape[0], x0.device
+        if self.fixed:
+            x = self.plan(x0, fields=fields, source=source, bc_value=bc_value)
+            iters = torch.full((b,), self.max_iters, dtype=torch.int64,
+                               device=dev)
+            converged = torch.zeros((b,), dtype=torch.bool, device=dev)
+            res = torch.full((b,), float("nan"), device=dev)
+        else:
+            _, x, active, res, iters, _ = self._loop(
+                x0, fields, source, bc_value)
+            converged = ~active
+        if squeeze:
+            return x[0], iters[0], converged[0], res[0]
+        return x, iters, converged, res
+
+    def solve(self, x0, *, fields=None, source=None,
+              bc_value=None) -> SolveResult:
+        """Run the time loop from ``x0`` ((batch, *grid) or bare (*grid), a
+        tensor or an array; moved to the solver's device)."""
+        x0, squeeze = self._batched(x0)
         b = x0.shape[0]
 
         t0 = time.perf_counter()
@@ -308,6 +360,7 @@ def solve(
     fields=None,
     source=None,
     bc_value=None,
+    tuned="default",
 ) -> SolveResult:
     """One-shot iterative solve: run ``spec``'s time loop from ``x0``.
 
@@ -328,5 +381,5 @@ def solve(
     solver = Solver(
         spec, grid_shape, backend=backend, bc=bc, mode=mode, rtol=rtol,
         atol=atol, norm=norm, check_every=check_every, max_iters=max_iters,
-        fuse=fuse, dtype=dtype, device=dev)
+        fuse=fuse, dtype=dtype, device=dev, tuned=tuned)
     return solver.solve(x0, fields=fields, source=source, bc_value=bc_value)

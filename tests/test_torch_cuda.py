@@ -994,3 +994,87 @@ def test_smoke_train_step_launches_k7_k8_k9(cuda):
     for name, g in grads_x.items():
         assert float((grads[name] - g).abs().max()) <= 1e-4 * float(
             g.abs().max()), name
+
+
+# --- the serving tier on the card: autotuner, multigrid, cache, engine ------
+
+def test_autotuner_measures_every_candidate(cuda):
+    import warnings
+    from repro_torch.core import autotune
+    for spec, grid, iters in ((T.laplace_jacobi(2), (64, 64), 32),
+                              (T.laplace_jacobi(3), (10, 64, 64), 8)):
+        cands = autotune.schedule_candidates(spec, grid, iters, bc=1.0,
+                                             device=cuda)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")   # a failed candidate warns
+            table = autotune.autotune_cell(spec, grid, iters=iters, bc=1.0,
+                                           repeats=1, device=cuda)
+        assert len(table) == len(cands) >= 3
+        assert not any(e.interpreted for e in table.entries)
+        kind = torch.cuda.get_device_name(cuda)
+        assert {e.device_kind for e in table.entries} == {kind}
+        best = table.lookup(kind, autotune.spec_family(spec), grid,
+                            "float32")
+        assert best.us_per_iter == min(e.us_per_iter for e in table.entries)
+        plan = T.make_plan(spec, grid, bc=1.0, iters=iters, device=cuda,
+                           tuned=table)
+        assert plan.source == "tuned" and plan.backend == best.backend
+
+
+def test_multigrid_on_the_card_takes_the_cpu_cycles(cuda):
+    kappa = 1.0 + 9.0 * np.random.default_rng(0).random((65, 65)) \
+        .astype(np.float32)
+    for spec, grid, cycles in ((T.laplace_jacobi(2), (64, 64), 13),
+                               (T.heterogeneous_jacobi(kappa), (65, 65), 5)):
+        runs = {b: T.multigrid_solve(spec, np.zeros(grid, np.float32),
+                                     bc=1.0, rtol=1e-5, backend=b,
+                                     transfer_backend=t)
+                for b, t in (("cuda", "cuda"), ("reference", "reference"))}
+        for r in runs.values():
+            assert r.converged and r.cycles == cycles
+            assert r.x.device.type == "cuda"
+        torch.testing.assert_close(runs["cuda"].x, runs["reference"].x,
+                                   rtol=0, atol=1e-6)
+
+
+def test_plan_cache_probe_drops_none_and_buckets_exactly(cuda):
+    cache = T.PlanCache(probe=True)
+    kw = dict(bc=1.0, rtol=1e-5, check_every=16, max_iters=20_000)
+    rng = np.random.default_rng(3)
+    x0 = rng.standard_normal((4, 60, 60)).astype(np.float32)
+    src = (rng.standard_normal((4, 60, 60)) * 1e-3).astype(np.float32)
+    cached = cache.solver(T.laplace_jacobi(2), (60, 60), **kw)
+    assert cached.padded and cached.bucket == (64, 64)
+    assert cache.stats.probe_dropped == 0 and cache.stats.rebuilds == 0
+    got = cached.solve(x0, source=src)
+    want = T.Solver(T.laplace_jacobi(2), (60, 60), backend=cached.backend,
+                    device=cuda, **kw).solve(x0, source=src)
+    np.testing.assert_array_equal(got.iterations, want.iterations)
+    torch.testing.assert_close(got.x, want.x, rtol=0, atol=1e-6)
+
+
+def test_engine_on_the_card_serves_what_a_solo_solve_gives(cuda):
+    import asyncio
+    from repro_torch.serve import ServingEngine
+    cache = T.PlanCache()
+    rng = np.random.default_rng(5)
+    reqs = [(rng.standard_normal((g, g)).astype(np.float32),
+             (rng.standard_normal((g, g)) * 1e-3).astype(np.float32), b)
+            for g in (64, 48) for b in (1.0, 0.5) for _ in range(3)]
+    kw = dict(rtol=1e-5)
+
+    async def main():
+        async with ServingEngine(cache, max_batch=16, max_wait=0.05) as eng:
+            return eng, await asyncio.gather(*(
+                eng.submit(T.laplace_jacobi(2), x0, bc=b, source=s, **kw)
+                for x0, s, b in reqs))
+
+    eng, results = asyncio.run(main())
+    assert eng.stats.coalesced > 0 and cache.stats.rebuilds == 0
+    assert cache.stats.misses == 1 and cache.stats.probe_dropped == 0
+    for (x0, s, b), r in zip(reqs, results):
+        alone = T.Solver(T.laplace_jacobi(2), x0.shape, backend=r.backend,
+                         bc=b, device=cuda, **kw).solve(x0, source=s)
+        assert r.x.device.type == "cuda" and r.converged
+        assert r.iterations == alone.iterations
+        torch.testing.assert_close(r.x, alone.x, rtol=0, atol=1e-6)

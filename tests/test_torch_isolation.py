@@ -39,7 +39,9 @@ def test_no_jax_or_repro_import_anywhere_in_the_port():
                    "models/convert.py", "train/serve_step.py",
                    "launch/serve.py", "train/loss.py", "train/train_step.py",
                    "optim/adamw.py", "data/synthetic.py", "launch/train.py",
-                   "csrc/flash_attention_bwd.cu"):
+                   "csrc/flash_attention_bwd.cu", "core/autotune.py",
+                   "core/multigrid.py", "core/plan_cache.py",
+                   "serve/__init__.py", "serve/engine.py"):
         assert os.path.join(PKG, *module.split("/")) in files, module
     bad = []
     for path in (f for f in files if f.endswith(".py")):
@@ -68,6 +70,20 @@ def test_port_imports_and_solves_with_jax_blocked():
                    backend="cuda", bc=1.0, rtol=1e-4, check_every=8,
                    max_iters=2000, device="cpu")
         assert r3.converged
+        import asyncio
+        from repro_torch.core import Multigrid, PlanCache, autotune
+        from repro_torch.serve import ServingEngine
+        mg = Multigrid(laplace_jacobi(2), (17, 17), bc=1.0, device="cpu")
+        assert mg.solve(np.zeros((17, 17), np.float32)).converged
+        table = {os.path.join(REPO, "TUNED_stencil_cuda.json")!r}
+        assert autotune.check_table_file(table) == []
+
+        async def serve_two():
+            async with ServingEngine(PlanCache(device="cpu")) as eng:
+                return await asyncio.gather(*(eng.submit(
+                    laplace_jacobi(2), np.zeros((12, 12), np.float32),
+                    bc=1.0, rtol=1e-4) for _ in range(2)))
+        assert all(r.converged for r in asyncio.run(serve_two()))
         import torch
         from repro_torch.kernels import dense_jacobi_kernel
         dense_jacobi_kernel(torch.zeros(2, 4, 4), torch.eye(16),
