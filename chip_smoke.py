@@ -29,7 +29,12 @@ solver):
     2048 --steps 5`` runs it (phases 17-18);
   - the stencil serving tier: the measured autotuner, the multigrid
     V-cycle, and the coalescing engine over the bucketed plan cache, as
-    ``repro_torch.serve.ServingEngine`` serves it (phases 20-22).
+    ``repro_torch.serve.ServingEngine`` serves it (phases 20-22);
+  - the differentiable solve, ``repro_torch.core.implicit_solve`` on the
+    card's default plan cache (its backward one solve with the transposed
+    operator; ``F.conv2d`` and shifted adds, none of K1-K9), and the
+    learned-stencil family training through ``make_train_step`` at full
+    width (32x32, 20 AdamW steps at batch 8) (phase 23).
 
 Phases, one JSON line each:
 
@@ -173,8 +178,25 @@ Phases, one JSON line each:
      cache's stats; every result against its request solved on its own
      shape, 3 cache misses and no rebuild or dropped probe candidate, and
      coalesced solves/s at least 5x cold-serial (a fresh cache a request).
-The line after phase 22 lists the kernels phases 20-22 launched; the
-inventory line lists K1-K9 and K5's split kernel.
+The line after phase 22 lists the kernels phases 20-22 launched.
+ 23. the differentiable solve on the default cache (``adjoint_phase``):
+     JAX's adjoint benchmark cell (heterogeneous 64x64 from seed 0, a
+     random source, 200 fixed iterations through ``conv``): forward and
+     value-and-grad ms (CUDA events, median of 7 after a warm-up), their
+     ratio, the backend the bucket ran, the device operations a solve
+     launches and the device's idle share under torch.profiler; a solve of
+     the same spec converged to rtol 1e-6: the gradients of <r, x*> in its
+     fields, source and scalar bc within 1e-4 of the largest entry of the
+     CPU port's, and within JAX's TOL (rtol 1e-3, atol 2e-3) of
+     fourth-order central differences at eps 1e-2 of the exact float64
+     fixed point (a direct solve) on 8 cells of each, x0's gradient
+     exactly 0; 1024 Table-1 instances (bc 1) sharing one field stack,
+     each with its own source, forward and gradient wall and solves/s; and
+     ``get_config("learned-stencil")`` trained 20 steps through
+     ``make_train_step`` (examples/learned_stencil.py's hidden-kappa data
+     at batch 8, AdamW at lr 1e-2): losses, ms a step, iterations a solve,
+     the last loss below the first; no K1-K9 launch.
+The inventory line lists K1-K9 and K5's split kernel.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -216,7 +238,7 @@ RESIDENT_GRIDS = (((169, 169), (1, 8, 512)), ((512, 512), (1, 8, 512)),
 RESIDENT_BIG = (1024, 1024)
 RESIDENT_BIG_ITERS = 512
 FIG6 = dict(rtol=1e-6, check_every=20, max_iters=10_000)
-FIG6_GRID = (10, 64, 64)  # (Z, X, Y): configs/jacobi.py's Fig-6 grid
+FIG6_GRID = (10, 64, 64)  # (Z, X, Y): repro_torch/configs/jacobi.py's Fig 6
 FIG6_ITERS = 620          # the JAX package's and the port's count on the CPU
 FIG6_RESIDUAL = 1.4074293721932918e-04  # the CPU's, through cuda/reference
 HET3D_ITERS = 640
@@ -226,7 +248,7 @@ ITERS_3D = 20             # phase 9
 K4_SMALL_BATCHES = (1, 16, 32)   # phase 11: Fig-6 grids, K4's two kernels
 CHECK_SLICE = 256         # phase 9: instances held against the plain version
 DENSE_BATCH = 65_536      # phase 10: Table-1 dense row instances
-DENSE_ITERS = 7           # phase 10: configs/jacobi.py's dense row
+DENSE_ITERS = 7           # phase 10: repro_torch/configs/jacobi.py's dense row
 LM_ARCH = "qwen3-0.6b"     # phases 12-15, full width (28 layers)
 LM_SHAPE = (4, 2048, 16, 8, 128)   # (B, S, H, KV, hd): the serve prefill's
 LM_FP32 = (2, 1000, 16)   # phase 13: batch, prompt (ragged), tokens
@@ -275,6 +297,25 @@ SERVE_FUSED = 16
 SERVE_MG = ((1025, 1025), 4)
 SERVE_COLD = 4
 SERVE_BAR = 5.0   # coalesced solves/s over cold-serial (serving_bench.py)
+# Phase 23, the differentiable solve on the default cache: JAX's adjoint
+# benchmark cell (benchmarks/adjoint_bench.py: heterogeneous 64x64, fixed
+# 200 iterations through conv), timed reps after a warm-up; the converged
+# gradients' finite-difference check (JAX's tests/solver/test_adjoint.py
+# eps and TOL) on cells of each operand; the batched inverse problem; the
+# learned-stencil family's train steps (examples/learned_stencil.py's
+# dataset, batch and lr).
+ADJ_GRID = (64, 64)
+ADJ_ITERS = 200
+ADJ_REPS = 7
+ADJ_RTOL = 1e-6
+ADJ_CPU_RTOL = 1e-4       # of the largest gradient, card against the CPU
+ADJ_FD_CELLS = 8
+ADJ_FD_EPS = 1e-2
+ADJ_FD_TOL = dict(rtol=1e-3, atol=2e-3)
+ADJ_BATCH = 1024
+LS_BATCH = 8
+LS_STEPS = 20
+LS_LR = 1e-2
 
 
 def emit(obj):
@@ -606,6 +647,334 @@ def stencil_serving_phases(dev, write_tuned=None):
     torch.cuda.synchronize(dev)
     return {"launches": launches, "seconds": time.perf_counter() - t_tier,
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def adjoint_phase(dev, smi):
+    """Phase 23, the differentiable solve (``core.adjoint.implicit_solve``)
+    on the card's default plan cache: (a) JAX's adjoint benchmark cell,
+    forward and value-and-grad; (b) a converged solve's gradients against
+    the CPU port's and central differences; (c) a batch of Table-1
+    instances sharing one learned field stack; (d) the learned-stencil
+    family's train steps at full width.  None of K1-K9 runs (the launch
+    counts are zeroed before and read after).  Returns the phase's record.
+    """
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.core as T
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    t_phase = time.perf_counter()
+    _build.LAUNCHES.clear()
+    cache = T.default_plan_cache()
+    check(cache.device.type == dev.type,
+          f"the default plan cache runs on {cache.device}, not {dev}")
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def median_ms(fn, reps=ADJ_REPS):
+        fn()   # warm-up: the bucket's build and probe, cuDNN's first call
+        sync()
+        return float(np.median([event_ms(fn) for _ in range(reps)]))
+
+    def device_ops(fn):
+        """(device operations launched, device-busy ms, wall ms) of one
+        call of ``fn`` under torch.profiler."""
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return (sum(e.count for e in events),
+                sum(e.self_device_time_total for e in events) / 1e3, wall)
+
+    rng = np.random.default_rng(0)
+    spec = T.heterogeneous_jacobi(1.0 + 9.0 * rng.random(ADJ_GRID))
+    fields = torch.as_tensor(spec.field_stack(), device=dev)
+    src_np = rng.standard_normal(ADJ_GRID).astype(np.float32)
+    src = torch.as_tensor(src_np, device=dev)
+    x0 = torch.zeros(ADJ_GRID, device=dev)
+
+    # -- (a) JAX's adjoint benchmark cell ----------------------------------
+    fixed = dict(backend="conv", rtol=None, atol=None, max_iters=ADJ_ITERS)
+    f_req = fields.clone().requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            return torch.sum(T.implicit_solve(spec, x0, fields=fields,
+                                              source=src, **fixed))
+
+    def value_and_grad():
+        loss = torch.sum(T.implicit_solve(spec, x0, fields=f_req,
+                                          source=src, **fixed))
+        return loss.detach(), torch.autograd.grad(loss, f_req)[0]
+
+    fwd_ms, grad_ms = median_ms(fwd), median_ms(value_and_grad)
+    ran = cache.solver(spec, ADJ_GRID, backend="conv",
+                       bc=T.DirichletBC(0.0), rtol=None, atol=None,
+                       max_iters=ADJ_ITERS)
+    ops_fwd, busy_fwd, wall_fwd = device_ops(fwd)
+    ops_grad, busy_grad, wall_grad = device_ops(value_and_grad)
+    loss_a, g_a = value_and_grad()
+    check(bool(torch.isfinite(loss_a)) and bool(torch.isfinite(g_a).all()),
+          "the benchmark cell's loss or gradient is not finite")
+    bench = {"grid": list(ADJ_GRID), "iters": ADJ_ITERS,
+             "requested_backend": "conv", "backend_ran": ran.backend,
+             "bucket": list(ran.bucket) if ran.padded else None,
+             "fwd_ms": fwd_ms, "grad_ms": grad_ms,
+             "grad_over_fwd": grad_ms / fwd_ms,
+             "device_ops_per_fwd": ops_fwd, "device_ops_per_grad": ops_grad,
+             "device_busy_ms_fwd": busy_fwd, "wall_ms_fwd": wall_fwd,
+             "device_idle_share_fwd": 1 - busy_fwd / wall_fwd,
+             "device_busy_ms_grad": busy_grad, "wall_ms_grad": wall_grad,
+             "device_idle_share_grad": 1 - busy_grad / wall_grad}
+
+    # -- (b) converged gradients: the CPU port, central differences --------
+    # The loss <r, x*> for a random r, summed in float64: at 64x64 a
+    # quadratic loss summed in fp32 rounds away the differences it is held
+    # to (its terms reach 1e4), and the fp32 rounding of x* itself moves a
+    # linear loss least.
+    conv = dict(backend="conv", rtol=ADJ_RTOL, max_iters=20_000)
+    r_np = np.random.default_rng(1).standard_normal(ADJ_GRID)
+
+    def grads_on(device):
+        """(loss, [d fields, d source, d bc, d x0]) on a default cache on
+        ``device`` (the card's own cache for the card)."""
+        ops = [torch.as_tensor(a, device=device).requires_grad_(True)
+               for a in (spec.field_stack(), src_np, np.float32(0.7))]
+        xz = torch.zeros(ADJ_GRID, device=device, requires_grad=True)
+        x = T.implicit_solve(spec, xz, fields=ops[0], source=ops[1],
+                             bc_value=ops[2], **conv)
+        loss = torch.sum(x.double() * torch.as_tensor(r_np, device=device))
+        return float(loss.detach()), [g.cpu() for g in
+                                      torch.autograd.grad(loss, ops + [xz])]
+
+    t0 = time.perf_counter()
+    loss_b, card = grads_on(dev)
+    card_s = time.perf_counter() - t0
+    old = T.set_default_plan_cache(T.PlanCache(device="cpu"))
+    try:
+        loss_cpu, host = grads_on("cpu")
+    finally:
+        T.set_default_plan_cache(old)
+    names = ("fields", "source", "bc")
+    vs_cpu = {}
+    for name, g, h in zip(names, card, host):
+        rel = float((g - h).abs().max()) / float(h.abs().max())
+        check(bool(torch.isfinite(g).all()) and rel <= ADJ_CPU_RTOL,
+              f"the card's {name} gradient is {rel} of its largest entry "
+              f"from the CPU port's (bound {ADJ_CPU_RTOL})")
+        vs_cpu[name] = rel
+    check(torch.equal(card[3], torch.zeros_like(card[3])),
+          "x0's gradient is not exactly zero")
+
+    # The finite differences' reference: the exact fixed point, one float64
+    # direct solve of (I - M S) x = M s + (1 - M) bc a loss.  fp32 solves
+    # run to rtol 1e-6 stop a chunk apart from one side of a difference
+    # to the other, which jumps <r, x*> by more than the bound at 64x64.
+    n = int(np.prod(ADJ_GRID))
+    cell = np.arange(n).reshape(ADJ_GRID)
+    inner = np.zeros(ADJ_GRID, bool)
+    inner[1:-1, 1:-1] = True
+    rows, cols, entry = [], [], []
+    for k, off in enumerate(spec.variable_offsets):
+        nb = cell[tuple(np.clip(np.indices(ADJ_GRID)[d] + off[d], 0, m - 1)
+                        for d, m in enumerate(ADJ_GRID))]
+        rows.append(cell[inner])
+        cols.append(nb[inner])
+        entry.append(k * n + cell[inner])
+    rows, cols, entry = (torch.as_tensor(np.concatenate(a), device=dev)
+                         for a in (rows, cols, entry))
+    m64 = torch.as_tensor(inner.reshape(n, 1), dtype=torch.float64,
+                          device=dev)
+    r64 = torch.as_tensor(r_np.reshape(n), device=dev)
+
+    def exact_losses(f, sources, bcs):
+        """<r, x*> for the fields ``f`` and each (source, bc) column."""
+        A = torch.eye(n, dtype=torch.float64, device=dev)
+        A.index_put_((rows, cols), -torch.as_tensor(f, device=dev)
+                     .reshape(-1)[entry], accumulate=True)
+        s = torch.as_tensor(np.reshape(sources, (-1, n)).T, device=dev)
+        g = torch.as_tensor(np.asarray(bcs, np.float64), device=dev)
+        x = torch.linalg.solve(A, m64 * s + (1 - m64) * g)
+        return (r64 @ x).cpu().numpy()
+
+    # Fourth-order central differences at ADJ_FD_EPS: the two-point rule's
+    # own truncation comes within 8% of the bound on a field cell here.
+    steps = np.array([1.0, -1.0, 2.0, -2.0]) * ADJ_FD_EPS
+    f64, s64 = spec.field_stack().astype(np.float64), \
+        src_np.astype(np.float64)
+    pick = np.random.default_rng(2)
+    t0 = time.perf_counter()
+    fd = {}
+    for name, base, g in (("fields", f64, card[0]), ("source", s64, card[1]),
+                          ("bc", np.float64(0.7), card[2])):
+        flat = (pick.choice(base.size, ADJ_FD_CELLS, replace=False)
+                if base.ndim else [0])
+        got, want, two_point = [], [], []
+        for i in flat:
+            idx = np.unravel_index(int(i), base.shape)
+            if name == "fields":
+                v = []
+                for h in steps:
+                    f = f64.copy()
+                    f[idx] += h
+                    v.extend(exact_losses(f, s64, [0.7]))
+            elif name == "source":
+                srcs_fd = np.repeat(s64[None], len(steps), axis=0)
+                srcs_fd[(slice(None),) + idx] += steps
+                v = exact_losses(f64, srcs_fd, [0.7] * len(steps))
+            else:
+                v = exact_losses(f64, np.repeat(s64[None], len(steps), 0),
+                                 0.7 + steps)
+            want.append((8 * (v[0] - v[1]) - (v[2] - v[3]))
+                        / (12 * ADJ_FD_EPS))
+            two_point.append((v[0] - v[1]) / (2 * ADJ_FD_EPS))
+            got.append(float(g[idx]))
+        got, want = np.array(got), np.array(want)
+        atol = ADJ_FD_TOL["atol"] if base.ndim else 0.0
+        bound = atol + ADJ_FD_TOL["rtol"] * np.abs(want)
+        bad = np.abs(got - want) > bound
+        check(not bad.any(), f"{name}: gradient {got[bad]} against central "
+              f"differences {want[bad]}")
+        fd[name] = {"cells": len(got),
+                    "max_err_over_bound": float((np.abs(got - want)
+                                                 / bound).max()),
+                    "max_rel_diff": float((np.abs(got - want)
+                                           / np.abs(want)).max()),
+                    "two_point_max_err_over_bound": float(
+                        (np.abs(got - np.array(two_point)) / bound).max())}
+    fd_s = time.perf_counter() - t0
+    converged = {"rtol": ADJ_RTOL, "loss": loss_b, "loss_cpu": loss_cpu,
+                 "value_and_grad_s": card_s,
+                 "max_rel_diff_vs_cpu": vs_cpu, "bound_vs_cpu": ADJ_CPU_RTOL,
+                 "x0_grad": "exactly 0", "fd_eps": ADJ_FD_EPS,
+                 "fd_rule": "fourth-order central, exact float64 fixed "
+                            "point", "fd_tol": ADJ_FD_TOL, "fd": fd,
+                 "fd_s": fd_s}
+
+    # -- (c) a batch sharing one learned field stack -----------------------
+    brng = np.random.default_rng(3)
+    srcs = torch.as_tensor(brng.standard_normal(
+        (ADJ_BATCH, *ADJ_GRID)).astype(np.float32), device=dev)
+    tgts = torch.as_tensor(brng.standard_normal(
+        (ADJ_BATCH, *ADJ_GRID)).astype(np.float32), device=dev)
+    xb0 = torch.zeros((ADJ_BATCH, *ADJ_GRID), device=dev)
+    f_b = torch.as_tensor(spec.field_stack(), device=dev) \
+        .requires_grad_(True)
+    table1 = dict(backend="conv", bc_value=1.0, rtol=ADJ_RTOL,
+                  max_iters=20_000)
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        xb = T.implicit_solve(spec, xb0, fields=f_b.detach(), source=srcs,
+                              **table1)
+    sync()
+    batch_fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xb = T.implicit_solve(spec, xb0, fields=f_b, source=srcs, **table1)
+    (gb,) = torch.autograd.grad(torch.sum((xb - tgts) ** 2), f_b)
+    sync()
+    batch_grad_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(xb).all()) and bool(torch.isfinite(gb).all()),
+          "the batched solve or its gradient is not finite")
+    iters_b = cache.solver(spec, ADJ_GRID, backend="conv",
+                           bc=T.DirichletBC(0.0), rtol=ADJ_RTOL,
+                           max_iters=20_000).solve(
+        xb0, fields=f_b.detach(), source=srcs, bc_value=1.0).iterations
+    batched = {"instances": ADJ_BATCH, "grid": list(ADJ_GRID),
+               "bc": 1.0, "rtol": ADJ_RTOL,
+               "iterations_max": int(iters_b.max()),
+               "iterations_min": int(iters_b.min()),
+               "fwd_s": batch_fwd_s, "value_and_grad_s": batch_grad_s,
+               "fwd_solves_per_s": ADJ_BATCH / batch_fwd_s,
+               "grad_solves_per_s": ADJ_BATCH / batch_grad_s}
+    del srcs, tgts, xb0, xb, gb
+
+    # -- (d) the learned-stencil family's train steps ----------------------
+    cfg = get_config("learned-stencil")
+    drng = np.random.default_rng(0)   # examples/learned_stencil.py's data
+    kappa = 1.0 + 9.0 * drng.random(cfg.grid)
+    true_spec = T.heterogeneous_jacobi(kappa, name="hidden-kappa")
+    ls_src = torch.as_tensor(drng.standard_normal(
+        (LS_BATCH, *cfg.grid)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        ls_tgt = T.implicit_solve(
+            true_spec, torch.zeros_like(ls_src),
+            fields=torch.as_tensor(true_spec.field_stack(), device=dev),
+            source=ls_src, backend=cfg.backend, rtol=1e-6,
+            max_iters=2 * cfg.max_iters)
+    batch = {"source": ls_src, "target": ls_tgt}
+    model = build(cfg, device=dev)
+    state = init_train_state(model)
+    step = make_train_step(model, AdamWConfig(
+        lr=LS_LR, warmup_steps=10, total_steps=LS_STEPS, weight_decay=0.0,
+        grad_clip=1.0))
+
+    def solve_iters():
+        solver = cache.solver(model.spec, cfg.grid, backend=cfg.backend,
+                              bc=T.DirichletBC(0.0), rtol=cfg.rtol,
+                              atol=cfg.atol, max_iters=cfg.max_iters)
+        with torch.no_grad():
+            return solver.solve(torch.zeros_like(ls_src),
+                                fields=model.taps, source=ls_src,
+                                bc_value=model.bc).iterations
+
+    iters_first = solve_iters()
+    losses, step_ms = [], []
+    for _ in range(LS_STEPS):
+        metrics = {}
+
+        def one():
+            nonlocal state
+            state, m = step(state, batch)
+            metrics.update(m)
+
+        step_ms.append(event_ms(one))
+        losses.append(float(metrics["loss"]))
+    iters_last = solve_iters()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"learned-stencil: loss at step {LS_STEPS} {losses[-1]} is not "
+          f"below step 1's {losses[0]}")
+    trained = {"arch": cfg.arch, "grid": list(cfg.grid),
+               "backend": cfg.backend, "rtol": cfg.rtol,
+               "max_iters": cfg.max_iters, "batch": LS_BATCH,
+               "steps": LS_STEPS, "lr": LS_LR, "losses": losses,
+               "ms_per_step": step_ms,
+               "ms_per_step_median_2_on": float(np.median(step_ms[1:])),
+               "iterations_per_solve_step1": sorted(set(
+                   int(i) for i in iters_first)),
+               "iterations_per_solve_after": sorted(set(
+                   int(i) for i in iters_last))}
+
+    launches = dict(_build.LAUNCHES)
+    check(not launches, f"the differentiable path launched {launches}; it "
+          f"runs none of K1-K9")
+    seconds = time.perf_counter() - t_phase
+    return {"phase": 23, "card": smi, "benchmark_cell": bench,
+            "converged": converged, "batched": batched,
+            "learned_stencil": trained, "cache": cache.stats.as_dict(),
+            "launches": launches, "seconds": seconds}
 
 
 def main(argv=None) -> int:
@@ -2021,6 +2390,10 @@ def main(argv=None) -> int:
     emit({"serving_tier_launches": {str(k): v for k, v
                                     in tier["launches"].items()},
           "seconds": tier["seconds"], "peak_gb": tier["peak_gb"]})
+
+    # -- 23. the differentiable solve ---------------------------------------
+    torch.cuda.empty_cache()
+    emit(adjoint_phase(dev, smi))
 
     kernels[-3]["train_launches"] = launches18.get("flash_fwd", 0)
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,

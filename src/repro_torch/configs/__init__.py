@@ -1,7 +1,14 @@
 """Architecture configs of the port (the JAX package's ``repro/configs``,
 copied): ``get_config(arch_id)`` returns the full-size config, ``smoke=True``
-the reduced same-family one used by CPU tests."""
-from repro_torch.configs import qwen3_0_6b  # noqa: F401  (registers)
+the reduced same-family one used by CPU tests; ``learned-stencil`` is the
+solver family's (registered, but not in ``list_archs()``), and
+``JACOBI_CONFIGS`` the paper's own benchmark configurations."""
+from repro_torch.configs import (  # noqa: F401  (registers)
+    learned_stencil,
+    qwen3_0_6b,
+)
 from repro_torch.configs.base import ModelConfig, get_config, list_archs
+from repro_torch.configs.jacobi import JACOBI_CONFIGS, JacobiConfig
 
-__all__ = ["ModelConfig", "get_config", "list_archs"]
+__all__ = ["ModelConfig", "get_config", "list_archs", "JacobiConfig",
+           "JACOBI_CONFIGS"]

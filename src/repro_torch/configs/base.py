@@ -6,7 +6,9 @@ Full-size configs live in ``repro_torch/configs/<arch_id>.py``; every arch
 also has ``smoke()``, a reduced same-family config for CPU tests.  Only the
 archs whose family the port runs are registered (the dense family:
 qwen3-0.6b); the others register when their families are ported (ROADMAP
-queue 1 item 16).
+queue 1, the LM-families item).  The solver family's ``learned-stencil``
+(``configs/learned_stencil.py``) registers too, but is not an arch of
+``list_archs()``.
 """
 from __future__ import annotations
 
@@ -135,8 +137,8 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
                 f"repro_torch.configs.{arch_id.replace('-', '_')}")
         except ModuleNotFoundError:
             raise NotImplementedError(
-                f"{arch_id} is not ported yet: its family comes with ROADMAP "
-                f"queue 1 item 16 (the LM substrate); the port runs the "
+                f"{arch_id} is not ported yet: its family comes with the "
+                f"LM-families item of ROADMAP queue 1; the port runs the "
                 f"dense family (qwen3-0.6b)") from None
     entry = _REGISTRY[arch_id]
     return entry["smoke" if smoke else "full"]()

@@ -11,9 +11,17 @@ for a cell.
 ``autotune.py`` measures schedules into the tuned table ``auto`` consults
 first; ``multigrid.py`` composes the plans into a geometric-multigrid
 V-cycle; ``plan_cache.py`` is the serving tier's bucketed cache of built
-solvers (``serve/engine.py`` coalesces requests over it).  Entry points
-run on the card unless given ``device="cpu"``.
+solvers (``serve/engine.py`` coalesces requests over it);
+``adjoint.py``'s ``implicit_solve`` is the differentiable solve (its
+backward is one solve with the transposed operator).  Entry points run on
+the card unless given ``device="cpu"`` (the adjoint: a CPU default cache).
 """
+from repro_torch.core.adjoint import (
+    DIFF_BACKENDS,
+    implicit_solve,
+    transpose_fields,
+    transpose_spec,
+)
 from repro_torch.core.autotune import (
     TunedEntry,
     TunedTable,
@@ -92,6 +100,7 @@ __all__ = [
     "CacheStats",
     "DeliveredPerf",
     "DEVICE_PROFILES",
+    "DIFF_BACKENDS",
     "DeviceProfile",
     "DirichletBC",
     "MGResult",
@@ -127,6 +136,7 @@ __all__ = [
     "encoding_flops_per_point",
     "estimate_seconds",
     "heterogeneous_jacobi",
+    "implicit_solve",
     "jacobi_reference",
     "jacobi_step",
     "laplace_jacobi",
@@ -146,6 +156,8 @@ __all__ = [
     "split_var_kernels",
     "star",
     "stencil_apply",
+    "transpose_fields",
+    "transpose_spec",
     "var_tap_indices",
     "variable_coefficient",
 ]

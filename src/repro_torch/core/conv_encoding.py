@@ -25,6 +25,8 @@ as JAX's ``preferred_element_type=float32``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -259,6 +261,18 @@ def split_var_kernels(spec: StencilSpec, dtype=np.float32):
     return scalar, gather, flds
 
 
+@functools.lru_cache(maxsize=64)
+def _var_kernels(spec: StencilSpec, device: torch.device, dtype):
+    """``split_var_kernels(spec)`` on ``device``, the baked fields in
+    ``dtype``: split and uploaded once per (spec, device, dtype), so the
+    chunks of a cached solver, and an adjoint's backward solve, stop
+    rebuilding them on every call."""
+    scalar_k, gather_k, baked = split_var_kernels(spec)
+    return (torch.as_tensor(scalar_k, device=device),
+            torch.as_tensor(gather_k, device=device),
+            torch.as_tensor(baked, device=device).to(dtype))
+
+
 def conv_var_jacobi(
     x0: torch.Tensor,
     spec: StencilSpec,
@@ -285,11 +299,9 @@ def conv_var_jacobi(
             f"spec {spec.name} carries {spec.weights_shape}-shaped weight "
             f"fields but the grid is {grid}")
     dev = x0.device
-    scalar_k, gather_k, baked = split_var_kernels(spec)
-    scalar_k = torch.as_tensor(scalar_k, device=dev)
-    gather_k = torch.as_tensor(gather_k, device=dev)
-    f = torch.as_tensor(baked if fields is None else fields,
-                        device=dev).to(dtype)[None]
+    scalar_k, gather_k, baked = _var_kernels(spec, dev, dtype)
+    f = (baked if fields is None
+         else torch.as_tensor(fields, device=dev).to(dtype))[None]
     x, mask, drive = _seed_and_drive(grid, bc, bc_value, source, dtype, x0)
     x, mask, drive = x[:, None], mask[None, None], drive[:, None]
     pad = _padding(spec)

@@ -1,5 +1,5 @@
-"""Deterministic synthetic token batches — the port of the JAX package's
-``data/synthetic.py`` (``stencil_tiles`` comes with the path that uses it).
+"""Deterministic synthetic token batches and stencil tiles — the port of the
+JAX package's ``data/synthetic.py``.
 
 Each row of a batch comes from numpy's counter-based Philox generator keyed
 on (seed, step, row), so every host draws only its slice and a restarted
@@ -50,3 +50,14 @@ def batches(cfg: DataConfig, n_steps: int, n_hosts: int = 1,
             host_id: int = 0, *, device=None) -> Iterator[dict]:
     for step in range(n_steps):
         yield token_batch(cfg, step, n_hosts, host_id, device=device)
+
+
+def stencil_tiles(grid: tuple[int, ...], n_steps: int, seed: int = 0,
+                  batch: int = 1, *, device=None) -> Iterator[torch.Tensor]:
+    """Stream of per-step stencil tiles (the paper's N-per-step
+    decomposition): fp32 (batch, *grid) on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    for step in range(n_steps):
+        rng = np.random.Generator(np.random.Philox(key=seed + step))
+        tile = rng.standard_normal((batch, *grid)).astype(np.float32)
+        yield torch.from_numpy(tile).to(dev)

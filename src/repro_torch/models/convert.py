@@ -8,8 +8,10 @@ gate, down}}`` stacked on a leading layer axis — and returns the port's
 model holding the same numbers.  ``from_jax_state`` carries a JAX train
 state ({params, m, v, step}) into the port's (``train.train_step``), so both
 packages can start from the same numbers at any step; ``to_jax_tree`` goes
-the other way for comparisons.  Nothing here imports JAX: convert a JAX tree
-with ``jax.tree.map(np.asarray, tree)`` first.
+the other way for comparisons.  ``from_jax_solver_params`` and
+``to_jax_solver_params`` do the same for the solver family's ``{"taps",
+"bc"}``.  Nothing here imports JAX: convert a JAX tree with
+``jax.tree.map(np.asarray, tree)`` first.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.models.layers import flatten, set_path
+from repro_torch.models.solver_layer import SolverLayer, SolverLayerConfig
 from repro_torch.models.transformer import Transformer, model_table
 from repro_torch.train.train_step import init_train_state
 
@@ -86,3 +89,25 @@ def from_jax_state(model: Transformer, state: dict) -> dict:
                 out[key][name].copy_(torch.from_numpy(value))
     out["step"] = torch.tensor(int(state["step"]), dtype=torch.int32)
     return out
+
+
+def from_jax_solver_params(cfg: SolverLayerConfig, params: dict, *,
+                           device=None) -> SolverLayer:
+    """The solver layer of ``cfg`` holding JAX's ``{"taps", "bc"}`` (numpy,
+    fp32)."""
+    model = SolverLayer(cfg, device=device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            value = torch.from_numpy(_as_f32(params[name]))
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX's shape {tuple(value.shape)} "
+                                 f"is not the layer's {tuple(p.shape)}")
+            p.copy_(value)
+    return model
+
+
+def to_jax_solver_params(model: SolverLayer) -> dict:
+    """A solver layer's parameters as JAX's ``{"taps", "bc"}`` (fp32
+    numpy)."""
+    return {name: p.detach().float().cpu().numpy()
+            for name, p in model.named_parameters()}

@@ -1,6 +1,6 @@
 """Shared model-layer primitives and the declarative parameter tables — the
 port of the JAX package's ``models/layers.py`` (``apply_mrope`` and
-``layer_norm`` come with the families that use them).
+``layer_norm`` come with the LM families that use them).
 
 Parameters are declared once as ``ParamDef(shape, scale)`` tables, as in
 JAX; :func:`init_params` draws them from an explicit ``torch.Generator``
@@ -23,16 +23,22 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     """A parameter's shape and init rule: ``"fan_in"`` (normal, std
-    1/sqrt(shape[0])), a float (normal, that std) or ``"one"``.  JAX's
-    other rules ("zero", "const:<v>") come with the families that use
-    them."""
+    1/sqrt(shape[0])), a float (normal, that std), ``"one"``, ``"zero"`` or
+    ``"const:<v>"`` (every entry v: the solver layer's stencil weights start
+    at a known-stable operator, not at noise).  The constant rules draw
+    nothing from the generator."""
     shape: tuple[int, ...]
     scale: float | str = "fan_in"
 
     def init(self, generator: torch.Generator, dtype: torch.dtype,
              device: torch.device) -> torch.Tensor:
+        if self.scale == "zero":
+            return torch.zeros(self.shape, dtype=dtype, device=device)
         if self.scale == "one":
             return torch.ones(self.shape, dtype=dtype, device=device)
+        if isinstance(self.scale, str) and self.scale.startswith("const:"):
+            return torch.full(self.shape, float(self.scale[6:]),
+                              dtype=dtype, device=device)
         if self.scale == "fan_in":
             s = 1.0 / math.sqrt(max(1, self.shape[0]))
         else:

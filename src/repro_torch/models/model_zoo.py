@@ -4,7 +4,8 @@
 ``build(cfg)`` returns the model whose methods stand for JAX's ``ModelApi``
 (``forward``, ``prefill``, ``decode_step``, ``cache_shapes``,
 ``init_cache``); in PyTorch the parameters live in the module instead of
-being passed in.  The dense family is ported; the others raise
+being passed in.  The dense family is ported, and the solver family
+(``family="solver"``, ``models/solver_layer.py``); the others raise
 (``transformer.check_family``).
 """
 from __future__ import annotations
@@ -20,7 +21,14 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
           generator: torch.Generator | None = None) -> Transformer:
     """The model of ``cfg`` on ``device`` (None: the card; raises without
     one), its weights drawn from ``generator`` with JAX's distributions
-    (seed 0 on the device if None)."""
+    (seed 0 on the device if None).  A solver-family config gets a
+    ``SolverLayer``: fp32 parameters from JAX's constant rules, whatever
+    ``dtype`` and ``generator`` say."""
+    if cfg.family == "solver":
+        # Learned-stencil layer: forward = a differentiable fixed-point
+        # solve; parameters = the stencil weights.
+        from repro_torch.models.solver_layer import SolverLayer
+        return SolverLayer(cfg, device=device)
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev, dtype=dtype)
     if generator is None:

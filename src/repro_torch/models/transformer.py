@@ -19,8 +19,10 @@ The cache is JAX's: {"k", "v"} of shape (n_layers, B, max_len, KV, hd).
 ``decode_step`` writes the new token's k/v into it in place (JAX returns an
 updated copy) and returns it.
 
-The other families (moe, ssm, hybrid, vlm, encdec) raise: they come with
-ROADMAP queue 1 item 16.
+The other LM families (moe, ssm, hybrid, vlm, encdec) raise: they come
+with the LM-families item of ROADMAP queue 1.  The solver family
+(``family="solver"``) is no transformer: ``model_zoo.build`` sends it to
+``models/solver_layer.py``.
 """
 from __future__ import annotations
 
@@ -43,8 +45,10 @@ FAMILIES = ("dense",)
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"queue 1 item 16, the LM substrate); the port runs {FAMILIES}")
+            f"{cfg.arch}: family {cfg.family!r} is not a transformer the "
+            f"port runs yet (the LM-families item of ROADMAP queue 1); it "
+            f"runs {FAMILIES}, and family 'solver' through "
+            f"model_zoo.build")
 
 
 # ---------------------------------------------------------------------------

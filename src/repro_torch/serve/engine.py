@@ -220,11 +220,14 @@ class ServingEngine:
                 f"queue full ({self._pending} pending >= max_queue="
                 f"{self.max_queue})")
 
-        x0 = np.asarray(x0)
+        # A tensor stays a tensor (any dtype, any device): the group's stack
+        # takes it to the cache's device in one copy.
+        if not isinstance(x0, torch.Tensor):
+            x0 = np.asarray(x0)
         if x0.ndim != spec.ndim:
             raise ValueError(
                 f"x0 must be one bare {spec.ndim}D grid, got shape "
-                f"{x0.shape}")
+                f"{tuple(x0.shape)}")
         grid_shape = tuple(x0.shape)
         cfg = (rtol, atol, norm, check_every, max_iters)
         if method == "multigrid":
@@ -316,20 +319,23 @@ class ServingEngine:
         # Pad the instance axis to the next power of two (with copies of the
         # first request) so one solver signature serves every batch size in
         # its bucket; per-instance freezing keeps results exact and the
-        # padding instances converge with their original.  The stack goes
-        # to the cache's device in one copy.
+        # padding instances converge with their original.  Each operand
+        # goes to the cache's device once, in the solve's dtype (the cast
+        # the solver makes anyway), and stacks there.
         b = len(group)
         n_pad = (1 << (b - 1).bit_length()) - b
-        dev = self.cache.device
-        xb = torch.as_tensor(np.stack([req.x0 for req in group]
-                                      + [req0.x0] * n_pad), device=dev)
+        dev, dtype = self.cache.device, req0.solver_kwargs["dtype"]
+
+        def stacked(operands):
+            ts = [torch.as_tensor(a).to(dev, dtype) for a in operands]
+            return torch.stack(ts + [ts[0]] * n_pad)
+
+        xb = stacked([req.x0 for req in group])
         source = None
         if any(req.source is not None for req in group):
-            zeros = np.zeros(req0.x0.shape, np.float32)
-            stack = [np.asarray(req.source if req.source is not None
-                                else zeros, np.float32) for req in group]
-            stack += [stack[0]] * n_pad
-            source = torch.as_tensor(np.stack(stack), device=dev)
+            zeros = torch.zeros(tuple(req0.x0.shape), dtype=dtype, device=dev)
+            source = stacked([zeros if req.source is None else req.source
+                              for req in group])
         res = solver.solve(xb, source=source)
         return [
             SolveResult(

@@ -14,7 +14,9 @@ in the backward, after ``functional_call`` has put the module's own
 parameters back, and would silently differentiate those.
 
 Where the compute type is the masters' (fp32 compute), the compute model is
-the master model itself and nothing is copied.
+the master model itself and nothing is copied.  A solver-family model
+(``models/solver_layer.py``) always trains in fp32 on its masters, with
+the steady-state MSE as its loss, whatever ``compute_dtype`` says.
 """
 from __future__ import annotations
 
@@ -55,12 +57,14 @@ def load_params(compute: Transformer, params: dict) -> None:
             p.copy_(src)
 
 
-def value_and_grad(compute: Transformer, params: dict, batch: dict):
-    """(loss, {"nll", "aux"}, {name: grad in the compute type}) of the
-    masters ``params`` on ``batch``, through ``compute``."""
+def value_and_grad(compute: Transformer, params: dict, batch: dict,
+                   loss_of=loss_fn):
+    """(loss, its parts, {name: grad in the compute type}) of the masters
+    ``params`` on ``batch``, through ``compute``, under ``loss_of(model,
+    batch) -> (loss, parts)``."""
     load_params(compute, params)
     names, leaves = zip(*compute.named_parameters())
-    loss, parts = loss_fn(compute, batch)
+    loss, parts = loss_of(compute, batch)
     grads = torch.autograd.grad(loss, leaves)
     return (loss.detach(), {k: t.detach() for k, t in parts.items()},
             dict(zip(names, grads)))
@@ -69,12 +73,19 @@ def value_and_grad(compute: Transformer, params: dict, batch: dict):
 def make_train_step(model: Transformer, opt: AdamWConfig,
                     compute_dtype: torch.dtype = torch.bfloat16):
     """train_step(state, batch) -> (state, metrics {loss, nll, aux,
-    grad_norm, lr}) for the masters of ``model``'s config; the state is
-    updated in place (``apply_update``)."""
-    compute = compute_model(model, compute_dtype)
+    grad_norm, lr}; a solver layer's {loss, mse, aux, grad_norm, lr}) for
+    the masters of ``model``'s config; the state is updated in place
+    (``apply_update``)."""
+    if getattr(model.cfg, "family", None) == "solver":
+        # Convergence thresholds are meaningless in bf16: fp32, no copy.
+        from repro_torch.models.solver_layer import solver_loss_fn
+        compute, loss_of = model, solver_loss_fn
+    else:
+        compute, loss_of = compute_model(model, compute_dtype), loss_fn
 
     def train_step(state: dict, batch: dict):
-        loss, parts, grads = value_and_grad(compute, state["params"], batch)
+        loss, parts, grads = value_and_grad(compute, state["params"], batch,
+                                            loss_of)
         state, opt_metrics = apply_update(state, grads, opt)
         return state, {"loss": loss, **parts, **opt_metrics}
 
@@ -83,8 +94,8 @@ def make_train_step(model: Transformer, opt: AdamWConfig,
 
 def init_train_state(model: Transformer) -> dict:
     """The train state of an fp32 master model (``model_zoo.build(cfg,
-    dtype=torch.float32)``): its parameters, shared, and fp32 zeros for m
-    and v; the step updates the model in place."""
+    dtype=torch.float32)``, or a solver layer): its parameters, shared, and
+    fp32 zeros for m and v; the step updates the model in place."""
     if model.dtype != torch.float32:
         raise ValueError(f"the masters must be float32, got {model.dtype}")
     return init_state({n: p.detach() for n, p in model.named_parameters()})

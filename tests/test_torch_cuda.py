@@ -1078,3 +1078,88 @@ def test_engine_on_the_card_serves_what_a_solo_solve_gives(cuda):
         assert r.x.device.type == "cuda" and r.converged
         assert r.iterations == alone.iterations
         torch.testing.assert_close(r.x, alone.x, rtol=0, atol=1e-6)
+
+
+# --- the differentiable solve and tensor requests on the card --------------
+
+def _adjoint_grads(device, spec, fields, src, tgt):
+    """Grads of sum((x - tgt)^2) in (fields, source, scalar bc) of a
+    converged conv solve on a default cache on ``device``."""
+    old = T.set_default_plan_cache(T.PlanCache(device=device))
+    try:
+        ops = [torch.as_tensor(a, device=device).requires_grad_(True)
+               for a in (fields, src, np.float32(0.7))]
+        x0 = torch.zeros(src.shape, device=device, requires_grad=True)
+        x = T.implicit_solve(spec, x0, fields=ops[0], source=ops[1],
+                             bc_value=ops[2], backend="conv", rtol=1e-6,
+                             max_iters=20_000)
+        loss = torch.sum((x - torch.as_tensor(tgt, device=device)) ** 2)
+        grads = torch.autograd.grad(loss, ops + [x0])
+    finally:
+        T.set_default_plan_cache(old)
+    return [g.cpu() for g in grads]
+
+
+def test_adjoint_gradients_on_the_card_equal_the_cpu_port(cuda):
+    rng = np.random.default_rng(23)
+    spec = T.heterogeneous_jacobi(1.0 + 9.0 * rng.random((32, 32)))
+    fields = spec.field_stack()
+    src = rng.standard_normal((32, 32)).astype(np.float32)
+    tgt = rng.standard_normal((32, 32)).astype(np.float32)
+    card = _adjoint_grads(cuda, spec, fields, src, tgt)
+    host = _adjoint_grads("cpu", spec, fields, src, tgt)
+    for g, h in zip(card[:3], host[:3]):
+        assert g.shape == h.shape and torch.isfinite(g).all()
+        assert float((g - h).abs().max()) <= 1e-4 * float(h.abs().max())
+    assert torch.equal(card[3], torch.zeros_like(card[3]))
+
+
+def test_adjoint_on_the_card_refuses_host_tensors(cuda):
+    old = T.set_default_plan_cache(T.PlanCache())
+    try:
+        with pytest.raises(ValueError, match="plan cache runs on cuda"):
+            T.implicit_solve(T.laplace_jacobi(2), torch.zeros(16, 16))
+    finally:
+        T.set_default_plan_cache(old)
+
+
+def test_engine_serves_cuda_tensor_requests_as_solo_solves(cuda):
+    import asyncio
+    from repro_torch.serve import ServingEngine
+    cache = T.PlanCache()
+    rng = np.random.default_rng(29)
+    xs = [torch.as_tensor(rng.standard_normal((48, 48)), device=cuda,
+                          dtype=dt) for dt in (torch.float32, torch.bfloat16,
+                                               torch.float32)]
+    src = torch.full((48, 48), 1e-3, device=cuda)
+    kw = dict(rtol=1e-5)
+
+    async def main():
+        async with ServingEngine(cache, max_wait=0.05) as eng:
+            return eng, await asyncio.gather(*(
+                eng.submit(T.laplace_jacobi(2), x0, bc=1.0, source=src,
+                           **kw)
+                for x0 in xs))
+
+    eng, results = asyncio.run(main())
+    assert eng.stats.coalesced == 3 and eng.stats.batches == 1
+    for x0, r in zip(xs, results):
+        alone = T.Solver(T.laplace_jacobi(2), (48, 48), backend=r.backend,
+                         bc=1.0, device=cuda, **kw).solve(x0, source=src)
+        assert r.x.device.type == "cuda" and r.converged
+        assert r.iterations == alone.iterations
+        torch.testing.assert_close(r.x, alone.x, rtol=0, atol=1e-6)
+
+
+def test_conv_var_jacobi_reuses_its_kernels_on_the_card(cuda):
+    from repro_torch.core import conv_encoding
+    spec = T.heterogeneous_jacobi(
+        1.0 + 9.0 * np.random.default_rng(31).random((64, 64)))
+    x0 = torch.zeros(2, 64, 64, device=cuda)
+    a = T.conv_var_jacobi(x0, spec, T.DirichletBC(1.0), 50)
+    hits = conv_encoding._var_kernels.cache_info().hits
+    b = T.conv_var_jacobi(x0, spec, T.DirichletBC(1.0), 50)
+    assert conv_encoding._var_kernels.cache_info().hits == hits + 1
+    assert torch.equal(a, b)
+    want = T.conv_var_jacobi(x0.cpu(), spec, T.DirichletBC(1.0), 50)
+    torch.testing.assert_close(a.cpu(), want, rtol=0, atol=1e-5)

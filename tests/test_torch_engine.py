@@ -248,3 +248,67 @@ def test_stats_as_dict_and_constructor_validation():
         ServingEngine(_cache(), max_batch=0)
     with pytest.raises(ValueError):
         ServingEngine(_cache(), max_queue=0)
+
+
+# -- tensor requests (the engine once took numpy only) -----------------------
+
+def _tensor_case():
+    """A bf16 16x16 field from a seed, and the same values as fp32 numpy."""
+    x = np.random.default_rng(7).standard_normal((16, 16)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    return xb, xb.float().numpy()
+
+
+@pytest.mark.parametrize("backend", ["auto", "conv"])
+def test_bf16_tensor_request_serves_as_its_fp32_values(backend):
+    xb, x32 = _tensor_case()
+    kw = dict(bc=1.0, rtol=1e-3, backend=backend)
+    src = torch.full((16, 16), 1e-3, dtype=torch.bfloat16)
+    submits = [(xb, dict(kw, source=src)), (x32, dict(kw, source=None)),
+               (x32, dict(kw, source=src.float().numpy()))]
+
+    async def main():
+        async with ServingEngine(_cache(), max_wait=0.05) as eng:
+            return await asyncio.gather(*(eng.submit(T.laplace_jacobi(2),
+                                                     x0, **k)
+                                          for x0, k in submits))
+
+    got_b, got_none, got_32 = asyncio.run(main())
+    assert got_b.converged and got_b.x.dtype == torch.float32
+    assert got_b.iterations == got_32.iterations
+    assert torch.equal(got_b.x, got_32.x)
+    # Without the source the field differs, and the group still coalesced.
+    assert not torch.equal(got_none.x, got_32.x)
+    # JAX's engine takes the bf16 jax.Array; where the bucket runs the
+    # same backend, the counts agree.
+    async def jax_main():
+        async with JS.ServingEngine(J.PlanCache(probe=False)) as eng:
+            return await eng.submit(J.laplace_jacobi(2),
+                                    jnp.asarray(x32, jnp.bfloat16),
+                                    source=jnp.asarray(src.float().numpy(),
+                                                       jnp.bfloat16), **kw)
+
+    want = asyncio.run(jax_main())
+    if want.backend == got_b.backend:
+        assert got_b.iterations == want.iterations
+        np.testing.assert_allclose(got_b.x.numpy(), np.asarray(want.x),
+                                   rtol=0, atol=JAX_TOL)
+
+
+def test_tensor_requests_of_any_dtype_coalesce_with_numpy():
+    # A float64 tensor, a non-contiguous view, and the fp32 numpy of the
+    # same values share one group and one batched solve (the solve's
+    # dtype is the request's dtype= argument).
+    x = _x0()
+    x64 = torch.from_numpy(np.ascontiguousarray(x.T)).double().T
+    assert not x64.is_contiguous()
+    submits = [(x64, KW), (x, KW)]
+
+    async def main():
+        async with ServingEngine(_cache(), max_wait=0.05) as eng:
+            return eng, await asyncio.gather(*(eng.submit(
+                T.laplace_jacobi(2), x0, **k) for x0, k in submits))
+
+    eng, (a, b) = asyncio.run(main())
+    assert eng.stats.coalesced == 2 and eng.stats.batches == 1
+    assert a.iterations == b.iterations and torch.equal(a.x, b.x)

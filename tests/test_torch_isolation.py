@@ -41,7 +41,9 @@ def test_no_jax_or_repro_import_anywhere_in_the_port():
                    "optim/adamw.py", "data/synthetic.py", "launch/train.py",
                    "csrc/flash_attention_bwd.cu", "core/autotune.py",
                    "core/multigrid.py", "core/plan_cache.py",
-                   "serve/__init__.py", "serve/engine.py"):
+                   "serve/__init__.py", "serve/engine.py",
+                   "core/adjoint.py", "models/solver_layer.py",
+                   "configs/learned_stencil.py", "configs/jacobi.py"):
         assert os.path.join(PKG, *module.split("/")) in files, module
     bad = []
     for path in (f for f in files if f.endswith(".py")):
@@ -103,6 +105,25 @@ def test_port_imports_and_solves_with_jax_blocked():
         tr = train(get_config("qwen3-0.6b", smoke=True), steps=1,
                    global_batch=2, seq_len=8, device="cpu")
         assert tr["steps"][0]["loss"] > 0
+        from repro_torch.core import (implicit_solve, set_default_plan_cache,
+                                      heterogeneous_jacobi)
+        set_default_plan_cache(PlanCache(device="cpu"))
+        spec = heterogeneous_jacobi(np.ones((8, 8)))
+        f = torch.tensor(spec.field_stack(), requires_grad=True)
+        x = implicit_solve(spec, torch.zeros(8, 8), fields=f,
+                           source=torch.ones(8, 8), rtol=1e-5)
+        (gf,) = torch.autograd.grad(x.sum(), f)
+        assert gf.shape == f.shape
+        from repro_torch.optim.adamw import AdamWConfig
+        from repro_torch.train.train_step import (init_train_state,
+                                                  make_train_step)
+        layer = build(get_config("learned-stencil", smoke=True),
+                      device="cpu")
+        step = make_train_step(layer, AdamWConfig(lr=1e-2))
+        batch = dict(source=torch.ones(2, 12, 14),
+                     target=torch.zeros(2, 12, 14))
+        _, met = step(init_train_state(layer), batch)
+        assert float(met["loss"]) > 0
         assert "jax" not in [m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None]
         print(r.converged, r.iterations)
@@ -114,8 +135,31 @@ def test_port_imports_and_solves_with_jax_blocked():
     assert converged == "True" and int(iters) > 0
 
 
+def test_adjoint_and_solver_layer_load_no_jax():
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {os.path.join(REPO, 'src')!r})
+        import repro_torch.core.adjoint, repro_torch.models.solver_layer
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print(loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_default_device_is_the_card_and_never_falls_back():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         solve(laplace_jacobi(2), np.zeros((8, 8), np.float32), bc=1.0)
+    # The differentiable solve's default cache is the card's too.
+    from repro_torch.core import implicit_solve, set_default_plan_cache
+    old = set_default_plan_cache(None)
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            implicit_solve(laplace_jacobi(2), np.zeros((8, 8), np.float32))
+    finally:
+        set_default_plan_cache(old)
