@@ -30,6 +30,12 @@ solver):
   - the stencil serving tier: the measured autotuner, the multigrid
     V-cycle, and the coalescing engine over the bucketed plan cache, as
     ``repro_torch.serve.ServingEngine`` serves it (phases 20-22);
+  - the ssm and hybrid LM families at full width and depth (mamba2-370m:
+    48 Mamba2 layers, no attention, none of K1-K9; zamba2-1.2b: 38 Mamba2
+    layers and one shared attention block applied after each of its six
+    groups, K7 six times a forward at head_dim 64 and K8/K9 six times a
+    backward), served and trained as ``launch.serve`` and ``launch.train``
+    run them (phases 24-26);
   - the differentiable solve, ``repro_torch.core.implicit_solve`` on the
     card's default plan cache (its backward one solve with the transposed
     operator; ``F.conv2d`` and shifted adds, none of K1-K9), and the
@@ -110,8 +116,9 @@ Phases, one JSON line each:
  12. K6 (flash_attention) and K7 (flash_fwd) against their plain versions
      (bf16 runs the tensor-core kernel, fp32 the SIMT one): MHA, GQA 2:1 on
      a ragged 96, MQA, non-causal, cross lengths with kv_offset=128,
-     head_dim 16/32/64/128, fp32 and bf16, and the serve prefill's shape (4
-     x 2048, 16 heads, 8 kv heads, hd 128, bf16), and ``p_rounding``, built
+     head_dim 16/32/64/128, fp32 and bf16, the serve prefill's shape (4
+     x 2048, 16 heads, 8 kv heads, hd 128, bf16) and zamba2-1.2b's (4 x
+     2048, 32 heads, MHA, hd 64, bf16), and ``p_rounding``, built
      so that a kernel that does not round p to v's type before p . v misses
      by about 0.026; out per element within 2e-5 in fp32 and 2e-3 + 1.6e-2
      * |plain| in bf16 (two bf16 ulps), lse within 1e-5 of its max-abs;
@@ -128,7 +135,8 @@ Phases, one JSON line each:
      memory, K7 launches), then one more prefill and decode of the same
      model under torch.profiler: device ms by kernel and the device's idle
      share;
- 15. K6 and K7 timed by CUDA-graph replay at the serve shape beside their
+ 15. K6 and K7 timed by CUDA-graph replay at the serve shape (and K7 at
+     zamba2's) beside their
      bound, their plain version and F.scaled_dot_product_attention (the
      library yardstick, timed here only; the port never calls it); the
      HGMMA instructions of each bf16 instance (``cuobjdump -sass`` of the
@@ -136,7 +144,8 @@ Phases, one JSON line each:
  16. K8 (flash_bwd_dq) and K9 (flash_bwd_dkv) against their plain versions
      (bf16 runs the tensor-core kernels, fp32 the SIMT ones), o and lse
      from K7: the cases of tests/_torch_flash_cases.py (``FLASH_CASES``:
-     those of phase 12 and the training shape) in fp32 and bf16,
+     those of phase 12 and the training shape) in fp32 and bf16, zamba2's
+     shape in bf16,
      ``ds_rounding``, built so that a K8 that does not round ds to k's type
      misses by 16 times the bound, and ``dv_p_rounding``, built so that a
      K9 that rounds p before p^T . do misses by 86 times; dq, dk, dv per
@@ -153,7 +162,8 @@ Phases, one JSON line each:
      loss and grad norm, all finite, K7/K8/K9 launched 56/28/28 times a
      step), then one more step of a fresh model under torch.profiler:
      device ms by kernel and the device's idle share;
- 19. K8 and K9 timed by CUDA-graph replay at the training shape in bf16
+ 19. K8 and K9 timed by CUDA-graph replay at the training shape (and at
+     zamba2's) in bf16
      beside their bounds, their plain versions and the backward of
      F.scaled_dot_product_attention (the library yardstick, timed with
      torch.autograd.grad; the port never calls it); the HGMMA instructions
@@ -196,7 +206,29 @@ The line after phase 22 lists the kernels phases 20-22 launched.
      ``make_train_step`` (examples/learned_stencil.py's hidden-kappa data
      at batch 8, AdamW at lr 1e-2): losses, ms a step, iterations a solve,
      the last loss below the first; no K1-K9 launch.
-The inventory line lists K1-K9 and K5's split kernel.
+ 24. mamba2-370m and zamba2-1.2b served as ``launch.serve.serve`` runs
+     them: bf16, batch 4, 2048-token prompts, 32 greedy tokens (prefill ms
+     and tokens/s, decode ms/token, peak memory, launches: none for
+     mamba2, K7 six a prefill for zamba2), then one more prefill and
+     decode under torch.profiler: device ms by kernel and the idle share;
+ 25. fp32 at full width: (a) batch 2, a 1000-token prompt (ragged against
+     the 256-token SSD chunk), 16 greedy tokens, each decode step's
+     logits within 2e-4 (mamba2) and 3e-3 (zamba2) of their max-abs from
+     the train-mode forward's over the prompt and the tokens so far (the
+     comment at ``SSM_DECODE_RTOL`` says why), and the first step again
+     from a wrong cache (the conv halo reversed; zamba2's attention cache
+     one place short) past that bound; (b) zamba2's flash against xla as
+     phase 13 (prefill hidden within 3e-3, tokens where the top-2 margin
+     passes 3e-3); (c) the card against the CPU port on a depth-cut model
+     of the same weights (mamba2 2 layers, zamba2 one group, its shared
+     block and the tail: 8 layers), batch 2 x 300 tokens, prefill hidden
+     within 1e-4;
+ 26. bf16 training as ``launch.train.train`` runs it, 5 steps at 4 x 2048
+     tokens (ms a step and tokens/s over steps 2-5, peak memory, every
+     loss and grad norm finite; zamba2 K7/K8/K9 12/6/6 a step, mamba2
+     none).
+The inventory line lists K1-K9 and K5's split kernel, and K7-K9 again at
+zamba2's shape with their launches on its serve and train paths.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -265,6 +297,39 @@ LSE_RTOL = 1e-5
 FLASH_BWD_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 1.6e-2)}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 LM_TRAIN = (4, 2048, 5)   # phase 18, the main path: batch, seq_len, steps
+# Phases 24-26, the ssm and hybrid families at full width and depth.
+SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+SSM_SERVE = (4, 2048, 32)  # phase 24: batch, prompt, tokens (bf16)
+# Phase 24: decode steps under the profiler (about 3000 device operations
+# a step; the profiler's bookkeeping of 32 steps took about a minute).
+SSM_PROFILE_TOKENS = 2
+SSM_FP32 = (2, 1000, 16)   # phase 25 (a, b): prompt ragged against 256
+# Phase 25, relative to the max-abs; the readings are tests/_torch_ssm_noise.py
+# --card's at (a)'s size (PERF.md §6).  In float64 decode and forward
+# agree to 1e-13 (mamba2) and 2e-12 (zamba2), so fp32 leaves only rounding,
+# and each fp32 run lies within 5.1e-5 (mamba2) and 1.22e-3 (zamba2) of the
+# float64 forward: the random models' gain is high (2**-24 of noise on
+# zamba2's embeddings moves its logits by 2.6e-5).  Two such runs may differ
+# by twice that, so (a) holds decode against forward to 2e-4 and 3e-3.  A
+# wrong cache moves the first decode step's logits by 1.04-1.41 of max-abs
+# (the conv halo zeroed or reversed, the SSD state read before its update),
+# and zamba2's attention cache filled one place short by 1.05e-2; (a) reruns
+# the first step from a reversed halo (and for zamba2 from the short cache)
+# and requires each past its tolerance.  (b) zamba2's prefill hidden, flash
+# against xla, and the top-2 margin past which the two runs' tokens must
+# agree: the same 3e-3.  (c) the prefill hidden, the card against the CPU:
+# 1e-4 (read 1.2e-6 and 4.9e-5).
+SSM_DECODE_RTOL = {"mamba2-370m": 2e-4, "zamba2-1.2b": 3e-3}
+ZAMBA_FLASH_RTOL = 3e-3
+SSM_CPU_RTOL = 1e-4
+SSM_CPU = (2, 300)         # phase 25 (c): batch, prompt (two SSD chunks)
+# Phase 25 (c)'s depth cut: two Mamba2 layers; zamba2 one group of six, its
+# shared block and the two-layer tail.
+SSM_CPU_DEPTH = {"mamba2-370m": 2, "zamba2-1.2b": 8}
+SSM_TRAIN = (4, 2048, 5)   # phase 26: batch, seq_len, steps (bf16)
+# zamba2-1.2b's shared attention at the serve and training shape: (B, S, H,
+# KV, hd), MHA at head_dim 64 (phases 12, 15, 16, 19).
+HYBRID_SHAPE = (4, 2048, 32, 32, 64)
 DEVICE = "cuda"
 # Phases 20-22, the stencil serving tier.  Autotune cells: (name, spec,
 # grid, iterations a timed call); Table 1's and Fig 6's go to the committed
@@ -318,7 +383,12 @@ LS_STEPS = 20
 LS_LR = 1e-2
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:   # when each phase line was written
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -977,6 +1047,272 @@ def adjoint_phase(dev, smi):
             "launches": launches, "seconds": seconds}
 
 
+def lm_families_phases(dev, device_profile):
+    """Phases 24-26, the ssm (mamba2-370m) and hybrid (zamba2-1.2b) LM
+    families at full width and depth: (24) bf16 serving as
+    ``launch.serve.serve`` runs it, then a profiled prefill and decode;
+    (25) fp32 checks: (a) decode against the train-mode forward, (b)
+    zamba2's flash against xla, (c) the card against the CPU on a
+    depth-cut model; (26) bf16 training as ``launch.train.train`` runs
+    it.  The launch counts are zeroed before each path
+    and read after it; mamba2 launches none of K1-K9, zamba2 K7 once a use
+    of its shared block in a forward and K8/K9 once in a backward.
+    Returns {"launches": {(phase, arch): launches}, "seconds": {phase: s}}.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import build
+    from repro_torch.models.transformer import Transformer, mask_pad_logits
+    from repro_torch.train.serve_step import (greedy_generate,
+                                              make_decode_step,
+                                              make_prefill_step)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    def flush():
+        sync()
+        torch.cuda.empty_cache()
+
+    def clone(cache):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in cache.items()}
+
+    def reverse_halo(cache):
+        """The conv halos of every Mamba layer in reverse time order."""
+        subs = ([cache[k] for k in ("groups", "tail") if k in cache]
+                if "groups" in cache else [cache])
+        for sub in subs:
+            for name in ("conv_x", "conv_bc"):
+                sub[name].copy_(sub[name].flip(-2))
+
+    cfgs = {arch: dataclasses.replace(get_config(arch), attn_impl="flash")
+            for arch in SSM_ARCHS}
+
+    def uses(cfg):
+        """Applications of an attention block in one forward."""
+        return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+
+    def expect(cfg, fwd=1, bwd=0):
+        n = uses(cfg)
+        out = {"flash_fwd": fwd * n, "flash_bwd_dq": bwd * n,
+               "flash_bwd_dkv": bwd * n}
+        return {k: v for k, v in out.items() if v}
+
+    launches, seconds = {}, {}
+
+    # -- 24. bf16 serving -----------------------------------------------------
+    t0 = time.perf_counter()
+    B24, S24, T24 = SSM_SERVE
+    for arch, cfg in cfgs.items():
+        # Built here, as ``serve`` builds it, to profile the same weights.
+        model = build(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        _build.LAUNCHES.clear()
+        served = serve(cfg, batch=B24, prompt_len=S24, tokens=T24,
+                       model=model)
+        launches[(24, arch)] = dict(_build.LAUNCHES)   # warm-up and timed
+        gen = served.pop("generated")
+        check(served["prefill_launches"] == expect(cfg)
+              and not served["decode_launches"],
+              f"{arch} bf16 serve launched {served['prefill_launches']}, "
+              f"{served['decode_launches']}")
+        check(launches[(24, arch)] == expect(cfg, fwd=2),
+              f"{arch} bf16 serve run launched {launches[(24, arch)]}")
+        check(gen.shape == (B24, T24 + 1) and bool((gen >= 0).all())
+              and bool((gen < cfg.vocab_size).all()),
+              f"{arch} bf16 serve tokens")
+        # Where the device time goes: one more prefill and decode of the
+        # same weights under the profiler (its cost is in the wall).
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B24, S24)), device=dev)
+        prefill = make_prefill_step(model, S24 + T24 + 1)
+        prof_prefill = device_profile(lambda: prefill({"tokens": prompts}),
+                                      host=False)
+        first, cache = prefill({"tokens": prompts})
+
+        def decode_loop():
+            tok = first
+            for i in range(SSM_PROFILE_TOKENS):
+                tok, _ = make_decode_step(model, S24 + i)(tok, cache)
+
+        prof_decode = device_profile(decode_loop, top=16, host=False)
+        prof_decode["tokens"] = SSM_PROFILE_TOKENS
+        emit({"phase": 24, **served, "launches_whole_run":
+              launches[(24, arch)], "seq0": gen[0].tolist(),
+              "profile_prefill": prof_prefill,
+              "profile_decode": prof_decode})
+        del model, cache, prefill, first
+        flush()
+    seconds[24] = time.perf_counter() - t0
+
+    # -- 25. fp32 checks on the card ------------------------------------------
+    t0 = time.perf_counter()
+    B25, S25, T25 = SSM_FP32
+    for arch, cfg in cfgs.items():
+        pending = []   # checked after the record is written
+
+        def later(ok, what):
+            pending.append((bool(ok), what))
+
+        # (a) each decode step's logits against the train-mode forward's
+        # over the prompt and the tokens so far (the chunked SSD against
+        # its recurrence, the conv halo, the hybrid's six attention caches).
+        model = build(cfg, device=dev, dtype=torch.float32,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        prompts = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (B25, S25)), device=dev)
+        max_len = S25 + T25 + 1
+        V, rtol = cfg.vocab_size, SSM_DECODE_RTOL[arch]
+        _build.LAUNCHES.clear()
+        h, cache = model.prefill(prompts, max_len)
+        sync()
+        prefill_launches = dict(_build.LAUNCHES)
+        later(prefill_launches == expect(cfg),
+              f"{arch} fp32 prefill launched {prefill_launches}")
+        prefilled = clone(cache)   # for the fault checks below
+        seq = prompts
+        with torch.no_grad():
+            tok = torch.argmax(mask_pad_logits(model.logits(h), cfg), -1)
+        first, errs = tok, []
+        for i in range(T25):
+            seq = torch.cat([seq, tok[:, None]], dim=1)
+            logits, cache = model.decode_step(tok, cache, S25 + i)
+            with torch.no_grad():
+                hidden, _ = model(seq, remat=False)
+                want = mask_pad_logits(model.logits(hidden[:, -1]), cfg)
+            if i == 0:
+                want_first = want
+            errs.append(rel(logits[:, :V], want[:, :V]))
+            tok = torch.argmax(logits, -1)
+        later(max(errs) <= rtol, f"{arch} decode against forward: logits "
+              f"{max(errs)} of max-abs")
+        # The check's reach: the first step again from a wrong cache.
+        faults = {"halo_reversed": (reverse_halo, 0)}
+        if cfg.family == "hybrid":
+            faults["kv_len_short"] = (None, -1)
+        fault_errs = {}
+        for name, (corrupt, shift) in faults.items():
+            bad = clone(prefilled)
+            if corrupt is not None:
+                corrupt(bad)
+            logits, _ = model.decode_step(first, bad, S25 + shift)
+            fault_errs[name] = rel(logits[:, :V], want_first[:, :V])
+            later(fault_errs[name] > rtol, f"{arch} decode from a "
+                  f"{name} cache: logits only {fault_errs[name]} of "
+                  f"max-abs from the forward's")
+            del bad
+        del prefilled
+        record = {"phase": 25, "arch": arch, "dtype": "float32",
+                  "batch": B25, "prompt_len": S25, "tokens": T25,
+                  "decode_vs_forward_rel_err_by_step": errs, "rtol": rtol,
+                  "first_step_from_a_wrong_cache": fault_errs,
+                  "prefill_launches": prefill_launches}
+        # (b) zamba2's attn_impl paths, as phase 13 runs qwen3's.
+        if cfg.family == "hybrid":
+            model_x = Transformer(dataclasses.replace(cfg, attn_impl="xla"),
+                                  device=dev)
+            model_x.load_state_dict(model.state_dict())
+            _build.LAUNCHES.clear()
+            h_x, _ = model_x.prefill(prompts, max_len)
+            sync()
+            later(not _build.LAUNCHES, "the xla prefill launched a kernel")
+            hidden_rel = rel(h, h_x)
+            later(hidden_rel <= ZAMBA_FLASH_RTOL, f"{arch} fp32 prefill "
+                  f"hidden flash vs xla: {hidden_rel} of max-abs")
+            tok_f = greedy_generate(model, {"tokens": prompts}, steps=T25,
+                                    max_len=max_len)
+            tok_x = greedy_generate(model_x, {"tokens": prompts}, steps=T25,
+                                    max_len=max_len)
+            margins = []
+            for b in range(B25):
+                diff = (tok_f[b] != tok_x[b]).nonzero()
+                if len(diff) == 0:
+                    continue
+                t = int(diff[0])   # later tokens follow other prefixes
+                ctx = torch.cat([prompts[b], tok_x[b, :t]])[None]
+                h_t, _ = model_x.prefill(ctx, ctx.shape[1])
+                with torch.no_grad():
+                    lg = mask_pad_logits(model_x.logits(h_t), cfg)[0]
+                top2 = torch.topk(lg, 2).values
+                margin = float(top2[0] - top2[1]) / float(lg.abs().max())
+                margins.append({"row": b, "position": t,
+                                "rel_margin": margin})
+                later(margin <= ZAMBA_FLASH_RTOL, f"{arch} row {b} token "
+                      f"{t}: flash and xla disagree where xla's top-2 "
+                      f"margin is {margin} of max-abs")
+            record["flash_vs_xla"] = {
+                "hidden_rel_err": hidden_rel, "rtol": ZAMBA_FLASH_RTOL,
+                "tokens_agree": int((tok_f == tok_x).sum()),
+                "tokens_total": B25 * T25, "first_disagreements": margins}
+            del model_x
+        del model, cache
+        flush()
+        # (c) the card against the CPU: a depth-cut model, the same weights.
+        small = dataclasses.replace(cfg, n_layers=SSM_CPU_DEPTH[arch])
+        card = build(small, device=dev, dtype=torch.float32,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+        cpu = Transformer(small, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        Bc, Sc = SSM_CPU
+        tokens = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                   (Bc, Sc))
+        h_card, _ = card.prefill(torch.as_tensor(tokens, device=dev), Sc)
+        h_cpu, _ = cpu.prefill(torch.as_tensor(tokens), Sc)
+        card_rel = rel(h_card.cpu(), h_cpu)
+        later(bool(torch.isfinite(h_card).all())
+              and card_rel <= SSM_CPU_RTOL,
+              f"{arch} prefill hidden card vs CPU: {card_rel} of max-abs")
+        record["card_vs_cpu"] = {"n_layers": small.n_layers, "batch": Bc,
+                                 "prompt_len": Sc, "hidden_rel_err": card_rel,
+                                 "rtol": SSM_CPU_RTOL}
+        emit(record)
+        for ok, what in pending:
+            check(ok, what)
+        del card, cpu
+        flush()
+    seconds[25] = time.perf_counter() - t0
+
+    # -- 26. bf16 training ----------------------------------------------------
+    t0 = time.perf_counter()
+    B26, S26, T26 = SSM_TRAIN
+    for arch, cfg in cfgs.items():
+        _build.LAUNCHES.clear()
+        trained = train(cfg, steps=T26, global_batch=B26, seq_len=S26,
+                        device=dev, seed=0)
+        launches[(26, arch)] = dict(_build.LAUNCHES)
+        steps = trained.pop("steps")
+        for rec in steps:
+            check(rec["launches"] == expect(cfg, fwd=2, bwd=1),
+                  f"{arch} bf16 train step {rec['step']} launched "
+                  f"{rec['launches']}")
+            check(all(math.isfinite(rec[k]) for k in ("loss", "nll",
+                                                       "grad_norm")),
+                  f"{arch} bf16 train step {rec['step']}: {rec}")
+        timed = steps[1:]   # the first pays the allocator's growth
+        ms = sum(r["ms"] for r in timed) / len(timed)
+        emit({"phase": 26, **trained, "steps": [
+            {k: r[k] for k in ("step", "loss", "nll", "grad_norm", "lr",
+                               "ms", "tokens_per_s", "launches")}
+            for r in steps],
+            "ms_per_step": ms, "tokens_per_s": B26 * S26 / (ms * 1e-3),
+            "launches_whole_run": launches[(26, arch)]})
+        flush()
+    seconds[26] = time.perf_counter() - t0
+    emit({"lm_families_seconds": seconds})
+    return {"launches": launches, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1057,15 +1393,18 @@ def main(argv=None) -> int:
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    def device_profile(fn, top=12):
+    def device_profile(fn, top=12, host=True):
         """Run ``fn`` once under torch.profiler: its wall ms (the
         profiler's own cost included), the device ms summed over kernels,
         the share of the wall the device sat idle, and the ``top`` kernels
-        by device time as [name, ms, calls]."""
+        by device time as [name, ms, calls].  ``host=False`` traces the
+        device alone: a path of 10^4-10^5 launches (the SSM families' steps)
+        then costs seconds to trace instead of a minute or more."""
         from torch.profiler import ProfilerActivity, profile
         sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        t_all = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU] * host
+                     + [ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             sync()
@@ -1076,6 +1415,7 @@ def main(argv=None) -> int:
         device_ms = sum(e.self_device_time_total for e in events) / 1e3
         return {"wall_ms": wall_ms, "device_ms": device_ms,
                 "device_idle_share": 1 - device_ms / wall_ms,
+                "profiler_s": time.perf_counter() - t_all,
                 "kernels": [[e.key, e.self_device_time_total / 1e3, e.count]
                             for e in events[:top]]}
 
@@ -1113,6 +1453,7 @@ def main(argv=None) -> int:
     worst = {}   # kernel -> {dtype: max error}
     ratio = {}   # kernel -> {dtype: max error / its per-element bound}
     cases = {}
+    case_err = {}   # (kernel, case label, dtype) -> max error
 
     def record(kernel, dtype, out, plain, label, tol=None):
         """Hold ``out`` to ``plain`` element by element, within atol +
@@ -1126,6 +1467,7 @@ def main(argv=None) -> int:
         del diff, bound
         check(bad == 0, f"{kernel} {label} {key}: {bad} elements past "
               f"{atol} + {rtol} * |plain|, max error {e}")
+        case_err[(kernel, label, key)] = e
         w = worst.setdefault(kernel, {"float32": 0.0, "bfloat16": 0.0})
         w[key] = max(w[key], e)
         w = ratio.setdefault(kernel, {"float32": 0.0, "bfloat16": 0.0})
@@ -1893,6 +2235,9 @@ def main(argv=None) -> int:
     Bm, Sm, Hm, KVm, hdm = LM_SHAPE
     qm, km, vm, out_m = flash_case("serve_shape", (Bm, Sm, Sm, Hm, KVm, hdm),
                                    torch.bfloat16, blocks=(512, 512))
+    Bh, Sh, Hh, KVh, hdh = HYBRID_SHAPE
+    flash_case("hybrid_shape", (Bh, Sh, Sh, Hh, KVh, hdh), torch.bfloat16,
+               blocks=(512, 512))
     # A diagnostic, not a check: the bf16 kernel's own schedule is the plain
     # version at its 128 x 128 tiles (p rounded against the same running
     # maxima), so what is left there is the order of the fp32 sums.
@@ -2036,7 +2381,28 @@ def main(argv=None) -> int:
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
               for ln in sm90_ptxas if "spill" in ln),
           f"the bf16 flash kernels spill: {sm90_ptxas}")
+    # zamba2-1.2b's shared attention (MHA, head_dim 64): the same operations.
+    qh, kh, vh = (torch.randn(s_, generator=gq, device=dev)
+                  .to(torch.bfloat16)
+                  for s_ in ((Bh, Sh, Hh, hdh), (Bh, Sh, KVh, hdh),
+                             (Bh, Sh, KVh, hdh)))
+    hyb_ops = 4 * Bh * Hh * hdh * (Sh * (Sh + 1) // 2)
+    hyb_bytes = 2 * (2 * Bh * Sh * Hh * hdh + 2 * Bh * Sh * KVh * hdh)
+    hyb_lse_bytes = Bh * Hh * Sh * 4
+    hyb15 = {"shape": list(HYBRID_SHAPE), "operations": hyb_ops,
+             "k7_ms": graph_ms(lambda: flash_fwd(qh, kh, vh, causal=True),
+                               5),
+             "plain_ms": time_ms(lambda: flash_fwd_plain(qh, kh, vh,
+                                                         causal=True), 3)}
+    qs_, ks_, vs_ = (t_.transpose(1, 2).contiguous() for t_ in (qh, kh, vh))
+    hyb15["sdpa_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs_, ks_, vs_, is_causal=True), 5)
+    hyb15["bound_ms"] = max(hyb_ops / PEAK_BF16_FLOPS,
+                            (hyb_bytes + hyb_lse_bytes) / PEAK_BYTES) * 1e3
+    hyb15["k7_TFLOPs"] = hyb_ops / (hyb15["k7_ms"] * 1e-3) / 1e12
+    del qh, kh, vh
     emit({"phase": 15, "shape": list(LM_SHAPE), "dtype": "bfloat16",
+          "hybrid_shape": hyb15,
           "k6_ms": k6_ms, "k7_ms": k7_ms, "plain_ms": k67_plain,
           "sdpa_ms": sdpa_ms, "k7_fp32_ms": k7_fp32_ms,
           "operations": lm_ops, "bytes": lm_bytes,
@@ -2098,6 +2464,10 @@ def main(argv=None) -> int:
                      rerun=dtype == torch.bfloat16 and label == "serve_shape")
     bwd_case("ds_rounding", *ds_rounding_case(dev), causal=False)
     bwd_case("dv_p_rounding", *dv_p_rounding_case(dev), causal=False)
+    bwd_case("hybrid_shape", *(
+        torch.randn(s_, generator=gb, device=dev).to(torch.bfloat16)
+        for s_ in ((Bh, Sh, Hh, hdh), (Bh, Sh, KVh, hdh), (Bh, Sh, KVh, hdh),
+                   (Bh, Sh, Hh, hdh))), causal=True)
     emit({"phase": 16, "cases": {n: cases[n] for n in BWD_KERNELS},
           "max_abs_err": {n: worst[n] for n in BWD_KERNELS},
           "max_err_over_bound": {n: ratio[n] for n in BWD_KERNELS},
@@ -2219,7 +2589,40 @@ def main(argv=None) -> int:
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
               for ln in bwd_ptxas if "spill" in ln),
           f"the bf16 backward kernels spill: {bwd_ptxas}")
+    # zamba2-1.2b's shared attention (MHA, head_dim 64).
+    q8h, k8h, v8h, do8h = (torch.randn(s_, generator=gq, device=dev)
+                           .to(torch.bfloat16)
+                           for s_ in ((Bh, Sh, Hh, hdh), (Bh, Sh, KVh, hdh),
+                                      (Bh, Sh, KVh, hdh), (Bh, Sh, Hh, hdh)))
+    o8h, lse8h = flash_fwd(q8h, k8h, v8h, causal=True)
+    delta8h = flash_delta(o8h, do8h)
+    hyb_args = (q8h, k8h, v8h, do8h, lse8h, delta8h)
+    hyb_pairs = Bh * Hh * (Sh * (Sh + 1) // 2)
+    hyb_qkv = 2 * (2 * Bh * Sh * Hh * hdh + 2 * Bh * Sh * KVh * hdh)
+    hyb_stat = 2 * Bh * Hh * Sh * 4
+    hyb19 = {"shape": list(HYBRID_SHAPE),
+             "k8_ms": graph_ms(lambda: launch_bwd_dq(*hyb_args, **kw8), 5),
+             "k9_ms": graph_ms(lambda: launch_bwd_dkv(*hyb_args, **kw8), 5),
+             "k8_plain_ms": time_ms(lambda: flash_bwd_dq_plain(
+                 *hyb_args, causal=True), 3),
+             "k9_plain_ms": time_ms(lambda: flash_bwd_dkv_plain(
+                 *hyb_args, causal=True), 3),
+             "k8_bound_ms": max(6 * hdh * hyb_pairs / PEAK_BF16_FLOPS,
+                                (hyb_qkv + hyb_stat + 2 * Bh * Sh * Hh * hdh)
+                                / PEAK_BYTES) * 1e3,
+             "k9_bound_ms": max(8 * hdh * hyb_pairs / PEAK_BF16_FLOPS,
+                                (hyb_qkv + hyb_stat
+                                 + 2 * 2 * Bh * Sh * KVh * hdh)
+                                / PEAK_BYTES) * 1e3}
+    qs8, ks8, vs8 = (t_.transpose(1, 2).contiguous().requires_grad_()
+                     for t_ in (q8h, k8h, v8h))
+    out8 = F.scaled_dot_product_attention(qs8, ks8, vs8, is_causal=True)
+    dout8 = do8h.transpose(1, 2).contiguous()
+    hyb19["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        out8, (qs8, ks8, vs8), dout8, retain_graph=True), 5)
+    del qs8, ks8, vs8, out8, dout8, hyb_args, q8h, k8h, v8h, do8h, o8h
     emit({"phase": 19, "shape": list(LM_SHAPE), "dtype": "bfloat16",
+          "hybrid_shape": hyb19,
           "k8_ms": k8_ms, "k9_ms": k9_ms, "k8_plain_ms": k8_plain,
           "k9_plain_ms": k9_plain, "sdpa_bwd_ms": sdpa_bwd_ms,
           "k8_bound_ms": max(k8_ops / PEAK_BF16_FLOPS,
@@ -2396,6 +2799,58 @@ def main(argv=None) -> int:
     emit(adjoint_phase(dev, smi))
 
     kernels[-3]["train_launches"] = launches18.get("flash_fwd", 0)
+    # -- 24-26. the ssm and hybrid families ------------------------------------
+    torch.cuda.empty_cache()
+    fam = lm_families_phases(dev, device_profile)
+    zamba = "zamba2-1.2b"
+    serve_z, train_z = fam["launches"][(24, zamba)], fam["launches"][(26,
+                                                                      zamba)]
+    hybrid_rows = {"shape": list(HYBRID_SHAPE), "dtype": "bfloat16",
+                   "case": "zamba2-1.2b's shared attention (MHA, head_dim "
+                           "64)", "plain_timing": "eager",
+                   "library": "F.scaled_dot_product_attention"}
+    dkv_err = max(case_err[("flash_bwd_dkv", f"hybrid_shape {g}",
+                            "bfloat16")] for g in ("dk", "dv"))
+    kernels += [
+        entry("flash_fwd", "src/repro_torch/csrc/flash_attention_sm90.cu",
+              "src/repro/kernels/flash_attention_bwd.py:86", hyb15["k7_ms"],
+              hyb15["plain_ms"], hyb_bytes + hyb_lse_bytes, hyb_ops,
+              hyb15["sdpa_ms"],
+              {**hybrid_rows, "train_launches": train_z.get("flash_fwd", 0),
+               "max_abs_err": case_err[("flash_fwd", "hybrid_shape",
+                                        "bfloat16")]},
+              serve_z, PEAK_BF16_FLOPS),
+        entry("flash_bwd_dq",
+              "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+              "src/repro/kernels/flash_attention_bwd.py:223",
+              hyb19["k8_ms"], hyb19["k8_plain_ms"],
+              hyb_qkv + hyb_stat + 2 * Bh * Sh * Hh * hdh,
+              6 * hdh * hyb_pairs, hyb19["sdpa_bwd_ms"],
+              {**hybrid_rows, "library": "backward of "
+               "F.scaled_dot_product_attention (dq, dk and dv together)",
+               "max_abs_err": case_err[("flash_bwd_dq", "hybrid_shape",
+                                        "bfloat16")]},
+              train_z, PEAK_BF16_FLOPS),
+        entry("flash_bwd_dkv",
+              "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+              "src/repro/kernels/flash_attention_bwd.py:249",
+              hyb19["k9_ms"], hyb19["k9_plain_ms"],
+              hyb_qkv + hyb_stat + 2 * 2 * Bh * Sh * KVh * hdh,
+              8 * hdh * hyb_pairs, hyb19["sdpa_bwd_ms"],
+              {**hybrid_rows, "library": "backward of "
+               "F.scaled_dot_product_attention (dq, dk and dv together)",
+               "max_abs_err": dkv_err},
+              train_z, PEAK_BF16_FLOPS)]
+    for (phase, arch), got in fam["launches"].items():
+        check(arch == zamba or not got, f"{arch} launched {got} in phase "
+              f"{phase}")
+    check(serve_z == {"flash_fwd": 12}, f"zamba2's serve path launched "
+          f"{serve_z}")
+    steps26 = SSM_TRAIN[2]
+    check(train_z == {"flash_fwd": 12 * steps26, "flash_bwd_dq": 6 * steps26,
+                      "flash_bwd_dkv": 6 * steps26},
+          f"zamba2's train path launched {train_z}")
+
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")
     check(launches18 == {k: T18 * n for k, n in step_launches.items()},

@@ -5,7 +5,9 @@ solver family's (registered, but not in ``list_archs()``), and
 ``JACOBI_CONFIGS`` the paper's own benchmark configurations."""
 from repro_torch.configs import (  # noqa: F401  (registers)
     learned_stencil,
+    mamba2_370m,
     qwen3_0_6b,
+    zamba2_1_2b,
 )
 from repro_torch.configs.base import ModelConfig, get_config, list_archs
 from repro_torch.configs.jacobi import JACOBI_CONFIGS, JacobiConfig

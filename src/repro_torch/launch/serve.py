@@ -5,11 +5,17 @@ of the JAX package's ``launch/serve.py``.
         --batch 4 --prompt-len 2048 --tokens 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --smoke --device cpu --dtype float32 --prompt-len 32 --tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+        --batch 4 --prompt-len 2048 --tokens 32            # or mamba2-370m
 
 Weights are random, drawn from ``--seed`` with JAX's distributions; prompts
 are token ids from ``numpy.random.default_rng(seed)``; there is no
-tokenizer.  ``--attn-impl`` sets the config's ``attn_impl`` (``flash``: the
-prefill attention runs the CUDA kernel K7; ``xla``: plain PyTorch).  On the
+tokenizer.  Every family of ``transformer.FAMILIES`` serves: dense
+(qwen3-0.6b), ssm (mamba2-370m: no attention, so no kernel of K1-K9 and
+``--attn-impl`` does not apply) and hybrid (zamba2-1.2b: its shared
+attention block, six times a prefill).  ``--attn-impl`` sets the config's
+``attn_impl`` (``flash``: the prefill attention runs the CUDA kernel K7;
+``xla``: plain PyTorch).  On the
 card the prefill and the decode loop are timed with CUDA events after one
 untimed warm-up (kernel build, library load); on the CPU with the host
 clock, and the output says which.
@@ -59,13 +65,17 @@ class _Clock:
 
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
           device=None, dtype: torch.dtype = torch.bfloat16,
-          seed: int = 0) -> dict:
+          seed: int = 0, model=None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``tokens`` greedy tokens; returns the generated ids, the timings and
-    the kernel launches of the timed prefill and decode."""
-    dev = resolve_device(device)
-    model = build(cfg, device=dev, dtype=dtype,
-                  generator=torch.Generator(device=dev).manual_seed(seed))
+    the kernel launches of the timed prefill and decode.  ``model``, a
+    model of ``cfg`` already built, is served as it is (on its own device,
+    in its own type) in place of one drawn from ``seed``."""
+    if model is None:
+        dev = resolve_device(device)
+        model = build(cfg, device=dev, dtype=dtype,
+                      generator=torch.Generator(device=dev).manual_seed(seed))
+    dev = model.device
     rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=dev)

@@ -6,15 +6,19 @@ failure-injection options come with ``runtime/ft.py``).
         --global-batch 4 --seq-len 2048 --steps 5           # on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --smoke --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
+        --global-batch 4 --seq-len 2048 --steps 5           # or zamba2-1.2b
 
 The fp32 master weights are random, drawn from ``--seed`` with JAX's
 distributions; each step's batch is ``data.synthetic.token_batch`` (JAX's
 numbers); the forward and backward compute in bf16 with layer groups under
-checkpoint.  ``--attn-impl flash`` (the default) runs attention through the
-CUDA kernels: K7 forward (twice a layer, once more in the recompute) and
-K8/K9 backward; ``xla`` through plain PyTorch.  On the card each step is
-timed with CUDA events; on the CPU with the host clock, and the output says
-which.  The first step pays the kernel build and the allocator's growth.
+checkpoint (the Mamba2 blocks' SSD chunks too).  ``--attn-impl flash``
+(the default) runs attention through the CUDA kernels: K7 forward (once in
+the forward and once more in the recompute, a layer or, for zamba2-1.2b, a
+use of its shared block) and K8/K9 backward; ``xla`` through plain
+PyTorch.  mamba2-370m has no attention and launches no kernel.  On the
+card each step is timed with CUDA events; on the CPU with the host clock,
+and the output says which.  The first step pays the kernel build and the allocator's growth.
 """
 from __future__ import annotations
 

@@ -2,10 +2,14 @@
 and the port's named tensors back into JAX's layout.
 
 ``from_jax_params(cfg, params)`` takes the JAX package's nested param dict
-as numpy arrays — ``embed``, ``final_norm``, ``lm_head`` and ``layers/
-{attn_norm, attn/{wq, wk, wv, wo, q_norm, k_norm}, mlp_norm, mlp/{up,
-gate, down}}`` stacked on a leading layer axis — and returns the port's
-model holding the same numbers.  ``from_jax_state`` carries a JAX train
+as numpy arrays — ``embed``, ``final_norm``, ``lm_head`` and the layer
+lists stacked on leading axes (``transformer.stacked_axes``: dense
+``layers/{attn_norm, attn/{wq, wk, wv, wo, q_norm, k_norm}, mlp_norm,
+mlp/{up, gate, down}}`` on (n_layers,); ssm ``layers/{norm, mixer/…}``;
+hybrid ``layers`` on (groups, attn_every), ``tail_layers`` and the one
+``shared_attn``) — and returns the port's model holding the same numbers,
+each leaf in its parameter's type (the Mamba2 mixer's ``A_log``, ``D`` and
+``dt_bias`` fp32 in every model).  ``from_jax_state`` carries a JAX train
 state ({params, m, v, step}) into the port's (``train.train_step``), so both
 packages can start from the same numbers at any step; ``to_jax_tree`` goes
 the other way for comparisons.  ``from_jax_solver_params`` and
@@ -22,7 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.models.layers import flatten, set_path
 from repro_torch.models.solver_layer import SolverLayer, SolverLayerConfig
-from repro_torch.models.transformer import Transformer, model_table
+from repro_torch.models.transformer import (Transformer, model_table,
+                                            stacked_axes)
 from repro_torch.train.train_step import init_train_state
 
 
@@ -35,15 +40,16 @@ def _as_f32(value) -> np.ndarray:
 def from_jax_params(cfg: ModelConfig, params: dict, *, device=None,
                     dtype: torch.dtype | None = None) -> Transformer:
     """The model of ``cfg`` with JAX's numbers; ``dtype`` defaults to the
-    tree's."""
+    type of the tree's ``embed`` (the model's type; a leaf that pins its
+    own keeps it).  Every leaf is carried in fp32, which holds bf16
+    exactly, and cast to its parameter's type as it is copied in."""
     dev = resolve_device(device)
-    leaves = flatten(params)
     if dtype is None:
-        dtype = (torch.float32 if np.asarray(leaves[0][1]).dtype
+        dtype = (torch.float32 if np.asarray(params["embed"]).dtype
                  == np.float32 else torch.bfloat16)
     tree: dict = {}
-    for path, value in leaves:
-        set_path(tree, path, torch.from_numpy(_as_f32(value)).to(dev, dtype))
+    for path, value in flatten(params):
+        set_path(tree, path, torch.from_numpy(_as_f32(value)).to(dev))
     model = Transformer(cfg, device=dev, dtype=dtype)
     model.load_params(tree)
     return model
@@ -51,13 +57,16 @@ def from_jax_params(cfg: ModelConfig, params: dict, *, device=None,
 
 def named_arrays(cfg: ModelConfig, tree: dict) -> dict[str, np.ndarray]:
     """A JAX-layout tree as {port parameter name: fp32 array}, the stacked
-    layer axis split into ``layers.<i>.…``."""
+    layer axes split into ``layers.<i>.…`` (the hybrid's
+    ``layers.<g>.<i>.…``)."""
+    axes = stacked_axes(cfg)
     out = {}
     for path, value in flatten(tree):
         value = _as_f32(value)
-        if path[0] == "layers":
-            for i in range(cfg.n_layers):
-                out[".".join(("layers", str(i), *path[1:]))] = value[i]
+        if path[0] in axes:
+            for idx in np.ndindex(*axes[path[0]]):
+                out[".".join((path[0], *map(str, idx), *path[1:]))] = \
+                    value[idx]
         else:
             out[".".join(path)] = value
     return out
@@ -65,14 +74,17 @@ def named_arrays(cfg: ModelConfig, tree: dict) -> dict[str, np.ndarray]:
 
 def to_jax_tree(cfg: ModelConfig, named: dict) -> dict:
     """{port parameter name: tensor} back into JAX's nested layout (fp32
-    numpy, layers stacked), in ``model_table``'s order."""
+    numpy, layer lists stacked), in ``model_table``'s order."""
+    axes = stacked_axes(cfg)
     tree: dict = {}
     for path, _ in flatten(model_table(cfg)):
-        if path[0] == "layers":
+        if path[0] in axes:
+            shape = axes[path[0]]
             value = np.stack([
-                named[".".join(("layers", str(i), *path[1:]))]
+                named[".".join((path[0], *map(str, idx), *path[1:]))]
                 .detach().float().cpu().numpy()
-                for i in range(cfg.n_layers)])
+                for idx in np.ndindex(*shape)])
+            value = value.reshape(*shape, *value.shape[1:])
         else:
             value = named[".".join(path)].detach().float().cpu().numpy()
         set_path(tree, path, value)

@@ -2,9 +2,12 @@
 port of the JAX package's ``models/layers.py`` (``apply_mrope`` and
 ``layer_norm`` come with the LM families that use them).
 
-Parameters are declared once as ``ParamDef(shape, scale)`` tables, as in
-JAX; :func:`init_params` draws them from an explicit ``torch.Generator``
-with JAX's distributions (not its numbers: the two generators differ).
+Parameters are declared once as ``ParamDef(shape, scale, dtype)`` tables,
+as in JAX; :func:`init_params` draws them from an explicit
+``torch.Generator`` with JAX's distributions (not its numbers: the two
+generators differ).  A leaf whose ``dtype`` is set keeps it whatever the
+model's type (the Mamba2 mixer's ``A_log``, ``D`` and ``dt_bias`` are fp32
+in every model).
 Stacked layer tables keep JAX's quirk: ``stack_tables`` prefixes the layer
 axis, and the ``"fan_in"`` rule then reads ``shape[0]``, so every stacked
 layer weight has std ``1/sqrt(n_layers)``.
@@ -26,12 +29,14 @@ class ParamDef:
     1/sqrt(shape[0])), a float (normal, that std), ``"one"``, ``"zero"`` or
     ``"const:<v>"`` (every entry v: the solver layer's stencil weights start
     at a known-stable operator, not at noise).  The constant rules draw
-    nothing from the generator."""
+    nothing from the generator.  ``dtype`` None means the model's."""
     shape: tuple[int, ...]
     scale: float | str = "fan_in"
+    dtype: torch.dtype | None = None
 
     def init(self, generator: torch.Generator, dtype: torch.dtype,
              device: torch.device) -> torch.Tensor:
+        dtype = self.dtype or dtype
         if self.scale == "zero":
             return torch.zeros(self.shape, dtype=dtype, device=device)
         if self.scale == "one":
@@ -52,7 +57,7 @@ class ParamDef:
 def init_params(table: Mapping[str, Any], generator: torch.Generator,
                 dtype: torch.dtype, device: torch.device) -> dict:
     """Materialize a (nested) ParamDef table into tensors, in the table's
-    order, all from one generator."""
+    order, all from one generator; ``dtype`` for the leaves that set none."""
     out: dict = {}
     for path, pd in flatten(table):
         set_path(out, path, pd.init(generator, dtype, device))
@@ -63,7 +68,7 @@ def stack_tables(table: Mapping[str, Any], n: int) -> dict:
     """Prefix every ParamDef with a leading stacked-layers dim."""
     out: dict = {}
     for path, pd in flatten(table):
-        set_path(out, path, ParamDef((n, *pd.shape), pd.scale))
+        set_path(out, path, ParamDef((n, *pd.shape), pd.scale, pd.dtype))
     return out
 
 

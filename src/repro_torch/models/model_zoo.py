@@ -4,8 +4,9 @@
 ``build(cfg)`` returns the model whose methods stand for JAX's ``ModelApi``
 (``forward``, ``prefill``, ``decode_step``, ``cache_shapes``,
 ``init_cache``); in PyTorch the parameters live in the module instead of
-being passed in.  The dense family is ported, and the solver family
-(``family="solver"``, ``models/solver_layer.py``); the others raise
+being passed in.  The dense, ssm and hybrid families are ported
+(``transformer.FAMILIES``), and the solver family (``family="solver"``,
+``models/solver_layer.py``); the others raise
 (``transformer.check_family``).
 """
 from __future__ import annotations

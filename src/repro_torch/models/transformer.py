@@ -1,31 +1,48 @@
-"""Decoder-only transformer, dense family — the port of the JAX package's
-``models/transformer.py`` for ``family == "dense"``.
+"""Decoder-only transformer, the dense, ssm and hybrid families — the port
+of the JAX package's ``models/transformer.py`` for ``family`` in
+``FAMILIES``.
 
 Modes, as in JAX: train-mode ``forward`` (full-sequence causal, no cache,
-layer groups under checkpoint), ``prefill`` (full sequence, returns the KV
-cache padded to ``max_len``) and ``decode_step`` (one token against the
-cache).  ``cfg.attn_impl`` picks the full-sequence attention: ``"flash"``
-runs the CUDA kernels (``kernels/flash_attention_bwd.
+layer groups under checkpoint), ``prefill`` (full sequence, returns the
+cache, attention's padded to ``max_len``) and ``decode_step`` (one token
+against the cache).  ``cfg.attn_impl`` picks the full-sequence attention:
+``"flash"`` runs the CUDA kernels (``kernels/flash_attention_bwd.
 flash_attention_trainable``, blocks 512 x 512, as ``transformer.py:168``:
 K7 forward, K8/K9 backward), ``"xla"`` the plain PyTorch
 ``models/attention.attention``.  The port runs on one device and has no
 sharder, so the field alone picks the path.  Decode attention is
 ``decode_attention`` on both (JAX runs no Pallas kernel there).
 
-Parameters keep the JAX layouts (wq (D, H, hd), wo (H, hd, D), lm_head
-(V, D), ...) so ``models/convert.py`` loads a JAX tree as it is; one
-``DenseBlock`` module holds one layer of JAX's stacked ``layers`` tree.
-The cache is JAX's: {"k", "v"} of shape (n_layers, B, max_len, KV, hd).
-``decode_step`` writes the new token's k/v into it in place (JAX returns an
-updated copy) and returns it.
+The families:
 
-The other LM families (moe, ssm, hybrid, vlm, encdec) raise: they come
-with the LM-families item of ROADMAP queue 1.  The solver family
+- dense: ``layers``, one ``DenseBlock`` a layer;
+- ssm (mamba2-370m): ``layers``, one ``MambaBlock`` a layer (rms-norm, then
+  the ``models/ssm.py`` mixer, plus the residual); no attention, so no
+  kernel of K1-K9 and ``attn_impl`` does not apply;
+- hybrid (zamba2-1.2b): ``layers`` in G = n_layers // attn_every groups of
+  attn_every ``MambaBlock``s, each group followed by ``shared_attn``, one
+  ``DenseBlock`` whose parameters all G applications use (their gradients
+  add up), then ``tail_layers``, the n_layers % attn_every left over.
+
+Parameters keep the JAX layouts (wq (D, H, hd), wo (H, hd, D), lm_head
+(V, D), ...) so ``models/convert.py`` loads a JAX tree as it is: JAX stacks
+each layer list on leading axes (``stacked_axes``: (n_layers,), or the
+hybrid's (G, attn_every) and (rem,)), the port holds one block a layer
+(``layers.<g>.<i>.…`` in the hybrid).  The caches are JAX's: dense {"k",
+"v"} (n_layers, B, max_len, KV, hd); ssm {"conv_x", "conv_bc", "state"}
+stacked over layers, ``state`` fp32; hybrid {"groups": the Mamba caches on
+(G, attn_every), "attn": {"k", "v"} (G, B, max_len, KV, hd), "tail": on
+(rem,)}.  ``decode_step`` writes the new token's entries into the cache in
+place (JAX returns an updated copy) and returns it.
+
+The other LM families (moe, vlm, encdec) raise: they come with the
+LM-families item of ROADMAP queue 1.  The solver family
 (``family="solver"``) is no transformer: ``model_zoo.build`` sends it to
 ``models/solver_layer.py``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,8 +55,10 @@ from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import (ParamDef, apply_rope, flatten,
                                        init_params, rms_norm, stack_tables)
 from repro_torch.models.mlp import MLP, mlp_table
+from repro_torch.models.ssm import (Mamba2Mixer, mamba2_cache_dims,
+                                    mamba2_cache_shapes, mamba2_table)
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -69,8 +88,14 @@ def attn_table(cfg: ModelConfig) -> dict:
     return t
 
 
-def block_table(cfg: ModelConfig) -> dict:
+def block_table(cfg: ModelConfig, kind: str = "dense") -> dict:
     D = cfg.d_model
+    if kind == "mamba":
+        return {
+            "norm": ParamDef((D,), scale="one"),
+            "mixer": mamba2_table(D, cfg.d_inner, cfg.n_ssm_heads,
+                                  cfg.ssm_state, cfg.d_conv),
+        }
     return {
         "attn_norm": ParamDef((D,), scale="one"),
         "attn": attn_table(cfg),
@@ -79,15 +104,34 @@ def block_table(cfg: ModelConfig) -> dict:
     }
 
 
-def model_table(cfg: ModelConfig) -> dict:
+def stacked_axes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The leading axes on which JAX stacks each layer list of the tree."""
     check_family(cfg)
+    if cfg.family == "hybrid":
+        groups, rem = divmod(cfg.n_layers, cfg.attn_every)
+        out = {"layers": (groups, cfg.attn_every)}
+        if rem:
+            out["tail_layers"] = (rem,)
+        return out
+    return {"layers": (cfg.n_layers,)}
+
+
+def model_table(cfg: ModelConfig) -> dict:
     D, V = cfg.d_model, cfg.padded_vocab
-    return {
+    t = {
         "embed": ParamDef((V, D), scale=1.0),
         "final_norm": ParamDef((D,), scale="one"),
         "lm_head": ParamDef((V, D)),
-        "layers": stack_tables(block_table(cfg), cfg.n_layers),
     }
+    kind = "dense" if cfg.family == "dense" else "mamba"
+    for name, axes in stacked_axes(cfg).items():
+        table = block_table(cfg, kind)
+        for n in reversed(axes):
+            table = stack_tables(table, n)
+        t[name] = table
+    if cfg.family == "hybrid":
+        t["shared_attn"] = block_table(cfg)   # one block, reused
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -177,12 +221,51 @@ class DenseBlock(nn.Module):
         return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps))
 
 
+class MambaBlock(nn.Module):
+    """rms-norm, the Mamba2 mixer, the residual (JAX's ``mamba_block``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.d_conv = cfg.d_conv
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.norm = nn.Parameter(torch.empty(cfg.d_model, **kw))
+        self.mixer = Mamba2Mixer(cfg.d_model, cfg.d_inner, cfg.n_ssm_heads,
+                                 cfg.ssm_head_dim, cfg.ssm_state, cfg.d_conv,
+                                 cfg.ssm_chunk, **kw)
+
+    def forward(self, x: torch.Tensor, positions=None):
+        """Train form: -> (x, None), as ``DenseBlock``'s (x, kv);
+        ``positions`` is not used."""
+        return x + self.mixer(rms_norm(x, self.norm, self.eps)), None
+
+    def prefill(self, x: torch.Tensor):
+        """-> (x, this layer's cache): the final SSD state, and the conv
+        halo, the last K-1 *pre-conv* projections (fp32 sums, then cast)."""
+        h = rms_norm(x, self.norm, self.eps)
+        y, final = self.mixer(h, return_state=True)
+        tail = h[:, -(self.d_conv - 1):].float()
+        p = self.mixer
+        return x + y, {"conv_x": (tail @ p.x_proj.float()).to(x.dtype),
+                       "conv_bc": (tail @ p.bc_proj.float()).to(x.dtype),
+                       "state": final}
+
+    def decode(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
+        """x: (B, 1, D); ``cache``'s tensors are overwritten in place."""
+        y, new = self.mixer.decode(rms_norm(x, self.norm, self.eps)[:, 0],
+                                   cache)
+        for name, t in new.items():
+            cache[name].copy_(t)
+        return x + y[:, None]
+
+
 class Transformer(nn.Module):
-    """The dense decoder.  Its methods are the port's ``ModelApi``
-    (``forward``, ``prefill``, ``decode_step``, ``cache_shapes``,
-    ``init_cache``); the parameters live in the module.  ``device=None``
-    means the card, as for every entry point (``core.plan.resolve_device``);
-    the modules below take the same rule."""
+    """The decoder of the ``FAMILIES``.  Its methods are the port's
+    ``ModelApi`` (``forward``, ``prefill``, ``decode_step``, ``cache_shapes``,
+    ``cache_dims``, ``init_cache``); the parameters live in the module.
+    ``device=None`` means the card, as for every entry point
+    (``core.plan.resolve_device``); the modules below take the same rule."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
@@ -194,8 +277,17 @@ class Transformer(nn.Module):
         self.embed = nn.Parameter(torch.empty(V, D, **kw))
         self.final_norm = nn.Parameter(torch.empty(D, **kw))
         self.lm_head = nn.Parameter(torch.empty(V, D, **kw))
-        self.layers = nn.ModuleList(DenseBlock(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        block = DenseBlock if cfg.family == "dense" else MambaBlock
+
+        def blocks(axes):
+            if len(axes) == 1:
+                return nn.ModuleList(block(cfg, **kw) for _ in range(axes[0]))
+            return nn.ModuleList(blocks(axes[1:]) for _ in range(axes[0]))
+
+        for name, axes in stacked_axes(cfg).items():
+            setattr(self, name, blocks(axes))
+        if cfg.family == "hybrid":
+            self.shared_attn = DenseBlock(cfg, **kw)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -209,13 +301,17 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def load_params(self, tree: dict) -> None:
-        """Copy a JAX-layout parameter tree (stacked ``layers``) in."""
+        """Copy a JAX-layout parameter tree (layer lists stacked on
+        ``stacked_axes``) in, each leaf cast to its parameter's type."""
+        axes = stacked_axes(self.cfg)
         n = 0
         for path, value in flatten(tree):
             value = torch.as_tensor(value)
-            if path[0] == "layers":
-                for i, layer in enumerate(self.layers):
-                    _param(layer, path[1:]).copy_(value[i])
+            if path[0] in axes:
+                for idx in np.ndindex(*axes[path[0]]):
+                    block = self.get_submodule(".".join(
+                        (path[0], *map(str, idx))))
+                    _param(block, path[1:]).copy_(value[idx])
             else:
                 _param(self, path).copy_(value)
             n += 1
@@ -238,34 +334,69 @@ class Transformer(nn.Module):
         B, S = tokens.shape
         return torch.arange(S, device=tokens.device).expand(B, S)
 
-    def _run_layers(self, x: torch.Tensor, positions: torch.Tensor,
-                    start: int, stop: int) -> torch.Tensor:
-        for layer in self.layers[start:stop]:
-            x, _ = layer(x, positions)
+    @staticmethod
+    def _run_blocks(x: torch.Tensor, positions: torch.Tensor,
+                    blocks) -> torch.Tensor:
+        for block in blocks:
+            x, _ = block(x, positions)
+        return x
+
+    def _run_layers(self, x, positions, blocks, remat: bool,
+                    group: int) -> torch.Tensor:
+        """``blocks`` in order; with ``remat`` each run of ``group`` (1
+        where it does not divide their number, as JAX's ``_run_layers``)
+        under ``torch.utils.checkpoint``."""
+        if not remat:
+            return self._run_blocks(x, positions, blocks)
+        n = len(blocks)
+        g = group if group > 1 and n % group == 0 else 1
+        for start in range(0, n, g):
+            x = checkpoint(self._run_blocks, x, positions,
+                           blocks[start:start + g], use_reentrant=False)
         return x
 
     def forward(self, tokens: torch.Tensor, positions=None, *,
                 remat: bool = True):
         """Train-mode forward: (final hidden (B, S, D), aux loss 0).
 
-        With ``remat`` each group of ``cfg.remat_group`` layers (1 where the
-        group does not divide ``n_layers``, as JAX's ``_run_layers``) runs
-        under ``torch.utils.checkpoint``: the backward keeps one residual a
-        group and runs the group's forward again, flash kernel included.
+        With ``remat`` the dense and ssm families run each group of
+        ``cfg.remat_group`` layers under ``torch.utils.checkpoint``: the
+        backward keeps one residual a group and runs the group's forward
+        again, flash kernel included.  The hybrid checkpoints each group
+        of Mamba blocks with its shared attention, and its tail a layer at
+        a time, as JAX does.  Inside a Mamba block each SSD chunk is
+        checkpointed as well (``models/ssm.ssd_scan``).
         """
         x = self._embed(tokens)
         if positions is None:
             positions = self._default_positions(tokens)
-        n, g = len(self.layers), self.cfg.remat_group
-        if not remat:
-            x = self._run_layers(x, positions, 0, n)
+        if self.cfg.family == "hybrid":
+            # Each group and the shared block after it: one checkpoint.
+            seq = [b for g in self.layers for b in (*g, self.shared_attn)]
+            x = self._run_layers(x, positions, seq, remat,
+                                 self.cfg.attn_every + 1)
+            if hasattr(self, "tail_layers"):
+                x = self._run_layers(x, positions, list(self.tail_layers),
+                                     remat, 1)
         else:
-            g = g if g > 1 and n % g == 0 else 1
-            for start in range(0, n, g):
-                x = checkpoint(self._run_layers, x, positions, start,
-                               start + g, use_reentrant=False)
+            x = self._run_layers(x, positions, list(self.layers), remat,
+                                 self.cfg.remat_group)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return x, torch.zeros((), device=x.device)
+
+    def _schedule(self):
+        """The blocks in the order a forward runs them, each with its cache
+        slot: (block, subtree of the cache or None for its root, index on
+        that subtree's stacked axes).  The hybrid's shared block comes
+        once a group, at the group's slot of the attention cache."""
+        if self.cfg.family != "hybrid":
+            return [(b, None, i) for i, b in enumerate(self.layers)]
+        out = []
+        for g, group in enumerate(self.layers):
+            out += [(b, "groups", (g, i)) for i, b in enumerate(group)]
+            out.append((self.shared_attn, "attn", g))
+        return out + [(b, "tail", i) for i, b in
+                      enumerate(getattr(self, "tail_layers", ()))]
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int, positions=None):
@@ -278,10 +409,16 @@ class Transformer(nn.Module):
         if positions is None:
             positions = self._default_positions(tokens)
         cache = self.init_cache(B, max_len)
-        for i, layer in enumerate(self.layers):
-            x, (k, v) = layer(x, positions)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+        for block, key, idx in self._schedule():
+            slot = cache[key] if key else cache
+            if isinstance(block, DenseBlock):
+                x, (k, v) = block(x, positions)
+                slot["k"][idx, :, :S] = k
+                slot["v"][idx, :, :S] = v
+            else:
+                x, layer_cache = block.prefill(x)
+                for name, t in layer_cache.items():
+                    slot[name][idx] = t
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return x[:, -1], cache
 
@@ -292,8 +429,14 @@ class Transformer(nn.Module):
         B = token.shape[0]
         x = self._embed(token[:, None])
         pos = torch.full((B, 1), kv_len, device=token.device)
-        for i, layer in enumerate(self.layers):
-            x = layer.decode(x, cache["k"][i], cache["v"][i], kv_len, pos)
+        for block, key, idx in self._schedule():
+            slot = cache[key] if key else cache
+            if isinstance(block, DenseBlock):
+                x = block.decode(x, slot["k"][idx], slot["v"][idx], kv_len,
+                                 pos)
+            else:
+                x = block.decode(x, {name: t[idx]
+                                     for name, t in slot.items()})
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return mask_pad_logits(self.logits(x[:, 0]), self.cfg), cache
 
@@ -306,14 +449,56 @@ class Transformer(nn.Module):
 
     # -- caches ------------------------------------------------------------
 
+    def _cache_layout(self) -> dict:
+        """{subtree of the cache (None: its root): (the per-layer kind,
+        "attn" or "mamba", stacked on these axes)}."""
+        axes = stacked_axes(self.cfg)
+        if self.cfg.family == "dense":
+            return {None: ("attn", axes["layers"])}
+        if self.cfg.family == "ssm":
+            return {None: ("mamba", axes["layers"])}
+        out = {"groups": ("mamba", axes["layers"]),
+               "attn": ("attn", axes["layers"][:1])}
+        if "tail_layers" in axes:
+            out["tail"] = ("mamba", axes["tail_layers"])
+        return out
+
+    def _from_layout(self, per_layer: dict, stack) -> dict:
+        out = {key: stack(per_layer[kind], axes)
+               for key, (kind, axes) in self._cache_layout().items()}
+        return out.pop(None) if None in out else out
+
     def cache_shapes(self, batch: int, max_len: int) -> dict:
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": shape, "v": shape}
+        """The cache's tree (JAX's layout) of (shape, dtype) leaves."""
+        cfg, dt = self.cfg, self.dtype
+        per_layer = {
+            "attn": {name: ((batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+                            dt) for name in ("k", "v")},
+            "mamba": mamba2_cache_shapes(batch, cfg.n_ssm_heads,
+                                         cfg.ssm_head_dim, cfg.ssm_state,
+                                         cfg.d_conv, cfg.d_inner, dt)}
+        return self._from_layout(per_layer, _stack)
+
+    def cache_dims(self) -> dict:
+        """The cache's logical dim names (JAX's ``cache_dims``)."""
+        per_layer = {
+            "attn": {name: ("batch", "kv_seq", "kv_heads", "head_dim")
+                     for name in ("k", "v")},
+            "mamba": mamba2_cache_dims()}
+        return self._from_layout(per_layer, lambda dims, axes: {
+            k: (None,) * len(axes) + d for k, d in dims.items()})
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return {name: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                for name, shape in self.cache_shapes(batch, max_len).items()}
+        def zeros(tree):
+            return {name: (zeros(leaf) if isinstance(leaf, dict) else
+                           torch.zeros(leaf[0], dtype=leaf[1],
+                                       device=self.device))
+                    for name, leaf in tree.items()}
+        return zeros(self.cache_shapes(batch, max_len))
+
+
+def _stack(shapes: dict, axes: tuple[int, ...]) -> dict:
+    return {name: ((*axes, *shape), dt) for name, (shape, dt) in shapes.items()}
 
 
 def _param(module: nn.Module, path) -> torch.Tensor:

@@ -13,6 +13,13 @@ be closer to JAX's form, but the layer checkpoints recompute their forward
 in the backward, after ``functional_call`` has put the module's own
 parameters back, and would silently differentiate those.
 
+A leaf whose ``ParamDef`` pins its type (the Mamba2 mixer's ``A_log``, ``D``
+and ``dt_bias``, fp32) keeps it in the compute model, as the JAX package's
+``init_params`` and ``stack_tables`` keep it in every model it builds.
+JAX's ``cast_tree`` rounds those three to bf16 as well; at initialisation
+they hold 0 and 1, which bf16 holds exactly, and later the port's fp32
+copies differ from JAX's by that rounding.
+
 Where the compute type is the masters' (fp32 compute), the compute model is
 the master model itself and nothing is copied.  A solver-family model
 (``models/solver_layer.py``) always trains in fp32 on its masters, with
@@ -41,7 +48,8 @@ def loss_fn(model: Transformer, batch: dict, *, remat: bool = True):
 def compute_model(model: Transformer,
                   compute_dtype: torch.dtype) -> Transformer:
     """``model`` itself if it is in ``compute_dtype``, else an empty module
-    of its config in that type on its device."""
+    of its config in that type on its device (leaves that pin their type
+    keep it)."""
     if model.dtype == compute_dtype:
         return model
     return Transformer(model.cfg, device=model.device, dtype=compute_dtype)
@@ -49,8 +57,8 @@ def compute_model(model: Transformer,
 
 @torch.no_grad()
 def load_params(compute: Transformer, params: dict) -> None:
-    """Copy the named fp32 masters into the compute model, cast to its type
-    (JAX's ``cast_tree``)."""
+    """Copy the named fp32 masters into the compute model, each cast to its
+    parameter's type (JAX's ``cast_tree``, but pinned leaves stay fp32)."""
     for name, p in compute.named_parameters():
         src = params[name]
         if p.data_ptr() != src.data_ptr():

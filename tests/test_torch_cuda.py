@@ -996,6 +996,86 @@ def test_smoke_train_step_launches_k7_k8_k9(cuda):
             g.abs().max()), name
 
 
+# --- the ssm and hybrid families (mamba2-370m, zamba2-1.2b) ---------------------
+
+SSM_SMOKES = {arch: dataclasses.replace(get_config(arch, smoke=True),
+                                        attn_impl="flash")
+              for arch in ("mamba2-370m", "zamba2-1.2b")}
+
+
+def _attn_uses(cfg):
+    """Applications of an attention block in one forward."""
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+
+
+@pytest.mark.parametrize("arch", list(SSM_SMOKES))
+def test_ssm_families_on_the_card_match_the_cpu(cuda, arch):
+    """fp32, the same weights on both devices: the prefill hidden, every
+    cache leaf and four decode steps' logits within 1e-4 of their max-abs
+    (each device's run lies within 2.1e-5 of a float64 one,
+    tests/_torch_ssm_noise.py --card); K7 once a use of the hybrid's
+    shared block in a prefill, none in decode or for mamba2."""
+    cfg = SSM_SMOKES[arch]
+    model = build(cfg, device=cuda, dtype=torch.float32)
+    cpu = Transformer(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 37), device=cuda)
+    _build.LAUNCHES.clear()
+    h, cache = model.prefill(tokens, 48)
+    torch.cuda.synchronize()
+    uses = _attn_uses(cfg)
+    assert dict(_build.LAUNCHES) == ({"flash_fwd": uses} if uses else {})
+    hc, cache_c = cpu.prefill(tokens.cpu(), 48)
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    assert rel(h, hc) <= 1e-4
+    flat = lambda c: {k: v for k, v in (
+        (f"{a}.{b}", t) for a, sub in c.items()
+        for b, t in (sub.items() if isinstance(sub, dict) else [("", sub)]))}
+    for name, t in flat(cache_c).items():
+        assert flat(cache)[name].dtype == t.dtype, name
+        if t.abs().max() > 0:
+            assert rel(flat(cache)[name], t) <= 1e-4, name
+    tok = tokens[:, -1]
+    for i in range(4):
+        logits, cache = model.decode_step(tok, cache, 37 + i)
+        want, cache_c = cpu.decode_step(tok.cpu(), cache_c, 37 + i)
+        assert rel(logits, want) <= 1e-4, i
+        tok = torch.argmax(want, -1).to(cuda)
+    assert dict(_build.LAUNCHES) == ({"flash_fwd": uses} if uses else {})
+
+
+@pytest.mark.parametrize("arch", list(SSM_SMOKES))
+def test_ssm_families_train_step_on_the_card(cuda, arch):
+    """The fp32 loss and gradients at ssm_chunk 256 over 512 tokens (where
+    the reference's unmasked exponential gives NaN) against the CPU's within
+    1e-3 of each gradient's max-abs, all finite (each device's gradients
+    lie within 6.2e-4 of a float64 run's, sums of terms of both signs; the
+    two devices read 1.2e-4 apart, tests/_torch_ssm_noise.py --card); the
+    hybrid launches K7 twice a use of its shared block (forward and group
+    recompute), K8 and K9 once."""
+    cfg = dataclasses.replace(SSM_SMOKES[arch], ssm_chunk=256)
+    model = build(cfg, device=cuda, dtype=torch.float32)
+    cpu = Transformer(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = token_batch(DataConfig(cfg.vocab_size, 512, 2), 0, device=cuda)
+    _build.LAUNCHES.clear()
+    loss, _, grads = value_and_grad(model, init_train_state(model)["params"],
+                                    batch)
+    torch.cuda.synchronize()
+    uses = _attn_uses(cfg)
+    assert dict(_build.LAUNCHES) == ({"flash_fwd": 2 * uses,
+                                      "flash_bwd_dq": uses,
+                                      "flash_bwd_dkv": uses} if uses else {})
+    loss_c, _, grads_c = value_and_grad(
+        cpu, init_train_state(cpu)["params"],
+        {k: v.cpu() for k, v in batch.items()})
+    assert abs(float(loss) / float(loss_c) - 1) <= 1e-5
+    for name, g in grads_c.items():
+        assert bool(torch.isfinite(grads[name]).all()), name
+        assert float((grads[name].cpu() - g).abs().max()) <= 1e-3 * max(
+            float(g.abs().max()), 1e-30), name
+
+
 # --- the serving tier on the card: autotuner, multigrid, cache, engine ------
 
 def test_autotuner_measures_every_candidate(cuda):

@@ -43,7 +43,9 @@ def test_no_jax_or_repro_import_anywhere_in_the_port():
                    "core/multigrid.py", "core/plan_cache.py",
                    "serve/__init__.py", "serve/engine.py",
                    "core/adjoint.py", "models/solver_layer.py",
-                   "configs/learned_stencil.py", "configs/jacobi.py"):
+                   "configs/learned_stencil.py", "configs/jacobi.py",
+                   "core/conv1d.py", "models/ssm.py",
+                   "configs/mamba2_370m.py", "configs/zamba2_1_2b.py"):
         assert os.path.join(PKG, *module.split("/")) in files, module
     bad = []
     for path in (f for f in files if f.endswith(".py")):
@@ -105,6 +107,14 @@ def test_port_imports_and_solves_with_jax_blocked():
         tr = train(get_config("qwen3-0.6b", smoke=True), steps=1,
                    global_batch=2, seq_len=8, device="cpu")
         assert tr["steps"][0]["loss"] > 0
+        for arch in ("mamba2-370m", "zamba2-1.2b"):
+            lm = build(get_config(arch, smoke=True), device="cpu",
+                       dtype=torch.float32)
+            assert greedy_generate(lm, dict(tokens=prompts), steps=2,
+                                   max_len=11).shape == (2, 2)
+            tr = train(get_config(arch, smoke=True), steps=1,
+                       global_batch=2, seq_len=8, device="cpu")
+            assert tr["steps"][0]["loss"] > 0
         from repro_torch.core import (implicit_solve, set_default_plan_cache,
                                       heterogeneous_jacobi)
         set_default_plan_cache(PlanCache(device="cpu"))
