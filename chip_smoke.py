@@ -36,6 +36,12 @@ solver):
     groups, K7 six times a forward at head_dim 64 and K8/K9 six times a
     backward), served and trained as ``launch.serve`` and ``launch.train``
     run them (phases 24-26);
+  - the moe LM family (qwen3-moe-30b-a3b: 128 experts, top 8, attention
+    GQA 8; moonshot-v1-16b-a3b: 64 experts, top 6, two shared experts,
+    MHA 16), served at full width and depth (48 layers, 61.1 and 57.8 GB
+    of bf16 weights, K7 once a layer in a prefill) and trained at full
+    width cut to 4 layers (K7 twice a layer, K8/K9 once), through
+    ``launch.serve`` and ``launch.train`` (phases 27-29);
   - the differentiable solve, ``repro_torch.core.implicit_solve`` on the
     card's default plan cache (its backward one solve with the transposed
     operator; ``F.conv2d`` and shifted adds, none of K1-K9), and the
@@ -118,7 +124,8 @@ Phases, one JSON line each:
      a ragged 96, MQA, non-causal, cross lengths with kv_offset=128,
      head_dim 16/32/64/128, fp32 and bf16, the serve prefill's shape (4
      x 2048, 16 heads, 8 kv heads, hd 128, bf16) and zamba2-1.2b's (4 x
-     2048, 32 heads, MHA, hd 64, bf16), and ``p_rounding``, built
+     2048, 32 heads, MHA, hd 64, bf16), the moe archs' (4 x 2048, GQA 8:
+     32 heads on 4; MHA 16; hd 128, bf16), and ``p_rounding``, built
      so that a kernel that does not round p to v's type before p . v misses
      by about 0.026; out per element within 2e-5 in fp32 and 2e-3 + 1.6e-2
      * |plain| in bf16 (two bf16 ulps), lse within 1e-5 of its max-abs;
@@ -136,7 +143,7 @@ Phases, one JSON line each:
      model under torch.profiler: device ms by kernel and the device's idle
      share;
  15. K6 and K7 timed by CUDA-graph replay at the serve shape (and K7 at
-     zamba2's) beside their
+     zamba2's and at qwen3-moe's GQA 8) beside their
      bound, their plain version and F.scaled_dot_product_attention (the
      library yardstick, timed here only; the port never calls it); the
      HGMMA instructions of each bf16 instance (``cuobjdump -sass`` of the
@@ -145,7 +152,7 @@ Phases, one JSON line each:
      (bf16 runs the tensor-core kernels, fp32 the SIMT ones), o and lse
      from K7: the cases of tests/_torch_flash_cases.py (``FLASH_CASES``:
      those of phase 12 and the training shape) in fp32 and bf16, zamba2's
-     shape in bf16,
+     and the moe archs' shapes in bf16 (K9 folding a group of 8),
      ``ds_rounding``, built so that a K8 that does not round ds to k's type
      misses by 16 times the bound, and ``dv_p_rounding``, built so that a
      K9 that rounds p before p^T . do misses by 86 times; dq, dk, dv per
@@ -163,7 +170,7 @@ Phases, one JSON line each:
      step), then one more step of a fresh model under torch.profiler:
      device ms by kernel and the device's idle share;
  19. K8 and K9 timed by CUDA-graph replay at the training shape (and at
-     zamba2's) in bf16
+     zamba2's and qwen3-moe's) in bf16
      beside their bounds, their plain versions and the backward of
      F.scaled_dot_product_attention (the library yardstick, timed with
      torch.autograd.grad; the port never calls it); the HGMMA instructions
@@ -227,8 +234,34 @@ The line after phase 22 lists the kernels phases 20-22 launched.
      tokens (ms a step and tokens/s over steps 2-5, peak memory, every
      loss and grad norm finite; zamba2 K7/K8/K9 12/6/6 a step, mamba2
      none).
+ 27. qwen3-moe-30b-a3b and moonshot-v1-16b-a3b served as
+     ``launch.serve.serve`` runs them at full width and depth: bf16, batch
+     4, 2048-token prompts, 32 greedy tokens (prefill ms and tokens/s,
+     decode ms/token, peak memory; the build's peak past the model, within
+     one layer slice's fp32 draw; K7 48 a prefill, none in decode), then
+     one more prefill and decode under torch.profiler: device ms by
+     operation class and the idle share;
+ 28. fp32 at full width, depth cuts: (a) 4 layers, batch 2, a 1024-token
+     prompt, 16 greedy tokens, each decode step's logits against the
+     train-mode forward over the tokens so far, with one group a call and
+     a capacity of the whole group (``tests/_torch_moe_cases.
+     no_drop_config``: decode's group of B then routes as the forward's,
+     and no token count has to divide 1024), and the first step again from
+     a cache one place short and with the first token's two slots' gates
+     swapped, which must fail it; (b) the prefill hidden, flash against
+     xla, at the config's own 1024-token groups; (c) the card against the
+     CPU port, 2 layers, 2 x 512 tokens; (d) einsum against scatter
+     dispatch on one layer at the configs' capacity factor (slots drop),
+     the output and the gradients of <out, r> + aux.  Each bound comes
+     from tests/_torch_moe_noise.py --card (``MOE_*_RTOL``);
+ 29. bf16 training as ``launch.train.train`` runs it, 4 layers (the cut
+     that leaves the 16 B a parameter of the train state inside the
+     card), 5 steps at 4 x 2048 tokens (ms a step and tokens/s over steps
+     2-5, peak memory, the aux loss per layer, every loss and grad norm
+     finite; K7/K8/K9 8/4/4 a step).
 The inventory line lists K1-K9 and K5's split kernel, and K7-K9 again at
-zamba2's shape with their launches on its serve and train paths.
+zamba2's shape and at qwen3-moe's GQA-8 shape with their launches on those
+archs' serve and train paths.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -330,6 +363,42 @@ SSM_TRAIN = (4, 2048, 5)   # phase 26: batch, seq_len, steps (bf16)
 # zamba2-1.2b's shared attention at the serve and training shape: (B, S, H,
 # KV, hd), MHA at head_dim 64 (phases 12, 15, 16, 19).
 HYBRID_SHAPE = (4, 2048, 32, 32, 64)
+# Phases 27-29, the moe family at full width (serving also at full depth).
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
+MOE_SERVE = (4, 2048, 32)   # phase 27: batch, prompt, tokens (bf16)
+MOE_PROFILE_TOKENS = 1      # phase 27: decode steps under the profiler
+MOE_FP32 = (2, 1024, 16)    # phase 28 (a, b): batch, prompt, tokens
+MOE_FP32_DEPTH = 4          # phase 28 (a, b): layers at full width
+MOE_CPU = (2, 512)          # phase 28 (c): batch, prompt
+MOE_CPU_DEPTH = 2
+MOE_DISPATCH = (2, 1024)    # phase 28 (d): one layer, batch x tokens
+MOE_TRAIN = (4, 2048, 5)    # phase 29: batch, seq_len, steps (bf16)
+MOE_TRAIN_DEPTH = 4         # phase 29: 16 B a parameter (fp32 masters, m,
+# v, a bf16 compute copy, bf16 grads): 49.8 and 48.4 GB at four layers,
+# 69.8 GB before activations at six.
+# Phase 28's bounds, relative to the max-abs: twice the larger distance
+# of an fp32 run from a float64 run of the same weights and inputs at
+# these sizes (two fp32 runs may part by twice it), rounded up to one
+# digit; the readings are tests/_torch_moe_noise.py --card's on an H100
+# 80GB HBM3 at 700 W (PERF.md §6).  The router runs in fp32 in every
+# model, so even float64 decode and forward part by 9.4e-5 and 1.2e-4.
+# (a) decode against forward: the fp32 forward lies up to 8.2e-4
+# (qwen3-moe) and 1.15e-2 (moonshot, where the float64 run routes one
+# token otherwise: the fp32 decode and forward, 2.6e-4 apart there, both
+# lie 1.1e-2 from it) from the float64 forward; fp32 readings 8.3e-4 and
+# 6.1e-4, the planted faults 1.04-1.42.  (b) flash against xla: each
+# within 1.04e-4 and 4.0e-4 of float64 xla.  (c) card against CPU: within
+# 2.5e-6 and 7.0e-6.  (d) einsum against scatter, output and worst
+# gradient: each within 1.5e-6/2.2e-6 and 1.5e-6/2.7e-6 of float64 einsum.
+MOE_DECODE_RTOL = {"qwen3-moe-30b-a3b": 2e-3, "moonshot-v1-16b-a3b": 3e-2}
+MOE_FLASH_RTOL = {"qwen3-moe-30b-a3b": 3e-4, "moonshot-v1-16b-a3b": 8e-4}
+MOE_CPU_RTOL = {"qwen3-moe-30b-a3b": 5e-6, "moonshot-v1-16b-a3b": 2e-5}
+MOE_DISPATCH_RTOL = {"qwen3-moe-30b-a3b": (4e-6, 5e-6),
+                     "moonshot-v1-16b-a3b": (3e-6, 6e-6)}
+# The moe archs' attention at the serve and training shape (B, S, H, KV,
+# hd): qwen3-moe GQA 8 (32 query heads on 4 kv heads), moonshot MHA 16.
+MOE_SHAPES = {"qwen3-moe-30b-a3b": (4, 2048, 32, 4, 128),
+              "moonshot-v1-16b-a3b": (4, 2048, 16, 16, 128)}
 DEVICE = "cuda"
 # Phases 20-22, the stencil serving tier.  Autotune cells: (name, spec,
 # grid, iterations a timed call); Table 1's and Fig 6's go to the committed
@@ -414,6 +483,24 @@ def check(ok, what):
         raise RuntimeError(f"check failed: {what}")
 
 
+OP_CLASSES = (("flash (K7-K9)", ("flash",)),
+              ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+              ("sort", ("sort", "radix")),
+              ("scatter/gather", ("scatter", "gather", "index")),
+              ("reduce/scan", ("reduce", "softmax", "scan", "cumsum")),
+              ("copy/cast/fill", ("copy", "cat", "fill", "cast")),
+              ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def op_class(name):
+    """The class of a device operation, by its kernel's name."""
+    low = name.lower()
+    for label, keys in OP_CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other"
+
+
 def sass_counts(library, opcode):
     """{kernel: count of ``opcode`` in its SASS} over the kernels of a built
     library, from ``cuobjdump -sass`` (next to nvcc)."""
@@ -429,6 +516,39 @@ def sass_counts(library, opcode):
         elif name is not None and opcode in line:
             counts[name] += 1
     return counts
+
+
+def device_profile(fn, top=12, host=True):
+    """Run ``fn`` once under torch.profiler: its wall ms (the
+    profiler's own cost included), the device ms summed over kernels,
+    the share of the wall the device sat idle, and the ``top`` kernels
+    by device time as [name, ms, calls].  ``host=False`` traces the
+    device alone: a path of 10^4-10^5 launches (the SSM families' steps)
+    then costs seconds to trace instead of a minute or more."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    by_class = {}
+    for e in events:
+        c = op_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": 1 - device_ms / wall_ms,
+            "profiler_s": time.perf_counter() - t_all,
+            "ms_by_class": by_class,
+            "kernels": [[e.key, e.self_device_time_total / 1e3, e.count]
+                        for e in events[:top]]}
 
 
 def stencil_serving_phases(dev, write_tuned=None):
@@ -1313,6 +1433,330 @@ def lm_families_phases(dev, device_profile):
     return {"launches": launches, "seconds": seconds}
 
 
+def moe_phases(dev, device_profile):
+    """Phases 27-29, the moe family (qwen3-moe-30b-a3b: 128 experts, top 8,
+    GQA 8; moonshot-v1-16b-a3b: 64 experts, top 6, two shared, MHA 16) at
+    full width: (27) bf16 serving at full depth as ``launch.serve.serve``
+    runs it, the peak memory of building the model in place, then a
+    profiled prefill and decode; (28) fp32 checks at depth cuts: (a)
+    decode against the train-mode forward, where nothing is dropped, and
+    two planted faults it must see, (b) flash against xla on the prefill,
+    (c) the card against the CPU, (d) einsum against scatter dispatch on
+    one layer, outputs and gradients; (29) bf16 training at depth 4 as
+    ``launch.train.train`` runs it.  The launch counts are zeroed before
+    each path and read after it: K7 once a layer in a forward (twice in a
+    train step: forward and recompute), K8/K9 once a layer in a backward.
+    Returns {"launches": {(phase, arch): launches}, "seconds": {phase: s}}.
+    """
+    import numpy as np
+    import torch
+
+    from _torch_moe_cases import no_drop_config, slots_swapped
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+    from repro_torch.models.layers import flatten
+    from repro_torch.models.model_zoo import build
+    from repro_torch.models.moe import MoE, expert_capacity, moe_table, route
+    from repro_torch.models.transformer import (Transformer, mask_pad_logits,
+                                                model_table, stacked_axes)
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    def flush():
+        sync()
+        torch.cuda.empty_cache()
+
+    def gb(n):
+        return n / 1e9
+
+    cfgs = {arch: dataclasses.replace(get_config(arch), attn_impl="flash")
+            for arch in MOE_ARCHS}
+
+    def expect(n_layers, fwd=1, bwd=0):
+        out = {"flash_fwd": fwd * n_layers, "flash_bwd_dq": bwd * n_layers,
+               "flash_bwd_dkv": bwd * n_layers}
+        return {k: v for k, v in out.items() if v}
+
+    launches, seconds = {}, {}
+
+    # -- 27. bf16 serving at full width and depth -----------------------------
+    t0 = time.perf_counter()
+    B27, S27, T27 = MOE_SERVE
+    for arch, cfg in cfgs.items():
+        flush()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t_build = time.perf_counter()
+        model = build(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        sync()
+        build_s = time.perf_counter() - t_build
+        # In place: the model, and beside it at most one layer's slice of
+        # the largest stacked leaf drawn in fp32.
+        model_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        axes = stacked_axes(cfg)
+        slice_bytes = max(4 * math.prod(pd.shape[len(axes[path[0]]):])
+                          for path, pd in flatten(model_table(cfg))
+                          if path[0] in axes)
+        build_peak = torch.cuda.max_memory_allocated(dev) - base
+        check(build_peak <= model_bytes + slice_bytes,
+              f"{arch} build peak {gb(build_peak)} GB past the model "
+              f"{gb(model_bytes)} GB plus one slice {gb(slice_bytes)} GB")
+        _build.LAUNCHES.clear()
+        served = serve(cfg, batch=B27, prompt_len=S27, tokens=T27,
+                       model=model)
+        launches[(27, arch)] = dict(_build.LAUNCHES)   # warm-up and timed
+        gen = served.pop("generated")
+        check(served["prefill_launches"] == expect(cfg.n_layers)
+              and not served["decode_launches"],
+              f"{arch} bf16 serve launched {served['prefill_launches']}, "
+              f"{served['decode_launches']}")
+        check(launches[(27, arch)] == expect(cfg.n_layers, fwd=2),
+              f"{arch} bf16 serve run launched {launches[(27, arch)]}")
+        check(gen.shape == (B27, T27 + 1) and bool((gen >= 0).all())
+              and bool((gen < cfg.vocab_size).all()),
+              f"{arch} bf16 serve tokens")
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B27, S27)), device=dev)
+        prefill = make_prefill_step(model, S27 + T27 + 1)
+        prof_prefill = device_profile(lambda: prefill({"tokens": prompts}),
+                                      top=16, host=False)
+        first, cache = prefill({"tokens": prompts})
+
+        def decode_loop():
+            tok = first
+            for i in range(MOE_PROFILE_TOKENS):
+                tok, _ = make_decode_step(model, S27 + i)(tok, cache)
+
+        prof_decode = device_profile(decode_loop, top=16, host=False)
+        prof_decode["tokens"] = MOE_PROFILE_TOKENS
+        emit({"phase": 27, **served, "launches_whole_run":
+              launches[(27, arch)], "seq0": gen[0].tolist(),
+              "build_s": build_s, "model_GB": gb(model_bytes),
+              "build_peak_GB": gb(build_peak),
+              "build_bound_GB": gb(model_bytes + slice_bytes),
+              "profile_prefill": prof_prefill,
+              "profile_decode": prof_decode})
+        del model, cache, prefill, first, prompts
+        flush()
+    seconds[27] = time.perf_counter() - t0
+
+    # -- 28. fp32 checks at depth cuts ----------------------------------------
+    t0 = time.perf_counter()
+    B28, S28, T28 = MOE_FP32
+    for arch, cfg in cfgs.items():
+        pending = []   # checked after the record is written
+
+        def later(ok, what):
+            pending.append((bool(ok), what))
+
+        V = cfg.vocab_size
+        cut = dataclasses.replace(cfg, n_layers=MOE_FP32_DEPTH)
+        # (a) each decode step's logits against the train-mode forward's
+        # over the prompt and the tokens so far.  The forward's token
+        # counts (2 x (1024 + i + 1)) are no multiple of the 1024-token
+        # group, and a forward that drops tokens differs from decode (a
+        # group of B): the check runs one group a call with a capacity of
+        # the whole group, where nothing drops (no_drop_config).
+        cfg_a = no_drop_config(cut, B28 * (S28 + T28))
+        model = build(cfg_a, device=dev, dtype=torch.float32,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        prompts = torch.as_tensor(np.random.default_rng(1).integers(
+            0, V, (B28, S28)), device=dev)
+        max_len = S28 + T28 + 1
+        rtol = MOE_DECODE_RTOL[arch]
+        _build.LAUNCHES.clear()
+        h, cache = model.prefill(prompts, max_len)
+        sync()
+        prefill_launches = dict(_build.LAUNCHES)
+        later(prefill_launches == expect(cut.n_layers),
+              f"{arch} fp32 prefill launched {prefill_launches}")
+        prefilled = {k: v.clone() for k, v in cache.items()}
+        seq = prompts
+        with torch.no_grad():
+            tok = torch.argmax(mask_pad_logits(model.logits(h), cfg), -1)
+        first, errs = tok, []
+        for i in range(T28):
+            seq = torch.cat([seq, tok[:, None]], dim=1)
+            logits, cache = model.decode_step(tok, cache, S28 + i)
+            with torch.no_grad():
+                hidden, _ = model(seq, remat=False)
+                want = mask_pad_logits(model.logits(hidden[:, -1]), cfg)
+            if i == 0:
+                want_first = want
+            errs.append(rel(logits[:, :V], want[:, :V]))
+            tok = torch.argmax(logits, -1)
+            del hidden
+        later(max(errs) <= rtol, f"{arch} decode against forward: logits "
+              f"{max(errs)} of max-abs")
+        # The check's reach: the first step again from a cache one place
+        # short, and with the first token's two slots' gates swapped.
+        fault_errs = {}
+        for name in ("kv_len_short", "slots_swapped"):
+            bad = {k: v.clone() for k, v in prefilled.items()}
+            if name == "kv_len_short":
+                logits, _ = model.decode_step(first, bad, S28 - 1)
+            else:
+                with slots_swapped():
+                    logits, _ = model.decode_step(first, bad, S28)
+            fault_errs[name] = rel(logits[:, :V], want_first[:, :V])
+            later(fault_errs[name] > rtol, f"{arch} decode with "
+                  f"{name}: logits only {fault_errs[name]} of max-abs "
+                  f"from the forward's")
+            del bad
+        state = model.state_dict()
+        del model, cache, prefilled, h
+        flush()
+        record = {"phase": 28, "arch": arch, "dtype": "float32",
+                  "n_layers": cut.n_layers, "batch": B28, "prompt_len": S28,
+                  "tokens": T28, "decode_capacity_factor":
+                      cfg_a.capacity_factor,
+                  "decode_vs_forward_rel_err_by_step": errs, "rtol": rtol,
+                  "first_step_with_a_fault": fault_errs,
+                  "prefill_launches": prefill_launches}
+        # (b) flash against xla on the prefill, at the config's own groups
+        # (1024 tokens, capacity factor 1.25: tokens may drop).
+        hidden = {}
+        for impl in ("flash", "xla"):
+            m = Transformer(dataclasses.replace(cut, attn_impl=impl),
+                            device=dev)
+            m.load_state_dict(state)
+            _build.LAUNCHES.clear()
+            hidden[impl], _ = m.prefill(prompts, S28)
+            sync()
+            later(dict(_build.LAUNCHES) == (expect(cut.n_layers)
+                                            if impl == "flash" else {}),
+                  f"{arch} fp32 {impl} prefill launched "
+                  f"{dict(_build.LAUNCHES)}")
+            del m
+            flush()
+        flash_rel = rel(hidden["flash"], hidden["xla"])
+        later(bool(torch.isfinite(hidden["flash"]).all())
+              and flash_rel <= MOE_FLASH_RTOL[arch],
+              f"{arch} fp32 prefill hidden flash vs xla: {flash_rel}")
+        record["flash_vs_xla"] = {"hidden_rel_err": flash_rel,
+                                  "rtol": MOE_FLASH_RTOL[arch]}
+        del state, hidden, prompts
+        flush()
+        # (c) the card against the CPU: a depth-cut model, the same weights.
+        small = dataclasses.replace(cfg, n_layers=MOE_CPU_DEPTH)
+        card = build(small, device=dev, dtype=torch.float32,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+        cpu = Transformer(small, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        Bc, Sc = MOE_CPU
+        tokens = np.random.default_rng(2).integers(0, V, (Bc, Sc))
+        h_card, _ = card.prefill(torch.as_tensor(tokens, device=dev), Sc)
+        h_cpu, _ = cpu.prefill(torch.as_tensor(tokens), Sc)
+        card_rel = rel(h_card.cpu(), h_cpu)
+        later(bool(torch.isfinite(h_card).all())
+              and card_rel <= MOE_CPU_RTOL[arch],
+              f"{arch} prefill hidden card vs CPU: {card_rel} of max-abs")
+        record["card_vs_cpu"] = {"n_layers": small.n_layers, "batch": Bc,
+                                 "prompt_len": Sc, "hidden_rel_err": card_rel,
+                                 "rtol": MOE_CPU_RTOL[arch]}
+        del card, cpu
+        flush()
+        # (d) einsum against scatter dispatch: one layer at full width
+        # (moe_table's own draws), the config's capacity factor (tokens
+        # drop), the output and the gradients of <out, r> + aux.
+        Bd, Sd = MOE_DISPATCH
+        gen = torch.Generator(device=dev).manual_seed(3)
+        table = moe_table(cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
+                          cfg.n_shared_experts)
+        x = torch.randn(Bd, Sd, cfg.d_model, generator=gen, device=dev)
+        r = torch.randn(Bd, Sd, cfg.d_model, generator=gen, device=dev)
+        res, dropped = {}, None
+        for mode in ("einsum", "scatter"):
+            layer = MoE(cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
+                        cfg.n_shared_experts, top_k=cfg.top_k,
+                        capacity_factor=cfg.capacity_factor,
+                        activation=cfg.activation, n_waves=cfg.moe_waves,
+                        dispatch_mode=mode, device=dev)
+            g = torch.Generator(device=dev).manual_seed(4)
+            for path, pd in flatten(table):
+                pd.fill(layer.get_parameter(".".join(path)), g)
+            xx = x.clone().requires_grad_()
+            out, aux = layer(xx, cfg.moe_group_size)
+            names, leaves = zip(*layer.named_parameters())
+            grads = torch.autograd.grad((out * r).sum() + aux,
+                                        [*leaves, xx])
+            res[mode] = (out.detach(), float(aux.detach()),
+                         dict(zip((*names, "x"), grads)))
+            if dropped is None:   # the share of slots past capacity
+                gs = min(cfg.moe_group_size, Bd * Sd)
+                _, _, _, _, keep = route(
+                    x.reshape(-1, gs, cfg.d_model), layer.router, cfg.top_k,
+                    expert_capacity(gs, cfg.top_k, cfg.capacity_factor,
+                                    cfg.n_experts))
+                dropped = float(1 - keep.float().mean())
+            del layer, out, grads, xx
+            flush()
+        out_rel = rel(res["scatter"][0], res["einsum"][0])
+        grad_rel = {n: rel(res["scatter"][2][n], g)
+                    for n, g in res["einsum"][2].items()}
+        worst_grad = max(grad_rel, key=grad_rel.get)
+        tol_out, tol_grad = MOE_DISPATCH_RTOL[arch]
+        later(out_rel <= tol_out, f"{arch} scatter vs einsum output "
+              f"{out_rel}")
+        later(grad_rel[worst_grad] <= tol_grad, f"{arch} scatter vs einsum "
+              f"grad {worst_grad} {grad_rel[worst_grad]}")
+        later(res["scatter"][1] == res["einsum"][1], f"{arch} aux differs "
+              f"between dispatch modes")
+        record["einsum_vs_scatter"] = {
+            "batch": Bd, "tokens": Sd, "dropped_slot_share": dropped,
+            "out_rel_err": out_rel, "grad_rel_err": grad_rel,
+            "worst_grad": worst_grad, "rtol": [tol_out, tol_grad]}
+        del res, x, r
+        emit(record)
+        for ok, what in pending:
+            check(ok, what)
+        flush()
+    seconds[28] = time.perf_counter() - t0
+
+    # -- 29. bf16 training at full width, depth 4 -----------------------------
+    t0 = time.perf_counter()
+    B29, S29, T29 = MOE_TRAIN
+    for arch, cfg in cfgs.items():
+        flush()
+        cut = dataclasses.replace(cfg, n_layers=MOE_TRAIN_DEPTH)
+        _build.LAUNCHES.clear()
+        trained = train(cut, steps=T29, global_batch=B29, seq_len=S29,
+                        device=dev, seed=0)
+        launches[(29, arch)] = dict(_build.LAUNCHES)
+        steps = trained.pop("steps")
+        for rec in steps:
+            check(rec["launches"] == expect(cut.n_layers, fwd=2, bwd=1),
+                  f"{arch} bf16 train step {rec['step']} launched "
+                  f"{rec['launches']}")
+            check(all(math.isfinite(rec[k]) for k in ("loss", "nll", "aux",
+                                                       "grad_norm")),
+                  f"{arch} bf16 train step {rec['step']}: {rec}")
+        timed = steps[1:]   # the first pays the allocator's growth
+        ms = sum(r["ms"] for r in timed) / len(timed)
+        emit({"phase": 29, **trained, "n_layers": cut.n_layers, "steps": [
+            {**{k: r[k] for k in ("step", "loss", "nll", "aux", "grad_norm",
+                                  "lr", "ms", "tokens_per_s", "launches")},
+             "aux_per_layer": r["aux"] / cut.n_layers} for r in steps],
+            "ms_per_step": ms, "tokens_per_s": B29 * S29 / (ms * 1e-3),
+            "launches_whole_run": launches[(29, arch)]})
+        flush()
+    seconds[29] = time.perf_counter() - t0
+    emit({"moe_seconds": seconds})
+    return {"launches": launches, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1392,32 +1836,6 @@ def main(argv=None) -> int:
 
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
-
-    def device_profile(fn, top=12, host=True):
-        """Run ``fn`` once under torch.profiler: its wall ms (the
-        profiler's own cost included), the device ms summed over kernels,
-        the share of the wall the device sat idle, and the ``top`` kernels
-        by device time as [name, ms, calls].  ``host=False`` traces the
-        device alone: a path of 10^4-10^5 launches (the SSM families' steps)
-        then costs seconds to trace instead of a minute or more."""
-        from torch.profiler import ProfilerActivity, profile
-        sync()
-        t_all = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU] * host
-                     + [ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        events.sort(key=lambda e: -e.self_device_time_total)
-        device_ms = sum(e.self_device_time_total for e in events) / 1e3
-        return {"wall_ms": wall_ms, "device_ms": device_ms,
-                "device_idle_share": 1 - device_ms / wall_ms,
-                "profiler_s": time.perf_counter() - t_all,
-                "kernels": [[e.key, e.self_device_time_total / 1e3, e.count]
-                            for e in events[:top]]}
 
     # -- 1. the card and the build ---------------------------------------
     smi = subprocess.run(
@@ -2238,6 +2656,9 @@ def main(argv=None) -> int:
     Bh, Sh, Hh, KVh, hdh = HYBRID_SHAPE
     flash_case("hybrid_shape", (Bh, Sh, Sh, Hh, KVh, hdh), torch.bfloat16,
                blocks=(512, 512))
+    for arch, (Bx, Sx, Hx, KVx, hdx) in MOE_SHAPES.items():
+        flash_case(f"{arch} shape", (Bx, Sx, Sx, Hx, KVx, hdx),
+                   torch.bfloat16, blocks=(512, 512))
     # A diagnostic, not a check: the bf16 kernel's own schedule is the plain
     # version at its 128 x 128 tiles (p rounded against the same running
     # maxima), so what is left there is the order of the fp32 sums.
@@ -2401,8 +2822,30 @@ def main(argv=None) -> int:
                             (hyb_bytes + hyb_lse_bytes) / PEAK_BYTES) * 1e3
     hyb15["k7_TFLOPs"] = hyb_ops / (hyb15["k7_ms"] * 1e-3) / 1e12
     del qh, kh, vh
+    # qwen3-moe-30b-a3b's attention (GQA 8: 32 query heads on 4 kv heads).
+    Bg, Sg, Hg, KVg, hdg = MOE_SHAPES["qwen3-moe-30b-a3b"]
+    qg, kg, vg = (torch.randn(s_, generator=gq, device=dev)
+                  .to(torch.bfloat16)
+                  for s_ in ((Bg, Sg, Hg, hdg), (Bg, Sg, KVg, hdg),
+                             (Bg, Sg, KVg, hdg)))
+    gqa_ops = 4 * Bg * Hg * hdg * (Sg * (Sg + 1) // 2)
+    gqa_bytes = 2 * (2 * Bg * Sg * Hg * hdg + 2 * Bg * Sg * KVg * hdg)
+    gqa_lse_bytes = Bg * Hg * Sg * 4
+    gqa15 = {"shape": list(MOE_SHAPES["qwen3-moe-30b-a3b"]),
+             "operations": gqa_ops,
+             "k7_ms": graph_ms(lambda: flash_fwd(qg, kg, vg, causal=True),
+                               5),
+             "plain_ms": time_ms(lambda: flash_fwd_plain(qg, kg, vg,
+                                                         causal=True), 3)}
+    qs_, ks_, vs_ = (t_.transpose(1, 2).contiguous() for t_ in (qg, kg, vg))
+    gqa15["sdpa_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs_, ks_, vs_, is_causal=True, enable_gqa=True), 5)
+    gqa15["bound_ms"] = max(gqa_ops / PEAK_BF16_FLOPS,
+                            (gqa_bytes + gqa_lse_bytes) / PEAK_BYTES) * 1e3
+    gqa15["k7_TFLOPs"] = gqa_ops / (gqa15["k7_ms"] * 1e-3) / 1e12
+    del qg, kg, vg
     emit({"phase": 15, "shape": list(LM_SHAPE), "dtype": "bfloat16",
-          "hybrid_shape": hyb15,
+          "hybrid_shape": hyb15, "moe_gqa8_shape": gqa15,
           "k6_ms": k6_ms, "k7_ms": k7_ms, "plain_ms": k67_plain,
           "sdpa_ms": sdpa_ms, "k7_fp32_ms": k7_fp32_ms,
           "operations": lm_ops, "bytes": lm_bytes,
@@ -2415,8 +2858,8 @@ def main(argv=None) -> int:
     # -- 16. K8 and K9 against their plain versions ---------------------------
     del qs_, ks_, vs_
     torch.cuda.empty_cache()
-    from _torch_flash_cases import (FLASH_CASES, ds_rounding_case,
-                                    dv_p_rounding_case)
+    from _torch_flash_cases import (FLASH_CASES, ds_flip_atol,
+                                    ds_rounding_case, dv_p_rounding_case)
     from repro_torch.data.synthetic import DataConfig, token_batch
     from repro_torch.kernels.flash_attention_bwd import (
         flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_delta,
@@ -2427,11 +2870,15 @@ def main(argv=None) -> int:
                                               make_train_step, value_and_grad)
 
     rerun_equal = {}
+    flip_atol = {}   # the moe shapes: label -> the flip allowances
 
-    def bwd_case(label, q, k, v, do, *, causal, kv_offset=0, rerun=False):
+    def bwd_case(label, q, k, v, do, *, causal, kv_offset=0, rerun=False,
+                 flips=False):
         """K8 and K9 on one case (o and lse from K7), held element by
         element to their plain versions; with ``rerun``, run again and
-        required bit-equal."""
+        required bit-equal; with ``flips`` (the moe shapes, bf16, causal)
+        dq's and dk's bounds also allow one flipped bf16 rounding of the
+        largest ds term (``ds_flip_atol``)."""
         kw = dict(causal=causal, kv_offset=kv_offset)
         o, lse = flash_fwd(q, k, v, **kw)
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do, **kw)
@@ -2444,12 +2891,18 @@ def main(argv=None) -> int:
             rerun_equal[label] = same
             del again
         delta = flash_delta(o, do)
+        tol_dq = tol_dk = FLASH_BWD_TOL
+        if flips:
+            atol, rtol = FLASH_BWD_TOL["bfloat16"]
+            flip_dq, flip_dk = ds_flip_atol(q, k, v, do, lse, delta)
+            flip_atol[label] = {"dq": flip_dq, "dk": flip_dk}
+            tol_dq = {"bfloat16": (atol + flip_dq, rtol)}
+            tol_dk = {"bfloat16": (atol + flip_dk, rtol)}
         record("flash_bwd_dq", q.dtype, dq,
                flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw), label,
-               FLASH_BWD_TOL)
+               tol_dq)
         pdk, pdv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
-        record("flash_bwd_dkv", q.dtype, dk, pdk, f"{label} dk",
-               FLASH_BWD_TOL)
+        record("flash_bwd_dkv", q.dtype, dk, pdk, f"{label} dk", tol_dk)
         record("flash_bwd_dkv", q.dtype, dv, pdv, f"{label} dv",
                FLASH_BWD_TOL)
 
@@ -2468,10 +2921,17 @@ def main(argv=None) -> int:
         torch.randn(s_, generator=gb, device=dev).to(torch.bfloat16)
         for s_ in ((Bh, Sh, Hh, hdh), (Bh, Sh, KVh, hdh), (Bh, Sh, KVh, hdh),
                    (Bh, Sh, Hh, hdh))), causal=True)
+    for arch, (Bx, Sx, Hx, KVx, hdx) in MOE_SHAPES.items():
+        bwd_case(f"{arch} shape", *(
+            torch.randn(s_, generator=gb, device=dev).to(torch.bfloat16)
+            for s_ in ((Bx, Sx, Hx, hdx), (Bx, Sx, KVx, hdx),
+                       (Bx, Sx, KVx, hdx), (Bx, Sx, Hx, hdx))), causal=True,
+            flips=True)
     emit({"phase": 16, "cases": {n: cases[n] for n in BWD_KERNELS},
           "max_abs_err": {n: worst[n] for n in BWD_KERNELS},
           "max_err_over_bound": {n: ratio[n] for n in BWD_KERNELS},
-          "bf16_rerun_bit_equal": rerun_equal, "tol": FLASH_BWD_TOL})
+          "bf16_rerun_bit_equal": rerun_equal, "tol": FLASH_BWD_TOL,
+          "moe_shapes_flip_atol": flip_atol})
 
     # -- 17. an fp32 train step at full width: flash against xla ---------------
     B17, S17 = LM_FP32[:2]
@@ -2621,8 +3081,38 @@ def main(argv=None) -> int:
     hyb19["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         out8, (qs8, ks8, vs8), dout8, retain_graph=True), 5)
     del qs8, ks8, vs8, out8, dout8, hyb_args, q8h, k8h, v8h, do8h, o8h
+    # qwen3-moe-30b-a3b's attention (GQA 8): K9 folds the group's 8 heads.
+    q8g, k8g, v8g, do8g = (torch.randn(s_, generator=gq, device=dev)
+                           .to(torch.bfloat16)
+                           for s_ in ((Bg, Sg, Hg, hdg), (Bg, Sg, KVg, hdg),
+                                      (Bg, Sg, KVg, hdg), (Bg, Sg, Hg, hdg)))
+    o8g, lse8g = flash_fwd(q8g, k8g, v8g, causal=True)
+    gqa_args = (q8g, k8g, v8g, do8g, lse8g, flash_delta(o8g, do8g))
+    gqa_pairs = Bg * Hg * (Sg * (Sg + 1) // 2)
+    gqa_stat = 2 * Bg * Hg * Sg * 4
+    gqa_k8_bytes = gqa_bytes + gqa_stat + 2 * Bg * Sg * Hg * hdg
+    gqa_k9_bytes = gqa_bytes + gqa_stat + 2 * 2 * Bg * Sg * KVg * hdg
+    gqa19 = {"shape": list(MOE_SHAPES["qwen3-moe-30b-a3b"]),
+             "k8_ms": graph_ms(lambda: launch_bwd_dq(*gqa_args, **kw8), 5),
+             "k9_ms": graph_ms(lambda: launch_bwd_dkv(*gqa_args, **kw8), 5),
+             "k8_plain_ms": time_ms(lambda: flash_bwd_dq_plain(
+                 *gqa_args, causal=True), 3),
+             "k9_plain_ms": time_ms(lambda: flash_bwd_dkv_plain(
+                 *gqa_args, causal=True), 3),
+             "k8_bound_ms": max(6 * hdg * gqa_pairs / PEAK_BF16_FLOPS,
+                                gqa_k8_bytes / PEAK_BYTES) * 1e3,
+             "k9_bound_ms": max(8 * hdg * gqa_pairs / PEAK_BF16_FLOPS,
+                                gqa_k9_bytes / PEAK_BYTES) * 1e3}
+    qs8, ks8, vs8 = (t_.transpose(1, 2).contiguous().requires_grad_()
+                     for t_ in (q8g, k8g, v8g))
+    out8 = F.scaled_dot_product_attention(qs8, ks8, vs8, is_causal=True,
+                                          enable_gqa=True)
+    dout8 = do8g.transpose(1, 2).contiguous()
+    gqa19["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        out8, (qs8, ks8, vs8), dout8, retain_graph=True), 5)
+    del qs8, ks8, vs8, out8, dout8, gqa_args, q8g, k8g, v8g, do8g, o8g
     emit({"phase": 19, "shape": list(LM_SHAPE), "dtype": "bfloat16",
-          "hybrid_shape": hyb19,
+          "hybrid_shape": hyb19, "moe_gqa8_shape": gqa19,
           "k8_ms": k8_ms, "k9_ms": k9_ms, "k8_plain_ms": k8_plain,
           "k9_plain_ms": k9_plain, "sdpa_bwd_ms": sdpa_bwd_ms,
           "k8_bound_ms": max(k8_ops / PEAK_BF16_FLOPS,
@@ -2850,6 +3340,59 @@ def main(argv=None) -> int:
     check(train_z == {"flash_fwd": 12 * steps26, "flash_bwd_dq": 6 * steps26,
                       "flash_bwd_dkv": 6 * steps26},
           f"zamba2's train path launched {train_z}")
+
+    # -- 27-29. the moe family -------------------------------------------------
+    torch.cuda.empty_cache()
+    moe = moe_phases(dev, device_profile)
+    qwen_moe = "qwen3-moe-30b-a3b"
+    serve_m, train_m = (moe["launches"][(27, qwen_moe)],
+                        moe["launches"][(29, qwen_moe)])
+    gqa_rows = {"shape": list(MOE_SHAPES[qwen_moe]), "dtype": "bfloat16",
+                "case": "qwen3-moe-30b-a3b's attention (GQA 8: 32 query "
+                        "heads on 4 kv heads, head_dim 128)",
+                "plain_timing": "eager",
+                "library": "F.scaled_dot_product_attention (enable_gqa)"}
+    bwd_library = ("backward of F.scaled_dot_product_attention (enable_gqa;"
+                   " dq, dk and dv together)")
+    gqa_case = f"{qwen_moe} shape"
+    kernels += [
+        entry("flash_fwd", "src/repro_torch/csrc/flash_attention_sm90.cu",
+              "src/repro/kernels/flash_attention_bwd.py:86", gqa15["k7_ms"],
+              gqa15["plain_ms"], gqa_bytes + gqa_lse_bytes, gqa_ops,
+              gqa15["sdpa_ms"],
+              {**gqa_rows, "train_launches": train_m.get("flash_fwd", 0),
+               "max_abs_err": case_err[("flash_fwd", gqa_case,
+                                        "bfloat16")]},
+              serve_m, PEAK_BF16_FLOPS),
+        entry("flash_bwd_dq",
+              "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+              "src/repro/kernels/flash_attention_bwd.py:223",
+              gqa19["k8_ms"], gqa19["k8_plain_ms"], gqa_k8_bytes,
+              6 * hdg * gqa_pairs, gqa19["sdpa_bwd_ms"],
+              {**gqa_rows, "library": bwd_library,
+               "max_abs_err": case_err[("flash_bwd_dq", gqa_case,
+                                        "bfloat16")]},
+              train_m, PEAK_BF16_FLOPS),
+        entry("flash_bwd_dkv",
+              "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+              "src/repro/kernels/flash_attention_bwd.py:249",
+              gqa19["k9_ms"], gqa19["k9_plain_ms"], gqa_k9_bytes,
+              8 * hdg * gqa_pairs, gqa19["sdpa_bwd_ms"],
+              {**gqa_rows, "library": bwd_library,
+               "max_abs_err": max(case_err[("flash_bwd_dkv",
+                                            f"{gqa_case} {g}", "bfloat16")]
+                                  for g in ("dk", "dv"))},
+              train_m, PEAK_BF16_FLOPS)]
+    steps29 = MOE_TRAIN[2]
+    for arch in MOE_ARCHS:
+        n = get_config(arch).n_layers
+        check(moe["launches"][(27, arch)] == {"flash_fwd": 2 * n},
+              f"{arch}'s serve path launched {moe['launches'][(27, arch)]}")
+        check(moe["launches"][(29, arch)] == {
+            "flash_fwd": 2 * MOE_TRAIN_DEPTH * steps29,
+            "flash_bwd_dq": MOE_TRAIN_DEPTH * steps29,
+            "flash_bwd_dkv": MOE_TRAIN_DEPTH * steps29},
+            f"{arch}'s train path launched {moe['launches'][(29, arch)]}")
 
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")

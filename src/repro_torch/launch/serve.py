@@ -7,13 +7,17 @@ of the JAX package's ``launch/serve.py``.
         --smoke --device cpu --dtype float32 --prompt-len 32 --tokens 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --batch 4 --prompt-len 2048 --tokens 32            # or mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 2048 --tokens 32
 
 Weights are random, drawn from ``--seed`` with JAX's distributions; prompts
 are token ids from ``numpy.random.default_rng(seed)``; there is no
 tokenizer.  Every family of ``transformer.FAMILIES`` serves: dense
-(qwen3-0.6b), ssm (mamba2-370m: no attention, so no kernel of K1-K9 and
-``--attn-impl`` does not apply) and hybrid (zamba2-1.2b: its shared
-attention block, six times a prefill).  ``--attn-impl`` sets the config's
+(qwen3-0.6b), moe (qwen3-moe-30b-a3b and moonshot-v1-16b-a3b: K7 once a
+layer in a prefill, 61.1 and 57.8 GB of bf16 weights at full depth), ssm
+(mamba2-370m: no attention, so no kernel of K1-K9 and ``--attn-impl``
+does not apply) and hybrid (zamba2-1.2b: its shared attention block, six
+times a prefill).  ``--attn-impl`` sets the config's
 ``attn_impl`` (``flash``: the prefill attention runs the CUDA kernel K7;
 ``xla``: plain PyTorch).  On the
 card the prefill and the decode loop are timed with CUDA events after one

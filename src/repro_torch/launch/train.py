@@ -8,6 +8,8 @@ failure-injection options come with ``runtime/ft.py``).
         --smoke --device cpu --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
         --global-batch 4 --seq-len 2048 --steps 5           # or zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch moonshot-v1-16b-a3b --smoke --device cpu --steps 3
 
 The fp32 master weights are random, drawn from ``--seed`` with JAX's
 distributions; each step's batch is ``data.synthetic.token_batch`` (JAX's
@@ -16,7 +18,12 @@ checkpoint (the Mamba2 blocks' SSD chunks too).  ``--attn-impl flash``
 (the default) runs attention through the CUDA kernels: K7 forward (once in
 the forward and once more in the recompute, a layer or, for zamba2-1.2b, a
 use of its shared block) and K8/K9 backward; ``xla`` through plain
-PyTorch.  mamba2-370m has no attention and launches no kernel.  On the
+PyTorch.  mamba2-370m has no attention and launches no kernel.  The moe
+archs (qwen3-moe-30b-a3b, moonshot-v1-16b-a3b) add their layers' aux loss
+(weight 0.01) and route in bf16 as JAX's step does; at full depth their
+train state (16 B a parameter) passes one card's 80 GB, so
+``train(dataclasses.replace(cfg, n_layers=4), ...)`` is how a caller cuts
+their depth (``chip_smoke.py`` phase 29).  On the
 card each step is timed with CUDA events; on the CPU with the host clock,
 and the output says which.  The first step pays the kernel build and the allocator's growth.
 """

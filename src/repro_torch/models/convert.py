@@ -5,11 +5,13 @@ and the port's named tensors back into JAX's layout.
 as numpy arrays — ``embed``, ``final_norm``, ``lm_head`` and the layer
 lists stacked on leading axes (``transformer.stacked_axes``: dense
 ``layers/{attn_norm, attn/{wq, wk, wv, wo, q_norm, k_norm}, mlp_norm,
-mlp/{up, gate, down}}`` on (n_layers,); ssm ``layers/{norm, mixer/…}``;
-hybrid ``layers`` on (groups, attn_every), ``tail_layers`` and the one
-``shared_attn``) — and returns the port's model holding the same numbers,
-each leaf in its parameter's type (the Mamba2 mixer's ``A_log``, ``D`` and
-``dt_bias`` fp32 in every model).  ``from_jax_state`` carries a JAX train
+mlp/{up, gate, down}}`` on (n_layers,); moe the same with ``moe/{router,
+up, gate, down, shared/{up, gate, down}}`` in place of ``mlp``; ssm
+``layers/{norm, mixer/…}``; hybrid ``layers`` on (groups, attn_every),
+``tail_layers`` and the one ``shared_attn``) — and returns the port's
+model holding the same numbers, each leaf in its parameter's type (the
+Mamba2 mixer's ``A_log``, ``D`` and ``dt_bias`` and the MoE router fp32 in
+every model).  ``from_jax_state`` carries a JAX train
 state ({params, m, v, step}) into the port's (``train.train_step``), so both
 packages can start from the same numbers at any step; ``to_jax_tree`` goes
 the other way for comparisons.  ``from_jax_solver_params`` and

@@ -3,14 +3,15 @@ port of the JAX package's ``models/layers.py`` (``apply_mrope`` and
 ``layer_norm`` come with the LM families that use them).
 
 Parameters are declared once as ``ParamDef(shape, scale, dtype)`` tables,
-as in JAX; :func:`init_params` draws them from an explicit
-``torch.Generator`` with JAX's distributions (not its numbers: the two
-generators differ).  A leaf whose ``dtype`` is set keeps it whatever the
-model's type (the Mamba2 mixer's ``A_log``, ``D`` and ``dt_bias`` are fp32
-in every model).
+as in JAX; :func:`init_params` and ``ParamDef.fill`` draw them from an
+explicit ``torch.Generator`` with JAX's distributions (not its numbers: the
+two generators differ).  A leaf whose ``dtype`` is set keeps it whatever
+the model's type (the Mamba2 mixer's ``A_log``, ``D`` and ``dt_bias``, the
+MoE router: fp32 in every model).
 Stacked layer tables keep JAX's quirk: ``stack_tables`` prefixes the layer
 axis, and the ``"fan_in"`` rule then reads ``shape[0]``, so every stacked
-layer weight has std ``1/sqrt(n_layers)``.
+layer weight has std ``1/sqrt(n_layers)``, also where ``fill`` draws one
+layer's slice of the leaf.
 """
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+# Random draws are made in pieces of at most this many fp32 numbers along
+# a leaf's leading axis, so initialising a model in place needs no more
+# than one piece (256 MB) beside the model.
+DRAW_PIECE = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,22 +43,39 @@ class ParamDef:
 
     def init(self, generator: torch.Generator, dtype: torch.dtype,
              device: torch.device) -> torch.Tensor:
-        dtype = self.dtype or dtype
+        out = torch.empty(self.shape, dtype=self.dtype or dtype,
+                          device=device)
+        self.fill(out, generator)
+        return out
+
+    @torch.no_grad()
+    def fill(self, out: torch.Tensor, generator: torch.Generator) -> None:
+        """Write the rule into ``out``: the whole leaf, or the slice of it
+        at an index of its leading (stacked) axes; the std is the whole
+        leaf's.  Random rules draw fp32 on the generator's device, as JAX
+        draws in fp32, ``DRAW_PIECE`` numbers at most at a time along
+        ``out``'s leading axis, each cast into ``out`` as it is copied."""
         if self.scale == "zero":
-            return torch.zeros(self.shape, dtype=dtype, device=device)
+            out.zero_()
+            return
         if self.scale == "one":
-            return torch.ones(self.shape, dtype=dtype, device=device)
+            out.fill_(1.0)
+            return
         if isinstance(self.scale, str) and self.scale.startswith("const:"):
-            return torch.full(self.shape, float(self.scale[6:]),
-                              dtype=dtype, device=device)
+            out.fill_(float(self.scale[6:]))
+            return
         if self.scale == "fan_in":
             s = 1.0 / math.sqrt(max(1, self.shape[0]))
         else:
             s = float(self.scale)
-        # Drawn in fp32 on the generator's device, as JAX draws in fp32.
-        x = torch.randn(self.shape, generator=generator,
-                        device=generator.device, dtype=torch.float32)
-        return (x * s).to(device=device, dtype=dtype)
+        rows = out if out.dim() else out.view(1)
+        step = max(1, DRAW_PIECE // max(1, rows[0].numel()))
+        for start in range(0, rows.shape[0], step):
+            piece = rows[start:start + step]
+            # One draw alive at a time: it is freed before the next.
+            piece.copy_(torch.randn(piece.shape, generator=generator,
+                                    device=generator.device,
+                                    dtype=torch.float32).mul_(s))
 
 
 def init_params(table: Mapping[str, Any], generator: torch.Generator,

@@ -4,7 +4,7 @@
 ``build(cfg)`` returns the model whose methods stand for JAX's ``ModelApi``
 (``forward``, ``prefill``, ``decode_step``, ``cache_shapes``,
 ``init_cache``); in PyTorch the parameters live in the module instead of
-being passed in.  The dense, ssm and hybrid families are ported
+being passed in.  The dense, moe, ssm and hybrid families are ported
 (``transformer.FAMILIES``), and the solver family (``family="solver"``,
 ``models/solver_layer.py``); the others raise
 (``transformer.check_family``).
@@ -22,7 +22,8 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
           generator: torch.Generator | None = None) -> Transformer:
     """The model of ``cfg`` on ``device`` (None: the card; raises without
     one), its weights drawn from ``generator`` with JAX's distributions
-    (seed 0 on the device if None).  A solver-family config gets a
+    (seed 0 on the device if None), in place: beside the model at most one
+    draw piece (``layers.DRAW_PIECE``).  A solver-family config gets a
     ``SolverLayer``: fp32 parameters from JAX's constant rules, whatever
     ``dtype`` and ``generator`` say."""
     if cfg.family == "solver":

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, the dense, ssm and hybrid families — the port
-of the JAX package's ``models/transformer.py`` for ``family`` in
+"""Decoder-only transformer, the dense, moe, ssm and hybrid families — the
+port of the JAX package's ``models/transformer.py`` for ``family`` in
 ``FAMILIES``.
 
 Modes, as in JAX: train-mode ``forward`` (full-sequence causal, no cache,
@@ -16,6 +16,11 @@ sharder, so the field alone picks the path.  Decode attention is
 The families:
 
 - dense: ``layers``, one ``DenseBlock`` a layer;
+- moe (qwen3-moe-30b-a3b, moonshot-v1-16b-a3b): ``layers``, one
+  ``DenseBlock`` a layer whose FFN is ``models/moe.MoE`` (parameters under
+  ``moe``), in groups of ``cfg.moe_group_size`` tokens in train and
+  prefill and of min(``cfg.moe_group_size``, B) in decode, as JAX's
+  ``dense_block``; ``forward`` returns the sum of the layers' aux losses;
 - ssm (mamba2-370m): ``layers``, one ``MambaBlock`` a layer (rms-norm, then
   the ``models/ssm.py`` mixer, plus the residual); no attention, so no
   kernel of K1-K9 and ``attn_impl`` does not apply;
@@ -25,17 +30,21 @@ The families:
   add up), then ``tail_layers``, the n_layers % attn_every left over.
 
 Parameters keep the JAX layouts (wq (D, H, hd), wo (H, hd, D), lm_head
-(V, D), ...) so ``models/convert.py`` loads a JAX tree as it is: JAX stacks
-each layer list on leading axes (``stacked_axes``: (n_layers,), or the
-hybrid's (G, attn_every) and (rem,)), the port holds one block a layer
-(``layers.<g>.<i>.…`` in the hybrid).  The caches are JAX's: dense {"k",
-"v"} (n_layers, B, max_len, KV, hd); ssm {"conv_x", "conv_bc", "state"}
+(V, D), the experts' (E, D, F), ...) so ``models/convert.py`` loads a JAX
+tree as it is: JAX stacks each layer list on leading axes
+(``stacked_axes``: (n_layers,), or the hybrid's (G, attn_every) and
+(rem,)), the port holds one block a layer
+(``layers.<g>.<i>.…`` in the hybrid).  ``init_weights`` draws each layer's
+slice of a stacked leaf straight into that layer's parameter (JAX's std
+rule for the whole leaf), so a model initialises in place beside no
+second copy of itself.  The caches are JAX's: dense and moe {"k", "v"}
+(n_layers, B, max_len, KV, hd); ssm {"conv_x", "conv_bc", "state"}
 stacked over layers, ``state`` fp32; hybrid {"groups": the Mamba caches on
 (G, attn_every), "attn": {"k", "v"} (G, B, max_len, KV, hd), "tail": on
 (rem,)}.  ``decode_step`` writes the new token's entries into the cache in
 place (JAX returns an updated copy) and returns it.
 
-The other LM families (moe, vlm, encdec) raise: they come with the
+The other LM families (vlm, encdec) raise: they come with the
 LM-families item of ROADMAP queue 1.  The solver family
 (``family="solver"``) is no transformer: ``model_zoo.build`` sends it to
 ``models/solver_layer.py``.
@@ -53,12 +62,13 @@ from repro_torch.core.plan import resolve_device
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import (ParamDef, apply_rope, flatten,
-                                       init_params, rms_norm, stack_tables)
+                                       rms_norm, stack_tables)
 from repro_torch.models.mlp import MLP, mlp_table
+from repro_torch.models.moe import MoE, moe_table
 from repro_torch.models.ssm import (Mamba2Mixer, mamba2_cache_dims,
                                     mamba2_cache_shapes, mamba2_table)
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -96,12 +106,17 @@ def block_table(cfg: ModelConfig, kind: str = "dense") -> dict:
             "mixer": mamba2_table(D, cfg.d_inner, cfg.n_ssm_heads,
                                   cfg.ssm_state, cfg.d_conv),
         }
-    return {
+    t = {
         "attn_norm": ParamDef((D,), scale="one"),
         "attn": attn_table(cfg),
         "mlp_norm": ParamDef((D,), scale="one"),
-        "mlp": mlp_table(D, cfg.d_ff, cfg.gated_mlp),
     }
+    if kind == "moe":
+        t["moe"] = moe_table(D, cfg.n_experts, cfg.d_ff_expert,
+                             cfg.n_shared_experts)
+    else:
+        t["mlp"] = mlp_table(D, cfg.d_ff, cfg.gated_mlp)
+    return t
 
 
 def stacked_axes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -123,7 +138,7 @@ def model_table(cfg: ModelConfig) -> dict:
         "final_norm": ParamDef((D,), scale="one"),
         "lm_head": ParamDef((V, D)),
     }
-    kind = "dense" if cfg.family == "dense" else "mamba"
+    kind = cfg.family if cfg.family in ("dense", "moe") else "mamba"
     for name, axes in stacked_axes(cfg).items():
         table = block_table(cfg, kind)
         for n in reversed(axes):
@@ -198,27 +213,49 @@ class Attention(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device=None,
+    """Attention and an FFN, each after an rms-norm and with the residual:
+    the dense ``MLP`` or, with ``moe``, the experts (JAX's
+    ``dense_block``)."""
+
+    def __init__(self, cfg: ModelConfig, *, moe: bool = False, device=None,
                  dtype=torch.float32):
         super().__init__()
         self.eps = cfg.norm_eps
+        self.group_size = cfg.moe_group_size
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.attn_norm = nn.Parameter(torch.empty(cfg.d_model, **kw))
         self.attn = Attention(cfg, **kw)
         self.mlp_norm = nn.Parameter(torch.empty(cfg.d_model, **kw))
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, cfg.gated_mlp,
-                       **kw)
+        if moe:
+            self.moe = MoE(cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
+                           cfg.n_shared_experts, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           activation=cfg.activation, n_waves=cfg.moe_waves,
+                           dispatch_mode=cfg.moe_dispatch, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation,
+                           cfg.gated_mlp, **kw)
+
+    def _ffn(self, x: torch.Tensor, group_size: int):
+        """-> (x + FFN(norm(x)), the aux loss or None)."""
+        h = rms_norm(x, self.mlp_norm, self.eps)
+        if hasattr(self, "moe"):
+            m, aux = self.moe(h, group_size)
+            return x + m, aux
+        return x + self.mlp(h), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """Train/prefill form: -> (x, (k, v))."""
+        """Train/prefill form: -> (x, (k, v), aux or None)."""
         a, kv = self.attn(rms_norm(x, self.attn_norm, self.eps), positions)
-        x = x + a
-        return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps)), kv
+        x, aux = self._ffn(x + a, self.group_size)
+        return x, kv, aux
 
     def decode(self, x, k_cache, v_cache, kv_len, positions):
         x = x + self.attn.decode(rms_norm(x, self.attn_norm, self.eps),
                                  k_cache, v_cache, kv_len, positions)
-        return x + self.mlp(rms_norm(x, self.mlp_norm, self.eps))
+        # One token a row: the group is at most the batch (JAX's
+        # min(moe_group_size, B * 1)).
+        return self._ffn(x, min(self.group_size, x.shape[0] * x.shape[1]))[0]
 
 
 class MambaBlock(nn.Module):
@@ -236,9 +273,9 @@ class MambaBlock(nn.Module):
                                  cfg.ssm_chunk, **kw)
 
     def forward(self, x: torch.Tensor, positions=None):
-        """Train form: -> (x, None), as ``DenseBlock``'s (x, kv);
-        ``positions`` is not used."""
-        return x + self.mixer(rms_norm(x, self.norm, self.eps)), None
+        """Train form: -> (x, None, None), as ``DenseBlock``'s (x, kv,
+        aux); ``positions`` is not used."""
+        return x + self.mixer(rms_norm(x, self.norm, self.eps)), None, None
 
     def prefill(self, x: torch.Tensor):
         """-> (x, this layer's cache): the final SSD state, and the conv
@@ -277,11 +314,14 @@ class Transformer(nn.Module):
         self.embed = nn.Parameter(torch.empty(V, D, **kw))
         self.final_norm = nn.Parameter(torch.empty(D, **kw))
         self.lm_head = nn.Parameter(torch.empty(V, D, **kw))
-        block = DenseBlock if cfg.family == "dense" else MambaBlock
+        if cfg.family in ("dense", "moe"):
+            block = lambda: DenseBlock(cfg, moe=cfg.family == "moe", **kw)
+        else:
+            block = lambda: MambaBlock(cfg, **kw)
 
         def blocks(axes):
             if len(axes) == 1:
-                return nn.ModuleList(block(cfg, **kw) for _ in range(axes[0]))
+                return nn.ModuleList(block() for _ in range(axes[0]))
             return nn.ModuleList(blocks(axes[1:]) for _ in range(axes[0]))
 
         for name, axes in stacked_axes(cfg).items():
@@ -321,9 +361,20 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Draw every parameter with JAX's rules (``model_table``)."""
-        self.load_params(init_params(model_table(self.cfg), generator,
-                                     self.dtype, self.device))
+        """Draw every parameter with JAX's rules (``model_table``), in the
+        table's order, straight into the module: a stacked leaf one layer's
+        slice at a time (its std the stacked leaf's, JAX's rule), so the
+        draw beside the model is one piece (``ParamDef.fill``), never a
+        second model."""
+        axes = stacked_axes(self.cfg)
+        for path, pd in flatten(model_table(self.cfg)):
+            if path[0] not in axes:
+                pd.fill(_param(self, path), generator)
+                continue
+            for idx in np.ndindex(*axes[path[0]]):
+                block = self.get_submodule(".".join((path[0],
+                                                     *map(str, idx))))
+                pd.fill(_param(block, path[1:]), generator)
 
     # -- forward modes -----------------------------------------------------
 
@@ -335,54 +386,61 @@ class Transformer(nn.Module):
         return torch.arange(S, device=tokens.device).expand(B, S)
 
     @staticmethod
-    def _run_blocks(x: torch.Tensor, positions: torch.Tensor,
-                    blocks) -> torch.Tensor:
+    def _run_blocks(x: torch.Tensor, aux: torch.Tensor,
+                    positions: torch.Tensor, blocks):
+        """-> (x, aux plus the blocks' aux losses)."""
         for block in blocks:
-            x, _ = block(x, positions)
-        return x
+            x, _, a = block(x, positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
-    def _run_layers(self, x, positions, blocks, remat: bool,
-                    group: int) -> torch.Tensor:
-        """``blocks`` in order; with ``remat`` each run of ``group`` (1
-        where it does not divide their number, as JAX's ``_run_layers``)
-        under ``torch.utils.checkpoint``."""
+    def _run_layers(self, x, aux, positions, blocks, remat: bool,
+                    group: int):
+        """``blocks`` in order, -> (x, aux); with ``remat`` each run of
+        ``group`` (1 where it does not divide their number, as JAX's
+        ``_run_layers``) under ``torch.utils.checkpoint``, which returns
+        the aux sum beside x so that its gradient reaches the run."""
         if not remat:
-            return self._run_blocks(x, positions, blocks)
+            return self._run_blocks(x, aux, positions, blocks)
         n = len(blocks)
         g = group if group > 1 and n % group == 0 else 1
         for start in range(0, n, g):
-            x = checkpoint(self._run_blocks, x, positions,
-                           blocks[start:start + g], use_reentrant=False)
-        return x
+            x, aux = checkpoint(self._run_blocks, x, aux, positions,
+                                blocks[start:start + g], use_reentrant=False)
+        return x, aux
 
     def forward(self, tokens: torch.Tensor, positions=None, *,
                 remat: bool = True):
-        """Train-mode forward: (final hidden (B, S, D), aux loss 0).
+        """Train-mode forward: (final hidden (B, S, D), aux loss: the sum
+        of the MoE layers' Switch losses, 0 in the other families).
 
-        With ``remat`` the dense and ssm families run each group of
+        With ``remat`` the dense, moe and ssm families run each group of
         ``cfg.remat_group`` layers under ``torch.utils.checkpoint``: the
         backward keeps one residual a group and runs the group's forward
         again, flash kernel included.  The hybrid checkpoints each group
         of Mamba blocks with its shared attention, and its tail a layer at
         a time, as JAX does.  Inside a Mamba block each SSD chunk is
-        checkpointed as well (``models/ssm.ssd_scan``).
+        checkpointed as well (``models/ssm.ssd_scan``), and inside an MoE
+        layer each wave (``models/moe.moe_apply``).
         """
         x = self._embed(tokens)
         if positions is None:
             positions = self._default_positions(tokens)
+        aux = torch.zeros((), device=x.device)
         if self.cfg.family == "hybrid":
             # Each group and the shared block after it: one checkpoint.
             seq = [b for g in self.layers for b in (*g, self.shared_attn)]
-            x = self._run_layers(x, positions, seq, remat,
-                                 self.cfg.attn_every + 1)
+            x, aux = self._run_layers(x, aux, positions, seq, remat,
+                                      self.cfg.attn_every + 1)
             if hasattr(self, "tail_layers"):
-                x = self._run_layers(x, positions, list(self.tail_layers),
-                                     remat, 1)
+                x, aux = self._run_layers(x, aux, positions,
+                                          list(self.tail_layers), remat, 1)
         else:
-            x = self._run_layers(x, positions, list(self.layers), remat,
-                                 self.cfg.remat_group)
+            x, aux = self._run_layers(x, aux, positions, list(self.layers),
+                                      remat, self.cfg.remat_group)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return x, torch.zeros((), device=x.device)
+        return x, aux
 
     def _schedule(self):
         """The blocks in the order a forward runs them, each with its cache
@@ -412,7 +470,7 @@ class Transformer(nn.Module):
         for block, key, idx in self._schedule():
             slot = cache[key] if key else cache
             if isinstance(block, DenseBlock):
-                x, (k, v) = block(x, positions)
+                x, (k, v), _ = block(x, positions)
                 slot["k"][idx, :, :S] = k
                 slot["v"][idx, :, :S] = v
             else:
@@ -453,7 +511,7 @@ class Transformer(nn.Module):
         """{subtree of the cache (None: its root): (the per-layer kind,
         "attn" or "mamba", stacked on these axes)}."""
         axes = stacked_axes(self.cfg)
-        if self.cfg.family == "dense":
+        if self.cfg.family in ("dense", "moe"):
             return {None: ("attn", axes["layers"])}
         if self.cfg.family == "ssm":
             return {None: ("mamba", axes["layers"])}

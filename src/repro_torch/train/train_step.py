@@ -14,11 +14,13 @@ in the backward, after ``functional_call`` has put the module's own
 parameters back, and would silently differentiate those.
 
 A leaf whose ``ParamDef`` pins its type (the Mamba2 mixer's ``A_log``, ``D``
-and ``dt_bias``, fp32) keeps it in the compute model, as the JAX package's
-``init_params`` and ``stack_tables`` keep it in every model it builds.
-JAX's ``cast_tree`` rounds those three to bf16 as well; at initialisation
-they hold 0 and 1, which bf16 holds exactly, and later the port's fp32
-copies differ from JAX's by that rounding.
+and ``dt_bias``, the MoE router: fp32) keeps it in the compute model, as
+the JAX package's ``init_params`` and ``stack_tables`` keep it in every
+model it builds, but holds the master's values rounded through the compute
+type: JAX's ``cast_tree`` rounds every leaf, those included.  For the
+router that matters: its logits then come from the same numbers as JAX's,
+so the same experts are picked and the same tokens dropped.  The pinned
+leaves' gradients stay fp32 (JAX rounds them to bf16 on the way back).
 
 Where the compute type is the masters' (fp32 compute), the compute model is
 the master model itself and nothing is copied.  A solver-family model
@@ -57,12 +59,16 @@ def compute_model(model: Transformer,
 
 @torch.no_grad()
 def load_params(compute: Transformer, params: dict) -> None:
-    """Copy the named fp32 masters into the compute model, each cast to its
-    parameter's type (JAX's ``cast_tree``, but pinned leaves stay fp32)."""
+    """Copy the named fp32 masters into the compute model, each cast to the
+    compute type (JAX's ``cast_tree``); a pinned leaf keeps its own type
+    and holds the rounded values."""
     for name, p in compute.named_parameters():
         src = params[name]
-        if p.data_ptr() != src.data_ptr():
-            p.copy_(src)
+        if p.data_ptr() == src.data_ptr():
+            continue
+        if p.dtype != compute.dtype:
+            src = src.to(compute.dtype)
+        p.copy_(src)
 
 
 def value_and_grad(compute: Transformer, params: dict, batch: dict,

@@ -79,3 +79,36 @@ def dv_p_rounding_case(device="cpu"):
     do[:, 1:, :, 0] = 8.0
     do[:, 0, :, 0] = -72192.0
     return tuple(t.to(torch.bfloat16) for t in (q, k, v, do))
+
+
+def ds_flip_atol(q, k, v, do, lse, delta):
+    """(dq's, dk's) allowance for one flipped rounding of ds, causal.
+
+    K8 and K9 round each ds to bf16 (JAX's rule) from fp32 values whose
+    last bits differ from the plain versions' (the tensor cores sum s and dp
+    in another order), so where an fp32 ds lies at a rounding boundary the
+    two round it apart, and the sum moves by up to a bf16 ulp (2^-7 of it)
+    of that term, ds * k in dq and ds * q in dk, however small the sum.  At
+    a GQA group of 8 a dk element sums 8 heads' terms, and at qwen3-moe's
+    shape (4 x 2048, 32 heads on 4) one element in 4 M reads 1.5 times the
+    bf16 bound for that reason (the float64 evaluation of the same formula
+    puts the plain version at 0.31 of it and the kernel one flip of its
+    largest term away, tests/_torch_flash_bwd_noise.py).  The allowance is
+    2^-7 * max |ds| * max |k| (dq) and * max |q| (dk)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    scale = hd ** -0.5
+    mask = torch.ones(S, k.shape[1], dtype=torch.bool,
+                      device=q.device).tril()
+    ds_max = 0.0
+    for b in range(B):
+        for hq in range(H):
+            h = hq // G
+            s = q[b, :, hq].float() @ k[b, :, h].float().T * scale
+            p = torch.where(mask, torch.exp(s - lse[b, hq][:, None]), 0.0)
+            dp = do[b, :, hq].float() @ v[b, :, h].float().T
+            ds = p * (dp - delta[b, hq][:, None]) * scale
+            ds_max = max(ds_max, float(ds.abs().max()))
+    ulp = 2.0 ** -7
+    return (ulp * ds_max * float(k.float().abs().max()),
+            ulp * ds_max * float(q.float().abs().max()))

@@ -44,7 +44,8 @@ from repro_torch.kernels import (_build, dense_jacobi_kernel,
                                  jacobi2d_fused_step, stencil2d,
                                  stencil2d_plain, stencil3d, stencil3d_plain)
 from repro_torch.kernels.flash_attention_bwd import (flash_bwd,
-                                                     flash_bwd_plain)
+                                                     flash_bwd_plain,
+                                                     flash_delta)
 from repro_torch.data.synthetic import DataConfig, token_batch
 from repro_torch.train.train_step import init_train_state, value_and_grad
 from repro_torch.kernels.dense_stencil import (dense_stencil_split_plain,
@@ -57,8 +58,8 @@ from _torch_dense_cases import (GEMM_SHAPES, K5_NORM_ERR, W_PIECES_ULPS,
                                 full_mantissa, max_ulps, norm_err,
                                 perm_exact_case, w_pieces_case)
 from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, FLASH_CASES,
-                                ds_rounding_case, dv_p_rounding_case,
-                                p_rounding_case)
+                                ds_flip_atol, ds_rounding_case,
+                                dv_p_rounding_case, p_rounding_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -1070,6 +1071,136 @@ def test_ssm_families_train_step_on_the_card(cuda, arch):
         cpu, init_train_state(cpu)["params"],
         {k: v.cpu() for k, v in batch.items()})
     assert abs(float(loss) / float(loss_c) - 1) <= 1e-5
+    for name, g in grads_c.items():
+        assert bool(torch.isfinite(grads[name]).all()), name
+        assert float((grads[name].cpu() - g).abs().max()) <= 1e-3 * max(
+            float(g.abs().max()), 1e-30), name
+
+
+# --- the moe family on the card ----------------------------------------------
+
+MOE_SMOKES = {arch: dataclasses.replace(get_config(arch, smoke=True),
+                                        attn_impl="flash")
+              for arch in ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")}
+# (B, Sq, Skv, H, KV, hd): GQA 8 on a ragged length, and the moe archs'
+# attention at the serve and training shape (qwen3-moe GQA 8, moonshot MHA
+# 16), which chip_smoke.py also holds (phases 12 and 16).
+MOE_FLASH_SHAPES = {"gqa8_ragged_300": (2, 300, 300, 16, 2, 128),
+                    "qwen3_moe_shape": (4, 2048, 2048, 32, 4, 128),
+                    "moonshot_shape": (4, 2048, 2048, 16, 16, 128)}
+
+
+@pytest.mark.parametrize("case,dtype", [
+    ("gqa8_ragged_300", torch.float32), ("gqa8_ragged_300", torch.bfloat16),
+    ("qwen3_moe_shape", torch.bfloat16), ("moonshot_shape", torch.bfloat16)])
+def test_flash_kernels_at_the_moe_shapes_match_plain(cuda, case, dtype):
+    """K7, K8 and K9 at a GQA group of 8 (K9 folds the group's eight query
+    heads into each kv head's dk and dv) and at moonshot's MHA 16, against
+    their plain versions within the bounds above; in bf16 dq's and dk's
+    bounds also allow one flipped bf16 rounding of the largest ds term
+    (``ds_flip_atol``: at a group of 8 one dk element in 4 M reads 1.5
+    times the plain bound for that reason)."""
+    B, Sq, Skv, H, KV, hd = MOE_FLASH_SHAPES[case]
+    g = torch.Generator(device=cuda).manual_seed(Sq + H)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((B, Sq, H, hd), (B, Skv, KV, hd),
+                             (B, Skv, KV, hd), (B, Sq, H, hd)))
+    o, lse = flash_fwd(q, k, v, causal=True)
+    got = flash_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_fwd_plain(q, k, v, causal=True)
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), ref.float(), rtol=rtol, atol=atol)
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(
+        ref_lse.abs().max())
+    want = flash_bwd_plain(q, k, v, o, lse, do, causal=True)
+    atol, rtol = FLASH_BWD_TOL[dtype]
+    flips = (ds_flip_atol(q, k, v, do, lse, flash_delta(o, do))
+             if dtype == torch.bfloat16 else (0.0, 0.0))
+    for name, a, b, extra in zip(("dq", "dk", "dv"), got, want,
+                                 (*flips, 0.0)):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        ratio = float(((a.float() - b.float()).abs()
+                       / (atol + extra + rtol * b.float().abs())).max())
+        assert ratio <= 1, (name, ratio)
+
+
+def test_moe_dispatch_modes_agree_on_the_card(cuda):
+    """Einsum and scatter dispatch on one layer (E 16, top 2, 2 x 512
+    tokens in groups of 256, capacity factor 1.25: slots drop), fp32: the
+    outputs within 1e-5 and every gradient within 1e-4 of its max-abs, each
+    mode's output within 1e-5 of the CPU's, the aux loss equal across
+    modes."""
+    from repro_torch.models.layers import flatten
+    from repro_torch.models.moe import MoE, moe_table
+    D, E, F_, K = 256, 16, 128, 2
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 512, D, generator=gen, device=cuda)
+    r = torch.randn(2, 512, D, generator=gen, device=cuda)
+    res = {}
+    for mode in ("einsum", "scatter"):
+        for device in (cuda, torch.device("cpu")):
+            layer = MoE(D, E, F_, 1, top_k=K, dispatch_mode=mode,
+                        device=device)
+            g = torch.Generator(device=cuda).manual_seed(2)
+            for path, pd in flatten(moe_table(D, E, F_, 1)):
+                pd.fill(layer.get_parameter(".".join(path)), g)
+            xx = x.to(device).requires_grad_()
+            out, aux = layer(xx, 256)
+            grads = torch.autograd.grad((out * r.to(device)).sum() + aux,
+                                        [*layer.parameters(), xx])
+            res[(mode, device.type)] = (out.detach().cpu(), float(aux),
+                                        [t.cpu() for t in grads])
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    e, s_ = res[("einsum", "cuda")], res[("scatter", "cuda")]
+    assert rel(s_[0], e[0]) <= 1e-5 and s_[1] == e[1]
+    for a, b in zip(s_[2], e[2]):
+        assert rel(a, b) <= 1e-4
+    for mode in ("einsum", "scatter"):
+        assert rel(res[(mode, "cuda")][0], res[(mode, "cpu")][0]) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", list(MOE_SMOKES))
+def test_moe_family_on_the_card_matches_the_cpu(cuda, arch):
+    """fp32 smoke configs, the same weights on both devices: the prefill
+    hidden, the caches and four decode steps' logits within 1e-4 of their
+    max-abs; K7 once a layer in a prefill, none in decode; one train
+    step's loss within 1e-5 relative and gradients within 1e-3 of their
+    max-abs, K7/K8/K9 twice/once/once a layer."""
+    cfg = MOE_SMOKES[arch]
+    model = build(cfg, device=cuda, dtype=torch.float32)
+    cpu = Transformer(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 27), device=cuda)
+    _build.LAUNCHES.clear()
+    h, cache = model.prefill(tokens, 32)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"flash_fwd": cfg.n_layers}
+    hc, cache_c = cpu.prefill(tokens.cpu(), 32)
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    assert rel(h, hc) <= 1e-4
+    for name in ("k", "v"):
+        assert rel(cache[name], cache_c[name]) <= 1e-4, name
+    tok = tokens[:, -1]
+    for i in range(4):
+        logits, cache = model.decode_step(tok, cache, 27 + i)
+        want, cache_c = cpu.decode_step(tok.cpu(), cache_c, 27 + i)
+        assert rel(logits, want) <= 1e-4, i
+        tok = torch.argmax(want, -1).to(cuda)
+    assert dict(_build.LAUNCHES) == {"flash_fwd": cfg.n_layers}
+    batch = token_batch(DataConfig(cfg.vocab_size, 32, 2), 0, device=cuda)
+    _build.LAUNCHES.clear()
+    loss, parts, grads = value_and_grad(
+        model, init_train_state(model)["params"], batch)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert dict(_build.LAUNCHES) == {"flash_fwd": 2 * n, "flash_bwd_dq": n,
+                                     "flash_bwd_dkv": n}
+    loss_c, parts_c, grads_c = value_and_grad(
+        cpu, init_train_state(cpu)["params"],
+        {k: v.cpu() for k, v in batch.items()})
+    assert abs(float(loss) / float(loss_c) - 1) <= 1e-5
+    assert abs(float(parts["aux"]) / float(parts_c["aux"]) - 1) <= 1e-5
     for name, g in grads_c.items():
         assert bool(torch.isfinite(grads[name]).all()), name
         assert float((grads[name].cpu() - g).abs().max()) <= 1e-3 * max(

@@ -45,7 +45,9 @@ def test_no_jax_or_repro_import_anywhere_in_the_port():
                    "core/adjoint.py", "models/solver_layer.py",
                    "configs/learned_stencil.py", "configs/jacobi.py",
                    "core/conv1d.py", "models/ssm.py",
-                   "configs/mamba2_370m.py", "configs/zamba2_1_2b.py"):
+                   "configs/mamba2_370m.py", "configs/zamba2_1_2b.py",
+                   "models/moe.py", "configs/qwen3_moe_30b_a3b.py",
+                   "configs/moonshot_v1_16b_a3b.py"):
         assert os.path.join(PKG, *module.split("/")) in files, module
     bad = []
     for path in (f for f in files if f.endswith(".py")):
