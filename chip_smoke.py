@@ -42,6 +42,14 @@ solver):
     of bf16 weights, K7 once a layer in a prefill) and trained at full
     width cut to 4 layers (K7 twice a layer, K8/K9 once), through
     ``launch.serve`` and ``launch.train`` (phases 27-29);
+  - the vlm family (qwen2-vl-2b: 28 layers, 1.78 B parameters, M-RoPE, GQA
+    6) and the encdec family (whisper-tiny: 4 encoder and 4 decoder
+    layers, 69 M parameters), served and trained at full width and depth
+    through ``launch.serve`` and ``launch.train``: K7 once a qwen2-vl layer
+    in a forward, and in whisper once an encoder layer (non-causal, 1500
+    frames) and twice a decoder layer (causal self-attention and the
+    non-causal cross-attention on the 1500 frames), K8/K9 once each in a
+    backward (phases 30-32);
   - the differentiable solve, ``repro_torch.core.implicit_solve`` on the
     card's default plan cache (its backward one solve with the transposed
     operator; ``F.conv2d`` and shifted adds, none of K1-K9), and the
@@ -125,7 +133,12 @@ Phases, one JSON line each:
      head_dim 16/32/64/128, fp32 and bf16, the serve prefill's shape (4
      x 2048, 16 heads, 8 kv heads, hd 128, bf16) and zamba2-1.2b's (4 x
      2048, 32 heads, MHA, hd 64, bf16), the moe archs' (4 x 2048, GQA 8:
-     32 heads on 4; MHA 16; hd 128, bf16), and ``p_rounding``, built
+     32 heads on 4; MHA 16; hd 128, bf16), a ragged cross-attention
+     without the mask (40 on 150) and a non-causal GQA-6 self-attention
+     over three tiles (fp32 and bf16), qwen2-vl's (4 x 2048, GQA 6, hd 128,
+     causal), whisper's encoder (16 x 1500, MHA 6, hd 64, non-causal) and
+     cross-attention (16 x 224 on 1500, non-causal) in bf16, and
+     ``p_rounding``, built
      so that a kernel that does not round p to v's type before p . v misses
      by about 0.026; out per element within 2e-5 in fp32 and 2e-3 + 1.6e-2
      * |plain| in bf16 (two bf16 ulps), lse within 1e-5 of its max-abs;
@@ -143,7 +156,8 @@ Phases, one JSON line each:
      model under torch.profiler: device ms by kernel and the device's idle
      share;
  15. K6 and K7 timed by CUDA-graph replay at the serve shape (and K7 at
-     zamba2's and at qwen3-moe's GQA 8) beside their
+     zamba2's, at qwen3-moe's GQA 8 and at qwen2-vl's and whisper's
+     encoder and cross shapes) beside their
      bound, their plain version and F.scaled_dot_product_attention (the
      library yardstick, timed here only; the port never calls it); the
      HGMMA instructions of each bf16 instance (``cuobjdump -sass`` of the
@@ -151,8 +165,11 @@ Phases, one JSON line each:
  16. K8 (flash_bwd_dq) and K9 (flash_bwd_dkv) against their plain versions
      (bf16 runs the tensor-core kernels, fp32 the SIMT ones), o and lse
      from K7: the cases of tests/_torch_flash_cases.py (``FLASH_CASES``:
-     those of phase 12 and the training shape) in fp32 and bf16, zamba2's
-     and the moe archs' shapes in bf16 (K9 folding a group of 8),
+     those of phase 12 and the training shape, qwen2-vl's and whisper's)
+     in fp32 and bf16, zamba2's and the moe archs' shapes in bf16 (K9
+     folding a group of 8; at the moe, qwen2-vl and whisper shapes dq's
+     and dk's bf16 bounds allow one flipped rounding of ds,
+     ``ds_flip_atol``),
      ``ds_rounding``, built so that a K8 that does not round ds to k's type
      misses by 16 times the bound, and ``dv_p_rounding``, built so that a
      K9 that rounds p before p^T . do misses by 86 times; dq, dk, dv per
@@ -170,7 +187,7 @@ Phases, one JSON line each:
      step), then one more step of a fresh model under torch.profiler:
      device ms by kernel and the device's idle share;
  19. K8 and K9 timed by CUDA-graph replay at the training shape (and at
-     zamba2's and qwen3-moe's) in bf16
+     zamba2's, qwen3-moe's, qwen2-vl's and whisper's) in bf16
      beside their bounds, their plain versions and the backward of
      F.scaled_dot_product_attention (the library yardstick, timed with
      torch.autograd.grad; the port never calls it); the HGMMA instructions
@@ -259,9 +276,37 @@ The line after phase 22 lists the kernels phases 20-22 launched.
      card), 5 steps at 4 x 2048 tokens (ms a step and tokens/s over steps
      2-5, peak memory, the aux loss per layer, every loss and grad norm
      finite; K7/K8/K9 8/4/4 a step).
+ 30. qwen2-vl-2b at full width and depth (``vlm_encdec_phases``): served
+     in bf16 as ``launch.serve.serve`` runs it, 4 prompts of 2048 tokens
+     whose first 1024 positions are vision embeddings drawn from the seed,
+     with Qwen2-VL's M-RoPE ids for a 32 x 32 patch grid (vision token i at
+     (0, i // 32, i % 32), text token j at 32 + j on all three channels),
+     32 greedy tokens (K7 28 a prefill, none in decode); a profiled
+     prefill and decode by operation class; then 5 bf16 train steps of 4
+     x 2048 through ``launch.train.train`` on vision embeddings and grid
+     ids drawn the same way (the launcher's zero stub, JAX's, overflows
+     the gradients at this depth: ROADMAP §3) (K7/K8/K9 56/28/28 a step,
+     every loss and grad norm finite);
+ 31. whisper-tiny the same way: batch 16, 1500 frames drawn from the seed,
+     a 224-token decoder prompt, 32 greedy tokens (max_len 257; K7 12 a
+     prefill), a profiled prefill and decode, 5 train steps of 16 x 448
+     decoder tokens over 1500 drawn frames (K7/K8/K9 24/12/12 a step);
+ 32. fp32 checks: (a) decode against the train-mode forward, qwen2-vl at
+     4 layers (2 x 1100 tokens, 1024 of them vision, 16 steps; the
+     forward carries the grid ids and then kv_len on every channel, JAX's
+     decode rule) and whisper at one encoder and one decoder layer (2 x
+     224 on 1500 frames, 16 steps; deeper, its random model is chaotic in
+     fp32, ``VE_FP32_CUT``), and the first step again with a fault
+     planted, which must fail it: qwen2-vl's M-RoPE sections swapped in
+     the prefill, whisper's cross-attention run causal in the forward and
+     its encoder's sinusoid one position late in the prefill; (b) the
+     prefill hidden, flash against xla; (c) the card against the CPU at a
+     smaller cut.  Each bound comes from tests/_torch_vlm_encdec_noise.py
+     --card (``VE_*_RTOL``).
 The inventory line lists K1-K9 and K5's split kernel, and K7-K9 again at
-zamba2's shape and at qwen3-moe's GQA-8 shape with their launches on those
-archs' serve and train paths.
+zamba2's shape, at qwen3-moe's GQA-8 shape, at qwen2-vl's GQA-6 shape and
+at whisper's encoder and cross shapes, with their launches on those archs'
+serve and train paths.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -399,6 +444,46 @@ MOE_DISPATCH_RTOL = {"qwen3-moe-30b-a3b": (4e-6, 5e-6),
 # hd): qwen3-moe GQA 8 (32 query heads on 4 kv heads), moonshot MHA 16.
 MOE_SHAPES = {"qwen3-moe-30b-a3b": (4, 2048, 32, 4, 128),
               "moonshot-v1-16b-a3b": (4, 2048, 16, 16, 128)}
+# Phases 30-32, the vlm and encdec families at full width and depth.
+VLM_ARCH = "qwen2-vl-2b"
+ENCDEC_ARCH = "whisper-tiny"
+VLM_SERVE = (4, 2048, 32)   # phase 30: batch, prompt, tokens (bf16)
+VLM_GRID_W = 32             # phase 30: the 1024 vision tokens, 32 x 32
+VLM_TRAIN = (4, 2048, 5)    # phase 30: batch, seq_len, steps (bf16)
+ENC_SERVE = (16, 224, 32)   # phase 31: batch, decoder prompt, tokens
+ENC_TRAIN = (16, 448, 5)    # phase 31: batch, decoder tokens, steps
+VE_PROFILE_TOKENS = 2       # phases 30-31: decode steps under the profiler
+# Phase 32 (fp32): (a, b) batch, prompt, tokens at a depth cut; (c) batch,
+# prompt, vision tokens and grid width (or None) at a smaller cut, card
+# against CPU.  whisper-tiny is cut to one encoder and one decoder layer:
+# its random model is chaotic in fp32 at depth (non-causal scores of std
+# about 100 over 1500 frames, so near-ties flip), each fp32 run lying 0.10
+# to 0.26 of max-abs from a float64 one at 4 + 4 layers, 4.5e-3 after two
+# encoder layers and 8e-5 after one (PERF.md §6, PR 25).
+VE_FP32 = {VLM_ARCH: (2, 1100, 16), ENCDEC_ARCH: (2, 224, 16)}
+VE_FP32_CUT = {VLM_ARCH: {"n_layers": 4},
+               ENCDEC_ARCH: {"n_enc_layers": 1, "n_layers": 1}}
+VE_CPU = {VLM_ARCH: (2, 300, 256, 16), ENCDEC_ARCH: (2, 64, None, None)}
+VE_CPU_CUT = {VLM_ARCH: {"n_layers": 2},
+              ENCDEC_ARCH: {"n_enc_layers": 1, "n_layers": 1}}
+# Phase 32's bounds, relative to the max-abs: twice the larger distance of
+# an fp32 run from a float64 run of the same weights and inputs at these
+# sizes, rounded up to one digit; the readings are
+# tests/_torch_vlm_encdec_noise.py --card's on an H100 80GB HBM3 at 700 W
+# (PERF.md §6, PR 25), where float64 decode and forward agree to 6.4e-13
+# and 6.9e-14.  (a) decode against forward: the fp32 decode and forward
+# logits lie up to 4.3e-4 (qwen2-vl) and 3.8e-4 (whisper) from the float64
+# forward's; fp32 readings 6.5e-5 and 1.7e-5, the planted faults 0.75 to
+# 1.18.  (b) flash against xla: each within 8.2e-5 and 1.6e-4 of float64
+# xla.  (c) card against CPU: within 2.0e-6 and 5.9e-5.
+VE_DECODE_RTOL = {VLM_ARCH: 9e-4, ENCDEC_ARCH: 8e-4}
+VE_FLASH_RTOL = {VLM_ARCH: 2e-4, ENCDEC_ARCH: 4e-4}
+VE_CPU_RTOL = {VLM_ARCH: 5e-6, ENCDEC_ARCH: 2e-4}
+# The two families' attention at the serve and training shapes, cases of
+# tests/_torch_flash_cases.FLASH_CASES (phases 12, 15, 16, 19): qwen2-vl's
+# GQA 6, causal; whisper's encoder (1500 frames, non-causal) and its
+# cross-attention (224 decoder tokens on 1500 frames, non-causal).
+VE_CASES = ("vlm_shape", "whisper_encoder", "whisper_cross")
 DEVICE = "cuda"
 # Phases 20-22, the stencil serving tier.  Autotune cells: (name, spec,
 # grid, iterations a timed call); Table 1's and Fig 6's go to the committed
@@ -1757,6 +1842,334 @@ def moe_phases(dev, device_profile):
     return {"launches": launches, "seconds": seconds}
 
 
+def pairs_of(shape, causal):
+    """(query, visible key) pairs of a case (kv_offset 0)."""
+    B_, Sq_, Skv_, H_ = shape[:4]
+    return B_ * H_ * (Sq_ * (Sq_ + 1) // 2 if causal else Sq_ * Skv_)
+
+
+def k7_timing(shape, causal, dev, gen, graph_ms, time_ms):
+    """K7 at a case of FLASH_CASES in bf16 (inputs from ``gen``): its
+    time by ``graph_ms`` (a CUDA graph's replay), the plain version's and
+    SDPA's (``enable_gqa`` where grouped), the operations (4 hd a pair),
+    bytes (q, k, v, out, lse) and bound (phase 15)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_fwd, flash_fwd_plain
+    B_, Sq_, Skv_, H_, KV_, hd_ = shape
+    q, k, v = (torch.randn(s_, generator=gen, device=dev)
+               .to(torch.bfloat16)
+               for s_ in ((B_, Sq_, H_, hd_), (B_, Skv_, KV_, hd_),
+                          (B_, Skv_, KV_, hd_)))
+    ops = 4 * hd_ * pairs_of(shape, causal)
+    nbytes = (2 * (2 * B_ * Sq_ * H_ * hd_ + 2 * B_ * Skv_ * KV_ * hd_)
+              + B_ * H_ * Sq_ * 4)
+    out = {"shape": list(shape), "causal": causal, "operations": ops,
+           "bytes": nbytes,
+           "k7_ms": graph_ms(lambda: flash_fwd(q, k, v, causal=causal), 5),
+           "plain_ms": time_ms(lambda: flash_fwd_plain(
+               q, k, v, causal=causal), 3)}
+    qs, ks, vs = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    out["sdpa_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal, enable_gqa=H_ != KV_), 5)
+    out["bound_ms"] = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    out["k7_TFLOPs"] = ops / (out["k7_ms"] * 1e-3) / 1e12
+    return out
+
+
+def k89_timing(shape, causal, dev, gen, graph_ms, time_ms):
+    """K8 and K9 at a case of FLASH_CASES in bf16 (inputs from ``gen``; o
+    and lse from K7): their times by ``graph_ms``, the plain versions',
+    the backward of SDPA (dq, dk and dv together), operations (6 hd and 8
+    hd a pair), bytes and bounds (phase 19)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_fwd
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_delta, launch_bwd_dkv,
+        launch_bwd_dq)
+    B_, Sq_, Skv_, H_, KV_, hd_ = shape
+    q, k, v, do = (torch.randn(s_, generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for s_ in ((B_, Sq_, H_, hd_), (B_, Skv_, KV_, hd_),
+                              (B_, Skv_, KV_, hd_), (B_, Sq_, H_, hd_)))
+    o, lse = flash_fwd(q, k, v, causal=causal)
+    args, kw = (q, k, v, do, lse, flash_delta(o, do)), dict(
+        causal=causal, kv_offset=0)
+    pairs = pairs_of(shape, causal)
+    qkv = 2 * (2 * B_ * Sq_ * H_ * hd_ + 2 * B_ * Skv_ * KV_ * hd_)
+    stat = 2 * B_ * H_ * Sq_ * 4
+    k8_bytes = qkv + stat + 2 * B_ * Sq_ * H_ * hd_
+    k9_bytes = qkv + stat + 2 * 2 * B_ * Skv_ * KV_ * hd_
+    out = {"shape": list(shape), "causal": causal,
+           "k8_operations": 6 * hd_ * pairs,
+           "k9_operations": 8 * hd_ * pairs,
+           "k8_bytes": k8_bytes, "k9_bytes": k9_bytes,
+           "k8_ms": graph_ms(lambda: launch_bwd_dq(*args, **kw), 5),
+           "k9_ms": graph_ms(lambda: launch_bwd_dkv(*args, **kw), 5),
+           "k8_plain_ms": time_ms(lambda: flash_bwd_dq_plain(
+               *args, causal=causal), 3),
+           "k9_plain_ms": time_ms(lambda: flash_bwd_dkv_plain(
+               *args, causal=causal), 3),
+           "k8_bound_ms": max(6 * hd_ * pairs / PEAK_BF16_FLOPS,
+                              k8_bytes / PEAK_BYTES) * 1e3,
+           "k9_bound_ms": max(8 * hd_ * pairs / PEAK_BF16_FLOPS,
+                              k9_bytes / PEAK_BYTES) * 1e3}
+    qs, ks, vs = (t_.transpose(1, 2).contiguous().requires_grad_()
+                  for t_ in (q, k, v))
+    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                         enable_gqa=H_ != KV_)
+    do_s = do.transpose(1, 2).contiguous()
+    out["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        o_s, (qs, ks, vs), do_s, retain_graph=True), 5)
+    return out
+
+
+def vlm_encdec_phases(dev, device_profile):
+    """Phases 30-32, the vlm (qwen2-vl-2b) and encdec (whisper-tiny) LM
+    families at full width and depth: (30, 31) bf16 serving as
+    ``launch.serve.serve`` runs it, with qwen2-vl's 1024 vision embeddings
+    on Qwen2-VL's 32 x 32 grid ids and whisper's 1500 frames drawn from the
+    seed, a profiled prefill and decode, then bf16 training as
+    ``launch.train.train`` runs it; (32) fp32 checks: (a) decode against the
+    train-mode forward, with planted faults it must see (M-RoPE sections
+    swapped; cross-attention run causal; the encoder's sinusoid one
+    position late), (b) flash against xla on the prefill, (c) the card
+    against the CPU.  The launch counts are zeroed before each path and
+    read after it: K7 once a layer in a qwen2-vl forward and once an
+    encoder layer and twice a decoder layer (self, cross) in whisper's;
+    K8/K9 once each of those in a backward.  Returns {"launches": {(phase,
+    arch): launches}, "seconds": {phase: s}}.
+    """
+    import numpy as np
+    import torch
+
+    from _torch_vlm_encdec_cases import (cross_attention_causal,
+                                         decode_vs_forward, family_inputs,
+                                         rel, sections_swapped,
+                                         sinusoid_shifted)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def flush():
+        sync()
+        torch.cuda.empty_cache()
+
+    cfgs = {arch: dataclasses.replace(get_config(arch), attn_impl="flash")
+            for arch in (VLM_ARCH, ENCDEC_ARCH)}
+
+    def expect(cfg, fwd=1, bwd=0):
+        uses = (cfg.n_enc_layers + 2 * cfg.n_layers
+                if cfg.family == "encdec" else cfg.n_layers)
+        out = {"flash_fwd": fwd * uses, "flash_bwd_dq": bwd * uses,
+               "flash_bwd_dkv": bwd * uses}
+        return {k: v for k, v in out.items() if v}
+
+    def inputs(cfg, batch, seq, seed, n_vision=None, width=VLM_GRID_W,
+               dtype=torch.bfloat16):
+        return family_inputs(cfg, batch, seq, seed, dev, dtype, n_vision,
+                             width)
+
+    launches, seconds = {}, {}
+
+    # -- 30, 31. bf16 serving and training at full width and depth -----------
+    for phase, arch, (Bs, Ss, Ts), (Bt, St, Tt) in (
+            (30, VLM_ARCH, VLM_SERVE, VLM_TRAIN),
+            (31, ENCDEC_ARCH, ENC_SERVE, ENC_TRAIN)):
+        t0 = time.perf_counter()
+        cfg = cfgs[arch]
+        flush()
+        model = build(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        extra = inputs(cfg, Bs, Ss, 0)
+        _build.LAUNCHES.clear()
+        served = serve(cfg, batch=Bs, prompt_len=Ss, tokens=Ts, model=model,
+                       inputs=extra)
+        launches[(phase, arch)] = dict(_build.LAUNCHES)  # warm-up and timed
+        gen = served.pop("generated")
+        check(served["prefill_launches"] == expect(cfg)
+              and not served["decode_launches"],
+              f"{arch} bf16 serve launched {served['prefill_launches']}, "
+              f"{served['decode_launches']}")
+        check(launches[(phase, arch)] == expect(cfg, fwd=2),
+              f"{arch} bf16 serve run launched {launches[(phase, arch)]}")
+        check(gen.shape == (Bs, Ts + 1) and bool((gen >= 0).all())
+              and bool((gen < cfg.vocab_size).all()),
+              f"{arch} bf16 serve tokens")
+        # Where the device time goes: one more prefill and decode of the
+        # same weights and inputs under the profiler.
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (Bs, Ss)), device=dev), **extra}
+        prefill = make_prefill_step(model, Ss + Ts + 1)
+        prof_prefill = device_profile(lambda: prefill(batch), top=16,
+                                      host=False)
+        first, cache = prefill(batch)
+
+        def decode_loop():
+            tok = first
+            for i in range(VE_PROFILE_TOKENS):
+                tok, _ = make_decode_step(model, Ss + i)(tok, cache)
+
+        prof_decode = device_profile(decode_loop, top=16, host=False)
+        prof_decode["tokens"] = VE_PROFILE_TOKENS
+        n_params = sum(p.numel() for p in model.parameters())
+        del model, cache, prefill, first, batch, extra
+        flush()
+        # Trained on inputs drawn from the seed as well: the launcher's zero
+        # vision stub (JAX's) overflows qwen2-vl's gradients at full depth
+        # (ROADMAP §3).
+        key = (phase, f"{arch} train")
+        _build.LAUNCHES.clear()
+        trained = train(cfg, steps=Tt, global_batch=Bt, seq_len=St,
+                        device=dev, seed=0, inputs=inputs(cfg, Bt, St, 3))
+        launches[key] = dict(_build.LAUNCHES)
+        steps = trained.pop("steps")
+        for rec in steps:
+            check(rec["launches"] == expect(cfg, fwd=2, bwd=1),
+                  f"{arch} bf16 train step {rec['step']} launched "
+                  f"{rec['launches']}")
+            check(all(math.isfinite(rec[k]) for k in ("loss", "nll",
+                                                       "grad_norm")),
+                  f"{arch} bf16 train step {rec['step']}: {rec}")
+        timed = steps[1:]   # the first pays the allocator's growth
+        ms = sum(r["ms"] for r in timed) / len(timed)
+        seconds[phase] = time.perf_counter() - t0
+        emit({"phase": phase, "parameters": n_params, **served,
+              "launches_whole_run": launches[(phase, arch)],
+              "seq0": gen[0].tolist(), "profile_prefill": prof_prefill,
+              "profile_decode": prof_decode,
+              "train": {**trained, "steps": [
+                  {k: r[k] for k in ("step", "loss", "grad_norm", "lr", "ms",
+                                     "tokens_per_s", "launches")}
+                  for r in steps],
+                  "ms_per_step": ms, "tokens_per_s": Bt * St / (ms * 1e-3),
+                  "launches_whole_run": launches[key]},
+              "seconds": seconds[phase]})
+        flush()
+
+    # -- 32. fp32 checks ------------------------------------------------------
+    t0 = time.perf_counter()
+    pending = []   # checked after the record is written
+
+    def later(ok, what):
+        pending.append((bool(ok), what))
+
+    record = {"phase": 32, "dtype": "float32"}
+    for arch, cfg in cfgs.items():
+        vlm = cfg.family == "vlm"
+        B, S, T = VE_FP32[arch]
+        cut = dataclasses.replace(cfg, **VE_FP32_CUT[arch])
+        rtol = VE_DECODE_RTOL[arch]
+        model = build(cut, device=dev, dtype=torch.float32,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        prompts = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (B, S)), device=dev)
+        extra = inputs(cut, B, S, 1, dtype=torch.float32)
+        pos = extra.pop("positions", None)
+        # (a) decode against the forward, then the first step again from a
+        # prefill with a fault planted.
+        _build.LAUNCHES.clear()
+        res = decode_vs_forward(model, prompts, T, extra, pos)
+        sync()
+        later(dict(_build.LAUNCHES) == expect(cut, fwd=T + 1),
+              f"{arch} fp32 decode against forward launched "
+              f"{dict(_build.LAUNCHES)}")
+        later(max(res["errs"]) <= rtol, f"{arch} decode against forward: "
+              f"logits {max(res['errs'])} of max-abs")
+        first = res["tokens"][:, :1]
+        faults = {}
+        if vlm:
+            bad = type(model)(dataclasses.replace(
+                cut, m_rope_sections=sections_swapped(cut.m_rope_sections)),
+                device=dev)
+            bad.load_state_dict(model.state_dict())
+            faults["sections_swapped"] = decode_vs_forward(
+                model, prompts, 1, extra, pos, tokens=first,
+                prefill_model=bad)["errs"][0]
+            del bad
+        else:
+            # The forward's cross-attention run causal (decode attends to
+            # the whole cache, so the fault lives in the full-sequence
+            # path), and the prefill's encoder a position late.
+            faults["cross_attention_causal"] = decode_vs_forward(
+                model, prompts, 1, extra, tokens=first,
+                forward_fault=cross_attention_causal)["errs"][0]
+            faults["sinusoid_shifted"] = decode_vs_forward(
+                model, prompts, 1, extra, tokens=first,
+                fault=sinusoid_shifted)["errs"][0]
+        for name, e in faults.items():
+            later(e > rtol, f"{arch} decode with {name}: logits only {e} "
+                  f"of max-abs from the forward's")
+        # (b) flash against xla on the prefill hidden, the same weights.
+        state = model.state_dict()
+        hidden = {}
+        for impl in ("flash", "xla"):
+            m = type(model)(dataclasses.replace(cut, attn_impl=impl),
+                            device=dev)
+            m.load_state_dict(state)
+            kw = dict(extra) if pos is None else {**extra, "positions": pos}
+            _build.LAUNCHES.clear()
+            hidden[impl], _ = m.prefill(prompts, S, **kw)
+            sync()
+            later(dict(_build.LAUNCHES) == (expect(cut) if impl == "flash"
+                                            else {}),
+                  f"{arch} fp32 {impl} prefill launched "
+                  f"{dict(_build.LAUNCHES)}")
+            del m
+        flash_rel = rel(hidden["flash"], hidden["xla"])
+        later(bool(torch.isfinite(hidden["flash"]).all())
+              and flash_rel <= VE_FLASH_RTOL[arch],
+              f"{arch} fp32 prefill hidden flash vs xla: {flash_rel}")
+        del model, state, hidden
+        flush()
+        # (c) the card against the CPU: a depth-cut model, the same weights
+        # and inputs.
+        Bc, Sc, nvc, wc = VE_CPU[arch]
+        small = dataclasses.replace(cfg, **VE_CPU_CUT[arch])
+        card = build(small, device=dev, dtype=torch.float32,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+        cpu = type(card)(small, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        tokens = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (Bc, Sc)), device=dev)
+        kw = inputs(small, Bc, Sc, 2, n_vision=nvc, width=wc,
+                    dtype=torch.float32)
+        h_card, _ = card.prefill(tokens, Sc, **kw)
+        h_cpu, _ = cpu.prefill(tokens.cpu(), Sc,
+                               **{k: v.cpu() for k, v in kw.items()})
+        card_rel = rel(h_card.cpu(), h_cpu)
+        later(bool(torch.isfinite(h_card).all())
+              and card_rel <= VE_CPU_RTOL[arch],
+              f"{arch} prefill hidden card vs CPU: {card_rel} of max-abs")
+        record[arch] = {
+            "decode_vs_forward": {
+                "cut": VE_FP32_CUT[arch], "batch": B, "prompt_len": S,
+                "tokens": T, "rel_err_by_step": res["errs"], "rtol": rtol,
+                "first_step_with_a_fault": faults},
+            "flash_vs_xla": {"hidden_rel_err": flash_rel,
+                             "rtol": VE_FLASH_RTOL[arch]},
+            "card_vs_cpu": {"cut": VE_CPU_CUT[arch], "batch": Bc,
+                            "prompt_len": Sc, "hidden_rel_err": card_rel,
+                            "rtol": VE_CPU_RTOL[arch]}}
+        del card, cpu, extra, prompts, res
+        flush()
+    seconds[32] = time.perf_counter() - t0
+    emit(record)
+    for ok, what in pending:
+        check(ok, what)
+    emit({"vlm_encdec_seconds": seconds})
+    return {"launches": launches, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2602,6 +3015,7 @@ def main(argv=None) -> int:
     # -- 12. K6 and K7 against their plain versions ---------------------------
     del xd, xd2, matrix
     torch.cuda.empty_cache()
+    from _torch_flash_cases import FLASH_CASES
     from repro_torch.configs import get_config
     from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                      flash_fwd, flash_fwd_plain)
@@ -2648,6 +3062,10 @@ def main(argv=None) -> int:
                    kv_offset=128)
         for hd in (16, 32, 64, 128):
             flash_case(f"hd{hd}", (2, 200, 200, 4, 2, hd), dtype)
+        for label in ("cross_ragged_non_causal", "non_causal_gqa6"):
+            shape, causal, kv_offset = FLASH_CASES[label]
+            flash_case(label, shape, dtype, causal=causal,
+                       kv_offset=kv_offset)
     flash_case("p_rounding", (1, 64, 1024, 2, 1, 16), torch.bfloat16,
                causal=False, qkv=p_rounding_case(dev))
     Bm, Sm, Hm, KVm, hdm = LM_SHAPE
@@ -2659,6 +3077,10 @@ def main(argv=None) -> int:
     for arch, (Bx, Sx, Hx, KVx, hdx) in MOE_SHAPES.items():
         flash_case(f"{arch} shape", (Bx, Sx, Sx, Hx, KVx, hdx),
                    torch.bfloat16, blocks=(512, 512))
+    for label in VE_CASES:
+        shape, causal, _ = FLASH_CASES[label]
+        flash_case(label, shape, torch.bfloat16, causal=causal,
+                   blocks=(512, 512))
     # A diagnostic, not a check: the bf16 kernel's own schedule is the plain
     # version at its 128 x 128 tiles (p rounded against the same running
     # maxima), so what is left there is the order of the fp32 sums.
@@ -2844,8 +3266,12 @@ def main(argv=None) -> int:
                             (gqa_bytes + gqa_lse_bytes) / PEAK_BYTES) * 1e3
     gqa15["k7_TFLOPs"] = gqa_ops / (gqa15["k7_ms"] * 1e-3) / 1e12
     del qg, kg, vg
+
+    ve15 = {label: k7_timing(*FLASH_CASES[label][:2], dev, gq, graph_ms,
+                             time_ms) for label in VE_CASES}
     emit({"phase": 15, "shape": list(LM_SHAPE), "dtype": "bfloat16",
           "hybrid_shape": hyb15, "moe_gqa8_shape": gqa15,
+          "vlm_encdec_shapes": ve15,
           "k6_ms": k6_ms, "k7_ms": k7_ms, "plain_ms": k67_plain,
           "sdpa_ms": sdpa_ms, "k7_fp32_ms": k7_fp32_ms,
           "operations": lm_ops, "bytes": lm_bytes,
@@ -2858,7 +3284,7 @@ def main(argv=None) -> int:
     # -- 16. K8 and K9 against their plain versions ---------------------------
     del qs_, ks_, vs_
     torch.cuda.empty_cache()
-    from _torch_flash_cases import (FLASH_CASES, ds_flip_atol,
+    from _torch_flash_cases import (FLIP_CASES, ds_flip_atol,
                                     ds_rounding_case, dv_p_rounding_case)
     from repro_torch.data.synthetic import DataConfig, token_batch
     from repro_torch.kernels.flash_attention_bwd import (
@@ -2876,9 +3302,9 @@ def main(argv=None) -> int:
                  flips=False):
         """K8 and K9 on one case (o and lse from K7), held element by
         element to their plain versions; with ``rerun``, run again and
-        required bit-equal; with ``flips`` (the moe shapes, bf16, causal)
-        dq's and dk's bounds also allow one flipped bf16 rounding of the
-        largest ds term (``ds_flip_atol``)."""
+        required bit-equal; with ``flips`` (bf16: the moe shapes and
+        ``FLIP_CASES``) dq's and dk's bounds also allow one flipped bf16
+        rounding of the largest ds term (``ds_flip_atol``)."""
         kw = dict(causal=causal, kv_offset=kv_offset)
         o, lse = flash_fwd(q, k, v, **kw)
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do, **kw)
@@ -2894,7 +3320,7 @@ def main(argv=None) -> int:
         tol_dq = tol_dk = FLASH_BWD_TOL
         if flips:
             atol, rtol = FLASH_BWD_TOL["bfloat16"]
-            flip_dq, flip_dk = ds_flip_atol(q, k, v, do, lse, delta)
+            flip_dq, flip_dk = ds_flip_atol(q, k, v, do, lse, delta, causal)
             flip_atol[label] = {"dq": flip_dq, "dk": flip_dk}
             tol_dq = {"bfloat16": (atol + flip_dq, rtol)}
             tol_dk = {"bfloat16": (atol + flip_dk, rtol)}
@@ -2913,8 +3339,10 @@ def main(argv=None) -> int:
             q, k, v, do = (torch.randn(s_, generator=gb, device=dev).to(dtype)
                            for s_ in ((B_, Sq_, H_, hd_), (B_, Skv_, KV_, hd_),
                                       (B_, Skv_, KV_, hd_), (B_, Sq_, H_, hd_)))
+            bf16 = dtype == torch.bfloat16
             bwd_case(label, q, k, v, do, causal=causal, kv_offset=kv_offset,
-                     rerun=dtype == torch.bfloat16 and label == "serve_shape")
+                     rerun=bf16 and label == "serve_shape",
+                     flips=bf16 and label in FLIP_CASES)
     bwd_case("ds_rounding", *ds_rounding_case(dev), causal=False)
     bwd_case("dv_p_rounding", *dv_p_rounding_case(dev), causal=False)
     bwd_case("hybrid_shape", *(
@@ -2931,7 +3359,7 @@ def main(argv=None) -> int:
           "max_abs_err": {n: worst[n] for n in BWD_KERNELS},
           "max_err_over_bound": {n: ratio[n] for n in BWD_KERNELS},
           "bf16_rerun_bit_equal": rerun_equal, "tol": FLASH_BWD_TOL,
-          "moe_shapes_flip_atol": flip_atol})
+          "flip_atol": flip_atol})
 
     # -- 17. an fp32 train step at full width: flash against xla ---------------
     B17, S17 = LM_FP32[:2]
@@ -3111,8 +3539,12 @@ def main(argv=None) -> int:
     gqa19["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         out8, (qs8, ks8, vs8), dout8, retain_graph=True), 5)
     del qs8, ks8, vs8, out8, dout8, gqa_args, q8g, k8g, v8g, do8g, o8g
+
+    ve19 = {label: k89_timing(*FLASH_CASES[label][:2], dev, gq, graph_ms,
+                              time_ms) for label in VE_CASES}
     emit({"phase": 19, "shape": list(LM_SHAPE), "dtype": "bfloat16",
           "hybrid_shape": hyb19, "moe_gqa8_shape": gqa19,
+          "vlm_encdec_shapes": ve19,
           "k8_ms": k8_ms, "k9_ms": k9_ms, "k8_plain_ms": k8_plain,
           "k9_plain_ms": k9_plain, "sdpa_bwd_ms": sdpa_bwd_ms,
           "k8_bound_ms": max(k8_ops / PEAK_BF16_FLOPS,
@@ -3393,6 +3825,78 @@ def main(argv=None) -> int:
             "flash_bwd_dq": MOE_TRAIN_DEPTH * steps29,
             "flash_bwd_dkv": MOE_TRAIN_DEPTH * steps29},
             f"{arch}'s train path launched {moe['launches'][(29, arch)]}")
+
+    # -- 30-32. the vlm and encdec families ------------------------------------
+    torch.cuda.empty_cache()
+    ve = vlm_encdec_phases(dev, device_profile)
+    ve_paths = {"vlm_shape": (30, VLM_ARCH),
+                "whisper_encoder": (31, ENCDEC_ARCH),
+                "whisper_cross": (31, ENCDEC_ARCH)}
+    ve_case = {
+        "vlm_shape": "qwen2-vl-2b's attention (GQA 6: 12 query heads on 2 "
+                     "kv heads, head_dim 128), causal",
+        "whisper_encoder": "whisper-tiny's encoder self-attention (MHA 6, "
+                           "head_dim 64, 1500 frames), non-causal",
+        "whisper_cross": "whisper-tiny's cross-attention (224 decoder "
+                         "tokens on 1500 frames), non-causal"}
+    for label in VE_CASES:
+        phase, arch = ve_paths[label]
+        serve_l, train_l = (ve["launches"][(phase, arch)],
+                            ve["launches"][(phase, f"{arch} train")])
+        t15, t19 = ve15[label], ve19[label]
+        rows = {"shape": t15["shape"], "causal": t15["causal"],
+                "dtype": "bfloat16", "case": ve_case[label],
+                "plain_timing": "eager",
+                "library": "F.scaled_dot_product_attention"
+                           + (" (enable_gqa)" if label == "vlm_shape"
+                              else "")}
+        if arch == ENCDEC_ARCH:
+            rows["launches_note"] = ("the path's count over all of its "
+                                     "attention: encoder, decoder self and "
+                                     "cross, a layer each")
+        bwd_library = "backward of " + rows["library"] + (
+            " (dq, dk and dv together)")
+        kernels += [
+            entry("flash_fwd", "src/repro_torch/csrc/flash_attention_sm90.cu",
+                  "src/repro/kernels/flash_attention_bwd.py:86",
+                  t15["k7_ms"], t15["plain_ms"], t15["bytes"],
+                  t15["operations"], t15["sdpa_ms"],
+                  {**rows, "train_launches": train_l.get("flash_fwd", 0),
+                   "max_abs_err": case_err[("flash_fwd", label,
+                                            "bfloat16")]},
+                  serve_l, PEAK_BF16_FLOPS),
+            entry("flash_bwd_dq",
+                  "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                  "src/repro/kernels/flash_attention_bwd.py:223",
+                  t19["k8_ms"], t19["k8_plain_ms"], t19["k8_bytes"],
+                  t19["k8_operations"], t19["sdpa_bwd_ms"],
+                  {**rows, "library": bwd_library,
+                   "max_abs_err": case_err[("flash_bwd_dq", label,
+                                            "bfloat16")]},
+                  train_l, PEAK_BF16_FLOPS),
+            entry("flash_bwd_dkv",
+                  "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                  "src/repro/kernels/flash_attention_bwd.py:249",
+                  t19["k9_ms"], t19["k9_plain_ms"], t19["k9_bytes"],
+                  t19["k9_operations"], t19["sdpa_bwd_ms"],
+                  {**rows, "library": bwd_library,
+                   "max_abs_err": max(case_err[("flash_bwd_dkv",
+                                                f"{label} {g}", "bfloat16")]
+                                      for g in ("dk", "dv"))},
+                  train_l, PEAK_BF16_FLOPS)]
+    for phase, arch, steps in ((30, VLM_ARCH, VLM_TRAIN[2]),
+                               (31, ENCDEC_ARCH, ENC_TRAIN[2])):
+        cfg = get_config(arch)
+        uses = (cfg.n_enc_layers + 2 * cfg.n_layers
+                if cfg.family == "encdec" else cfg.n_layers)
+        check(ve["launches"][(phase, arch)] == {"flash_fwd": 2 * uses},
+              f"{arch}'s serve path launched "
+              f"{ve['launches'][(phase, arch)]}")
+        check(ve["launches"][(phase, f"{arch} train")] == {
+            "flash_fwd": 2 * uses * steps, "flash_bwd_dq": uses * steps,
+            "flash_bwd_dkv": uses * steps},
+            f"{arch}'s train path launched "
+            f"{ve['launches'][(phase, f'{arch} train')]}")
 
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")

@@ -7,8 +7,10 @@ from repro_torch.configs import (  # noqa: F401  (registers)
     learned_stencil,
     mamba2_370m,
     moonshot_v1_16b_a3b,
+    qwen2_vl_2b,
     qwen3_0_6b,
     qwen3_moe_30b_a3b,
+    whisper_tiny,
     zamba2_1_2b,
 )
 from repro_torch.configs.base import ModelConfig, get_config, list_archs

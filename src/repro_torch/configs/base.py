@@ -4,9 +4,10 @@
 
 Full-size configs live in ``repro_torch/configs/<arch_id>.py``; every arch
 also has ``smoke()``, a reduced same-family config for CPU tests.  Only the
-archs whose family the port runs are registered (dense: qwen3-0.6b; ssm:
-mamba2-370m; hybrid: zamba2-1.2b; moe: qwen3-moe-30b-a3b,
-moonshot-v1-16b-a3b); the others register when their families are ported
+archs the port runs are registered (dense: qwen3-0.6b; ssm: mamba2-370m;
+hybrid: zamba2-1.2b; moe: qwen3-moe-30b-a3b, moonshot-v1-16b-a3b; vlm:
+qwen2-vl-2b; encdec: whisper-tiny); the dense archs' other configs
+(nemotron-4-15b, glm4-9b, phi3-medium-14b) register when they are ported
 (ROADMAP queue 1, the LM-families item).  The solver family's ``learned-stencil``
 (``configs/learned_stencil.py``) registers too, but is not an arch of
 ``list_archs()``.
@@ -138,11 +139,9 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
                 f"repro_torch.configs.{arch_id.replace('-', '_')}")
         except ModuleNotFoundError:
             raise NotImplementedError(
-                f"{arch_id} is not ported yet: its family comes with the "
-                f"LM-families item of ROADMAP queue 1; the port runs the "
-                f"dense, ssm, hybrid and moe families (qwen3-0.6b, "
-                f"mamba2-370m, zamba2-1.2b, qwen3-moe-30b-a3b, "
-                f"moonshot-v1-16b-a3b)") from None
+                f"{arch_id} is not ported yet: the dense archs' other "
+                f"configs (nemotron-4-15b, glm4-9b, phi3-medium-14b) come "
+                f"with the LM-families item of ROADMAP queue 1") from None
     entry = _REGISTRY[arch_id]
     return entry["smoke" if smoke else "full"]()
 

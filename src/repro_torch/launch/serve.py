@@ -9,6 +9,10 @@ of the JAX package's ``launch/serve.py``.
         --batch 4 --prompt-len 2048 --tokens 32            # or mamba2-370m
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 2048 --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b \\
+        --batch 4 --prompt-len 2048 --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+        --batch 16 --prompt-len 224 --tokens 32
 
 Weights are random, drawn from ``--seed`` with JAX's distributions; prompts
 are token ids from ``numpy.random.default_rng(seed)``; there is no
@@ -16,8 +20,12 @@ tokenizer.  Every family of ``transformer.FAMILIES`` serves: dense
 (qwen3-0.6b), moe (qwen3-moe-30b-a3b and moonshot-v1-16b-a3b: K7 once a
 layer in a prefill, 61.1 and 57.8 GB of bf16 weights at full depth), ssm
 (mamba2-370m: no attention, so no kernel of K1-K9 and ``--attn-impl``
-does not apply) and hybrid (zamba2-1.2b: its shared attention block, six
-times a prefill).  ``--attn-impl`` sets the config's
+does not apply), hybrid (zamba2-1.2b: its shared attention block, six
+times a prefill), vlm (qwen2-vl-2b: K7 once a layer) and encdec
+(whisper-tiny: K7 once an encoder layer and twice a decoder layer, self
+and cross).  The stub frontends' inputs are zeros as the JAX package's
+launchers build them (``stub_inputs``), unless ``serve`` is given
+``inputs``.  ``--attn-impl`` sets the config's
 ``attn_impl`` (``flash``: the prefill attention runs the CUDA kernel K7;
 ``xla``: plain PyTorch).  On the
 card the prefill and the decode loop are timed with CUDA events after one
@@ -45,6 +53,22 @@ from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def stub_inputs(cfg: ModelConfig, batch: int, seq_len: int, *,
+                dtype: torch.dtype, device) -> dict:
+    """The stub frontends' inputs as the JAX package's launchers build them
+    (zeros in the compute type, bf16 there): encdec's ``enc_frames`` (B,
+    enc_len, D), a vlm's ``vision_embeds`` (B, min(n_vision_tokens, S),
+    D); {} for the other families."""
+    if cfg.family == "encdec":
+        shape = (batch, cfg.enc_len, cfg.d_model)
+        return {"enc_frames": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family == "vlm":
+        shape = (batch, min(cfg.n_vision_tokens, seq_len), cfg.d_model)
+        return {"vision_embeds": torch.zeros(shape, dtype=dtype,
+                                             device=device)}
+    return {}
+
+
 class _Clock:
     """CUDA events on the card, the host clock on the CPU."""
 
@@ -69,12 +93,14 @@ class _Clock:
 
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
           device=None, dtype: torch.dtype = torch.bfloat16,
-          seed: int = 0, model=None) -> dict:
+          seed: int = 0, model=None, inputs: dict | None = None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``tokens`` greedy tokens; returns the generated ids, the timings and
     the kernel launches of the timed prefill and decode.  ``model``, a
     model of ``cfg`` already built, is served as it is (on its own device,
-    in its own type) in place of one drawn from ``seed``."""
+    in its own type) in place of one drawn from ``seed``.  ``inputs``: the
+    batch's entries besides the tokens (a vlm's ``positions`` and
+    ``vision_embeds``, encdec's ``enc_frames``), default ``stub_inputs``."""
     if model is None:
         dev = resolve_device(device)
         model = build(cfg, device=dev, dtype=dtype,
@@ -85,9 +111,13 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
         rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=dev)
     max_len = prompt_len + tokens + 1
     prefill = make_prefill_step(model, max_len)
+    if inputs is None:
+        inputs = stub_inputs(cfg, batch, prompt_len, dtype=model.dtype,
+                             device=dev)
+    batch_in = {"tokens": prompts, **inputs}
 
     # Untimed warm-up: kernel build, cuBLAS handles, allocator growth.
-    token, cache = prefill({"tokens": prompts})
+    token, cache = prefill(batch_in)
     make_decode_step(model, prompt_len)(token, cache)
     del token, cache
 
@@ -97,7 +127,7 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
         torch.cuda.reset_peak_memory_stats()
     before = collections.Counter(_build.LAUNCHES)
     t0 = clock.start()
-    token, cache = prefill({"tokens": prompts})
+    token, cache = prefill(batch_in)
     prefill_ms = clock.ms_since(t0)
     prefill_launches = dict(_build.LAUNCHES - before)
     before = collections.Counter(_build.LAUNCHES)

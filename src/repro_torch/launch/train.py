@@ -10,6 +10,10 @@ failure-injection options come with ``runtime/ft.py``).
         --global-batch 4 --seq-len 2048 --steps 5           # or zamba2-1.2b
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch moonshot-v1-16b-a3b --smoke --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-2b \\
+        --global-batch 4 --seq-len 2048 --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+        --global-batch 16 --seq-len 448 --steps 5
 
 The fp32 master weights are random, drawn from ``--seed`` with JAX's
 distributions; each step's batch is ``data.synthetic.token_batch`` (JAX's
@@ -23,7 +27,14 @@ archs (qwen3-moe-30b-a3b, moonshot-v1-16b-a3b) add their layers' aux loss
 (weight 0.01) and route in bf16 as JAX's step does; at full depth their
 train state (16 B a parameter) passes one card's 80 GB, so
 ``train(dataclasses.replace(cfg, n_layers=4), ...)`` is how a caller cuts
-their depth (``chip_smoke.py`` phase 29).  On the
+their depth (``chip_smoke.py`` phase 29).  qwen2-vl-2b's batch carries
+zeros for its vision embeddings and whisper-tiny's for its frames, as the
+JAX launcher's (``launch.serve.stub_inputs``, bf16).  With zero vision
+embeddings the vision rows of qwen2-vl's residual stay exactly zero, and
+rms_norm's derivative there (rsqrt(eps)) makes their gradient overflow
+past about 16 layers, so at full depth the gradients are NaN, as the JAX
+package's are (ROADMAP §3); ``train(..., inputs=...)`` takes embeddings
+drawn otherwise (``chip_smoke.py`` phase 30).  On the
 card each step is timed with CUDA events; on the CPU with the host clock,
 and the output says which.  The first step pays the kernel build and the allocator's growth.
 """
@@ -41,19 +52,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.data.synthetic import DataConfig, token_batch
 from repro_torch.kernels import _build
-from repro_torch.launch.serve import _Clock
+from repro_torch.launch.serve import _Clock, stub_inputs
 from repro_torch.models.model_zoo import build
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.train_step import init_train_state, make_train_step
 
 
 def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
-          lr: float = 3e-4, device=None, seed: int = 0,
-          log_every: int = 0) -> dict:
+          lr: float = 3e-4, device=None, seed: int = 0, log_every: int = 0,
+          inputs: dict | None = None) -> dict:
     """Run ``steps`` train steps from fp32 masters drawn from ``seed``;
     returns one record a step (loss, nll, lr, grad_norm, ms, tokens/s and
     the kernel launches of that step) and the peak device memory.  Prints a
-    line every ``log_every`` steps (0: never)."""
+    line every ``log_every`` steps (0: never).  ``inputs``: the batch's
+    entries besides the tokens and labels, the same every step (a vlm's
+    ``vision_embeds`` and ``positions``, encdec's ``enc_frames``), default
+    ``stub_inputs``."""
     dev = resolve_device(device)
     model = build(cfg, device=dev, dtype=torch.float32,
                   generator=torch.Generator(device=dev).manual_seed(seed))
@@ -63,13 +77,16 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     state = init_train_state(model)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                       global_batch=global_batch)
+    if inputs is None:
+        inputs = stub_inputs(cfg, global_batch, seq_len,
+                             dtype=torch.bfloat16, device=dev)
     clock = _Clock(dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     records = []
     for i in range(steps):
-        batch = token_batch(data, i, device=dev)
+        batch = {**token_batch(data, i, device=dev), **inputs}
         before = collections.Counter(_build.LAUNCHES)
         t0 = clock.start()
         state, metrics = train_step(state, batch)

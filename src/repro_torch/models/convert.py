@@ -8,8 +8,13 @@ lists stacked on leading axes (``transformer.stacked_axes``: dense
 mlp/{up, gate, down}}`` on (n_layers,); moe the same with ``moe/{router,
 up, gate, down, shared/{up, gate, down}}`` in place of ``mlp``; ssm
 ``layers/{norm, mixer/…}``; hybrid ``layers`` on (groups, attn_every),
-``tail_layers`` and the one ``shared_attn``) — and returns the port's
-model holding the same numbers, each leaf in its parameter's type (the
+``tail_layers`` and the one ``shared_attn``; vlm the dense tree; encdec
+``embed``, ``dec_pos``, ``enc_layers/{ln1/{w, b}, attn/{wq, wk, wv, wo},
+ln2, mlp/{up, down}}`` on (n_enc_layers,), ``dec_layers/{ln1, self_attn,
+ln2, cross_attn, ln3, mlp}`` on (n_layers,), ``enc_ln``, ``dec_ln`` and
+``lm_head``) — and returns the port's model (``model_zoo.model_class``:
+a ``Transformer`` or an ``EncDec``) holding the same numbers, each leaf in
+its parameter's type (the
 Mamba2 mixer's ``A_log``, ``D`` and ``dt_bias`` and the MoE router fp32 in
 every model).  ``from_jax_state`` carries a JAX train
 state ({params, m, v, step}) into the port's (``train.train_step``), so both
@@ -27,9 +32,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.models.layers import flatten, set_path
+from repro_torch.models.model_zoo import model_class
 from repro_torch.models.solver_layer import SolverLayer, SolverLayerConfig
-from repro_torch.models.transformer import (Transformer, model_table,
-                                            stacked_axes)
+from repro_torch.models.transformer import StackedModel
 from repro_torch.train.train_step import init_train_state
 
 
@@ -40,7 +45,7 @@ def _as_f32(value) -> np.ndarray:
 
 
 def from_jax_params(cfg: ModelConfig, params: dict, *, device=None,
-                    dtype: torch.dtype | None = None) -> Transformer:
+                    dtype: torch.dtype | None = None) -> StackedModel:
     """The model of ``cfg`` with JAX's numbers; ``dtype`` defaults to the
     type of the tree's ``embed`` (the model's type; a leaf that pins its
     own keeps it).  Every leaf is carried in fp32, which holds bf16
@@ -52,7 +57,7 @@ def from_jax_params(cfg: ModelConfig, params: dict, *, device=None,
     tree: dict = {}
     for path, value in flatten(params):
         set_path(tree, path, torch.from_numpy(_as_f32(value)).to(dev))
-    model = Transformer(cfg, device=dev, dtype=dtype)
+    model = model_class(cfg)(cfg, device=dev, dtype=dtype)
     model.load_params(tree)
     return model
 
@@ -60,8 +65,8 @@ def from_jax_params(cfg: ModelConfig, params: dict, *, device=None,
 def named_arrays(cfg: ModelConfig, tree: dict) -> dict[str, np.ndarray]:
     """A JAX-layout tree as {port parameter name: fp32 array}, the stacked
     layer axes split into ``layers.<i>.…`` (the hybrid's
-    ``layers.<g>.<i>.…``)."""
-    axes = stacked_axes(cfg)
+    ``layers.<g>.<i>.…``, encdec's ``enc_layers.<i>.…``)."""
+    axes = model_class(cfg).param_axes(cfg)
     out = {}
     for path, value in flatten(tree):
         value = _as_f32(value)
@@ -76,10 +81,11 @@ def named_arrays(cfg: ModelConfig, tree: dict) -> dict[str, np.ndarray]:
 
 def to_jax_tree(cfg: ModelConfig, named: dict) -> dict:
     """{port parameter name: tensor} back into JAX's nested layout (fp32
-    numpy, layer lists stacked), in ``model_table``'s order."""
-    axes = stacked_axes(cfg)
+    numpy, layer lists stacked), in the parameter table's order."""
+    cls = model_class(cfg)
+    axes = cls.param_axes(cfg)
     tree: dict = {}
-    for path, _ in flatten(model_table(cfg)):
+    for path, _ in flatten(cls.param_table(cfg)):
         if path[0] in axes:
             shape = axes[path[0]]
             value = np.stack([
@@ -93,7 +99,7 @@ def to_jax_tree(cfg: ModelConfig, named: dict) -> dict:
     return tree
 
 
-def from_jax_state(model: Transformer, state: dict) -> dict:
+def from_jax_state(model: StackedModel, state: dict) -> dict:
     """The port's train state from JAX's {params, m, v, step} (numpy): the
     fp32 master ``model`` takes JAX's params, and m, v and step follow."""
     out = init_train_state(model)

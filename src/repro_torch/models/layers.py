@@ -1,6 +1,5 @@
 """Shared model-layer primitives and the declarative parameter tables — the
-port of the JAX package's ``models/layers.py`` (``apply_mrope`` and
-``layer_norm`` come with the LM families that use them).
+port of the JAX package's ``models/layers.py``.
 
 Parameters are declared once as ``ParamDef(shape, scale, dtype)`` tables,
 as in JAX; :func:`init_params` and ``ParamDef.fill`` draw them from an
@@ -125,6 +124,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (y * weight.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """JAX's: fp32 mean and population variance, ``rsqrt(var + eps)``, the
+    weight and bias in fp32, then the cast back to x's type."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
                             / head_dim))
@@ -142,6 +152,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                             device=x.device)                  # (hd/2,)
     angles = positions[..., None].float() * freqs             # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]                     # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191).
+
+    positions: (3, batch, seq) — temporal, height and width position ids.
+    The head_dim/2 frequency slots are cut into contiguous ``sections``
+    (summing to hd/2), and section i takes its angles from position channel
+    i; then the split-half rotation of ``apply_rope``.  Where the three
+    channels are equal (text tokens) it is ``apply_rope``.
+    """
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {sections} must sum to {hd // 2}")
+    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                            device=x.device)                  # (hd/2,)
+    angles_all = positions[..., None].float() * freqs         # (3, B, S, hd/2)
+    parts, start = [], 0
+    for i, s in enumerate(sections):
+        parts.append(angles_all[i, ..., start:start + s])
+        start += s
+    angles = torch.cat(parts, dim=-1)                         # (B, S, hd/2)
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],

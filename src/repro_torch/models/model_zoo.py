@@ -4,10 +4,12 @@
 ``build(cfg)`` returns the model whose methods stand for JAX's ``ModelApi``
 (``forward``, ``prefill``, ``decode_step``, ``cache_shapes``,
 ``init_cache``); in PyTorch the parameters live in the module instead of
-being passed in.  The dense, moe, ssm and hybrid families are ported
-(``transformer.FAMILIES``), and the solver family (``family="solver"``,
-``models/solver_layer.py``); the others raise
-(``transformer.check_family``).
+being passed in.  The families of ``transformer.FAMILIES`` (dense, moe,
+ssm, hybrid, vlm) build a ``Transformer``, the encdec family an
+``encdec.EncDec``, and the solver family (``family="solver"``) a
+``models/solver_layer.SolverLayer``.  ``batch_inputs`` picks the batch's
+entries that the family's ``forward`` and ``prefill`` take besides the
+tokens, as JAX's ``ModelApi`` passes them.
 """
 from __future__ import annotations
 
@@ -15,11 +17,27 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.encdec import EncDec
+from repro_torch.models.transformer import StackedModel, Transformer
+
+
+def model_class(cfg: ModelConfig) -> type[StackedModel]:
+    """``EncDec`` for the encdec family, else ``Transformer`` (which raises
+    on a family it does not run)."""
+    return EncDec if cfg.family == "encdec" else Transformer
+
+
+def batch_inputs(cfg: ModelConfig, batch: dict) -> dict:
+    """The keyword arguments of the model's ``forward`` and ``prefill``
+    besides the tokens: ``enc_frames`` (encdec), else ``positions`` and
+    ``vision_embeds`` where the batch has them."""
+    if cfg.family == "encdec":
+        return {"enc_frames": batch["enc_frames"]}
+    return {k: batch[k] for k in ("positions", "vision_embeds") if k in batch}
 
 
 def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
-          generator: torch.Generator | None = None) -> Transformer:
+          generator: torch.Generator | None = None) -> StackedModel:
     """The model of ``cfg`` on ``device`` (None: the card; raises without
     one), its weights drawn from ``generator`` with JAX's distributions
     (seed 0 on the device if None), in place: beside the model at most one
@@ -32,7 +50,7 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
         from repro_torch.models.solver_layer import SolverLayer
         return SolverLayer(cfg, device=device)
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev, dtype=dtype)
+    model = model_class(cfg)(cfg, device=dev, dtype=dtype)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     model.init_weights(generator)

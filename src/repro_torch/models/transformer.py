@@ -1,6 +1,7 @@
-"""Decoder-only transformer, the dense, moe, ssm and hybrid families — the
-port of the JAX package's ``models/transformer.py`` for ``family`` in
-``FAMILIES``.
+"""Decoder-only transformer, the dense, moe, ssm, hybrid and vlm families —
+the port of the JAX package's ``models/transformer.py`` for ``family`` in
+``FAMILIES``, and what the LM models share (``StackedModel``, ``Attention``,
+which ``models/encdec.py`` reuses).
 
 Modes, as in JAX: train-mode ``forward`` (full-sequence causal, no cache,
 layer groups under checkpoint), ``prefill`` (full sequence, returns the
@@ -16,6 +17,11 @@ sharder, so the field alone picks the path.  Decode attention is
 The families:
 
 - dense: ``layers``, one ``DenseBlock`` a layer;
+- vlm (qwen2-vl-2b): the dense stack, with the stub vision tower's patch
+  embeddings (``vision_embeds``, (B, nv, D)) in place of the first nv
+  token embeddings and M-RoPE (``layers.apply_mrope``) on (3, B, S)
+  ``positions``: arange on every channel by default, and ``kv_len`` on
+  every channel in decode (JAX's ``decode_step``);
 - moe (qwen3-moe-30b-a3b, moonshot-v1-16b-a3b): ``layers``, one
   ``DenseBlock`` a layer whose FFN is ``models/moe.MoE`` (parameters under
   ``moe``), in groups of ``cfg.moe_group_size`` tokens in train and
@@ -44,10 +50,9 @@ stacked over layers, ``state`` fp32; hybrid {"groups": the Mamba caches on
 (rem,)}.  ``decode_step`` writes the new token's entries into the cache in
 place (JAX returns an updated copy) and returns it.
 
-The other LM families (vlm, encdec) raise: they come with the
-LM-families item of ROADMAP queue 1.  The solver family
-(``family="solver"``) is no transformer: ``model_zoo.build`` sends it to
-``models/solver_layer.py``.
+The encdec family (whisper-tiny) is ``models/encdec.EncDec`` and the solver
+family (``family="solver"``) ``models/solver_layer.py``: ``model_zoo.build``
+sends each there.
 """
 from __future__ import annotations
 
@@ -61,23 +66,23 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
 from repro_torch.models.attention import attention, decode_attention
-from repro_torch.models.layers import (ParamDef, apply_rope, flatten,
-                                       rms_norm, stack_tables)
+from repro_torch.models.layers import (ParamDef, apply_mrope, apply_rope,
+                                       flatten, rms_norm, stack_tables)
 from repro_torch.models.mlp import MLP, mlp_table
 from repro_torch.models.moe import MoE, moe_table
 from repro_torch.models.ssm import (Mamba2Mixer, mamba2_cache_dims,
                                     mamba2_cache_shapes, mamba2_table)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch}: family {cfg.family!r} is not a transformer the "
-            f"port runs yet (the LM-families item of ROADMAP queue 1); it "
-            f"runs {FAMILIES}, and family 'solver' through "
-            f"model_zoo.build")
+            f"{cfg.arch}: family {cfg.family!r} is not a decoder-only "
+            f"transformer; this module runs {FAMILIES}, and "
+            f"model_zoo.build sends 'encdec' to models/encdec.py and "
+            f"'solver' to models/solver_layer.py")
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +143,8 @@ def model_table(cfg: ModelConfig) -> dict:
         "final_norm": ParamDef((D,), scale="one"),
         "lm_head": ParamDef((V, D)),
     }
-    kind = cfg.family if cfg.family in ("dense", "moe") else "mamba"
+    kind = {"dense": "dense", "vlm": "dense", "moe": "moe"}.get(cfg.family,
+                                                              "mamba")
     for name, axes in stacked_axes(cfg).items():
         table = block_table(cfg, kind)
         for n in reversed(axes):
@@ -153,8 +159,21 @@ def model_table(cfg: ModelConfig) -> dict:
 # Modules
 # ---------------------------------------------------------------------------
 
+def _rope(cfg: ModelConfig, x: torch.Tensor, positions) -> torch.Tensor:
+    """JAX's ``_rope``: M-RoPE where the config has sections, else rope, or
+    nothing where ``positions`` is None."""
+    if cfg.m_rope_sections is not None:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.m_rope_sections)
+    if positions is None:
+        return x
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
 class Attention(nn.Module):
-    """q/k/v/o projections, qk_norm, rope, and the flash/plain switch."""
+    """q/k/v/o projections, qk_norm, rope, and the flash/plain switch; JAX's
+    ``attn_apply`` switches: ``causal``, ``kv_source`` (cross-attention: k
+    and v projected from it) and ``use_rope`` (rope only where it is set
+    and there is no ``kv_source``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
@@ -172,16 +191,22 @@ class Attention(nn.Module):
         else:
             self.q_norm = self.k_norm = None
 
-    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        B, S, D = x.shape
-        q = (x @ self.wq.reshape(D, -1)).view(B, S, *self.wq.shape[1:])
-        k = (x @ self.wk.reshape(D, -1)).view(B, S, *self.wk.shape[1:])
-        v = (x @ self.wv.reshape(D, -1)).view(B, S, *self.wv.shape[1:])
+    def _qkv(self, x: torch.Tensor, positions, kv_source=None,
+             use_rope: bool = True):
+        src = x if kv_source is None else kv_source
+        D = x.shape[-1]
+        q = (x @ self.wq.reshape(D, -1)).view(*x.shape[:2],
+                                              *self.wq.shape[1:])
+        k = (src @ self.wk.reshape(D, -1)).view(*src.shape[:2],
+                                                *self.wk.shape[1:])
+        v = (src @ self.wv.reshape(D, -1)).view(*src.shape[:2],
+                                                *self.wv.shape[1:])
         if self.q_norm is not None:
             q = rms_norm(q, self.q_norm, self.cfg.norm_eps)
             k = rms_norm(k, self.k_norm, self.cfg.norm_eps)
-        q = apply_rope(q, positions, self.cfg.rope_theta)
-        k = apply_rope(k, positions, self.cfg.rope_theta)
+        if use_rope and kv_source is None:
+            q = _rope(self.cfg, q, positions)
+            k = _rope(self.cfg, k, positions)
         return q, k, v
 
     def _out(self, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -189,22 +214,25 @@ class Attention(nn.Module):
         return (o.reshape(B, S, -1) @ self.wo.reshape(-1, x.shape[-1])
                 ).to(x.dtype)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """Full-sequence causal attention.  x: (B, S, D) -> (out, (k, v))."""
-        q, k, v = self._qkv(x, positions)
+    def forward(self, x: torch.Tensor, positions=None, *,
+                causal: bool = True, kv_source=None, use_rope: bool = True):
+        """Full-sequence attention.  x: (B, S, D); ``kv_source`` (B, T, D)
+        or None (self-attention) -> (out, (k, v))."""
+        q, k, v = self._qkv(x, positions, kv_source, use_rope)
         if self.cfg.attn_impl == "flash":
-            out = flash_attention_trainable(q, k, v, True, 512, 512, 0)
+            out = flash_attention_trainable(q, k, v, causal, 512, 512, 0)
         elif self.cfg.attn_impl == "xla":
-            out = attention(q, k, v, causal=True, q_chunk=self.cfg.q_chunk)
+            out = attention(q, k, v, causal=causal,
+                            q_chunk=self.cfg.q_chunk)
         else:
             raise ValueError(f"attn_impl must be 'xla' or 'flash', got "
                              f"{self.cfg.attn_impl!r}")
         return self._out(out, x), (k, v)
 
     def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
-               v_cache: torch.Tensor, kv_len: int, positions: torch.Tensor):
+               v_cache: torch.Tensor, kv_len: int, positions=None):
         """One token.  x: (B, 1, D); caches (B, S_max, KV, hd), written at
-        ``kv_len`` in place."""
+        ``kv_len`` in place; ``positions`` None: no rope (``_rope``)."""
         q, k, v = self._qkv(x, positions)
         k_cache[:, kv_len] = k[:, 0]
         v_cache[:, kv_len] = v[:, 0]
@@ -297,12 +325,91 @@ class MambaBlock(nn.Module):
         return x + y[:, None]
 
 
-class Transformer(nn.Module):
+class StackedModel(nn.Module):
+    """What the LM models share (``Transformer``, ``models/encdec.EncDec``):
+    parameters named after a JAX-layout table (``param_table``) whose layer
+    lists JAX stacks on leading axes (``param_axes``) and the module holds
+    one block a layer (``<list>.<i>.…``, the hybrid's ``layers.<g>.<i>.…``);
+    the weights' loader and initializer, the fp32 logits, the cache's
+    zeros.  ``device=None`` means the card, as for every entry point
+    (``core.plan.resolve_device``); the modules below take the same rule."""
+
+    @staticmethod
+    def param_table(cfg: ModelConfig) -> dict:
+        raise NotImplementedError
+
+    @staticmethod
+    def param_axes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+        raise NotImplementedError
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _slots(self, path):
+        """(module, the rest of the path) for each layer of a stacked
+        leaf, or [(self, path)]."""
+        axes = self.param_axes(self.cfg)
+        if path[0] not in axes:
+            return [(self, path)]
+        return [(self.get_submodule(".".join((path[0], *map(str, idx)))),
+                 path[1:]) for idx in np.ndindex(*axes[path[0]])]
+
+    @torch.no_grad()
+    def load_params(self, tree: dict) -> None:
+        """Copy a JAX-layout parameter tree (layer lists stacked on
+        ``param_axes``) in, each leaf cast to its parameter's type."""
+        n = 0
+        for path, value in flatten(tree):
+            slots = self._slots(path)
+            value = torch.as_tensor(value).reshape(
+                len(slots), *_param(*slots[0]).shape)
+            for (module, rest), v in zip(slots, value):
+                _param(module, rest).copy_(v)
+            n += 1
+        want = len(flatten(self.param_table(self.cfg)))
+        if n != want:
+            raise ValueError(f"parameter tree has {n} leaves, the model "
+                             f"{want}")
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Draw every parameter with JAX's rules (``param_table``), in the
+        table's order, straight into the module: a stacked leaf one layer's
+        slice at a time (its std the stacked leaf's, JAX's rule), so the
+        draw beside the model is one piece (``ParamDef.fill``), never a
+        second model."""
+        for path, pd in flatten(self.param_table(self.cfg)):
+            for module, rest in self._slots(path):
+                pd.fill(_param(module, rest), generator)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """hidden (..., D) @ lm_head.T in fp32, as JAX's
+        ``preferred_element_type=float32``: bf16 operands are exact in fp32,
+        so the product is theirs with fp32 sums and fp32 logits, never
+        rounded to bf16."""
+        return F.linear(hidden.float(), self.lm_head.float())
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        def zeros(tree):
+            return {name: (zeros(leaf) if isinstance(leaf, dict) else
+                           torch.zeros(leaf[0], dtype=leaf[1],
+                                       device=self.device))
+                    for name, leaf in tree.items()}
+        return zeros(self.cache_shapes(batch, max_len))
+
+
+class Transformer(StackedModel):
     """The decoder of the ``FAMILIES``.  Its methods are the port's
     ``ModelApi`` (``forward``, ``prefill``, ``decode_step``, ``cache_shapes``,
-    ``cache_dims``, ``init_cache``); the parameters live in the module.
-    ``device=None`` means the card, as for every entry point
-    (``core.plan.resolve_device``); the modules below take the same rule."""
+    ``cache_dims``, ``init_cache``); the parameters live in the module."""
+
+    param_table = staticmethod(model_table)
+    param_axes = staticmethod(stacked_axes)
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
@@ -314,7 +421,7 @@ class Transformer(nn.Module):
         self.embed = nn.Parameter(torch.empty(V, D, **kw))
         self.final_norm = nn.Parameter(torch.empty(D, **kw))
         self.lm_head = nn.Parameter(torch.empty(V, D, **kw))
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "vlm", "moe"):
             block = lambda: DenseBlock(cfg, moe=cfg.family == "moe", **kw)
         else:
             block = lambda: MambaBlock(cfg, **kw)
@@ -329,61 +436,24 @@ class Transformer(nn.Module):
         if cfg.family == "hybrid":
             self.shared_attn = DenseBlock(cfg, **kw)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.embed.dtype
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
-
-    # -- weights -----------------------------------------------------------
-
-    @torch.no_grad()
-    def load_params(self, tree: dict) -> None:
-        """Copy a JAX-layout parameter tree (layer lists stacked on
-        ``stacked_axes``) in, each leaf cast to its parameter's type."""
-        axes = stacked_axes(self.cfg)
-        n = 0
-        for path, value in flatten(tree):
-            value = torch.as_tensor(value)
-            if path[0] in axes:
-                for idx in np.ndindex(*axes[path[0]]):
-                    block = self.get_submodule(".".join(
-                        (path[0], *map(str, idx))))
-                    _param(block, path[1:]).copy_(value[idx])
-            else:
-                _param(self, path).copy_(value)
-            n += 1
-        if n != len(flatten(model_table(self.cfg))):
-            raise ValueError(f"parameter tree has {n} leaves, the model "
-                             f"{len(flatten(model_table(self.cfg)))}")
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Draw every parameter with JAX's rules (``model_table``), in the
-        table's order, straight into the module: a stacked leaf one layer's
-        slice at a time (its std the stacked leaf's, JAX's rule), so the
-        draw beside the model is one piece (``ParamDef.fill``), never a
-        second model."""
-        axes = stacked_axes(self.cfg)
-        for path, pd in flatten(model_table(self.cfg)):
-            if path[0] not in axes:
-                pd.fill(_param(self, path), generator)
-                continue
-            for idx in np.ndindex(*axes[path[0]]):
-                block = self.get_submodule(".".join((path[0],
-                                                     *map(str, idx))))
-                pd.fill(_param(block, path[1:]), generator)
-
     # -- forward modes -----------------------------------------------------
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens]
+    def _embed(self, tokens: torch.Tensor, vision_embeds=None):
+        """The token embeddings, the first nv replaced by ``vision_embeds``
+        (B, nv, D) where given (JAX's ``_embed``)."""
+        x = self.embed[tokens]
+        if vision_embeds is not None:
+            nv = vision_embeds.shape[1]
+            x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+        return x
 
     def _default_positions(self, tokens: torch.Tensor) -> torch.Tensor:
+        """arange(S) a row; on all three channels, (3, B, S), for M-RoPE."""
         B, S = tokens.shape
-        return torch.arange(S, device=tokens.device).expand(B, S)
+        pos = torch.arange(S, device=tokens.device).expand(B, S)
+        if self.cfg.m_rope_sections is not None:
+            pos = pos.expand(3, B, S)
+        return pos
 
     @staticmethod
     def _run_blocks(x: torch.Tensor, aux: torch.Tensor,
@@ -411,9 +481,12 @@ class Transformer(nn.Module):
         return x, aux
 
     def forward(self, tokens: torch.Tensor, positions=None, *,
-                remat: bool = True):
+                vision_embeds=None, remat: bool = True):
         """Train-mode forward: (final hidden (B, S, D), aux loss: the sum
         of the MoE layers' Switch losses, 0 in the other families).
+        ``positions`` (B, S), or (3, B, S) for M-RoPE, default
+        ``_default_positions``; ``vision_embeds`` (vlm) take the first
+        positions.
 
         With ``remat`` the dense, moe and ssm families run each group of
         ``cfg.remat_group`` layers under ``torch.utils.checkpoint``: the
@@ -424,7 +497,7 @@ class Transformer(nn.Module):
         checkpointed as well (``models/ssm.ssd_scan``), and inside an MoE
         layer each wave (``models/moe.moe_apply``).
         """
-        x = self._embed(tokens)
+        x = self._embed(tokens, vision_embeds)
         if positions is None:
             positions = self._default_positions(tokens)
         aux = torch.zeros((), device=x.device)
@@ -457,13 +530,15 @@ class Transformer(nn.Module):
                       enumerate(getattr(self, "tail_layers", ()))]
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int, positions=None):
-        """Process a prompt: (last-position hidden (B, D), cache)."""
+    def prefill(self, tokens: torch.Tensor, max_len: int, positions=None, *,
+                vision_embeds=None):
+        """Process a prompt: (last-position hidden (B, D), cache);
+        ``positions`` and ``vision_embeds`` as ``forward``'s."""
         B, S = tokens.shape
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
                              f"{max_len}")
-        x = self._embed(tokens)
+        x = self._embed(tokens, vision_embeds)
         if positions is None:
             positions = self._default_positions(tokens)
         cache = self.init_cache(B, max_len)
@@ -487,6 +562,8 @@ class Transformer(nn.Module):
         B = token.shape[0]
         x = self._embed(token[:, None])
         pos = torch.full((B, 1), kv_len, device=token.device)
+        if self.cfg.m_rope_sections is not None:
+            pos = pos.expand(3, B, 1)   # kv_len on every channel, as JAX
         for block, key, idx in self._schedule():
             slot = cache[key] if key else cache
             if isinstance(block, DenseBlock):
@@ -498,20 +575,13 @@ class Transformer(nn.Module):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return mask_pad_logits(self.logits(x[:, 0]), self.cfg), cache
 
-    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """hidden (..., D) @ lm_head.T in fp32, as JAX's
-        ``preferred_element_type=float32``: bf16 operands are exact in fp32,
-        so the product is theirs with fp32 sums and fp32 logits, never
-        rounded to bf16."""
-        return F.linear(hidden.float(), self.lm_head.float())
-
     # -- caches ------------------------------------------------------------
 
     def _cache_layout(self) -> dict:
         """{subtree of the cache (None: its root): (the per-layer kind,
         "attn" or "mamba", stacked on these axes)}."""
         axes = stacked_axes(self.cfg)
-        if self.cfg.family in ("dense", "moe"):
+        if self.cfg.family in ("dense", "vlm", "moe"):
             return {None: ("attn", axes["layers"])}
         if self.cfg.family == "ssm":
             return {None: ("mamba", axes["layers"])}
@@ -545,14 +615,6 @@ class Transformer(nn.Module):
             "mamba": mamba2_cache_dims()}
         return self._from_layout(per_layer, lambda dims, axes: {
             k: (None,) * len(axes) + d for k, d in dims.items()})
-
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        def zeros(tree):
-            return {name: (zeros(leaf) if isinstance(leaf, dict) else
-                           torch.zeros(leaf[0], dtype=leaf[1],
-                                       device=self.device))
-                    for name, leaf in tree.items()}
-        return zeros(self.cache_shapes(batch, max_len))
 
 
 def _stack(shapes: dict, axes: tuple[int, ...]) -> dict:

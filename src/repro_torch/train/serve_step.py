@@ -6,21 +6,26 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import Transformer, mask_pad_logits
+from repro_torch.models.model_zoo import batch_inputs
+from repro_torch.models.transformer import StackedModel, mask_pad_logits
 
 
-def make_prefill_step(model: Transformer, max_len: int):
+def make_prefill_step(model: StackedModel, max_len: int):
+    """prefill_step(batch) -> (first greedy token (B,), cache); the batch
+    holds the tokens and the family's inputs (``model_zoo.batch_inputs``:
+    a vlm's ``positions`` and ``vision_embeds``, encdec's
+    ``enc_frames``)."""
     @torch.no_grad()
     def prefill_step(batch: dict):
         last_hidden, cache = model.prefill(batch["tokens"], max_len,
-                                           positions=batch.get("positions"))
+                                           **batch_inputs(model.cfg, batch))
         logits = mask_pad_logits(model.logits(last_hidden), model.cfg)
         return torch.argmax(logits, dim=-1), cache
 
     return prefill_step
 
 
-def make_decode_step(model: Transformer, kv_len: int):
+def make_decode_step(model: StackedModel, kv_len: int):
     """kv_len: the cache fill before this step (JAX compiles one step per
     value; here it is a plain argument)."""
     @torch.no_grad()
@@ -31,7 +36,7 @@ def make_decode_step(model: Transformer, kv_len: int):
     return decode_step
 
 
-def greedy_generate(model: Transformer, batch: dict, *, steps: int,
+def greedy_generate(model: StackedModel, batch: dict, *, steps: int,
                     max_len: int) -> torch.Tensor:
     """Prefill + ``steps - 1`` greedy decodes: (B, steps) token ids."""
     token, cache = make_prefill_step(model, max_len)(batch)

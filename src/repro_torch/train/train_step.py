@@ -31,34 +31,38 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.model_zoo import batch_inputs
+from repro_torch.models.transformer import StackedModel
 from repro_torch.optim.adamw import AdamWConfig, apply_update, init_state
 from repro_torch.train.loss import chunked_xent
 
 MOE_AUX_WEIGHT = 0.01
 
 
-def loss_fn(model: Transformer, batch: dict, *, remat: bool = True):
-    """(loss, {"nll", "aux"}) of ``batch`` ({tokens, labels}) under the
-    model's own parameters, in its type."""
-    hidden, aux = model(batch["tokens"], batch.get("positions"), remat=remat)
+def loss_fn(model: StackedModel, batch: dict, *, remat: bool = True):
+    """(loss, {"nll", "aux"}) of ``batch`` ({tokens, labels} and the
+    family's inputs, ``model_zoo.batch_inputs``) under the model's own
+    parameters, in its type: JAX's chunked cross-entropy over every
+    position (a vlm's vision positions too)."""
+    hidden, aux = model(batch["tokens"], remat=remat,
+                        **batch_inputs(model.cfg, batch))
     nll = chunked_xent(model.lm_head, hidden, batch["labels"],
                        valid_vocab=model.cfg.vocab_size)
     return nll + MOE_AUX_WEIGHT * aux, {"nll": nll, "aux": aux}
 
 
-def compute_model(model: Transformer,
-                  compute_dtype: torch.dtype) -> Transformer:
+def compute_model(model: StackedModel,
+                  compute_dtype: torch.dtype) -> StackedModel:
     """``model`` itself if it is in ``compute_dtype``, else an empty module
     of its config in that type on its device (leaves that pin their type
     keep it)."""
     if model.dtype == compute_dtype:
         return model
-    return Transformer(model.cfg, device=model.device, dtype=compute_dtype)
+    return type(model)(model.cfg, device=model.device, dtype=compute_dtype)
 
 
 @torch.no_grad()
-def load_params(compute: Transformer, params: dict) -> None:
+def load_params(compute: StackedModel, params: dict) -> None:
     """Copy the named fp32 masters into the compute model, each cast to the
     compute type (JAX's ``cast_tree``); a pinned leaf keeps its own type
     and holds the rounded values."""
@@ -71,7 +75,7 @@ def load_params(compute: Transformer, params: dict) -> None:
         p.copy_(src)
 
 
-def value_and_grad(compute: Transformer, params: dict, batch: dict,
+def value_and_grad(compute: StackedModel, params: dict, batch: dict,
                    loss_of=loss_fn):
     """(loss, its parts, {name: grad in the compute type}) of the masters
     ``params`` on ``batch``, through ``compute``, under ``loss_of(model,
@@ -84,7 +88,7 @@ def value_and_grad(compute: Transformer, params: dict, batch: dict,
             dict(zip(names, grads)))
 
 
-def make_train_step(model: Transformer, opt: AdamWConfig,
+def make_train_step(model: StackedModel, opt: AdamWConfig,
                     compute_dtype: torch.dtype = torch.bfloat16):
     """train_step(state, batch) -> (state, metrics {loss, nll, aux,
     grad_norm, lr}; a solver layer's {loss, mse, aux, grad_norm, lr}) for
@@ -106,7 +110,7 @@ def make_train_step(model: Transformer, opt: AdamWConfig,
     return train_step
 
 
-def init_train_state(model: Transformer) -> dict:
+def init_train_state(model: StackedModel) -> dict:
     """The train state of an fp32 master model (``model_zoo.build(cfg,
     dtype=torch.float32)``, or a solver layer): its parameters, shared, and
     fp32 zeros for m and v; the step updates the model in place."""

@@ -9,7 +9,10 @@ BF16_ATOL, BF16_RTOL = 2e-3, 1.6e-2
 
 # name -> ((B, Sq, Skv, H, KV, hd), causal, kv_offset): MHA, GQA 2:1 on a
 # ragged 96, MQA, non-causal, cross lengths with kv_offset=128, every head
-# dim the kernels take, and the serve and training shape.
+# dim the kernels take, a ragged cross-attention without the mask (Skv 150:
+# a last kv tile of 22 keys) and a non-causal self-attention over three
+# tiles at GQA 6 (300 = 2 x 128 + 44), and the full-size shapes of
+# ``CARD_ONLY``.
 FLASH_CASES = {
     "mha": ((1, 128, 128, 2, 2, 32), True, 0),
     "gqa_ragged_96": ((2, 96, 96, 4, 2, 16), True, 0),
@@ -18,8 +21,25 @@ FLASH_CASES = {
     "cross_kv_offset_128": ((1, 32, 160, 2, 2, 16), True, 128),
     **{f"hd{hd}": ((2, 200, 200, 4, 2, hd), True, 0)
        for hd in (16, 32, 64, 128)},
+    "cross_ragged_non_causal": ((2, 40, 150, 6, 6, 64), False, 0),
+    "non_causal_gqa6": ((1, 300, 300, 12, 2, 64), False, 0),
+    # The serve and training shape (qwen3-0.6b); qwen2-vl-2b's (GQA 6: 12
+    # query heads on 2); whisper-tiny's encoder (1500 frames, non-causal)
+    # and cross-attention (224 decoder tokens on 1500 frames).
     "serve_shape": ((4, 2048, 2048, 16, 8, 128), True, 0),
+    "vlm_shape": ((4, 2048, 2048, 12, 2, 128), True, 0),
+    "whisper_encoder": ((16, 1500, 1500, 6, 6, 64), False, 0),
+    "whisper_cross": ((16, 224, 1500, 6, 6, 64), False, 0),
 }
+# Run on the card only: the CPU tests, which hold the plain versions to
+# JAX's Pallas kernels interpreted, leave them out.
+CARD_ONLY = frozenset({"serve_shape", "vlm_shape", "whisper_encoder",
+                       "whisper_cross"})
+# The full-size cases whose bf16 dq and dk bounds allow one flipped
+# rounding of ds (``ds_flip_atol``), as the moe shapes' do: sums of 1500 to
+# 2048 terms a row and, at qwen2-vl's GQA 6, six heads' terms in each dk
+# element.
+FLIP_CASES = frozenset({"vlm_shape", "whisper_encoder", "whisper_cross"})
 
 
 def p_rounding_case(device="cpu"):
@@ -81,8 +101,8 @@ def dv_p_rounding_case(device="cpu"):
     return tuple(t.to(torch.bfloat16) for t in (q, k, v, do))
 
 
-def ds_flip_atol(q, k, v, do, lse, delta):
-    """(dq's, dk's) allowance for one flipped rounding of ds, causal.
+def ds_flip_atol(q, k, v, do, lse, delta, causal=True):
+    """(dq's, dk's) allowance for one flipped rounding of ds (kv_offset 0).
 
     K8 and K9 round each ds to bf16 (JAX's rule) from fp32 values whose
     last bits differ from the plain versions' (the tensor cores sum s and dp
@@ -98,8 +118,9 @@ def ds_flip_atol(q, k, v, do, lse, delta):
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     scale = hd ** -0.5
-    mask = torch.ones(S, k.shape[1], dtype=torch.bool,
-                      device=q.device).tril()
+    mask = torch.ones(S, k.shape[1], dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask.tril()
     ds_max = 0.0
     for b in range(B):
         for hq in range(H):

@@ -38,9 +38,9 @@ from repro_torch.kernels.flash_attention_bwd import (flash_bwd,
                                                      flash_bwd_dq_plain,
                                                      flash_delta)
 from repro_torch.models.attention import attention
-from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, FLASH_CASES,
-                                ds_rounding_case, dv_p_rounding_case,
-                                p_rounding_case)
+from _torch_flash_cases import (BF16_ATOL, BF16_RTOL, CARD_ONLY,
+                                FLASH_CASES, ds_rounding_case,
+                                dv_p_rounding_case, p_rounding_case)
 
 TOL = {"f32": (2e-5, 0.0), "bf16": (BF16_ATOL, BF16_RTOL)}  # (atol, rtol)
 LSE_RTOL = 1e-5
@@ -76,6 +76,10 @@ CASES = {
     "bf16": ((1, 128, 128, 2, 2, 32), True, 0, (32, 128), "bf16"),
     "hd64_serve_blocks": ((1, 80, 80, 4, 2, 64), True, 0, (512, 512),
                           "f32"),
+    "cross_ragged_non_causal": ((2, 40, 150, 6, 6, 64), False, 0, (32, 128),
+                                "f32"),
+    "non_causal_gqa6": ((1, 300, 300, 12, 2, 64), False, 0, (32, 128),
+                        "f32"),
 }
 
 
@@ -176,7 +180,7 @@ def test_bf16_rounds_p_to_v_type():
 
 
 @pytest.mark.parametrize("case", [c for c in FLASH_CASES
-                                  if c != "serve_shape"])
+                                  if c not in CARD_ONLY])
 def test_bf16_tensor_core_tiling_stays_in_the_bound(case):
     """The bf16 kernel's schedule is the plain version at 128 x 128 tiles
     (one 128-row q tile a CTA, 128-key kv tiles, p rounded per tile): that
@@ -273,7 +277,9 @@ def test_trainable_raises_rather_than_return_a_wrong_gradient():
 # -- the backward (K8/K9) ------------------------------------------------------
 
 # (B, Sq, Skv, H, KV, hd), causal, kv_offset: TestFlashBackward's MHA, GQA
-# and MQA, its non-causal case, a ragged Sq/Skv, and cross lengths.
+# and MQA, its non-causal case, a ragged Sq/Skv, cross lengths, and
+# FLASH_CASES' ragged non-causal cross case and non-causal GQA-6 self case
+# over three tiles.
 BWD_CASES = {
     "mha": ((1, 128, 128, 2, 2, 32), True, 0),
     "gqa": ((2, 96, 96, 4, 2, 16), True, 0),
@@ -281,6 +287,8 @@ BWD_CASES = {
     "non_causal": ((1, 64, 64, 2, 2, 16), False, 0),
     "ragged_100x70": ((1, 100, 70, 2, 1, 16), True, 0),
     "cross_kv_offset_128": ((1, 32, 160, 2, 2, 16), True, 128),
+    **{c: FLASH_CASES[c] for c in ("cross_ragged_non_causal",
+                                   "non_causal_gqa6")},
 }
 
 

@@ -47,7 +47,8 @@ def test_no_jax_or_repro_import_anywhere_in_the_port():
                    "core/conv1d.py", "models/ssm.py",
                    "configs/mamba2_370m.py", "configs/zamba2_1_2b.py",
                    "models/moe.py", "configs/qwen3_moe_30b_a3b.py",
-                   "configs/moonshot_v1_16b_a3b.py"):
+                   "configs/moonshot_v1_16b_a3b.py", "models/encdec.py",
+                   "configs/qwen2_vl_2b.py", "configs/whisper_tiny.py"):
         assert os.path.join(PKG, *module.split("/")) in files, module
     bad = []
     for path in (f for f in files if f.endswith(".py")):
@@ -114,6 +115,15 @@ def test_port_imports_and_solves_with_jax_blocked():
                        dtype=torch.float32)
             assert greedy_generate(lm, dict(tokens=prompts), steps=2,
                                    max_len=11).shape == (2, 2)
+            tr = train(get_config(arch, smoke=True), steps=1,
+                       global_batch=2, seq_len=8, device="cpu")
+            assert tr["steps"][0]["loss"] > 0
+        from repro_torch.launch.serve import serve
+        for arch in ("qwen2-vl-2b", "whisper-tiny"):
+            served = serve(get_config(arch, smoke=True), batch=2,
+                           prompt_len=8, tokens=2, device="cpu",
+                           dtype=torch.float32)
+            assert served["generated"].shape == (2, 3)
             tr = train(get_config(arch, smoke=True), steps=1,
                        global_batch=2, seq_len=8, device="cpu")
             assert tr["steps"][0]["loss"] > 0

@@ -82,7 +82,7 @@ def test_config_is_a_copy_of_jax():
         assert (j.padded_vocab, j.param_count()) == (t.padded_vocab,
                                                      t.param_count())
     with pytest.raises(NotImplementedError, match="LM-families item"):
-        get_config("qwen2-vl-2b")
+        get_config("nemotron-4-15b")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-9")
 
