@@ -50,6 +50,17 @@ solver):
     frames) and twice a decoder layer (causal self-attention and the
     non-causal cross-attention on the 1500 frames), K8/K9 once each in a
     backward (phases 30-32);
+  - the dense family's last archs (glm4-9b: 40 layers, GQA 16 on 2 kv
+    heads; phi3-medium-14b: 40 layers, GQA 4 on 10; nemotron-4-15b: 32
+    layers, GQA 6 on 8, squared ReLU in an ungated MLP), served at full
+    width and depth (18.8, 29.3 and 31.3 GB of bf16 weights, K7 once a
+    layer in a prefill) and trained at full width cut in depth (K7 twice
+    a layer, K8/K9 once), through ``launch.serve`` and ``launch.train``
+    (phases 33-34);
+  - the training runtime's checkpoint and restart: qwen3-0.6b at full
+    width through ``python -m repro_torch.launch.train`` with
+    ``--checkpoint-every 3 --fail-at-step 4``, then restarted, then run
+    uninterrupted (phase 35);
   - the differentiable solve, ``repro_torch.core.implicit_solve`` on the
     card's default plan cache (its backward one solve with the transposed
     operator; ``F.conv2d`` and shifted adds, none of K1-K9), and the
@@ -122,7 +133,8 @@ Phases, one JSON line each:
      tensor-core rate, its six products' time at that rate beside it; K5
      also held against its plain
      version at the dense path's shape in fp32 and bf16, timed in bf16
-     beside torch.matmul in bf16, its split pass timed on its own, and
+     beside its plain version and torch.matmul in bf16, its split pass
+     timed on its own, and
      fp32 K5 and torch.matmul held to an fp64 product with random W (max
      |y - y64| / (|x| . |W|), at most 2^-20 for K5); the HGMMA
      instructions of each K5 instance (none fails) and its ptxas report (a
@@ -137,7 +149,9 @@ Phases, one JSON line each:
      without the mask (40 on 150) and a non-causal GQA-6 self-attention
      over three tiles (fp32 and bf16), qwen2-vl's (4 x 2048, GQA 6, hd 128,
      causal), whisper's encoder (16 x 1500, MHA 6, hd 64, non-causal) and
-     cross-attention (16 x 224 on 1500, non-causal) in bf16, and
+     cross-attention (16 x 224 on 1500, non-causal), the dense archs'
+     (4 x 2048, hd 128, causal: glm4 32 heads on 2, phi3 40 on 10,
+     nemotron 48 on 8) in bf16, and
      ``p_rounding``, built
      so that a kernel that does not round p to v's type before p . v misses
      by about 0.026; out per element within 2e-5 in fp32 and 2e-3 + 1.6e-2
@@ -156,8 +170,9 @@ Phases, one JSON line each:
      model under torch.profiler: device ms by kernel and the device's idle
      share;
  15. K6 and K7 timed by CUDA-graph replay at the serve shape (and K7 at
-     zamba2's, at qwen3-moe's GQA 8 and at qwen2-vl's and whisper's
-     encoder and cross shapes) beside their
+     zamba2's, at qwen3-moe's GQA 8, at qwen2-vl's and whisper's
+     encoder and cross shapes and at the dense archs' GQA 16, 4 and 6)
+     beside their
      bound, their plain version and F.scaled_dot_product_attention (the
      library yardstick, timed here only; the port never calls it); the
      HGMMA instructions of each bf16 instance (``cuobjdump -sass`` of the
@@ -165,7 +180,8 @@ Phases, one JSON line each:
  16. K8 (flash_bwd_dq) and K9 (flash_bwd_dkv) against their plain versions
      (bf16 runs the tensor-core kernels, fp32 the SIMT ones), o and lse
      from K7: the cases of tests/_torch_flash_cases.py (``FLASH_CASES``:
-     those of phase 12 and the training shape, qwen2-vl's and whisper's)
+     those of phase 12 and the training shape, qwen2-vl's, whisper's and
+     the dense archs')
      in fp32 and bf16, zamba2's and the moe archs' shapes in bf16 (K9
      folding a group of 8; at the moe, qwen2-vl and whisper shapes dq's
      and dk's bf16 bounds allow one flipped rounding of ds,
@@ -187,7 +203,8 @@ Phases, one JSON line each:
      step), then one more step of a fresh model under torch.profiler:
      device ms by kernel and the device's idle share;
  19. K8 and K9 timed by CUDA-graph replay at the training shape (and at
-     zamba2's, qwen3-moe's, qwen2-vl's and whisper's) in bf16
+     zamba2's, qwen3-moe's, qwen2-vl's, whisper's and the dense archs')
+     in bf16
      beside their bounds, their plain versions and the backward of
      F.scaled_dot_product_attention (the library yardstick, timed with
      torch.autograd.grad; the port never calls it); the HGMMA instructions
@@ -303,9 +320,32 @@ The line after phase 22 lists the kernels phases 20-22 launched.
      prefill hidden, flash against xla; (c) the card against the CPU at a
      smaller cut.  Each bound comes from tests/_torch_vlm_encdec_noise.py
      --card (``VE_*_RTOL``).
+ 33. glm4-9b, phi3-medium-14b and nemotron-4-15b (``dense_ft_phases``):
+     each first held in fp32 against the CPU port on 2 layers of the same
+     weights (2 x 128 tokens, the prefill hidden within 3e-4, 6e-4 and
+     4e-6 of its max-abs, bounds from tests/_torch_dense_noise.py --card),
+     then
+     served in bf16 at full width and depth as ``launch.serve.serve``
+     runs it, batch 4, 2048-token prompts, 32 greedy tokens (prefill ms
+     and tokens/s, decode ms/token, peak memory; K7 once a layer a
+     prefill, none in decode), and one more prefill and decode profiled
+     by operation class;
+ 34. each trained in bf16 as ``launch.train.train`` runs it, 5 steps at 4
+     x 2048 tokens, at the depth ``DENSE_TRAIN_DEPTH`` gives (glm4 and
+     phi3 4 layers, nemotron 1: its embed and head are 3.15 B of the 16 B
+     a parameter the train state takes), K7/K8/K9 2/1/1 a layer a step;
+ 35. qwen3-0.6b at full width, bf16, 4 x 2048, 6 steps through
+     ``launch.train.main``: checkpointed every 3 steps and killed by
+     ``--fail-at-step 4`` (it must raise ``InjectedFailure``), restarted
+     (it must resume from step 3), then run uninterrupted into a second
+     directory; the final losses and every array of the two last
+     checkpoints (params, m and v, 9.02 GB each; a digest of the params)
+     bit-equal, the seconds and bytes of each save and restore recorded,
+     the free disk checked first.
 The inventory line lists K1-K9 and K5's split kernel, and K7-K9 again at
-zamba2's shape, at qwen3-moe's GQA-8 shape, at qwen2-vl's GQA-6 shape and
-at whisper's encoder and cross shapes, with their launches on those archs'
+zamba2's shape, at qwen3-moe's GQA-8 shape, at qwen2-vl's GQA-6 shape, at
+whisper's encoder and cross shapes and at glm4-9b's, phi3-medium-14b's and
+nemotron-4-15b's (GQA 16, 4 and 6), with their launches on those archs'
 serve and train paths.
 
 Any failed check raises and the script exits nonzero.  The last line is
@@ -484,6 +524,29 @@ VE_CPU_RTOL = {VLM_ARCH: 5e-6, ENCDEC_ARCH: 2e-4}
 # GQA 6, causal; whisper's encoder (1500 frames, non-causal) and its
 # cross-attention (224 decoder tokens on 1500 frames, non-causal).
 VE_CASES = ("vlm_shape", "whisper_encoder", "whisper_cross")
+# Phases 33-35: the dense family's last three archs, then a restart.
+DENSE_ARCHS = ("glm4-9b", "phi3-medium-14b", "nemotron-4-15b")
+DENSE_SERVE = (4, 2048, 32)   # phase 33: batch, prompt, tokens (bf16)
+DENSE_PROFILE_TOKENS = 2      # phase 33: decode steps under the profiler
+DENSE_CPU = (2, 128)          # phase 33: batch, prompt of the fp32 check
+DENSE_CPU_DEPTH = 2           # phase 33: layers of the fp32 check
+# Card against the CPU port in fp32 on the same weights (max-abs relative):
+# twice the larger fp32 run's distance from a float64 run of the same
+# weights (the port's fp32 points widened) at these sizes, rounded up to
+# one digit, from tests/_torch_dense_noise.py --card: glm4 1.47e-4 and
+# phi3 2.88e-4 (both fp32 runs, card and CPU, as far), nemotron 1.85e-6.
+DENSE_CPU_RTOL = {"glm4-9b": 3e-4, "phi3-medium-14b": 6e-4,
+                  "nemotron-4-15b": 4e-6}
+DENSE_TRAIN = (4, 2048, 5)    # phase 34: batch, seq_len, steps (bf16)
+# Phase 34's depth cuts: the train state is 16 B a parameter (fp32 masters,
+# m and v, a bf16 compute copy and its bf16 gradients).  nemotron-4-15b's
+# untied 256,000-row embed and head alone are 3.15 B parameters; at 2
+# layers its step ran out of the card's memory (a 5.86 GiB fp32 LM head on
+# 70.3 GB held), so it trains 1 layer.
+DENSE_TRAIN_DEPTH = {"glm4-9b": 4, "phi3-medium-14b": 4,
+                     "nemotron-4-15b": 1}
+RESTART_ARCH = "qwen3-0.6b"   # phase 35, at full width
+RESTART = (4, 2048, 6, 3, 4)  # batch, seq_len, steps, checkpoint every, fail
 DEVICE = "cuda"
 # Phases 20-22, the stencil serving tier.  Autotune cells: (name, spec,
 # grid, iterations a timed call); Table 1's and Fig 6's go to the committed
@@ -2170,6 +2233,269 @@ def vlm_encdec_phases(dev, device_profile):
     return {"launches": launches, "seconds": seconds}
 
 
+def dense_ft_phases(dev, device_profile):
+    """Phases 33-35: (33) the dense family's last archs (glm4-9b: GQA 16 on
+    2 kv heads; phi3-medium-14b: GQA 4 on 10; nemotron-4-15b: GQA 6 on 8,
+    squared ReLU, ungated MLP), each first held in fp32 against the CPU
+    port on a depth cut of the same weights, then served in bf16 at full
+    width and depth as ``launch.serve.serve`` runs it, with a profiled
+    prefill and decode; (34) trained in bf16 at full width cut in depth
+    (``DENSE_TRAIN_DEPTH``) as ``launch.train.train`` runs it; (35)
+    qwen3-0.6b trained at full width through ``launch.train.main`` with
+    checkpoints, killed by ``--fail-at-step``, restarted, and held bit for
+    bit against an uninterrupted run: the final loss and every array of the
+    last checkpoint (params, m, v, step).  The launch counts are zeroed
+    before each path and read after it: K7 once a layer in a forward
+    (twice in a train step: forward and recompute), K8/K9 once a layer in a
+    backward.  Returns {"launches": {(phase, arch): launches}, "seconds":
+    {phase: s}}."""
+    import contextlib
+    import gc
+    import hashlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import build
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.runtime.ft import InjectedFailure
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def flush():
+        sync()
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    cfgs = {arch: dataclasses.replace(get_config(arch), attn_impl="flash")
+            for arch in DENSE_ARCHS}
+
+    def expect(n_layers, fwd=1, bwd=0):
+        out = {"flash_fwd": fwd * n_layers, "flash_bwd_dq": bwd * n_layers,
+               "flash_bwd_dkv": bwd * n_layers}
+        return {k: v for k, v in out.items() if v}
+
+    launches, seconds = {}, {}
+    gc.collect()
+    flush()
+    # What earlier phases still hold (phase 34's nemotron step needs all
+    # but about 9 GB of the card).
+    held_GB = torch.cuda.memory_allocated(dev) / 1e9
+
+    # -- 33. fp32 against the CPU, then bf16 serving at full depth ----------
+    t0 = time.perf_counter()
+    B33, S33, T33 = DENSE_SERVE
+    for arch, cfg in cfgs.items():
+        flush()
+        small = dataclasses.replace(cfg, n_layers=DENSE_CPU_DEPTH)
+        card = build(small, device=dev, dtype=torch.float32,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+        Bc, Sc = DENSE_CPU
+        tokens = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (Bc, Sc)), device=dev)
+        _build.LAUNCHES.clear()
+        h_card, _ = card.prefill(tokens, Sc)
+        sync()
+        check_launches = dict(_build.LAUNCHES)
+        check(check_launches == expect(small.n_layers),
+              f"{arch} fp32 prefill launched {check_launches}")
+        cpu = Transformer(dataclasses.replace(small, attn_impl="xla"),
+                          device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        del card
+        flush()
+        with torch.no_grad():
+            h_cpu, _ = cpu.prefill(tokens.cpu(), Sc)
+        del cpu
+        card_rel = rel(h_card.cpu(), h_cpu)
+        fp32_check = {"n_layers": small.n_layers, "batch": Bc,
+                      "prompt_len": Sc, "hidden_rel_err": card_rel,
+                      "rtol": DENSE_CPU_RTOL[arch],
+                      "launches": check_launches}
+        check(bool(torch.isfinite(h_card).all())
+              and card_rel <= DENSE_CPU_RTOL[arch],
+              f"{arch} fp32 prefill hidden card vs CPU: {card_rel} of "
+              f"max-abs")
+        del h_card, h_cpu
+        model = build(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        _build.LAUNCHES.clear()
+        served = serve(cfg, batch=B33, prompt_len=S33, tokens=T33,
+                       model=model)
+        launches[(33, arch)] = dict(_build.LAUNCHES)  # warm-up and timed
+        gen = served.pop("generated")
+        check(served["prefill_launches"] == expect(cfg.n_layers)
+              and not served["decode_launches"],
+              f"{arch} bf16 serve launched {served['prefill_launches']}, "
+              f"{served['decode_launches']}")
+        check(launches[(33, arch)] == expect(cfg.n_layers, fwd=2),
+              f"{arch} bf16 serve run launched {launches[(33, arch)]}")
+        check(gen.shape == (B33, T33 + 1) and bool((gen >= 0).all())
+              and bool((gen < cfg.vocab_size).all()),
+              f"{arch} bf16 serve tokens")
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B33, S33)), device=dev)
+        prefill = make_prefill_step(model, S33 + T33 + 1)
+        prof_prefill = device_profile(lambda: prefill({"tokens": prompts}),
+                                      top=16, host=False)
+        first, cache = prefill({"tokens": prompts})
+
+        def decode_loop():
+            tok = first
+            for i in range(DENSE_PROFILE_TOKENS):
+                tok, _ = make_decode_step(model, S33 + i)(tok, cache)
+
+        prof_decode = device_profile(decode_loop, top=16, host=False)
+        prof_decode["tokens"] = DENSE_PROFILE_TOKENS
+        emit({"phase": 33, "parameters": n_params, **served,
+              "launches_whole_run": launches[(33, arch)],
+              "seq0": gen[0].tolist(), "fp32_card_vs_cpu": fp32_check,
+              "profile_prefill": prof_prefill,
+              "profile_decode": prof_decode})
+        del model, cache, prefill, first, prompts
+        flush()
+    seconds[33] = time.perf_counter() - t0
+
+    # -- 34. bf16 training at full width, cut in depth ------------------------
+    t0 = time.perf_counter()
+    B34, S34, T34 = DENSE_TRAIN
+    for arch, cfg in cfgs.items():
+        flush()
+        cut = dataclasses.replace(cfg, n_layers=DENSE_TRAIN_DEPTH[arch])
+        _build.LAUNCHES.clear()
+        trained = train(cut, steps=T34, global_batch=B34, seq_len=S34,
+                        device=dev, seed=0)
+        launches[(34, arch)] = dict(_build.LAUNCHES)
+        steps = trained.pop("steps")
+        for rec in steps:
+            check(rec["launches"] == expect(cut.n_layers, fwd=2, bwd=1),
+                  f"{arch} bf16 train step {rec['step']} launched "
+                  f"{rec['launches']}")
+            check(all(math.isfinite(rec[k]) for k in ("loss", "nll",
+                                                       "grad_norm")),
+                  f"{arch} bf16 train step {rec['step']}: {rec}")
+        timed = steps[1:]   # the first pays the allocator's growth
+        ms = sum(r["ms"] for r in timed) / len(timed)
+        emit({"phase": 34, **trained, "n_layers": cut.n_layers,
+              "parameters": cut.param_count(), "steps": [
+                  {k: r[k] for k in ("step", "loss", "nll", "grad_norm",
+                                     "lr", "ms", "tokens_per_s",
+                                     "launches")} for r in steps],
+              "ms_per_step": ms, "tokens_per_s": B34 * S34 / (ms * 1e-3),
+              "launches_whole_run": launches[(34, arch)]})
+        flush()
+    seconds[34] = time.perf_counter() - t0
+
+    # -- 35. a restart on the card, bit for bit --------------------------------
+    t0 = time.perf_counter()
+    B35, S35, T35, every, fail_at = RESTART
+    cfg = get_config(RESTART_ARCH)
+    # The train state a checkpoint holds: fp32 params, m and v.
+    state_bytes = 12 * cfg.param_count()
+    base = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # Two directories of T35 // every checkpoints each, at most.
+        need = 2 * (T35 // every) * state_bytes
+        free = shutil.disk_usage(base).free
+        check(free >= 1.1 * need, f"phase 35 needs {need / 1e9:.1f} GB of "
+              f"disk for its checkpoints under {base}; {free / 1e9:.1f} GB "
+              f"free")
+        argv = ["--arch", RESTART_ARCH, "--global-batch", str(B35),
+                "--seq-len", str(S35), "--steps", str(T35),
+                "--checkpoint-every", str(every), "--log-every", "1"]
+        runs = {}
+        for name, sub, extra in (("killed", "a", ["--fail-at-step",
+                                                  str(fail_at)]),
+                                 ("restarted", "a", []),
+                                 ("uninterrupted", "b", [])):
+            flush()
+            out, raised = io.StringIO(), None
+            _build.LAUNCHES.clear()
+            t_run = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                try:
+                    rc = train_main(argv + ["--checkpoint-dir",
+                                            os.path.join(base, sub)] + extra)
+                except InjectedFailure as e:
+                    rc, raised = None, str(e)
+            lines = out.getvalue().splitlines()
+            runs[name] = {
+                "seconds": time.perf_counter() - t_run, "rc": rc,
+                "raised": raised, "launches": dict(_build.LAUNCHES),
+                "steps": [ln for ln in lines if ln.startswith("step ")],
+                "checkpoints": [ln for ln in lines
+                                if ln.startswith("checkpoint ")],
+                "final_loss": [ln for ln in lines
+                               if ln.startswith("final loss ")],
+                "resumed": [ln for ln in lines if ln.startswith("resumed")]}
+        n_layers = cfg.n_layers
+        for name, n_steps in (("killed", fail_at), ("restarted",
+                                                    T35 - every),
+                              ("uninterrupted", T35)):
+            check(runs[name]["launches"] == expect(n_layers, fwd=2 * n_steps,
+                                                   bwd=n_steps),
+                  f"phase 35 {name} run launched {runs[name]['launches']}")
+        check(runs["killed"]["raised"] == f"injected failure at step "
+              f"{fail_at}", f"phase 35: the killed run {runs['killed']}")
+        check(runs["restarted"]["resumed"] and runs["restarted"]["resumed"][
+            0].startswith(f"resumed from step {every} "),
+              f"phase 35: the restart {runs['restarted']['resumed']}")
+        check(runs["uninterrupted"]["rc"] == 0 and not runs["uninterrupted"][
+            "resumed"], "phase 35: the uninterrupted run")
+        final = [runs[n]["final_loss"] for n in ("restarted",
+                                                 "uninterrupted")]
+        check(final[0] == final[1] != [], f"phase 35 final losses {final}")
+        last = f"ckpt_{T35:08d}.npz"
+        differ, n_arrays = [], 0
+        with np.load(os.path.join(base, "a", last)) as za, np.load(
+                os.path.join(base, "b", last)) as zb:
+            check(sorted(za.files) == sorted(zb.files),
+                  "phase 35: the last checkpoints' keys differ")
+            h = {"a": hashlib.sha256(), "b": hashlib.sha256()}
+            for key in sorted(za.files):
+                xa, xb = za[key], zb[key]
+                n_arrays += 1
+                if not np.array_equal(xa, xb):
+                    differ.append(key)
+                if key.startswith("params/"):
+                    h["a"].update(xa.tobytes())
+                    h["b"].update(xb.tobytes())
+            digests = {k: v.hexdigest() for k, v in h.items()}
+        check(not differ and digests["a"] == digests["b"],
+              f"phase 35: {len(differ)} arrays of the restarted run's last "
+              f"checkpoint differ from the uninterrupted run's: "
+              f"{differ[:8]}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    seconds[35] = time.perf_counter() - t0
+    for name in runs:
+        launches[(35, name)] = runs[name]["launches"]
+    emit({"phase": 35, "arch": RESTART_ARCH, "batch": B35, "seq_len": S35,
+          "steps": T35, "checkpoint_every": every, "fail_at_step": fail_at,
+          "state_GB": state_bytes / 1e9, "disk_free_GB": free / 1e9,
+          "runs": runs, "arrays_compared": n_arrays,
+          "params_sha256": digests["a"], "final_loss": final[0],
+          "bit_equal": True, "seconds": seconds[35]})
+    emit({"dense_ft_seconds": seconds, "held_GB_at_start": held_GB})
+    return {"launches": launches, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2962,6 +3288,7 @@ def main(argv=None) -> int:
                          f"{tuple(xd2.shape)}", GEMM_TOL)
     del out
     k5_bf16_ms = graph_ms(lambda y: dense_stencil_matmul(y, mb16), 5, xb16)
+    k5_bf16_plain = time_ms(lambda: dense_stencil_plain(xb16, mb16), 3)
     matmul_bf16_ms = graph_ms(lambda: torch.matmul(xb16, mb16), 5)
     del xb16, mb16
     k5_ops = 2 * DENSE_BATCH * nd_ * nd_
@@ -3006,7 +3333,8 @@ def main(argv=None) -> int:
                "random_w_ms": k5_rand_ms,
                "random_w_matmul_ms": matmul_rand_ms,
                "split_ms": split_ms, "split_plain_ms": split_plain_ms,
-               "bf16_ms": k5_bf16_ms, "bf16_matmul_ms": matmul_bf16_ms,
+               "bf16_ms": k5_bf16_ms, "bf16_plain_ms": k5_bf16_plain,
+               "bf16_matmul_ms": matmul_bf16_ms,
                "bf16_bound_ms": k5_ops / PEAK_BF16_FLOPS * 1e3,
                "bf16_max_abs_err_vs_plain": k5_bf16_err,
                "hgmma_by_instance": hgmma_k5, "ptxas": k5_ptxas}})
@@ -3015,7 +3343,7 @@ def main(argv=None) -> int:
     # -- 12. K6 and K7 against their plain versions ---------------------------
     del xd, xd2, matrix
     torch.cuda.empty_cache()
-    from _torch_flash_cases import FLASH_CASES
+    from _torch_flash_cases import DENSE_CASES, FLASH_CASES
     from repro_torch.configs import get_config
     from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                      flash_fwd, flash_fwd_plain)
@@ -3077,7 +3405,7 @@ def main(argv=None) -> int:
     for arch, (Bx, Sx, Hx, KVx, hdx) in MOE_SHAPES.items():
         flash_case(f"{arch} shape", (Bx, Sx, Sx, Hx, KVx, hdx),
                    torch.bfloat16, blocks=(512, 512))
-    for label in VE_CASES:
+    for label in (*VE_CASES, *DENSE_CASES.values()):
         shape, causal, _ = FLASH_CASES[label]
         flash_case(label, shape, torch.bfloat16, causal=causal,
                    blocks=(512, 512))
@@ -3188,7 +3516,8 @@ def main(argv=None) -> int:
             tok, _ = make_decode_step(model_b, S14 + i)(tok, cache_b)
 
     prof_decode = device_profile(decode_loop)
-    del model_b, cache_b
+    # The prefill step holds its model: all of it goes (1.5 GB).
+    del model_b, cache_b, prefill_b, first_b, decode_loop, prompts_b
     torch.cuda.empty_cache()
     emit({"phase": 14, **served, "launches_whole_run": launches7,
           "seq0": gen[0].tolist(), "profile_prefill": prof_prefill,
@@ -3268,10 +3597,12 @@ def main(argv=None) -> int:
     del qg, kg, vg
 
     ve15 = {label: k7_timing(*FLASH_CASES[label][:2], dev, gq, graph_ms,
-                             time_ms) for label in VE_CASES}
+                             time_ms)
+            for label in (*VE_CASES, *DENSE_CASES.values())}
     emit({"phase": 15, "shape": list(LM_SHAPE), "dtype": "bfloat16",
           "hybrid_shape": hyb15, "moe_gqa8_shape": gqa15,
-          "vlm_encdec_shapes": ve15,
+          "vlm_encdec_shapes": {k: ve15[k] for k in VE_CASES},
+          "dense_shapes": {k: ve15[k] for k in DENSE_CASES.values()},
           "k6_ms": k6_ms, "k7_ms": k7_ms, "plain_ms": k67_plain,
           "sdpa_ms": sdpa_ms, "k7_fp32_ms": k7_fp32_ms,
           "operations": lm_ops, "bytes": lm_bytes,
@@ -3541,10 +3872,12 @@ def main(argv=None) -> int:
     del qs8, ks8, vs8, out8, dout8, gqa_args, q8g, k8g, v8g, do8g, o8g
 
     ve19 = {label: k89_timing(*FLASH_CASES[label][:2], dev, gq, graph_ms,
-                              time_ms) for label in VE_CASES}
+                              time_ms)
+            for label in (*VE_CASES, *DENSE_CASES.values())}
     emit({"phase": 19, "shape": list(LM_SHAPE), "dtype": "bfloat16",
           "hybrid_shape": hyb19, "moe_gqa8_shape": gqa19,
-          "vlm_encdec_shapes": ve19,
+          "vlm_encdec_shapes": {k: ve19[k] for k in VE_CASES},
+          "dense_shapes": {k: ve19[k] for k in DENSE_CASES.values()},
           "k8_ms": k8_ms, "k9_ms": k9_ms, "k8_plain_ms": k8_plain,
           "k9_plain_ms": k9_plain, "sdpa_bwd_ms": sdpa_bwd_ms,
           "k8_bound_ms": max(k8_ops / PEAK_BF16_FLOPS,
@@ -3643,7 +3976,8 @@ def main(argv=None) -> int:
                "simt_fp32_bound_ms": k5_ops / PEAK_FP32_FLOPS * 1e3,
                "norm_err_vs_fp64": norm_err,
                "hgmma": sum(hgmma_k5.values()),
-               "bf16_ms": k5_bf16_ms, "bf16_library_ms": matmul_bf16_ms,
+               "bf16_ms": k5_bf16_ms, "bf16_plain_ms": k5_bf16_plain,
+               "bf16_library_ms": matmul_bf16_ms,
                "bf16_bound_ms": k5_ops / PEAK_BF16_FLOPS * 1e3,
                "max_abs_err_bf16": worst["dense_stencil_matmul"]["bfloat16"]},
               launches5, PEAK_BF16_FLOPS),
@@ -3897,6 +4231,64 @@ def main(argv=None) -> int:
             "flash_bwd_dkv": uses * steps},
             f"{arch}'s train path launched "
             f"{ve['launches'][(phase, f'{arch} train')]}")
+
+    # -- 33-35. the dense family's last archs, and a restart ------------------
+    torch.cuda.empty_cache()
+    dense = dense_ft_phases(dev, device_profile)
+    for arch, label in DENSE_CASES.items():
+        cfg = get_config(arch)
+        serve_l, train_l = (dense["launches"][(33, arch)],
+                            dense["launches"][(34, arch)])
+        t15, t19 = ve15[label], ve19[label]
+        shape = t15["shape"]
+        rows = {"shape": shape, "causal": True, "dtype": "bfloat16",
+                "case": f"{arch}'s attention (GQA {shape[3] // shape[4]}: "
+                        f"{shape[3]} query heads on {shape[4]} kv heads, "
+                        f"head_dim 128), causal",
+                "plain_timing": "eager",
+                "train_depth": DENSE_TRAIN_DEPTH[arch],
+                "library": "F.scaled_dot_product_attention (enable_gqa)"}
+        bwd_library = ("backward of F.scaled_dot_product_attention "
+                       "(enable_gqa; dq, dk and dv together)")
+        kernels += [
+            entry("flash_fwd", "src/repro_torch/csrc/flash_attention_sm90.cu",
+                  "src/repro/kernels/flash_attention_bwd.py:86",
+                  t15["k7_ms"], t15["plain_ms"], t15["bytes"],
+                  t15["operations"], t15["sdpa_ms"],
+                  {**rows, "train_launches": train_l.get("flash_fwd", 0),
+                   "max_abs_err": case_err[("flash_fwd", label,
+                                            "bfloat16")]},
+                  serve_l, PEAK_BF16_FLOPS),
+            entry("flash_bwd_dq",
+                  "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                  "src/repro/kernels/flash_attention_bwd.py:223",
+                  t19["k8_ms"], t19["k8_plain_ms"], t19["k8_bytes"],
+                  t19["k8_operations"], t19["sdpa_bwd_ms"],
+                  {**rows, "library": bwd_library,
+                   "max_abs_err": case_err[("flash_bwd_dq", label,
+                                            "bfloat16")]},
+                  train_l, PEAK_BF16_FLOPS),
+            entry("flash_bwd_dkv",
+                  "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                  "src/repro/kernels/flash_attention_bwd.py:249",
+                  t19["k9_ms"], t19["k9_plain_ms"], t19["k9_bytes"],
+                  t19["k9_operations"], t19["sdpa_bwd_ms"],
+                  {**rows, "library": bwd_library,
+                   "max_abs_err": max(case_err[("flash_bwd_dkv",
+                                                f"{label} {g}", "bfloat16")]
+                                      for g in ("dk", "dv"))},
+                  train_l, PEAK_BF16_FLOPS)]
+        check(serve_l == {"flash_fwd": 2 * cfg.n_layers},
+              f"{arch}'s serve path launched {serve_l}")
+        depth, steps = DENSE_TRAIN_DEPTH[arch], DENSE_TRAIN[2]
+        check(train_l == {"flash_fwd": 2 * depth * steps,
+                          "flash_bwd_dq": depth * steps,
+                          "flash_bwd_dkv": depth * steps},
+              f"{arch}'s train path launched {train_l}")
+    # qwen3-0.6b's K7 row (the first): phase 35's runs launch its shape.
+    next(k for k in kernels if k["name"] == "flash_fwd")[
+        "restart_launches"] = {k[1]: v for k, v in dense["launches"].items()
+                               if k[0] == 35}
 
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")

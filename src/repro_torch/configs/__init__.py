@@ -4,9 +4,12 @@ the reduced same-family one used by CPU tests; ``learned-stencil`` is the
 solver family's (registered, but not in ``list_archs()``), and
 ``JACOBI_CONFIGS`` the paper's own benchmark configurations."""
 from repro_torch.configs import (  # noqa: F401  (registers)
+    glm4_9b,
     learned_stencil,
     mamba2_370m,
     moonshot_v1_16b_a3b,
+    nemotron_4_15b,
+    phi3_medium_14b,
     qwen2_vl_2b,
     qwen3_0_6b,
     qwen3_moe_30b_a3b,

@@ -3,12 +3,11 @@
 ``param_count``, ``register``, ``get_config`` and ``list_archs``.
 
 Full-size configs live in ``repro_torch/configs/<arch_id>.py``; every arch
-also has ``smoke()``, a reduced same-family config for CPU tests.  Only the
-archs the port runs are registered (dense: qwen3-0.6b; ssm: mamba2-370m;
-hybrid: zamba2-1.2b; moe: qwen3-moe-30b-a3b, moonshot-v1-16b-a3b; vlm:
-qwen2-vl-2b; encdec: whisper-tiny); the dense archs' other configs
-(nemotron-4-15b, glm4-9b, phi3-medium-14b) register when they are ported
-(ROADMAP queue 1, the LM-families item).  The solver family's ``learned-stencil``
+also has ``smoke()``, a reduced same-family config for CPU tests.  Every
+arch of ``list_archs()`` is registered (dense: nemotron-4-15b, glm4-9b,
+qwen3-0.6b, phi3-medium-14b; ssm: mamba2-370m; hybrid: zamba2-1.2b; moe:
+qwen3-moe-30b-a3b, moonshot-v1-16b-a3b; vlm: qwen2-vl-2b; encdec:
+whisper-tiny).  The solver family's ``learned-stencil``
 (``configs/learned_stencil.py``) registers too, but is not an arch of
 ``list_archs()``.
 """
@@ -134,14 +133,8 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
         if arch_id not in list_archs():
             raise ValueError(f"unknown arch {arch_id!r}; known: "
                              f"{list_archs()}")
-        try:
-            importlib.import_module(
-                f"repro_torch.configs.{arch_id.replace('-', '_')}")
-        except ModuleNotFoundError:
-            raise NotImplementedError(
-                f"{arch_id} is not ported yet: the dense archs' other "
-                f"configs (nemotron-4-15b, glm4-9b, phi3-medium-14b) come "
-                f"with the LM-families item of ROADMAP queue 1") from None
+        importlib.import_module(
+            f"repro_torch.configs.{arch_id.replace('-', '_')}")
     entry = _REGISTRY[arch_id]
     return entry["smoke" if smoke else "full"]()
 

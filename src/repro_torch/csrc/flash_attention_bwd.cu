@@ -45,8 +45,12 @@
 //     it loops over the G query heads of the group and, for each, over the
 //     q tiles at or below the diagonal, staging q and do, and accumulates
 //     dk and dv in registers across the whole loop: no atomics, so the
-//     result is deterministic.  p^T and then ds^T pass through one shared
-//     tile (153 KB a CTA at hd 128).
+//     result is deterministic.  Each q tile's 64-term product is summed
+//     apart and then added to the running sums (JAX's dot of a block, then
+//     its add), so a group of G heads over S queries chains G S / 64 adds,
+//     not G S: at GQA 16 over 2048 queries the one chain of 32,768 fmas
+//     lay 6e-6 of max-abs from float64, past the fp32 bound.  p^T and then
+//     ds^T pass through one shared tile (153 KB a CTA at hd 128).
 //   - a 16 x 16 thread grid, as K7: thread (ty, tx) owns rows 4ty..4ty+3 of
 //     the CTA's own tile, score columns tx + 16j (j < 4) and accumulator
 //     columns tx + 16n (n < hd/16); row strides hd + 4 and 64 + 4 floats
@@ -137,6 +141,24 @@ __device__ __forceinline__ void tile_acc(const float* p, const float* m,
       }
     }
   }
+}
+
+// acc[i][n] += (sum_c p[4ty+i][c] * m[c][tx+16n]): the tile's sum formed
+// on its own first, then added.
+template <int HD>
+__device__ __forceinline__ void tile_add(const float* p, const float* m,
+                                         int ty, int tx,
+                                         float (&acc)[4][HD / 16]) {
+  float part[4][HD / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < HD / 16; ++n) part[i][n] = 0.f;
+  tile_acc<HD>(p, m, ty, tx, part);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < HD / 16; ++n) acc[i][n] += part[i][n];
 }
 
 template <int HD>
@@ -334,7 +356,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       __syncthreads();
-      tile_acc<HD>(pt, dos, ty, tx, dv_acc);  // dv += p^T . do
+      tile_add<HD>(pt, dos, ty, tx, dv_acc);  // dv += p^T . do
       __syncthreads();
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -342,7 +364,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = 0; j < 4; ++j)
           pt[(4 * ty + i) * PS + tx + 16 * j] = s[i][j];
       __syncthreads();
-      tile_acc<HD>(pt, qs, ty, tx, dk_acc);  // dk += ds^T . q
+      tile_add<HD>(pt, qs, ty, tx, dk_acc);  // dk += ds^T . q
     }
   }
 

@@ -78,11 +78,15 @@ def apply_update(state: dict, grads: dict, cfg: AdamWConfig):
         m, v = state["m"][name], state["v"][name]
         g = grads[name].float() * scale
         m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
+        v.mul_(b2).add_(((1 - b2) * g).mul_(g))
         del g
-        # m̂ / (sqrt(v̂) + eps) + wd * p, each op rounded as in JAX.
-        step_dir = torch.sqrt(v / bc2).add_(cfg.eps)
-        step_dir = (m / bc1).div_(step_dir).add_(cfg.weight_decay * p)
+        # m̂ / (sqrt(v̂) + eps) + wd * p, each op rounded as in JAX, with at
+        # most two temporaries of the leaf's size at a time (a 256,000-row
+        # embedding's are 5.9 GB each).
+        denom = (v / bc2).sqrt_().add_(cfg.eps)
+        step_dir = (m / bc1).div_(denom)
+        step_dir.add_(torch.mul(p, cfg.weight_decay, out=denom))
+        del denom
         p.sub_(step_dir.mul_(lr))
     state["step"] = step
     return state, {"grad_norm": gnorm, "lr": lr}

@@ -1,11 +1,12 @@
-"""K8/K9 (bf16) at the moe archs' attention shapes against a float64
-evaluation of their formula, beside their fp32 plain versions: where the
-bf16 rounding of ds (JAX's rule) makes the result jump.
+"""K8/K9 (bf16) at the moe and dense archs' attention shapes against a
+float64 evaluation of their formula, beside their fp32 plain versions:
+where the bf16 rounding of ds (JAX's rule) makes the result jump.
 
     PYTHONPATH=src python tests/_torch_flash_bwd_noise.py   # on the H100
 
 Inputs are ``chip_smoke.py`` phase 16's for these shapes (the same
-generator, advanced through the same draws before them).  The reference
+generator, advanced through the same draws before them): the dense archs'
+are cases of ``FLASH_CASES`` (glm4_shape, phi3_shape, nemotron_shape).  The reference
 takes the kernels' own o, lse and delta, computes s, p, dp and ds in
 float64, rounds ds to bf16 as the kernels and the plain versions do (K8 to
 k's type, K9 to q's), and sums in float64: dq = round(ds) k, dk =
@@ -28,7 +29,7 @@ sys.path.insert(0, os.path.dirname(HERE))
 sys.path.insert(0, HERE)
 
 import chip_smoke as C  # noqa: E402
-from _torch_flash_cases import FLASH_CASES  # noqa: E402
+from _torch_flash_cases import DENSE_CASES, FLASH_CASES  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
     flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_delta,
     flash_fwd)
@@ -97,26 +98,20 @@ def main():
                 for s_ in ((B_, Sq_, H_, hd_), (B_, Skv_, KV_, hd_),
                            (B_, Skv_, KV_, hd_), (B_, Sq_, H_, hd_))]
 
-    # Phase 16's draws before the moe shapes.
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape, _, _ in FLASH_CASES.values():
-            draw(shape, dtype)
-    Bh, Sh, Hh, KVh, hdh = C.HYBRID_SHAPE
-    draw((Bh, Sh, Sh, Hh, KVh, hdh), torch.bfloat16)
-    for arch, (B, S, H, KV, hd) in C.MOE_SHAPES.items():
-        q, k, v, do = draw((B, S, S, H, KV, hd), torch.bfloat16)
+    def analyse(name, shape, q, k, v, do):
+        B, S, _, H, KV, hd = shape
         o, lse = flash_fwd(q, k, v, causal=True)
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal=True)
         delta = flash_delta(o, do)
         pdq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=True)
         pdk, pdv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=True)
         rdq, rdk, rdv = reference(q, k, v, do, lse, delta)
-        for name, x, y, r in (("dq", dq, pdq, rdq), ("dk", dk, pdk, rdk),
+        for grad, x, y, r in (("dq", dq, pdq, rdq), ("dk", dk, pdk, rdk),
                               ("dv", dv, pdv, rdv)):
             kp, kr, pr = ratio(x, y), ratio(x, r), ratio(y, r)
             i = int(kp.argmax())
             idx = list(torch.unravel_index(torch.tensor(i), kp.shape))
-            out = {"arch": arch, "grad": name, "shape": [B, S, H, KV, hd],
+            out = {"arch": name, "grad": grad, "shape": [B, S, H, KV, hd],
                    "kernel_vs_plain": [float(kp.max()), int((kp > 1).sum())],
                    "kernel_vs_f64": [float(kr.max()), int((kr > 1).sum())],
                    "plain_vs_f64": [float(pr.max()), int((pr > 1).sum())],
@@ -125,12 +120,25 @@ def main():
                              "kernel": float(x.flatten()[i]),
                              "plain": float(y.flatten()[i]),
                              "f64": float(r.flatten()[i])}}
-            if name == "dk":
+            if grad == "dk":
                 out["worst"]["largest_term"] = largest_term(
                     q, k, v, do, lse, delta, [int(t) for t in idx])
             print(json.dumps(out), flush=True)
-        del q, k, v, do, o, lse, dq, dk, dv, pdq, pdk, pdv, rdq, rdk, rdv
         torch.cuda.empty_cache()
+
+    # Phase 16's draws, the dense archs' bf16 cases among them, then the
+    # moe shapes.
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (shape, _, _) in FLASH_CASES.items():
+            drawn = draw(shape, dtype)
+            if dtype == torch.bfloat16 and label in DENSE_CASES.values():
+                analyse(label, shape, *drawn)
+            del drawn
+    Bh, Sh, Hh, KVh, hdh = C.HYBRID_SHAPE
+    draw((Bh, Sh, Sh, Hh, KVh, hdh), torch.bfloat16)
+    for arch, (B, S, H, KV, hd) in C.MOE_SHAPES.items():
+        analyse(arch, (B, S, S, H, KV, hd),
+                *draw((B, S, S, H, KV, hd), torch.bfloat16))
     return 0
 
 

@@ -30,16 +30,32 @@ FLASH_CASES = {
     "vlm_shape": ((4, 2048, 2048, 12, 2, 128), True, 0),
     "whisper_encoder": ((16, 1500, 1500, 6, 6, 64), False, 0),
     "whisper_cross": ((16, 224, 1500, 6, 6, 64), False, 0),
+    # The last dense archs': glm4-9b (GQA 16: 32 query heads on 2),
+    # phi3-medium-14b (GQA 4: 40 on 10) and nemotron-4-15b (GQA 6: 48 on
+    # 8), all at head_dim 128.
+    "glm4_shape": ((4, 2048, 2048, 32, 2, 128), True, 0),
+    "phi3_shape": ((4, 2048, 2048, 40, 10, 128), True, 0),
+    "nemotron_shape": ((4, 2048, 2048, 48, 8, 128), True, 0),
 }
+# The dense archs' shapes by arch (chip_smoke.py phases 12, 15, 16, 19, 33
+# and 34).
+DENSE_CASES = {"glm4-9b": "glm4_shape", "phi3-medium-14b": "phi3_shape",
+               "nemotron-4-15b": "nemotron_shape"}
 # Run on the card only: the CPU tests, which hold the plain versions to
 # JAX's Pallas kernels interpreted, leave them out.
 CARD_ONLY = frozenset({"serve_shape", "vlm_shape", "whisper_encoder",
-                       "whisper_cross"})
+                       "whisper_cross", *DENSE_CASES.values()})
 # The full-size cases whose bf16 dq and dk bounds allow one flipped
 # rounding of ds (``ds_flip_atol``), as the moe shapes' do: sums of 1500 to
 # 2048 terms a row and, at qwen2-vl's GQA 6, six heads' terms in each dk
-# element.
-FLIP_CASES = frozenset({"vlm_shape", "whisper_encoder", "whisper_cross"})
+# element; and the dense archs' GQA 16, 4 and 6, whose dk sums 16, 4 and 6
+# heads' terms: on the H100, chip_smoke.py phase 16's glm4 inputs read one
+# dk element of 2 M at 1.1 times the bound, 0.0027 from the plain value,
+# one bf16 ulp (2^-7) of its largest round(ds) q term (0.357), where the
+# plain value agrees with float64 of the same rounded ds to 1.7e-5
+# (tests/_torch_flash_bwd_noise.py).
+FLIP_CASES = frozenset({"vlm_shape", "whisper_encoder", "whisper_cross",
+                        *DENSE_CASES.values()})
 
 
 def p_rounding_case(device="cpu"):

@@ -1291,6 +1291,87 @@ def test_vlm_encdec_families_on_the_card_match_the_cpu(cuda, arch):
             float(g.abs().max()), 1e-30), name
 
 
+# --- the dense family's last archs, and a restart -----------------------------
+
+DENSE_SMOKES = {arch: dataclasses.replace(get_config(arch, smoke=True),
+                                          attn_impl="flash")
+                for arch in ("nemotron-4-15b", "glm4-9b", "phi3-medium-14b")}
+
+
+@pytest.mark.parametrize("arch", list(DENSE_SMOKES))
+def test_dense_archs_on_the_card_match_the_cpu(cuda, arch):
+    """fp32 smoke configs (nemotron's squared-ReLU ungated MLP, glm4's GQA
+    2:1, phi3's 5 heads on 5), the same weights on both devices: the
+    prefill hidden, the caches and four decode steps' logits within 1e-4
+    of their max-abs; K7 once a layer in a prefill, none in decode; one
+    train step's loss within 1e-5 relative and gradients within 1e-3 of
+    their max-abs, K7/K8/K9 twice/once/once a layer."""
+    cfg = DENSE_SMOKES[arch]
+    model = build(cfg, device=cuda, dtype=torch.float32)
+    cpu = Transformer(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 27), device=cuda)
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    _build.LAUNCHES.clear()
+    h, cache = model.prefill(tokens, 32)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"flash_fwd": cfg.n_layers}
+    hc, cache_c = cpu.prefill(tokens.cpu(), 32)
+    assert rel(h, hc) <= 1e-4
+    for name in ("k", "v"):
+        assert rel(cache[name], cache_c[name]) <= 1e-4, name
+    tok = tokens[:, -1]
+    for i in range(4):
+        logits, cache = model.decode_step(tok, cache, 27 + i)
+        want, cache_c = cpu.decode_step(tok.cpu(), cache_c, 27 + i)
+        assert rel(logits, want) <= 1e-4, i
+        tok = torch.argmax(want, -1).to(cuda)
+    assert dict(_build.LAUNCHES) == {"flash_fwd": cfg.n_layers}
+    batch = token_batch(DataConfig(cfg.vocab_size, 32, 2), 0, device=cuda)
+    _build.LAUNCHES.clear()
+    loss, _, grads = value_and_grad(model, init_train_state(model)["params"],
+                                    batch)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"flash_fwd": 2 * cfg.n_layers,
+                                     "flash_bwd_dq": cfg.n_layers,
+                                     "flash_bwd_dkv": cfg.n_layers}
+    loss_c, _, grads_c = value_and_grad(
+        cpu, init_train_state(cpu)["params"],
+        {k: v.cpu() for k, v in batch.items()})
+    assert abs(float(loss) / float(loss_c) - 1) <= 1e-5
+    for name, g in grads_c.items():
+        assert float((grads[name].cpu() - g).abs().max()) <= 1e-3 * max(
+            float(g.abs().max()), 1e-30), name
+
+
+def test_train_restart_is_bit_equal_on_the_card(cuda, tmp_path):
+    """qwen3-0.6b at full width cut to 2 layers, bf16 train steps of 2 x 256
+    tokens through ``launch.train.train``: a run checkpointed after step 1
+    and killed before step 2, then restarted, ends on the uninterrupted
+    run's loss and on every array of its last checkpoint (params, m, v,
+    step), bit for bit; the restarted step launches K7/K8/K9 4/2/2 times."""
+    from repro_torch.launch.train import train
+    from repro_torch.runtime import InjectedFailure
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), attn_impl="flash",
+                              n_layers=2)
+    kw = dict(steps=2, global_batch=2, seq_len=256, device=cuda,
+              checkpoint_every=1)
+    with pytest.raises(InjectedFailure, match="step 1"):
+        train(cfg, checkpoint_dir=str(tmp_path / "a"), fail_at_step=1, **kw)
+    restarted = train(cfg, checkpoint_dir=str(tmp_path / "a"), **kw)
+    whole = train(cfg, checkpoint_dir=str(tmp_path / "b"), **kw)
+    assert restarted["start_step"] == 1 and len(restarted["steps"]) == 1
+    assert restarted["steps"][0]["launches"] == {
+        "flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert [e["op"] for e in restarted["checkpoints"]] == ["restore", "save"]
+    assert restarted["steps"][0]["loss"] == whole["steps"][-1]["loss"]
+    with np.load(tmp_path / "a" / "ckpt_00000002.npz") as a, \
+            np.load(tmp_path / "b" / "ckpt_00000002.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert np.array_equal(a[key], b[key]), key
+
+
 # --- the serving tier on the card: autotuner, multigrid, cache, engine ------
 
 def test_autotuner_measures_every_candidate(cuda):

@@ -48,7 +48,11 @@ def test_no_jax_or_repro_import_anywhere_in_the_port():
                    "configs/mamba2_370m.py", "configs/zamba2_1_2b.py",
                    "models/moe.py", "configs/qwen3_moe_30b_a3b.py",
                    "configs/moonshot_v1_16b_a3b.py", "models/encdec.py",
-                   "configs/qwen2_vl_2b.py", "configs/whisper_tiny.py"):
+                   "configs/qwen2_vl_2b.py", "configs/whisper_tiny.py",
+                   "configs/nemotron_4_15b.py", "configs/glm4_9b.py",
+                   "configs/phi3_medium_14b.py", "checkpoint/__init__.py",
+                   "checkpoint/checkpoint.py", "runtime/__init__.py",
+                   "runtime/ft.py"):
         assert os.path.join(PKG, *module.split("/")) in files, module
     bad = []
     for path in (f for f in files if f.endswith(".py")):
@@ -127,6 +131,24 @@ def test_port_imports_and_solves_with_jax_blocked():
             tr = train(get_config(arch, smoke=True), steps=1,
                        global_batch=2, seq_len=8, device="cpu")
             assert tr["steps"][0]["loss"] > 0
+        import os, tempfile
+        from repro_torch.checkpoint import Checkpointer
+        from repro_torch.runtime import InjectedFailure
+        with tempfile.TemporaryDirectory() as ckdir:
+            for arch in ("nemotron-4-15b", "glm4-9b", "phi3-medium-14b"):
+                try:
+                    train(get_config(arch, smoke=True), steps=2,
+                          global_batch=2, seq_len=8, device="cpu",
+                          checkpoint_dir=os.path.join(ckdir, arch),
+                          checkpoint_every=1, fail_at_step=1)
+                except InjectedFailure:
+                    pass
+                tr = train(get_config(arch, smoke=True), steps=2,
+                           global_batch=2, seq_len=8, device="cpu",
+                           checkpoint_dir=os.path.join(ckdir, arch))
+                assert tr["start_step"] == 1 and len(tr["steps"]) == 1
+                assert Checkpointer(os.path.join(ckdir, arch)
+                                    ).latest_step() == 2
         from repro_torch.core import (implicit_solve, set_default_plan_cache,
                                       heterogeneous_jacobi)
         set_default_plan_cache(PlanCache(device="cpu"))

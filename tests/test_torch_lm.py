@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.models import layers as JL
 from repro.models.attention import attention as jax_attention
 from repro.models.attention import decode_attention as jax_decode_attention
@@ -28,7 +29,7 @@ from repro.models import transformer as JT
 from repro.models.mlp import mlp_apply
 from repro.models.model_zoo import build as jax_build
 from repro.train.serve_step import greedy_generate as jax_greedy
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import _build
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import layers as TL
@@ -75,14 +76,19 @@ def jax_params(request):
 
 # -- configs -----------------------------------------------------------------
 
-def test_config_is_a_copy_of_jax():
-    for smoke in (False, True):
-        j, t = jax_get_config(ARCH, smoke=smoke), get_config(ARCH, smoke=smoke)
-        assert dataclasses.asdict(j) == dataclasses.asdict(t)
-        assert (j.padded_vocab, j.param_count()) == (t.padded_vocab,
-                                                     t.param_count())
-    with pytest.raises(NotImplementedError, match="LM-families item"):
-        get_config("nemotron-4-15b")
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", jax_list_archs())
+def test_config_is_a_copy_of_jax(arch, smoke):
+    """Every arch of the JAX package's list, full and smoke: the port's
+    config, padded vocab and parameter count are JAX's."""
+    assert list_archs() == jax_list_archs()
+    j, t = jax_get_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert (j.padded_vocab, j.param_count()) == (t.padded_vocab,
+                                                 t.param_count())
+
+
+def test_unknown_arch_raises():
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-9")
 

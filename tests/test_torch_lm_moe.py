@@ -532,10 +532,11 @@ def test_serve_cli_on_the_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_cli_on_the_cpu(arch, capsys):
+def test_train_cli_on_the_cpu(arch, capsys, tmp_path):
     assert train_main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--steps", "2", "--global-batch", "2",
-                       "--seq-len", "16"]) == 0
+                       "--seq-len", "16",
+                       "--checkpoint-dir", str(tmp_path / "ckpt")]) == 0
     out = capsys.readouterr().out
     assert "step     2 loss=" in out and "tok/s" in out
     assert "timed by host" in out and "kernel launches {}" in out
