@@ -61,6 +61,10 @@ solver):
     width through ``python -m repro_torch.launch.train`` with
     ``--checkpoint-every 3 --fail-at-step 4``, then restarted, then run
     uninterrupted (phase 35);
+  - halo distribution on a tile mesh (every tile on the one card): the
+    Table-1 solve through ``solve(backend="halo", mesh=make_mesh((2,
+    2)))``, and an 8192x8192 grid, per-cell taps and the autotuner's halo
+    sweep over 2x4 (phase 36);
   - the differentiable solve, ``repro_torch.core.implicit_solve`` on the
     card's default plan cache (its backward one solve with the transposed
     operator; ``F.conv2d`` and shifted adds, none of K1-K9), and the
@@ -342,6 +346,18 @@ The line after phase 22 lists the kernels phases 20-22 launched.
      checkpoints (params, m and v, 9.02 GB each; a digest of the params)
      bit-equal, the seconds and bytes of each save and restore recorded,
      the free disk checked first.
+ 36. halo distribution on a tile mesh, every tile on cuda:0
+     (``halo_phase``; plain PyTorch, none of K1-K9 may launch): (a) Table 1
+     over 2x2 through ``solve(backend="halo")``, the iteration count and
+     the field bit-equal to the ``reference`` solve's, the wall ms and the
+     fuse picked; (b) 8192x8192 fp32 over 2x4 (4096x2048 tiles), 64 steps
+     through ``make_plan(backend="halo")`` at fuse 1 and 16, each bit-equal
+     to ``reference``, with ms an iteration, exchanges, bytes and device
+     operations an exchange beside phase 7's K2 stream kernel on the same
+     grid; (c) per-cell taps on 1024x1024 over 2x4, fuse 4, 64 steps,
+     bit-equal to ``reference``; (d) ``autotune_halo_cell`` on the scaling
+     bench's fuse-sweep cell, 128x256 over 2x4, µs an iteration at fuse 1,
+     2, 4 and 8.  Under 120 s.
 The inventory line lists K1-K9 and K5's split kernel, and K7-K9 again at
 zamba2's shape, at qwen3-moe's GQA-8 shape, at qwen2-vl's GQA-6 shape, at
 whisper's encoder and cross shapes and at glm4-9b's, phi3-medium-14b's and
@@ -547,6 +563,17 @@ DENSE_TRAIN_DEPTH = {"glm4-9b": 4, "phi3-medium-14b": 4,
                      "nemotron-4-15b": 1}
 RESTART_ARCH = "qwen3-0.6b"   # phase 35, at full width
 RESTART = (4, 2048, 6, 3, 4)  # batch, seq_len, steps, checkpoint every, fail
+# Phase 36, halo distribution on a tile mesh (every tile on the one card):
+HALO_T1_MESH = (2, 2)          # (a) Table 1 (benchmarks/table1_2d.py:111-115)
+HALO_BIG_MESH = (2, 4)         # (b) BIG_GRID in 4096x2048 tiles
+HALO_BIG_ITERS = 64
+HALO_BIG_FUSES = (1, 16)
+HALO_VAR_GRID = (1024, 1024)   # (c) per-cell taps on HALO_BIG_MESH
+HALO_VAR_FUSE = 4
+# (d) the scaling bench's fuse-sweep cell (benchmarks/scaling_bench.py:105)
+HALO_TUNE_GRID = (128, 256)
+HALO_TUNE_ITERS = 32
+HALO_SECONDS = 120             # the phase's budget
 DEVICE = "cuda"
 # Phases 20-22, the stencil serving tier.  Autotune cells: (name, spec,
 # grid, iterations a timed call); Table 1's and Fig 6's go to the committed
@@ -2496,6 +2523,195 @@ def dense_ft_phases(dev, device_profile):
     return {"launches": launches, "seconds": seconds}
 
 
+def halo_phase(dev, smi, k2):
+    """Phase 36, halo distribution on a tile mesh with every tile on
+    ``dev``, through the port's entry points: (a) Table 1 through
+    ``solve(backend="halo", mesh=make_mesh(HALO_T1_MESH))`` against the
+    ``reference`` solve (the same iteration count, the field bit-equal);
+    (b) BIG_GRID over HALO_BIG_MESH, HALO_BIG_ITERS steps through
+    ``make_plan(backend="halo")`` at each of HALO_BIG_FUSES, bit-equal to
+    ``reference``, with ms an iteration, exchanges, the bytes and device
+    operations of one exchange and its copy rate, beside K2's stream kernel
+    on the same grid (``k2``: phase 7's ms a launch at fuse 1 and 16);
+    (c) per-cell taps on HALO_VAR_GRID at fuse HALO_VAR_FUSE against
+    ``reference``; (d) ``autotune_halo_cell`` on HALO_TUNE_GRID.  The path
+    runs plain PyTorch: none of K1-K9 may launch (the counts are zeroed
+    before and read after).  Returns the phase's record."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.core as T
+    from repro_torch.core.autotune import autotune_halo_cell
+    from repro_torch.kernels import _build
+    from repro_torch.parallel import exchange_halo_2d, make_mesh
+
+    t_phase = time.perf_counter()
+    _build.LAUNCHES.clear()
+    lap = T.laplace_jacobi(2)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def event_ms(fn):
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
+
+    def device_ops(fn):
+        """Device operations ``fn`` launches and their busy ms, traced on
+        the device alone."""
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return (sum(e.count for e in events),
+                sum(e.self_device_time_total for e in events) / 1e3)
+
+    def tiles_of(mesh, x):
+        n_row, n_col = mesh.shape
+        h, w = x.shape[-2] // n_row, x.shape[-1] // n_col
+        return [x[..., i * h:(i + 1) * h, j * w:(j + 1) * w].to(d)
+                for (i, j), d in zip(itertools.product(range(n_row),
+                                                       range(n_col)),
+                                     mesh.devices)]
+
+    def exchange_bytes(mesh, x, depth):
+        """Bytes the tiles receive from neighbours in one exchange: columns
+        of the tile, then rows of the column-augmented tile."""
+        n_row, n_col = mesh.shape
+        b, h, w = x.shape[0], x.shape[-2] // n_row, x.shape[-1] // n_col
+        cols = 2 * (n_col - 1) * n_row * b * h * depth
+        rows = 2 * (n_row - 1) * n_col * b * depth * (w + 2 * depth)
+        return (cols + rows) * x.element_size()
+
+    def mesh_record(mesh):
+        check(all(d == torch.device(dev.type, 0) for d in mesh.devices),
+              f"tiles off cuda:0: {mesh.devices}")
+        return {"mesh": list(mesh.shape),
+                "tile_devices": [str(d) for d in mesh.devices]}
+
+    record = {"phase": 36, "card": smi}
+
+    # (a) Table 1 over 2x2
+    mesh4 = make_mesh(HALO_T1_MESH)
+    x0 = torch.zeros(64, 64)
+    ref = T.solve(lap, x0, backend="reference", device=dev, **TABLE1)
+    halo = T.solve(lap, x0, backend="halo", mesh=mesh4, device=dev,
+                   **TABLE1)
+    check(halo.backend == "halo" and halo.converged,
+          f"Table 1 through halo: {halo.backend}, {halo.converged}")
+    check(halo.iterations == ref.iterations,
+          f"Table 1: halo {halo.iterations} iterations, reference "
+          f"{ref.iterations}")
+    check(torch.equal(halo.x, ref.x), "Table 1: the halo field differs "
+          f"from reference by {float((halo.x - ref.x).abs().max())}")
+    record["table1"] = {
+        **mesh_record(mesh4), "grid": [64, 64], **TABLE1,
+        "fuse": halo.fuse, "iterations": halo.iterations,
+        "reference_iterations": ref.iterations,
+        "jax_cpu_iterations": TABLE1_ITERS, "bit_equal": True,
+        "wall_ms": halo.wall_seconds * 1e3,
+        "ms_per_iteration": halo.wall_seconds * 1e3 / halo.iterations,
+        "reference_wall_ms": ref.wall_seconds * 1e3}
+
+    # (b) BIG_GRID over 2x4, fuse 1 and 16
+    mesh8 = make_mesh(HALO_BIG_MESH)
+    gen = torch.Generator(device=dev).manual_seed(36)
+    xb = torch.randn((1, *BIG_GRID), generator=gen, device=dev)
+    refb = T.stencil_apply(lap, xb, backend="reference", bc=1.0,
+                           iters=HALO_BIG_ITERS, device=dev)
+    big = []
+    for fuse in HALO_BIG_FUSES:
+        plan = T.make_plan(lap, BIG_GRID, backend="halo", bc=1.0,
+                           iters=HALO_BIG_ITERS, fuse=fuse, mesh=mesh8,
+                           device=dev)
+        check(torch.equal(plan(xb), refb),
+              f"8192x8192 halo fuse {fuse} differs from reference")
+        ms, out = event_ms(lambda: plan(xb))
+        check(torch.equal(out, refb), f"8192x8192 halo fuse {fuse}, rerun")
+        del out
+        ops, busy = device_ops(lambda: plan(xb))
+        tiles = tiles_of(mesh8, T.DirichletBC(1.0).set_boundary(xb, 2))
+        depth = lap.radius * fuse
+        ex_ms, _ = event_ms(lambda: exchange_halo_2d(tiles, *mesh8.shape,
+                                                     depth))
+        ex_ops, ex_busy = device_ops(
+            lambda: exchange_halo_2d(tiles, *mesh8.shape, depth))
+        nbytes = exchange_bytes(mesh8, xb, depth)
+        del tiles
+        k2_ms = k2[fuse]
+        big.append({
+            **mesh_record(mesh8), "grid": list(BIG_GRID),
+            "tile": [BIG_GRID[0] // HALO_BIG_MESH[0],
+                     BIG_GRID[1] // HALO_BIG_MESH[1]],
+            "iterations": HALO_BIG_ITERS, "fuse": fuse, "bit_equal": True,
+            "ms": ms, "ms_per_iteration": ms / HALO_BIG_ITERS,
+            "device_ops_per_iteration": ops / HALO_BIG_ITERS,
+            "device_busy_ms": busy, "exchanges": HALO_BIG_ITERS // fuse,
+            "bytes_per_exchange": nbytes, "device_ops_per_exchange": ex_ops,
+            "exchange_ms": ex_ms, "exchange_busy_ms": ex_busy,
+            "exchange_copy_GBps": (nbytes / (ex_busy * 1e-3) / 1e9
+                                   if ex_busy else None),
+            "k2_stream_ms_per_launch": k2_ms,
+            "k2_stream_ms_per_iteration": k2_ms / fuse,
+            "ratio_to_k2": ms / HALO_BIG_ITERS / (k2_ms / fuse)})
+        del plan
+    record["big"] = big
+    del xb, refb
+    torch.cuda.empty_cache()
+
+    # (c) per-cell taps over 2x4
+    rng = np.random.default_rng(36)
+    het = T.heterogeneous_jacobi(1.0 + 9.0 * rng.random(HALO_VAR_GRID))
+    xv = torch.randn((1, *HALO_VAR_GRID), generator=gen, device=dev)
+    plan = T.make_plan(het, HALO_VAR_GRID, backend="halo", bc=1.0,
+                       iters=HALO_BIG_ITERS, fuse=HALO_VAR_FUSE, mesh=mesh8,
+                       device=dev)
+    refv = T.stencil_apply(het, xv, backend="reference", bc=1.0,
+                           iters=HALO_BIG_ITERS, device=dev)
+    ms, out = event_ms(lambda: plan(xv))
+    check(torch.equal(out, refv), "per-cell taps: the halo field differs "
+          f"from reference by {float((out - refv).abs().max())}")
+    record["fields"] = {**mesh_record(mesh8), "grid": list(HALO_VAR_GRID),
+                        "field_taps": het.num_variable_taps,
+                        "iterations": HALO_BIG_ITERS, "fuse": HALO_VAR_FUSE,
+                        "bit_equal": True, "ms": ms,
+                        "ms_per_iteration": ms / HALO_BIG_ITERS}
+
+    # (d) the autotuner's halo sweep
+    table = autotune_halo_cell(lap, HALO_TUNE_GRID, mesh8,
+                               iters=HALO_TUNE_ITERS, device=dev)
+    fuses = sorted(e.fuse for e in table.entries)
+    check(fuses == [1, 2, 4, 8], f"autotune_halo_cell measured {fuses}")
+    check(all(tuple(e.mesh) == HALO_BIG_MESH and not e.interpreted
+              for e in table.entries), "halo entries without their mesh")
+    best = table.lookup(table.entries[0].device_kind,
+                        table.entries[0].family, HALO_TUNE_GRID,
+                        table.entries[0].dtype, mesh_shape=HALO_BIG_MESH)
+    record["autotune"] = {
+        **mesh_record(mesh8), "grid": list(HALO_TUNE_GRID),
+        "iters": HALO_TUNE_ITERS,
+        "us_per_iter": {e.fuse: e.us_per_iter for e in sorted(
+            table.entries, key=lambda e: e.fuse)},
+        "best_fuse": best.fuse}
+
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(not launched, f"the halo path launched {launched}")
+    record["launches"] = launched
+    record["seconds"] = time.perf_counter() - t_phase
+    check(record["seconds"] < HALO_SECONDS,
+          f"phase 36 took {record['seconds']} s")
+    return record
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4289,6 +4505,10 @@ def main(argv=None) -> int:
     next(k for k in kernels if k["name"] == "flash_fwd")[
         "restart_launches"] = {k[1]: v for k, v in dense["launches"].items()
                                if k[0] == 35}
+
+    # -- 36. halo distribution on a tile mesh ----------------------------------
+    torch.cuda.empty_cache()
+    emit(halo_phase(dev, smi, {1: k2_ms, 16: k2_f16}))
 
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")

@@ -22,9 +22,9 @@ The port's table is ``TUNED_stencil_cuda.json`` at the repo root
 (``REPRO_TORCH_TUNED_TABLE`` names another); validate it with
 ``python -m repro_torch.core.autotune --check``.  The CUDA kernels choose
 their own block geometry (``kernels/jacobi_fused.py::kernel_for``), so
-``block_h`` is always None here.  The JAX package's ``halo`` rows
-(``halo_schedule_candidates``, ``autotune_halo_cell``) wait for the halo
-backend's port.
+``block_h`` is always None here.  ``halo`` schedules are tuned per tile
+mesh (``autotune_halo_cell``): their entries record the (n_row, n_col)
+tiling, and lookups match it exactly.
 """
 from __future__ import annotations
 
@@ -50,6 +50,8 @@ TABLE_ENV = "REPRO_TORCH_TUNED_TABLE"
 # they can never win, so sweeping them would waste tuner time.
 FUSE_CANDIDATES = (1, 2, 4, 8, 16)
 RESIDENT_FUSE_CANDIDATES = (16, 32, 64)
+# Deep-halo fuse depths swept per mesh shape (clamped to the local tile).
+HALO_FUSE_CANDIDATES = (1, 2, 4, 8)
 
 
 class TableError(ValueError):
@@ -129,9 +131,9 @@ class TunedEntry:
     rim: str | None = None
     interpreted: bool = False
     iters: int = 1          # iterations per timed call during measurement
-    # Device-mesh tiling (n_row, n_col) a halo schedule was measured on:
-    # the JAX package's halo rows carry it, and lookups filter on it.  None
-    # for every single-device backend.
+    # Tile-mesh tiling (n_row, n_col) a halo schedule was measured on:
+    # halo timings do not transfer across mesh shapes, so lookups filter on
+    # it.  None for every single-device backend.
     mesh: tuple[int, int] | None = None
 
     @property
@@ -367,15 +369,17 @@ def device_kind(device=None) -> str:
     return torch.cuda.get_device_name(dev)
 
 
-def lookup_entry(tuned, spec: StencilSpec, grid_shape, dtype,
-                 device) -> TunedEntry | None:
-    """The winning entry of ``tuned``'s table for this cell on ``device``,
-    or None (no table, empty table, or no entry close enough)."""
+def lookup_entry(tuned, spec: StencilSpec, grid_shape, dtype, device, *,
+                 mesh_shape=None) -> TunedEntry | None:
+    """The winning entry of ``tuned``'s table for this cell on ``device``
+    (halo entries only on the ``mesh_shape`` tiling), or None (no table,
+    empty table, or no entry close enough)."""
     table = resolve_table(tuned)
     if table is None or not len(table):
         return None
     return table.lookup(device_kind(device), spec_family(spec),
-                        tuple(grid_shape), dtype_key(dtype))
+                        tuple(grid_shape), dtype_key(dtype),
+                        mesh_shape=mesh_shape)
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +431,9 @@ def schedule_candidates(
 ) -> list[Candidate]:
     """Legal (backend, fuse, rim) schedules for one cell on ``device``.
 
-    The ``reference`` oracle is excluded.  ``cuda_fused`` on a 2D spec of
+    The ``reference`` oracle is excluded, and so is ``halo`` (a
+    distribution strategy, tuned per mesh by :func:`autotune_halo_cell`).
+    ``cuda_fused`` on a 2D spec of
     scalar taps gets the schedule sweep: every depth of FUSE_CANDIDATES
     dividing ``iters`` as a trapezoid, and those of RESIDENT_FUSE_CANDIDATES
     as resident passes where ``tiling.resident_fits`` takes the grid.  On
@@ -443,7 +449,7 @@ def schedule_candidates(
     interp = not DEVICE_PROFILES[dev.type].kernels_native
     out: list[Candidate] = []
     for backend in BACKENDS:
-        if backend == "reference":
+        if backend in ("reference", "halo"):
             continue
         if not backend_support(backend, spec, grid_shape=grid_shape,
                                mode=mode, bc=bc):
@@ -478,13 +484,18 @@ def measure_candidate(
     batch: int = 1,
     repeats: int = 3,
     device=None,
+    mesh=None,
 ) -> TunedEntry:
-    """Lower one schedule through ``make_plan`` and time it on ``device``."""
-    from repro_torch.core.plan import make_plan
+    """Lower one schedule through ``make_plan`` and time it on ``device``.
+
+    ``mesh`` is required for (and only used by) halo candidates; the entry
+    records its (n_row, n_col) tiling so lookups stay mesh-exact.
+    """
+    from repro_torch.core.plan import _mesh_tiling, make_plan
     plan = make_plan(
         spec, grid_shape, backend=cand.backend, bc=bc, mode=mode,
         iters=iters, fuse=cand.fuse if cand.rim or cand.fuse > 1 else None,
-        rim=cand.rim, dtype=dtype, device=device, tuned=None)
+        rim=cand.rim, dtype=dtype, device=device, tuned=None, mesh=mesh)
     # Drawn on the device: the values do not move the time, and a host draw
     # of a full-size grid takes longer than its measurement.
     gen = torch.Generator(device=plan.device).manual_seed(0)
@@ -503,6 +514,7 @@ def measure_candidate(
         rim=cand.rim,
         interpreted=plan.interpreted,
         iters=iters,
+        mesh=_mesh_tiling(mesh) if cand.backend == "halo" else None,
     )
 
 
@@ -542,6 +554,65 @@ def autotune_cell(
     return table
 
 
+def halo_schedule_candidates(
+    spec: StencilSpec,
+    grid_shape: tuple[int, ...],
+    mesh_tiling: tuple[int, int],
+    iters: int,
+) -> list[Candidate]:
+    """Legal halo fuse depths for one (grid, mesh) cell: each candidate must
+    divide the chunk and keep the exchanged depth within the local tile."""
+    from repro_torch.core.distributed import max_halo_fuse
+    n_row, n_col = mesh_tiling
+    if grid_shape[0] % n_row or grid_shape[1] % n_col:
+        return []
+    deepest = max_halo_fuse(spec.radius, grid_shape[0] // n_row,
+                            grid_shape[1] // n_col)
+    return [Candidate("halo", fuse=f) for f in HALO_FUSE_CANDIDATES
+            if f <= deepest and iters % f == 0]
+
+
+def autotune_halo_cell(
+    spec: StencilSpec,
+    grid_shape: tuple[int, ...],
+    mesh,
+    *,
+    iters: int = 32,
+    dtype=torch.float32,
+    bc: DirichletBC | float | None = 0.0,
+    table: TunedTable | None = None,
+    repeats: int = 3,
+    verbose: bool = False,
+    device=None,
+) -> TunedTable:
+    """Measure the halo fuse-depth sweep for one cell on ``mesh`` (a
+    ``TileMesh`` whose tiles sit on ``device``'s type).
+
+    The distributed analogue of :func:`autotune_cell`: entries carry the
+    mesh tiling so they only ever apply to the mesh shape they were
+    measured on.
+    """
+    from repro_torch.core.plan import _mesh_tiling
+    if table is None:
+        table = TunedTable()
+    tiling = _mesh_tiling(mesh)
+    for cand in halo_schedule_candidates(spec, grid_shape, tiling, iters):
+        try:
+            entry = measure_candidate(spec, grid_shape, cand, iters=iters,
+                                      dtype=dtype, bc=bc, repeats=repeats,
+                                      device=device, mesh=mesh)
+        except Exception as e:
+            warnings.warn(f"autotune: halo candidate {cand} failed: {e}",
+                          stacklevel=2)
+            continue
+        table.add(entry)
+        if verbose:
+            print(f"# tuned {entry.family} {entry.bucket} halo/f{entry.fuse}"
+                  f" @ mesh {tiling[0]}x{tiling[1]}: "
+                  f"{entry.us_per_iter:.1f} us/iter")
+    return table
+
+
 # ---------------------------------------------------------------------------
 # Validation (--check)
 # ---------------------------------------------------------------------------
@@ -572,7 +643,15 @@ def validate_table(data: dict) -> list[str]:
         if any(b < 1 for b in e.bucket):
             errors.append(f"{where}: malformed bucket")
             continue
-        if e.mesh is not None:
+        if e.backend == "halo":
+            if e.mesh is None:
+                errors.append(f"{where}: halo entries must record the mesh "
+                              f"tiling they were measured on")
+                continue
+            if len(e.mesh) != 2 or any(m < 1 for m in e.mesh):
+                errors.append(f"{where}: malformed mesh {e.mesh}")
+                continue
+        elif e.mesh is not None:
             errors.append(f"{where}: mesh is a halo-only field "
                           f"(single-device schedules transfer across meshes)")
             continue
@@ -582,7 +661,7 @@ def validate_table(data: dict) -> list[str]:
             errors.append(f"{where}: {err}")
             continue
         sup = backend_support(e.backend, rep, grid_shape=e.bucket,
-                              mode=BoundaryMode.MASK, bc=0.0)
+                              mode=BoundaryMode.MASK, bc=0.0, mesh=e.mesh)
         if not sup:
             errors.append(f"{where}: no longer a legal backend_support "
                           f"cell: {sup.reason}")

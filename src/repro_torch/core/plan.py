@@ -11,9 +11,10 @@ any of the port's executable encodings:
                                                         kernels/stencil3d.py,
                                                         kernels/jacobi_fused.py)
   cuda_fused     temporally-blocked CUDA kernel        (kernels/jacobi_fused.py)
+  halo           halo exchange on a tile mesh          (core/distributed.py,
+                                                        parallel/halo.py)
 
 ``cuda``/``cuda_fused`` are the JAX package's ``pallas``/``pallas_fused``.
-Its ``halo`` backend is not ported yet; ``backend_support`` says so.
 
 ``backend="auto"`` picks from the measured tuned table (core/autotune.py)
 where it holds an entry for the cell on this device, else via a small
@@ -47,10 +48,8 @@ BACKENDS = (
     "conv3d_native",
     "cuda",
     "cuda_fused",
+    "halo",
 )
-
-# The JAX package's backends that have no counterpart here yet.
-NOT_PORTED = ("halo",)
 
 KERNEL_BACKENDS = ("cuda", "cuda_fused")
 
@@ -97,14 +96,15 @@ def backend_support(
     grid_shape: tuple[int, ...] | None = None,
     mode: BoundaryMode = BoundaryMode.MASK,
     bc: DirichletBC | float | None = 0.0,
+    mesh=None,
 ) -> BackendSupport:
     """Is ``backend`` legal for this (spec, grid, mode, bc) cell?
 
     Returns a BackendSupport whose ``reason`` string is suitable for a test
     skip message — the conformance walk relies on this being exhaustive.
+    ``mesh`` (a ``TileMesh`` or a bare (n_row, n_col) tuple) is the tiling
+    ``halo`` would run on; None means one tile.
     """
-    if backend in NOT_PORTED:
-        return _no(f"{backend} is not yet ported to repro_torch")
     if backend not in BACKENDS:
         return _no(f"unknown backend {backend!r} (known: {BACKENDS})")
     nd = spec.ndim
@@ -161,6 +161,26 @@ def backend_support(
             return _no("conv3d_native supports the mask trick only")
         return _OK  # variable taps ride the gather trick (one-hot channels)
 
+    if backend == "halo":
+        if nd != 2:
+            return _no("halo-exchange distribution is 2D (distributed.py)")
+        if raw:
+            return _no("distributed jacobi bakes in the Dirichlet fixup")
+        if mode is not BoundaryMode.MASK:
+            return _no("distributed jacobi applies BCs via the mask trick")
+        if not scalar_bc:
+            return _no("distributed jacobi needs a scalar bc_value")
+        tiling = _mesh_tiling(mesh)
+        if tiling is None:
+            return _no("halo distribution needs a mesh with >= 2 axes "
+                       "(rows x cols)")
+        if grid_shape is not None:
+            n_row, n_col = tiling
+            if grid_shape[0] % n_row or grid_shape[1] % n_col:
+                return _no(f"grid {grid_shape} does not tile over the "
+                           f"{n_row}x{n_col} device mesh")
+        return _OK
+
     # cuda / cuda_fused
     if backend == "cuda_fused" and nd != 2:
         return _no("temporal fusion kernel is 2D only (jacobi_fused.py)")
@@ -173,6 +193,37 @@ def backend_support(
         return _no("CUDA kernels pin the shell to a scalar bc_value; "
                    "array-valued DirichletBC unsupported")
     return _OK
+
+
+def _halo_fuse_legal(fuse: int, spec: StencilSpec,
+                     grid_shape: tuple[int, ...], mesh) -> bool:
+    """Whether a depth-``fuse`` halo schedule is executable on this cell:
+    the exchanged depth ``radius*fuse`` cannot exceed the local tile extent
+    (one exchange phase only reaches the adjacent tile)."""
+    tiling = _mesh_tiling(mesh)
+    if tiling is None:
+        return False
+    n_row, n_col = tiling
+    if grid_shape[0] % n_row or grid_shape[1] % n_col:
+        return False
+    from repro_torch.core.distributed import max_halo_fuse
+    return fuse <= max_halo_fuse(spec.radius, grid_shape[0] // n_row,
+                                 grid_shape[1] // n_col)
+
+
+def _mesh_tiling(mesh) -> tuple[int, int] | None:
+    """(n_row, n_col) of the first two mesh axes; None if the mesh can't
+    host a 2D tile decomposition.  Accepts a bare (n_row, n_col) tuple so
+    cost-model callers (and tuned-table validation) can price a mesh shape
+    without placing tiles."""
+    if mesh is None:
+        return 1, 1
+    if isinstance(mesh, tuple):
+        return (int(mesh[0]), int(mesh[1])) if len(mesh) >= 2 else None
+    names = mesh.axis_names
+    if len(names) < 2:
+        return None
+    return mesh.shape[names[0]], mesh.shape[names[1]]
 
 
 # ---------------------------------------------------------------------------
@@ -188,16 +239,23 @@ class DeviceProfile:
     matmul_flops: float   # GEMM FLOP/s at the working precision
     mem_bw: float         # device memory bytes/s
     kernels_native: bool  # False => the kernel backends run plain PyTorch
+    collective_bw: float  # bytes/s of a halo edge between tiles
+    round_latency: float  # seconds of one halo exchange round
 
 
 DEVICE_PROFILES = {
     # One CPU core (the JAX package's numbers); the kernel backends run
     # their plain versions there and are priced like interpreted Pallas.
-    "cpu": DeviceProfile("cpu", 5e10, 2e11, 5e10, kernels_native=False),
+    "cpu": DeviceProfile("cpu", 5e10, 2e11, 5e10, kernels_native=False,
+                         collective_bw=1e9, round_latency=2.5e-6),
     # NVIDIA H100 SXM, data-sheet rates: 67 TFLOP/s fp32 outside the tensor
-    # cores (fp32 matmul runs there too, TF32 being off) and 3.35 TB/s HBM3.
+    # cores (fp32 matmul runs there too, TF32 being off) and 3.35 TB/s HBM3;
+    # halo edges at NVLink 4's data-sheet 450 GB/s a direction.  A round
+    # costs the 16 us a device operation measured on the H100 80GB HBM3 at
+    # 700 W (chip_smoke.py's host-bound stencil tiers, PERF.md section 5).
     "cuda": DeviceProfile("cuda", 6.7e13, 6.7e13, 3.35e12,
-                          kernels_native=True),
+                          kernels_native=True, collective_bw=4.5e11,
+                          round_latency=16e-6),
 }
 
 # The plain versions re-run every tap as its own PyTorch op — orders of
@@ -220,6 +278,7 @@ def estimate_seconds(
     *,
     itemsize: int = 4,
     fuse: int | None = None,
+    mesh_shape: tuple[int, int] | None = None,
 ) -> float:
     """Roofline-style time estimate for ``iters`` applications on one step.
 
@@ -227,6 +286,13 @@ def estimate_seconds(
     streamed bytes by the fuse depth but pays the trapezoid's rim
     recompute.  ``fuse=None`` prices the depth ``make_plan`` would resolve
     for ``iters``.
+
+    For ``halo`` the model adds a communication term per exchange —
+    perimeter bytes over ``collective_bw`` plus four round latencies —
+    divided by the fuse depth, with the trapezoid rim recompute scaling the
+    local compute.  ``mesh_shape`` is the (n_row, n_col) tiling the
+    perimeter is measured against; None prices a 1x1 mesh (per-tile
+    compute unchanged, latency floor still paid).
     """
     n = int(np.prod(grid_shape))
     n_var = spec.num_variable_taps
@@ -250,7 +316,7 @@ def estimate_seconds(
             flops = encoding_flops_per_point(spec, "conv")
         compute = flops * n / device.vector_flops
         mem = stream / device.mem_bw
-    else:  # reference / cuda / cuda_fused: direct shifted adds
+    else:  # reference / cuda / cuda_fused / halo: direct shifted adds
         from repro_torch.kernels.tiling import fuse_redundancy
         flops = encoding_flops_per_point(spec, "direct")
         compute = flops * n / device.vector_flops
@@ -261,6 +327,26 @@ def estimate_seconds(
             mem /= fuse  # fuse-depth fewer device-memory round-trips ...
             # ... at the price of recomputing the overlapping block rims
             compute *= fuse_redundancy(grid_shape, fuse, spec.radius)
+
+    if backend == "halo":
+        from repro_torch.kernels.tiling import (halo_exchange_bytes,
+                                                halo_fuse_redundancy)
+        n_row, n_col = mesh_shape or (1, 1)
+        local = (grid_shape[0] // max(n_row, 1),
+                 grid_shape[1] // max(n_col, 1))
+        f = fuse if fuse and fuse > 1 else 1
+        # Per-tile compute: each tile owns 1/(n_row*n_col) of the grid but
+        # recomputes the trapezoid rim at depth f.
+        shard = max(n_row * n_col, 1)
+        per_iter = max(compute * halo_fuse_redundancy(local, f, spec.radius),
+                       mem) / shard
+        # A 1x1 mesh still runs the four (non-wrapping) rounds but moves no
+        # neighbour data: latency floor only.
+        wire_bytes = halo_exchange_bytes(local, f, spec.radius, itemsize) \
+            if shard > 1 else 0
+        comm_per_exchange = (wire_bytes / device.collective_bw
+                             + 4 * device.round_latency)
+        return per_iter * iters + (iters / f) * comm_per_exchange
 
     total = max(compute, mem) * iters
     if backend in KERNEL_BACKENDS and not device.kernels_native:
@@ -276,6 +362,7 @@ def choose_backend(
     bc: DirichletBC | float | None = 0.0,
     iters: int = 1,
     device_kind: str = "cuda",
+    mesh=None,
     fuse: int | None = None,
     dtype=torch.float32,
     tuned="default",
@@ -292,12 +379,15 @@ def choose_backend(
     the explicit fallback, and a tie there goes to a kernel backend (on the
     card K4 and native Conv3D move the same bytes; the library call is the
     slower one).  ``reference`` is the cross-validation oracle, so auto only
-    falls back to it when no real encoding supports the cell.  ``fuse``
-    prices the kernel paths at an explicit temporal depth; None prices the
-    depth make_plan itself would resolve for ``iters``.  ``device_kind`` is
-    the device type ("cuda" or "cpu").
+    falls back to it when no real encoding supports the cell.  ``halo`` is
+    a distribution strategy, not a local encoding, so it is only considered
+    when a ``mesh`` is passed (a ``TileMesh`` or an (n_row, n_col) tuple).
+    ``fuse`` prices the kernel and halo paths at an explicit temporal depth;
+    None prices the depth make_plan itself would resolve for ``iters``.
+    ``device_kind`` is the device type ("cuda" or "cpu").
     """
     device = DEVICE_PROFILES[device_kind]
+    mesh_shape = _mesh_tiling(mesh) if mesh is not None else None
 
     # -- measured table first ---------------------------------------------
     from repro_torch.core import autotune
@@ -305,14 +395,17 @@ def choose_backend(
     if table is not None and len(table):
         cell = table.lookup_cell(autotune.device_kind(device_kind),
                                  autotune.spec_family(spec),
-                                 tuple(grid_shape), autotune.dtype_key(dtype))
+                                 tuple(grid_shape), autotune.dtype_key(dtype),
+                                 mesh_shape=mesh_shape)
         measured: dict[str, float] = {}
         for e in cell:
             if e.interpreted or e.backend in measured and \
                     e.seconds(iters) >= measured[e.backend]:
                 continue
+            if e.backend == "halo" and mesh is None:
+                continue
             if not backend_support(e.backend, spec, grid_shape=grid_shape,
-                                   mode=mode, bc=bc):
+                                   mode=mode, bc=bc, mesh=mesh):
                 continue
             measured[e.backend] = e.seconds(iters)
         if measured:
@@ -321,11 +414,13 @@ def choose_backend(
     # -- explicit roofline fallback ---------------------------------------
     costs: dict[str, float] = {}
     for b in BACKENDS:
-        if b == "reference" or not backend_support(
-                b, spec, grid_shape=grid_shape, mode=mode, bc=bc):
+        if b == "reference" or (b == "halo" and mesh is None) or \
+                not backend_support(b, spec, grid_shape=grid_shape,
+                                    mode=mode, bc=bc, mesh=mesh):
             continue
-        costs[b] = estimate_seconds(b, spec, grid_shape, iters, device,
-                                    fuse=fuse)
+        costs[b] = estimate_seconds(
+            b, spec, grid_shape, iters, device, fuse=fuse,
+            mesh_shape=mesh_shape if b == "halo" else None)
     if not costs:
         # Oracle fallback: always legal, never preferred.
         costs["reference"] = estimate_seconds("reference", spec, grid_shape,
@@ -463,6 +558,7 @@ def make_plan(
     device=None,
     rim: str | None = None,
     tuned="default",
+    mesh=None,
 ) -> StencilPlan:
     """Lower ``spec`` on ``grid_shape`` through one backend into a callable.
 
@@ -474,7 +570,11 @@ def make_plan(
     backends can express it.  ``fuse`` and ``rim`` set the 2D kernel schedule: the fuse
     depth (iterations per pass) and the fusion geometry ("trapezoid" or
     "resident"; "resident" with no fuse runs all ``iters`` in one pass).
-    ``device=None`` means the card.
+    ``device=None`` means the card.  ``mesh`` is the ``TileMesh``
+    (``parallel/halo.py``) the ``halo`` backend splits the grid over, its
+    tiles on ``device``'s type; None means one tile on ``device``.  For
+    ``halo``, ``fuse`` is the deep-halo depth (one exchange per ``fuse``
+    local iterations).
     """
     grid_shape = tuple(int(g) for g in grid_shape)
     if spec.ndim != len(grid_shape):
@@ -493,29 +593,41 @@ def make_plan(
     if backend == "auto":
         backend, costs = choose_backend(spec, grid_shape, mode=mode, bc=bc,
                                         iters=iters, device_kind=dev.type,
-                                        dtype=dtype, tuned=tuned)
+                                        mesh=mesh, dtype=dtype, tuned=tuned)
         source = "roofline"
         # A measured entry carries the whole schedule, not just the backend:
         # inherit its fuse depth and rim strategy where the caller left them
         # open.
         from repro_torch.core import autotune
-        entry = autotune.lookup_entry(tuned, spec, grid_shape, dtype, dev)
+        entry = autotune.lookup_entry(
+            tuned, spec, grid_shape, dtype, dev,
+            mesh_shape=_mesh_tiling(mesh) if mesh is not None else None)
         if entry is not None and entry.backend == backend:
             source = "tuned"
-            if fuse is None and entry.fuse > 1 and iters % entry.fuse == 0:
+            if fuse is None and entry.fuse > 1 and iters % entry.fuse == 0 \
+                    and (backend != "halo"
+                         or _halo_fuse_legal(entry.fuse, spec, grid_shape,
+                                             mesh)):
                 fuse = entry.fuse
             if rim is None:
                 rim = entry.rim
     sup = backend_support(backend, spec, grid_shape=grid_shape, mode=mode,
-                          bc=bc)
+                          bc=bc, mesh=mesh)
     if not sup:
         raise ValueError(f"backend {backend!r} unsupported here: {sup.reason}")
 
     # ``fuse`` is a hint for the 2D kernel paths (both scalar-bc and raw
-    # execute in fuse-sized passes); every other backend, and the 3D kernel,
+    # execute in fuse-sized passes) and for halo (one deep-halo exchange per
+    # ``fuse`` local iterations); every other backend, and the 3D kernel,
     # ignores it and the plan records fuse=1 so its metadata reflects what
     # actually runs.
-    if backend not in KERNEL_BACKENDS or spec.ndim != 2:
+    if backend == "halo":
+        rim = None  # depth-vs-tile legality is make_halo_runner's check
+        if fuse is None:
+            fuse = 1
+        elif iters % fuse:
+            raise ValueError(f"iters={iters} not divisible by fuse={fuse}")
+    elif backend not in KERNEL_BACKENDS or spec.ndim != 2:
         fuse, rim = 1, None
     else:
         if fuse is None:
@@ -532,7 +644,7 @@ def make_plan(
                              f"(expected 'trapezoid' or 'resident')")
 
     fn, operands = _build_fn(spec, grid_shape, backend, bc, mode, iters, fuse,
-                             dtype, dev, rim)
+                             dtype, dev, rim, mesh)
     return StencilPlan(spec=spec, backend=backend, grid_shape=grid_shape,
                        mode=mode, iters=iters, fuse=fuse, costs=costs,
                        device=dev, _fn=fn, source=source, rim=rim,
@@ -540,7 +652,7 @@ def make_plan(
 
 
 def _build_fn(spec, grid_shape, backend, bc, mode, iters, fuse, dtype, dev,
-              rim):
+              rim, mesh=None):
     """One closure per backend; all share (batch, *grid) -> same semantics.
 
     Returns ``(fn, operands)``: ``fn(x, fields, source, bc_value)`` and the
@@ -629,6 +741,23 @@ def _build_fn(spec, grid_shape, backend, bc, mode, iters, fuse, dtype, dev,
                                source=source, bc_value=bc_value), ops)
 
     bc_value_s = _scalar_bc_value(bc)
+    if backend == "halo":
+        from repro_torch.core.distributed import make_halo_runner
+        from repro_torch.parallel.halo import make_mesh
+        if mesh is None:
+            mesh = make_mesh((1, 1), ("halo_row", "halo_col"), devices=dev)
+        off = sorted({str(d) for d in mesh.devices if d.type != dev.type})
+        if off:
+            raise ValueError(f"a plan on {dev} takes a mesh of {dev.type} "
+                             f"tiles, not tiles on {', '.join(off)}")
+        run = make_halo_runner(
+            mesh, spec, H=grid_shape[0], W=grid_shape[1],
+            bc_value=bc_value_s, iterations=iters,
+            row_axis=mesh.axis_names[0], col_axis=mesh.axis_names[1],
+            fuse=fuse)
+        return (lambda x, fields, source, bc_value: run(x.to(dtype)),
+                frozenset())
+
     if spec.ndim == 3:
         # K4, one pass per iteration, the baked fields on the device once;
         # as in the JAX package, no runtime operands.
@@ -686,6 +815,7 @@ def stencil_apply(
     fuse: int | None = None,
     device=None,
     rim: str | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Apply ``iters`` stencil steps to ``x`` through any backend.
 
@@ -693,7 +823,8 @@ def stencil_apply(
     moved to ``device`` (None: the card).  Semantics match
     ``jacobi_reference``: the Dirichlet shell is seeded, then each
     iteration applies the stencil and re-pins the shell (``bc=None`` skips
-    both and iterates the raw zero-padded operator).
+    both and iterates the raw zero-padded operator).  ``mesh`` is the tile
+    mesh of ``backend="halo"`` (see :func:`make_plan`).
     """
     dev = resolve_device(device)
     x = torch.as_tensor(x, device=dev)
@@ -704,5 +835,5 @@ def stencil_apply(
     grid_shape = tuple(x.shape[-spec.ndim:])
     plan = make_plan(spec, grid_shape, backend=backend, bc=bc, mode=mode,
                      iters=iters, fuse=fuse, dtype=x.dtype, device=dev,
-                     rim=rim)
+                     rim=rim, mesh=mesh)
     return plan(x)

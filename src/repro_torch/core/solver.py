@@ -22,6 +22,11 @@ convergence is tracked *per instance*: an instance that converges is frozen
 (its field stops updating, its history records NaN) while the rest keep
 iterating, so a batched solve reproduces the per-instance results of
 solving each problem alone.
+
+Distribution rides the same entry point: ``backend="halo"`` with a tile
+mesh (``parallel/halo.py::make_mesh``) runs each chunk as the halo-exchange
+program of ``core/distributed.py``, and the residuals are computed on the
+gathered global field.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.core.plan import (
     DEVICE_PROFILES,
     KERNEL_BACKENDS,
     StencilPlan,
+    _mesh_tiling,
     choose_backend,
     estimate_seconds,
     make_plan,
@@ -85,29 +91,49 @@ class SolveResult:
 
 def select_fuse(backend: str, spec: StencilSpec, grid_shape: tuple[int, ...],
                 check_every: int, device_kind: str = "cuda", tuned="default",
-                dtype=torch.float32) -> int | None:
+                dtype=torch.float32, mesh=None) -> int | None:
     """Temporal fuse depth for one chunk: measured if tuned, else roofline.
 
-    The 2D kernel paths fuse; every other backend gets ``None`` (the plan
-    records fuse=1).  A tuned-table entry for this cell on this device whose
-    backend matches supplies the measured depth first (clamped to the
-    largest divisor of ``check_every`` so chunk boundaries land on whole
-    fused passes); the roofline prices the candidate depths otherwise.
+    The 2D kernel paths and ``halo`` fuse; every other backend gets
+    ``None`` (the plan records fuse=1).  A tuned-table entry for this cell
+    on this device whose backend matches supplies the measured depth first
+    (clamped to the largest divisor of ``check_every`` so chunk boundaries
+    land on whole fused passes); the roofline prices the candidate depths
+    otherwise.
+
+    For ``halo`` the depth is also clamped to what the local tile can host
+    (``max_halo_fuse``) on the (n_row, n_col) tiling of ``mesh``, tuned
+    entries are matched mesh-exactly, and the roofline prices the
+    communication term each depth divides.
     """
-    if backend not in KERNEL_BACKENDS or spec.ndim != 2:
+    halo = backend == "halo" and spec.ndim == 2
+    if not halo and (backend not in KERNEL_BACKENDS or spec.ndim != 2):
         return None
+    mesh_shape = deepest = None
+    if halo:
+        from repro_torch.core.distributed import max_halo_fuse
+        mesh_shape = _mesh_tiling(mesh) if mesh is not None else None
+        n_row, n_col = mesh_shape or (1, 1)
+        if grid_shape[0] % n_row or grid_shape[1] % n_col:
+            return None
+        deepest = max_halo_fuse(spec.radius, grid_shape[0] // n_row,
+                                grid_shape[1] // n_col)
     entry = autotune.lookup_entry(tuned, spec, grid_shape, dtype,
-                                  device_kind)
+                                  device_kind, mesh_shape=mesh_shape)
     if entry is not None and entry.backend == backend and entry.fuse >= 1:
         f = min(entry.fuse, check_every)
+        if deepest is not None:
+            f = min(f, deepest)
         while check_every % f:
             f -= 1
         return f
     device = DEVICE_PROFILES[device_kind]
-    candidates = [f for f in _FUSE_CANDIDATES if check_every % f == 0]
+    candidates = [f for f in _FUSE_CANDIDATES if check_every % f == 0
+                  and (deepest is None or f <= deepest)]
     return min(candidates,
                key=lambda f: estimate_seconds(backend, spec, grid_shape,
-                                              check_every, device, fuse=f))
+                                              check_every, device, fuse=f,
+                                              mesh_shape=mesh_shape))
 
 
 class Solver:
@@ -125,7 +151,8 @@ class Solver:
     ``check_every`` iterations.  ``rtol=None, atol=None`` disables checking
     entirely: the solve runs exactly ``max_iters`` iterations as one chunk
     (the benchmark / fixed-step mode).  ``device=None`` means the card.
-    ``tuned`` names the measured table (core/autotune.py) that prices
+    ``mesh`` is the tile mesh of ``backend="halo"`` (its tiles on
+    ``device``'s type; see ``core.plan.make_plan``).  ``tuned`` names the measured table (core/autotune.py) that prices
     ``backend="auto"`` and the fuse depth and rim strategy before the
     roofline: "default" (the committed one), a ``TunedTable``, or None.
     """
@@ -150,6 +177,7 @@ class Solver:
         dtype=torch.float32,
         device=None,
         tuned="default",
+        mesh=None,
     ):
         if norm not in ("l2", "linf"):
             raise ValueError(f"norm must be 'l2' or 'linf', got {norm!r}")
@@ -195,16 +223,18 @@ class Solver:
                                            kind, tuned=tuned, dtype=dtype)
             backend, self.costs = choose_backend(
                 spec, self.grid_shape, mode=mode, bc=bc,
-                iters=self.max_iters, device_kind=kind, fuse=pricing_fuse,
-                dtype=dtype, tuned=tuned)
+                iters=self.max_iters, device_kind=kind, mesh=mesh,
+                fuse=pricing_fuse, dtype=dtype, tuned=tuned)
         if fuse is None:
             fuse = select_fuse(backend, spec, self.grid_shape,
                                self.check_every, kind, tuned=tuned,
-                               dtype=dtype)
+                               dtype=dtype, mesh=mesh)
+        self.mesh_shape = _mesh_tiling(mesh) if mesh is not None else None
         # A measured entry for this cell carries the rim strategy beside the
         # fuse depth select_fuse already took from it.
         entry = autotune.lookup_entry(tuned, spec, self.grid_shape, dtype,
-                                      self.device)
+                                      self.device,
+                                      mesh_shape=self.mesh_shape)
         tuned_hit = entry is not None and entry.backend == backend
         # (an explicit fuse that does not divide check_every is rejected by
         # make_plan's iters/fuse divisibility check)
@@ -212,7 +242,7 @@ class Solver:
             spec, self.grid_shape, backend=backend, bc=bc, mode=mode,
             iters=self.check_every, fuse=fuse, dtype=dtype,
             device=self.device, rim=entry.rim if tuned_hit else None,
-            tuned=tuned)
+            tuned=tuned, mesh=mesh)
         if was_auto:
             # The solver resolved "auto" itself (to price the whole solve),
             # so the plan saw an explicit backend name: restore where the
@@ -320,7 +350,7 @@ class Solver:
         est = estimate_seconds(
             self.backend, self.spec, self.grid_shape,
             max(int(iterations.max()), 1), DEVICE_PROFILES[self.device.type],
-            fuse=self.fuse)
+            fuse=self.fuse, mesh_shape=self.mesh_shape)
 
         if squeeze:
             return SolveResult(
@@ -361,6 +391,7 @@ def solve(
     source=None,
     bc_value=None,
     tuned="default",
+    mesh=None,
 ) -> SolveResult:
     """One-shot iterative solve: run ``spec``'s time loop from ``x0``.
 
@@ -369,6 +400,7 @@ def solve(
     Build a :class:`Solver` directly to reuse its plan over repeated solves.
     ``fields`` / ``source`` / ``bc_value`` are runtime plan operands
     (per-cell weights, additive source term, Dirichlet value).
+    ``backend="halo"`` with a ``mesh`` runs each chunk on the tile mesh.
     """
     dev = resolve_device(device)
     x0 = torch.as_tensor(x0, device=dev)
@@ -381,5 +413,5 @@ def solve(
     solver = Solver(
         spec, grid_shape, backend=backend, bc=bc, mode=mode, rtol=rtol,
         atol=atol, norm=norm, check_every=check_every, max_iters=max_iters,
-        fuse=fuse, dtype=dtype, device=dev, tuned=tuned)
+        fuse=fuse, dtype=dtype, device=dev, tuned=tuned, mesh=mesh)
     return solver.solve(x0, fields=fields, source=source, bc_value=bc_value)

@@ -1539,3 +1539,33 @@ def test_conv_var_jacobi_reuses_its_kernels_on_the_card(cuda):
     assert torch.equal(a, b)
     want = T.conv_var_jacobi(x0.cpu(), spec, T.DirichletBC(1.0), 50)
     torch.testing.assert_close(a.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("fuse", [1, 4])
+def test_halo_runner_on_the_card_equals_reference(cuda, fuse):
+    # a 2x4 tile mesh with every tile on cuda:0; the halo path is plain
+    # PyTorch (fp32 sums in tap order), so it equals the reference backend
+    # bit for bit, per-cell taps included
+    from repro_torch.core.distributed import make_halo_runner
+    from repro_torch.parallel import make_mesh
+    mesh = make_mesh((2, 4), devices=[cuda] * 8)
+    grid = (64, 128)
+    x = torch.tensor(_rng.standard_normal((2, *grid)), dtype=torch.float32,
+                     device=cuda)
+    for spec in (T.laplace_jacobi(2), T.box(2),
+                 T.heterogeneous_jacobi(1.0 + 9.0 * _rng.random(grid))):
+        run = make_halo_runner(mesh, spec, H=grid[0], W=grid[1],
+                               bc_value=1.5, iterations=8, fuse=fuse)
+        ref = T.stencil_apply(spec, x, backend="reference", bc=1.5, iters=8,
+                              device=cuda)
+        out = run(x)
+        assert out.device == x.device
+        assert torch.equal(out, ref), (spec.name, fuse)
+    kw = dict(bc=1.0, rtol=1e-4, check_every=20, max_iters=20_000,
+              device=cuda)
+    r = T.solve(T.laplace_jacobi(2), torch.zeros(32, 32), backend="halo",
+                mesh=make_mesh((2, 2)), fuse=fuse, **kw)
+    s = T.solve(T.laplace_jacobi(2), torch.zeros(32, 32),
+                backend="reference", **kw)
+    assert r.converged and r.iterations == s.iterations
+    assert torch.equal(r.x, s.x)

@@ -52,7 +52,8 @@ def test_no_jax_or_repro_import_anywhere_in_the_port():
                    "configs/nemotron_4_15b.py", "configs/glm4_9b.py",
                    "configs/phi3_medium_14b.py", "checkpoint/__init__.py",
                    "checkpoint/checkpoint.py", "runtime/__init__.py",
-                   "runtime/ft.py"):
+                   "runtime/ft.py", "parallel/__init__.py",
+                   "parallel/halo.py", "core/distributed.py"):
         assert os.path.join(PKG, *module.split("/")) in files, module
     bad = []
     for path in (f for f in files if f.endswith(".py")):

@@ -63,21 +63,27 @@ def _mapped_reason(reason: str) -> str:
     return re.sub(r"\bpallas\b", "cuda", reason.replace("Pallas", "CUDA"))
 
 
-def _assert_same_verdict(family, jax_backend, mode, bc):
+def _assert_same_verdict(family, jax_backend, mode, bc, mesh=None):
     grid = GRIDS[SPECS[family].ndim]
     js = J.backend_support(jax_backend, SPECS[family], grid_shape=grid,
-                           mode=mode, bc=bc)
+                           mode=mode, bc=bc, mesh=mesh)
     ts = T.backend_support(NAME_MAP[jax_backend], TSPECS[family],
                            grid_shape=grid, mode=T.BoundaryMode(mode.value),
-                           bc=bc)
+                           bc=bc, mesh=mesh)
+    # Every JAX backend is ported: no reason may say otherwise.
+    assert "not yet ported" not in ts.reason, (family, jax_backend, mode)
     if ts.ok:
         assert js.ok, (family, jax_backend, mode, js.reason)
-    elif "not yet ported" in ts.reason:
-        assert jax_backend == "halo"  # the one JAX path not reached yet
     else:
         assert not js.ok, (family, jax_backend, mode, ts.reason)
         assert ts.reason == _mapped_reason(js.reason)
     return ts
+
+
+# The tilings halo is asked about: one tile (no mesh), a 2x4 tuple mesh
+# (the conformance grid 12x17 does not tile over it: JAX's refusal) and a
+# 2x1 mesh it tiles over.
+MESHES = (None, (2, 4), (2, 1))
 
 
 def test_backend_support_reasons_equal_jax():
@@ -86,20 +92,29 @@ def test_backend_support_reasons_equal_jax():
             SPECS, J.BACKENDS, MODES, (BC_VALUE, None)):
         live += _assert_same_verdict(family, jb, mode, bc).ok
     assert live > 50
+    for family, mode, bc, mesh in itertools.product(
+            SPECS, MODES, (BC_VALUE, None), MESHES):
+        _assert_same_verdict(family, "halo", mode, bc, mesh)
     for nd in (1, 2):
         ts = T.backend_support("tensorflow", TSPECS[f"laplace/{nd}d"])
         js = J.backend_support("tensorflow", SPECS[f"laplace/{nd}d"])
         assert ts.reason == _mapped_reason(js.reason)
-    # Every 2D and 3D cell JAX runs, the port runs too — apart from halo.
-    for family, jb, mode, bc in itertools.product(
-            FAMILIES_2D + FAMILIES_3D, J.BACKENDS, MODES, (BC_VALUE, None)):
+    # Every 2D and 3D cell JAX runs, the port runs too — halo included, on
+    # one tile and on the meshes above.
+    halo_live = 0
+    for family, jb, mode, bc, mesh in itertools.product(
+            FAMILIES_2D + FAMILIES_3D, J.BACKENDS, MODES, (BC_VALUE, None),
+            MESHES):
         grid = GRIDS[SPECS[family].ndim]
-        if jb != "halo" and J.backend_support(
-                jb, SPECS[family], grid_shape=grid, mode=mode, bc=bc):
+        if J.backend_support(jb, SPECS[family], grid_shape=grid, mode=mode,
+                             bc=bc, mesh=mesh):
             assert T.backend_support(NAME_MAP[jb], TSPECS[family],
                                      grid_shape=grid,
                                      mode=T.BoundaryMode(mode.value),
-                                     bc=bc), (family, jb, mode, bc)
+                                     bc=bc, mesh=mesh), (family, jb, mode,
+                                                         bc, mesh)
+            halo_live += jb == "halo"
+    assert halo_live > 0
 
 
 @pytest.mark.parametrize("iters", [1, 20, 100])
@@ -115,6 +130,28 @@ def test_choose_backend_on_cpu_profile_makes_jax_picks(iters):
                                       bc=BC_VALUE, iters=iters,
                                       device_kind="cpu")
         assert tb == NAME_MAP[jb], (family, mode)
+        assert {NAME_MAP[k]: v for k, v in jcosts.items()} == \
+            pytest.approx(tcosts, rel=1e-12)
+        # With a mesh, halo joins the table (2D, and where the grid tiles).
+        jb, jcosts = J.choose_backend(jspec, grid, mode=mode, bc=BC_VALUE,
+                                      iters=iters, device_kind="cpu",
+                                      mesh=(2, 1), tuned=None)
+        tb, tcosts = T.choose_backend(TSPECS[family], grid,
+                                      mode=T.BoundaryMode(mode.value),
+                                      bc=BC_VALUE, iters=iters,
+                                      device_kind="cpu", mesh=(2, 1))
+        assert tb == NAME_MAP[jb], (family, mode, "mesh")
+        assert {NAME_MAP[k]: v for k, v in jcosts.items()} == \
+            pytest.approx(tcosts, rel=1e-12)
+    # Table 1 over 2x2 and 8192x8192 over 2x4: the JAX picks and costs.
+    lap = TSPECS["laplace/2d"]
+    for grid, mesh in (((64, 64), (2, 2)), ((8192, 8192), (2, 4))):
+        jb, jcosts = J.choose_backend(SPECS["laplace/2d"], grid, bc=1.0,
+                                      iters=iters, device_kind="cpu",
+                                      mesh=mesh, tuned=None)
+        tb, tcosts = T.choose_backend(lap, grid, bc=1.0, iters=iters,
+                                      device_kind="cpu", mesh=mesh)
+        assert "halo" in tcosts and tb == NAME_MAP[jb], (grid, mesh)
         assert {NAME_MAP[k]: v for k, v in jcosts.items()} == \
             pytest.approx(tcosts, rel=1e-12)
     # Table 1: conv on the CPU (as JAX), the fused kernel on the card.
@@ -211,6 +248,14 @@ def test_fields_operand_matches_jax(backend):
                         bc=1.0, mode=T.BoundaryMode(mode.value), iters=4,
                         fuse=2 if backend == "cuda_fused" else None,
                         device="cpu")
+    if backend == "halo":
+        # halo takes no runtime operands, in either package.
+        with pytest.raises(ValueError) as jerr:
+            jplan(jnp.asarray(x), fields=jnp.asarray(f))
+        with pytest.raises(ValueError) as terr:
+            tplan(torch.tensor(x), fields=torch.tensor(f))
+        assert str(terr.value) == str(jerr.value)
+        return
     jout = jplan(jnp.asarray(x), fields=jnp.asarray(f))
     tout = tplan(torch.tensor(x), fields=torch.tensor(f))
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-5)
