@@ -65,6 +65,14 @@ solver):
     Table-1 solve through ``solve(backend="halo", mesh=make_mesh((2,
     2)))``, and an 8192x8192 grid, per-cell taps and the autotuner's halo
     sweep over 2x4 (phase 36);
+  - LM distribution on a 2x4 ("data", "model") mesh, every shard on the
+    one card, one process driving the 8 (``parallel/sharding.py``'s
+    ``Sharder``; the sharded ``prefill``, ``decode_step``, train step and
+    ``launch.serve``/``launch.train`` with ``sharder=``): qwen3-0.6b on
+    the tp profile at full width and depth (K7/K8/K9 on each shard's 4 q
+    heads), glm4-9b's kv_seq-sharded decode cache, phi3-medium-14b on the
+    sp profile (K7/K8/K9 on sequence shards at their kv_offset), and
+    qwen3-0.6b through ``parallel.pipeline.gpipe`` (phase 37);
   - the differentiable solve, ``repro_torch.core.implicit_solve`` on the
     card's default plan cache (its backward one solve with the transposed
     operator; ``F.conv2d`` and shifted adds, none of K1-K9), and the
@@ -358,16 +366,39 @@ The line after phase 22 lists the kernels phases 20-22 launched.
      bit-equal to ``reference``; (d) ``autotune_halo_cell`` on the scaling
      bench's fuse-sweep cell, 128x256 over 2x4, µs an iteration at fuse 1,
      2, 4 and 8.  Under 120 s.
+ 37. LM distribution on a 2x4 ("data", "model") mesh, every shard on
+     cuda:0 (``lm_distribution_phase``): K7-K9 first held against their
+     plain versions at every shard shape the paths launch (bf16 and fp32
+     tp shards of qwen3-0.6b, glm4-9b's tp shard, phi3-medium-14b's four
+     sp shards at kv_offset 0-1536, a pipeline microbatch; fp32 at
+     qwen3-0.6b's whole shape too) and timed beside SDPA (a boolean mask
+     at an offset); (a) qwen3-0.6b, tp, full width and depth: fp32
+     prefill and decode logits and a train step's loss and grads,
+     sharded against unsharded within 3 times the unsharded run's
+     distance from float64 (xla, the ``.float()`` points widened); bf16
+     served (4 x 2048, 16 tokens) and trained one step, sharded and
+     unsharded, timed, the sharded prefill, decode and step profiled;
+     (b) glm4-9b, tp, bf16 at full depth: prefill and 8 decode steps at
+     max_len 2112 (model 4 divides it: the cache shards on kv_seq), the
+     logits within 3 times the unsharded run's distance from an fp32 run
+     of the same weights, and never tighter than 3e-2; (c)
+     phi3-medium-14b, sp: the bf16 prefill at full depth and the loss and
+     grads of 4 layers, each within that bound of the unsharded run, then
+     one sharded step timed; (d) qwen3-0.6b through ``gpipe`` (4 stages
+     of 7 layers, 4 microbatches), fp32 loss and grads against the
+     unpipelined step (phase 17's bounds).  K7 8 a layer on a sharded
+     path (16 in a train step), K8/K9 8; 4 a layer through the pipeline.
 The inventory line lists K1-K9 and K5's split kernel, and K7-K9 again at
 zamba2's shape, at qwen3-moe's GQA-8 shape, at qwen2-vl's GQA-6 shape, at
-whisper's encoder and cross shapes and at glm4-9b's, phi3-medium-14b's and
-nemotron-4-15b's (GQA 16, 4 and 6), with their launches on those archs'
-serve and train paths.
+whisper's encoder and cross shapes, at glm4-9b's, phi3-medium-14b's and
+nemotron-4-15b's (GQA 16, 4 and 6) and at phase 37's shard shapes, with
+their launches on those archs' serve and train paths.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
 before printing any result.
 """
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -574,6 +605,33 @@ HALO_VAR_FUSE = 4
 HALO_TUNE_GRID = (128, 256)
 HALO_TUNE_ITERS = 32
 HALO_SECONDS = 120             # the phase's budget
+# Phase 37: LM distribution on a data x model mesh, every shard on cuda:0.
+DIST_MESH = (2, 4)               # ("data", "model")
+DIST_ARCH = "qwen3-0.6b"         # (a) tp, full width and depth
+DIST_SERVE = (4, 2048, 16)       # (a) batch, prompt, decode tokens
+DIST_FP32_DECODE = 2             # (a) fp32 decode steps held to float64
+DIST_GLM = (4, 2048, 8, 2112)    # (b) batch, prompt, tokens, max_len: model
+                                 # 4 divides 2112, so the cache shards
+DIST_PHI = (4, 2048)             # (c) sp prefill batch, prompt
+DIST_PHI_DEPTH = 4               # (c) the train step's cut (phase 34's)
+DIST_PIPE = (4, 4, 4, 2048)      # (d) stages, microbatches, batch, seq
+# (a) a sharded fp32 run lies within DIST_X times the unsharded fp32 run's
+# distance from a float64 run of the same weights (xla, the port's .float()
+# points widened): two fp32 runs that sum in other orders each lie about
+# that far from float64; (b) and (c) hold fp32 the same way at DIST_CUT
+# layers.  bf16 at full depth: these random models are chaotic there (a
+# bf16 run's logits lie about half their max-abs from an fp32 run of the
+# same weights, PERF.md §6, PR 28), so a sharded bf16 run's logits and
+# grads must lie no farther from the fp32 run than DIST_BF16_RATIO times
+# the unsharded bf16 run's, and its loss within DIST_X times the
+# unsharded's distance.  Logits relative to the reference's max-abs, grads
+# by the worst leaf (fp32) or over every leaf (bf16).
+DIST_X = 3
+DIST_CUT = 4                     # (b), (c): layers of the fp32 checks
+DIST_BF16_RATIO = 1.5
+# (d) the pipelined step against the unpipelined one, fp32: phase 17's
+# flash-against-xla bounds (loss relative, each grad's max-abs relative).
+DIST_PIPE_RTOL = (1e-5, 1e-4)
 DEVICE = "cuda"
 # Phases 20-22, the stencil serving tier.  Autotune cells: (name, spec,
 # grid, iterations a timed call); Table 1's and Fig 6's go to the committed
@@ -1932,83 +1990,111 @@ def moe_phases(dev, device_profile):
     return {"launches": launches, "seconds": seconds}
 
 
-def pairs_of(shape, causal):
-    """(query, visible key) pairs of a case (kv_offset 0)."""
+def pairs_of(shape, causal, kv_offset=0):
+    """(query, visible key) pairs of a case: with ``kv_offset`` query i
+    sees keys up to i + kv_offset (a sequence shard's queries)."""
     B_, Sq_, Skv_, H_ = shape[:4]
-    return B_ * H_ * (Sq_ * (Sq_ + 1) // 2 if causal else Sq_ * Skv_)
+    if not causal:
+        return B_ * H_ * Sq_ * Skv_
+    return B_ * H_ * sum(min(i + kv_offset + 1, Skv_) for i in range(Sq_))
 
 
-def k7_timing(shape, causal, dev, gen, graph_ms, time_ms):
-    """K7 at a case of FLASH_CASES in bf16 (inputs from ``gen``): its
-    time by ``graph_ms`` (a CUDA graph's replay), the plain version's and
-    SDPA's (``enable_gqa`` where grouped), the operations (4 hd a pair),
-    bytes (q, k, v, out, lse) and bound (phase 15)."""
+def _sdpa_kw(shape, causal, kv_offset, dev):
+    """SDPA's arguments for a case: ``is_causal`` aligns to the top left,
+    so an offset shard passes its boolean mask (key j visible to query i
+    where j <= i + kv_offset)."""
+    import torch
+    B_, Sq_, Skv_, H_, KV_ = shape[:5]
+    kw = {"enable_gqa": H_ != KV_}
+    if causal and kv_offset:
+        kw["attn_mask"] = (torch.arange(Skv_, device=dev)[None, :]
+                           <= torch.arange(Sq_, device=dev)[:, None]
+                           + kv_offset)
+    else:
+        kw["is_causal"] = causal
+    return kw
+
+
+def k7_timing(shape, causal, dev, gen, graph_ms, time_ms, kv_offset=0,
+              dtype=None):
+    """K7 at a case of FLASH_CASES in bf16 (or ``dtype``; inputs from
+    ``gen``): its time by ``graph_ms`` (a CUDA graph's replay), the plain
+    version's and SDPA's (``enable_gqa`` where grouped, a boolean mask for
+    an offset shard), the operations (4 hd a pair), bytes (q, k, v, out,
+    lse) and bound (phase 15; fp32 at the fp32 peak)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_fwd, flash_fwd_plain
+    dtype = dtype or torch.bfloat16
+    size = torch.finfo(dtype).bits // 8
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     B_, Sq_, Skv_, H_, KV_, hd_ = shape
-    q, k, v = (torch.randn(s_, generator=gen, device=dev)
-               .to(torch.bfloat16)
+    q, k, v = (torch.randn(s_, generator=gen, device=dev).to(dtype)
                for s_ in ((B_, Sq_, H_, hd_), (B_, Skv_, KV_, hd_),
                           (B_, Skv_, KV_, hd_)))
-    ops = 4 * hd_ * pairs_of(shape, causal)
-    nbytes = (2 * (2 * B_ * Sq_ * H_ * hd_ + 2 * B_ * Skv_ * KV_ * hd_)
+    ops = 4 * hd_ * pairs_of(shape, causal, kv_offset)
+    nbytes = (size * (2 * B_ * Sq_ * H_ * hd_ + 2 * B_ * Skv_ * KV_ * hd_)
               + B_ * H_ * Sq_ * 4)
+    kw = dict(causal=causal, kv_offset=kv_offset)
     out = {"shape": list(shape), "causal": causal, "operations": ops,
-           "bytes": nbytes,
-           "k7_ms": graph_ms(lambda: flash_fwd(q, k, v, causal=causal), 5),
-           "plain_ms": time_ms(lambda: flash_fwd_plain(
-               q, k, v, causal=causal), 3)}
+           "bytes": nbytes, "kv_offset": kv_offset,
+           "k7_ms": graph_ms(lambda: flash_fwd(q, k, v, **kw), 5),
+           "plain_ms": time_ms(lambda: flash_fwd_plain(q, k, v, **kw), 3)}
     qs, ks, vs = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    sdpa = _sdpa_kw(shape, causal, kv_offset, dev)
     out["sdpa_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=causal, enable_gqa=H_ != KV_), 5)
-    out["bound_ms"] = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        qs, ks, vs, **sdpa), 5)
+    out["bound_ms"] = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
     out["k7_TFLOPs"] = ops / (out["k7_ms"] * 1e-3) / 1e12
     return out
 
 
-def k89_timing(shape, causal, dev, gen, graph_ms, time_ms):
-    """K8 and K9 at a case of FLASH_CASES in bf16 (inputs from ``gen``; o
-    and lse from K7): their times by ``graph_ms``, the plain versions',
-    the backward of SDPA (dq, dk and dv together), operations (6 hd and 8
-    hd a pair), bytes and bounds (phase 19)."""
+def k89_timing(shape, causal, dev, gen, graph_ms, time_ms, kv_offset=0,
+               dtype=None):
+    """K8 and K9 at a case of FLASH_CASES in bf16 (or ``dtype``; inputs
+    from ``gen``; o and lse from K7): their times by ``graph_ms``, the
+    plain versions', the backward of SDPA (dq, dk and dv together; a
+    boolean mask for an offset shard), operations (6 hd and 8 hd a pair),
+    bytes and bounds (phase 19)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_fwd
     from repro_torch.kernels.flash_attention_bwd import (
         flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_delta, launch_bwd_dkv,
         launch_bwd_dq)
+    dtype = dtype or torch.bfloat16
+    size = torch.finfo(dtype).bits // 8
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     B_, Sq_, Skv_, H_, KV_, hd_ = shape
-    q, k, v, do = (torch.randn(s_, generator=gen, device=dev)
-                   .to(torch.bfloat16)
+    q, k, v, do = (torch.randn(s_, generator=gen, device=dev).to(dtype)
                    for s_ in ((B_, Sq_, H_, hd_), (B_, Skv_, KV_, hd_),
                               (B_, Skv_, KV_, hd_), (B_, Sq_, H_, hd_)))
-    o, lse = flash_fwd(q, k, v, causal=causal)
-    args, kw = (q, k, v, do, lse, flash_delta(o, do)), dict(
-        causal=causal, kv_offset=0)
-    pairs = pairs_of(shape, causal)
-    qkv = 2 * (2 * B_ * Sq_ * H_ * hd_ + 2 * B_ * Skv_ * KV_ * hd_)
+    kw = dict(causal=causal, kv_offset=kv_offset)
+    o, lse = flash_fwd(q, k, v, **kw)
+    args = (q, k, v, do, lse, flash_delta(o, do))
+    pairs = pairs_of(shape, causal, kv_offset)
+    qkv = size * (2 * B_ * Sq_ * H_ * hd_ + 2 * B_ * Skv_ * KV_ * hd_)
     stat = 2 * B_ * H_ * Sq_ * 4
-    k8_bytes = qkv + stat + 2 * B_ * Sq_ * H_ * hd_
-    k9_bytes = qkv + stat + 2 * 2 * B_ * Skv_ * KV_ * hd_
-    out = {"shape": list(shape), "causal": causal,
+    k8_bytes = qkv + stat + size * B_ * Sq_ * H_ * hd_
+    k9_bytes = qkv + stat + 2 * size * B_ * Skv_ * KV_ * hd_
+    out = {"shape": list(shape), "causal": causal, "kv_offset": kv_offset,
            "k8_operations": 6 * hd_ * pairs,
            "k9_operations": 8 * hd_ * pairs,
            "k8_bytes": k8_bytes, "k9_bytes": k9_bytes,
            "k8_ms": graph_ms(lambda: launch_bwd_dq(*args, **kw), 5),
            "k9_ms": graph_ms(lambda: launch_bwd_dkv(*args, **kw), 5),
-           "k8_plain_ms": time_ms(lambda: flash_bwd_dq_plain(
-               *args, causal=causal), 3),
-           "k9_plain_ms": time_ms(lambda: flash_bwd_dkv_plain(
-               *args, causal=causal), 3),
-           "k8_bound_ms": max(6 * hd_ * pairs / PEAK_BF16_FLOPS,
+           "k8_plain_ms": time_ms(lambda: flash_bwd_dq_plain(*args, **kw),
+                                  3),
+           "k9_plain_ms": time_ms(lambda: flash_bwd_dkv_plain(*args, **kw),
+                                  3),
+           "k8_bound_ms": max(6 * hd_ * pairs / peak,
                               k8_bytes / PEAK_BYTES) * 1e3,
-           "k9_bound_ms": max(8 * hd_ * pairs / PEAK_BF16_FLOPS,
+           "k9_bound_ms": max(8 * hd_ * pairs / peak,
                               k9_bytes / PEAK_BYTES) * 1e3}
     qs, ks, vs = (t_.transpose(1, 2).contiguous().requires_grad_()
                   for t_ in (q, k, v))
-    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
-                                         enable_gqa=H_ != KV_)
+    o_s = F.scaled_dot_product_attention(
+        qs, ks, vs, **_sdpa_kw(shape, causal, kv_offset, dev))
     do_s = do.transpose(1, 2).contiguous()
     out["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         o_s, (qs, ks, vs), do_s, retain_graph=True), 5)
@@ -2521,6 +2607,696 @@ def dense_ft_phases(dev, device_profile):
           "bit_equal": True, "seconds": seconds[35]})
     emit({"dense_ft_seconds": seconds, "held_GB_at_start": held_GB})
     return {"launches": launches, "seconds": seconds}
+
+
+def lm_distribution_phase(dev, flash_case, bwd_case, graph_ms, time_ms,
+                          device_profile):
+    """Phase 37, LM distribution on a ``DIST_MESH`` ("data", "model")
+    mesh with every shard on ``dev``, through the port's sharded entry
+    points (``Sharder`` of ``parallel/sharding.py``; ``make_train_step``,
+    ``make_prefill_step``, ``make_decode_step``, ``launch.serve.serve``
+    and ``launch.train.train`` with ``sharder=``):
+
+    (k) first K7, K8 and K9 at every shard shape the paths below launch,
+    held against their plain versions (``flash_case``/``bwd_case`` of
+    phases 12 and 16): a tp shard of qwen3-0.6b (4 q heads on their 2 kv
+    heads, batch 2) in bf16 and fp32, of glm4-9b (8 q heads on one kv
+    head), the sp shards of phi3-medium-14b (512 queries on 2048 keys at
+    offsets 0, 512, 1024 and 1536: the first causal launches with
+    kv_offset > 0 and Sq != Skv on a path), and a pipeline microbatch of
+    qwen3-0.6b (batch 1, fp32); then their times (``k7_timing``,
+    ``k89_timing``, SDPA with a boolean mask at an offset);
+    (a) qwen3-0.6b, tp, full width and depth: fp32 prefill logits, two
+    decode steps and a train step's loss and grads, sharded and unsharded,
+    each held to DIST_X times the unsharded run's distance from float64;
+    then bf16 served sharded and unsharded through ``serve`` (4 x 2048,
+    16 tokens) and trained one step each through ``train``, timed, and
+    the sharded prefill, decode and step profiled;
+    (b) glm4-9b, tp, full depth, bf16: prefill and 8 decode steps at
+    max_len 2112, the kv_seq-sharded cache's logits held to the unsharded
+    decode's (bound from an fp32 run of the same weights);
+    (c) phi3-medium-14b, sp: the bf16 prefill at full depth, and the bf16
+    loss and grads of 4 layers, each held to the unsharded run (bounds
+    from fp32 runs), then one sharded train step timed;
+    (d) qwen3-0.6b through ``gpipe``: 4 stages of 7 layers, 4
+    microbatches, fp32 loss and grads against the unpipelined step.
+
+    Launch counts are zeroed before each path and read after it.  Returns
+    {"launches": {label: counts}, "timings": {label: rows}, "seconds"}."""
+    import functools
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, token_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import build
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import Transformer, mask_pad_logits
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.halo import make_mesh
+    from repro_torch.parallel.sharding import Sharded, Sharder
+    from repro_torch.train.train_step import (init_train_state, loss_fn,
+                                              make_train_step,
+                                              pipelined_loss_fn,
+                                              value_and_grad)
+
+    t_start = time.perf_counter()
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def flush():
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    def worst(run, ref):
+        """The largest per-leaf max-abs-relative distance of two grads."""
+        return max(rel(run[n], g) for n, g in ref.items())
+
+    def l2rel(run, ref):
+        """||run - ref|| / ||ref|| over every leaf of two grads."""
+        num = sum(float((run[n].double() - g.double()).square().sum())
+                  for n, g in ref.items())
+        return (num / sum(float(g.double().square().sum())
+                          for g in ref.values())) ** 0.5
+
+    @contextlib.contextmanager
+    def widened():
+        """The port's fp32 points (``.float()``: norms, softmax, rope, the
+        LM head) as float64, for the float64 reference."""
+        orig = torch.Tensor.float
+        torch.Tensor.float = lambda self: self.double()
+        try:
+            yield
+        finally:
+            torch.Tensor.float = orig
+
+    def ms_of(fn):
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def expect(n, fwd=1, bwd=0):
+        out = {"flash_fwd": fwd * n, "flash_bwd_dq": bwd * n,
+               "flash_bwd_dkv": bwd * n}
+        return {k: v for k, v in out.items() if v}
+
+    def held_GB():
+        return (torch.cuda.memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else 0.0)
+
+    def counted(fn):
+        """(fn(), the kernel launches it made)."""
+        _build.LAUNCHES.clear()
+        out = fn()
+        sync()
+        return out, dict(_build.LAUNCHES)
+
+    mesh = make_mesh(DIST_MESH, ("data", "model"))
+    check(all(d.type == dev.type and (d.index or 0) == 0
+              for d in mesh.devices),
+          f"phase 37: shards off {dev.type}:0: {mesh.devices}")
+    n_shards = mesh.size
+    Dd, Mm = DIST_MESH
+    cfgs = {a: dataclasses.replace(get_config(a), attn_impl="flash")
+            for a in (DIST_ARCH, "glm4-9b", "phi3-medium-14b")}
+    qc, gc_, pc = (cfgs[a] for a in (DIST_ARCH, "glm4-9b",
+                                     "phi3-medium-14b"))
+    B, S, T = DIST_SERVE
+    Bg, Sg, Tg, Lg = DIST_GLM
+    Bp, Sp = DIST_PHI
+    n_st, n_mb, B_pipe, S_pipe = DIST_PIPE
+    launches, timings, seconds, out = {}, {}, {}, {}
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    # -- (k) the shard shapes' kernels against their plain versions --------
+    t0 = time.perf_counter()
+
+    def shard_shape(cfg, batch, q_len, kv_len, heads_split):
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        if heads_split:
+            H_l, G = H // Mm, H // KV
+            KV = H_l // G if H_l % G == 0 else 1
+            H = H_l
+        return (batch // Dd, q_len, kv_len, H, KV, cfg.head_dim)
+
+    shapes = {
+        "qwen3-0.6b unsharded": (B, S, S, qc.n_heads, qc.n_kv_heads,
+                                 qc.head_dim),
+        "tp qwen3-0.6b shard": shard_shape(qc, B, S, S, True),
+        "tp glm4-9b shard": shard_shape(gc_, Bg, Sg, Sg, True),
+        "sp phi3-medium-14b shard": shard_shape(pc, Bp, Sp // Mm, Sp, False),
+        "phi3-medium-14b unsharded": (Bp, Sp, Sp, pc.n_heads, pc.n_kv_heads,
+                                      pc.head_dim),
+        "glm4-9b unsharded": (Bg, Sg, Sg, gc_.n_heads, gc_.n_kv_heads,
+                              gc_.head_dim),
+        "gpipe qwen3-0.6b microbatch": (B_pipe // n_mb, S_pipe, S_pipe,
+                                        qc.n_heads, qc.n_kv_heads,
+                                        qc.head_dim)}
+    offsets = [m * (Sp // Mm) for m in range(Mm)]
+    gk = torch.Generator(device=dev).manual_seed(37)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gk, device=dev).to(dtype)
+
+    def hold(label, dtype, kv_offset=0, backward=True):
+        Bx, Sq, Skv, Hx, KVx, hd = shapes[label]
+        name = f"{label} off{kv_offset}" if kv_offset else label
+        flash_case(name, shapes[label], dtype, kv_offset=kv_offset,
+                   blocks=(512, 512))
+        if backward:
+            bwd_case(name, rand(Bx, Sq, Hx, hd, dtype=dtype),
+                     rand(Bx, Skv, KVx, hd, dtype=dtype),
+                     rand(Bx, Skv, KVx, hd, dtype=dtype),
+                     rand(Bx, Sq, Hx, hd, dtype=dtype), causal=True,
+                     kv_offset=kv_offset, flips=dtype == bf16)
+        flush()
+
+    for dtype in (bf16, f32):
+        hold("tp qwen3-0.6b shard", dtype)
+    hold("qwen3-0.6b unsharded", f32)     # (a)'s and (d)'s fp32 reference
+    for dtype in (bf16, f32):
+        hold("tp glm4-9b shard", dtype, backward=False)
+        for off in offsets:
+            hold("sp phi3-medium-14b shard", dtype, kv_offset=off)
+    hold("glm4-9b unsharded", f32, backward=False)  # (b)'s fp32 reference
+    hold("gpipe qwen3-0.6b microbatch", f32)
+    hold("phi3-medium-14b unsharded", f32)   # (c)'s fp32 reference step
+    gt = torch.Generator(device=dev).manual_seed(38)
+
+    def times(label, dtype, kv_offset=0, backward=True):
+        row = {"k7": k7_timing(shapes[label], True, dev, gt, graph_ms,
+                               time_ms, kv_offset=kv_offset, dtype=dtype)}
+        if backward:
+            row["k89"] = k89_timing(shapes[label], True, dev, gt, graph_ms,
+                                    time_ms, kv_offset=kv_offset,
+                                    dtype=dtype)
+        flush()
+        return row
+
+    timings["tp qwen3-0.6b shard bfloat16"] = times("tp qwen3-0.6b shard",
+                                                    bf16)
+    timings["tp qwen3-0.6b shard float32"] = times("tp qwen3-0.6b shard",
+                                                   f32)
+    for dtype in (bf16, f32):
+        key = str(dtype).split(".")[1]
+        timings[f"tp glm4-9b shard {key}"] = times("tp glm4-9b shard", dtype,
+                                                   backward=False)
+        timings[f"sp phi3-medium-14b shard {key}"] = [
+            times("sp phi3-medium-14b shard", dtype, kv_offset=o)
+            for o in offsets]
+    timings["gpipe qwen3-0.6b microbatch float32"] = times(
+        "gpipe qwen3-0.6b microbatch", f32)
+    seconds["kernels"] = time.perf_counter() - t0
+
+    # -- (a) qwen3-0.6b, tp: fp32 against float64, then bf16 timed ---------
+    t0 = time.perf_counter()
+    seconds["held_GB_a"] = held_GB()
+    tp = Sharder(mesh, qc.sharding_profile)
+    check(tp.profile == "tp", f"{qc.arch} runs {tp.profile}")
+    rng = np.random.default_rng(37)
+    prompts = torch.as_tensor(rng.integers(0, qc.vocab_size, (B, S)),
+                              device=dev)
+    fed = torch.as_tensor(rng.integers(0, qc.vocab_size,
+                                       (DIST_FP32_DECODE, B)), device=dev)
+    batch = token_batch(DataConfig(qc.vocab_size, S, B), 0, device=dev)
+
+    @torch.no_grad()
+    def fp32_last_logits(model, toks):
+        """The last position's logits of an fp32 forward on a bf16 model's
+        weights, one layer converted to fp32 at a time (and back: exact),
+        attention plain PyTorch: the reference where an fp32 copy of the
+        whole model would not fit beside it."""
+        cfg32 = dataclasses.replace(model.cfg, attn_impl="xla")
+        x = model.embed[toks].float()
+        pos = model._default_positions(toks)
+        for block in model.layers:
+            block.float()
+            block.attn.cfg = cfg32
+            x, _, _ = block(x, pos)
+            block.attn.cfg = model.cfg
+            block.to(bf16)
+        h = rms_norm(x[:, -1], model.final_norm.float(), model.cfg.norm_eps)
+        return mask_pad_logits(torch.nn.functional.linear(
+            h, model.lm_head.float()), model.cfg)
+
+    @torch.no_grad()
+    def logits_run(model, sharder, toks, fed_tokens, max_len):
+        """Prefill logits and the decode steps' on ``fed_tokens``, each
+        gathered (B, V) fp32."""
+        run = model.sharded(sharder)
+        kw = {} if run is None else {"sharder": sharder}
+        last, cache = model.prefill(toks, max_len, **kw)
+        if run is None:
+            outs = [mask_pad_logits(model.logits(last), model.cfg)]
+        else:
+            outs = [run.logits(last.pieces, last.spec[0]).gather()]
+            check(isinstance(cache["k"], Sharded), "a sharded cache")
+        for i, tok in enumerate(fed_tokens):
+            lg, cache = model.decode_step(tok, cache, toks.shape[1] + i,
+                                          **kw)
+            outs.append(lg.gather() if isinstance(lg, Sharded) else lg)
+        spec = tuple(cache["k"].spec) if run is not None else None
+        return [o.float() for o in outs], spec
+
+    m32 = build(qc, device=dev, dtype=f32,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    params32 = {n: p.detach() for n, p in m32.named_parameters()}
+    max_a = S + 2 * DIST_FP32_DECODE     # model 4 divides it: a sharded cache
+    (lu, _), l_u = counted(lambda: logits_run(m32, None, prompts, fed,
+                                              max_a))
+    (ls, aspec), l_s = counted(lambda: logits_run(m32, tp, prompts, fed,
+                                                  max_a))
+    check(l_u == expect(qc.n_layers) and l_s == expect(
+        qc.n_layers * n_shards), f"(a) fp32 serve launched {l_u}, {l_s}")
+    (loss_u, _, g_u), step_u = counted(lambda: value_and_grad(
+        m32, params32, batch))
+    (loss_s, _, g_s), step_s = counted(lambda: value_and_grad(
+        m32, params32, batch, functools.partial(loss_fn, sharder=tp)))
+    check(step_u == expect(qc.n_layers, 2, 1) and step_s == expect(
+        qc.n_layers * n_shards, 2, 1),
+        f"(a) fp32 train steps launched {step_u}, {step_s}")
+    launches["a fp32"] = {"serve": l_s, "step": step_s}
+    m64 = Transformer(dataclasses.replace(qc, attn_impl="xla"), device=dev,
+                      dtype=torch.float64)
+    m64.load_state_dict(m32.state_dict())
+    with widened():
+        l64, _ = logits_run(m64, None, prompts, fed, max_a)
+        loss64, _, g64 = value_and_grad(
+            m64, {n: p.detach() for n, p in m64.named_parameters()}, batch)
+    del m64
+    flush()
+    fp32 = {"logits": [], "cache_spec": aspec}
+    for i, (a_, u_, r_) in enumerate(zip(ls, lu, l64)):
+        d_u, d_s = rel(u_, r_), rel(a_, u_)
+        fp32["logits"].append({"step": i, "unsharded_vs_f64": d_u,
+                               "sharded_vs_unsharded": d_s,
+                               "sharded_vs_f64": rel(a_, r_)})
+        check(d_s <= DIST_X * d_u, f"(a) fp32 logits step {i}: sharded "
+              f"{d_s} from unsharded, past {DIST_X} x {d_u}")
+    d_u = abs(float(loss_u) / float(loss64) - 1)
+    d_s = abs(float(loss_s) / float(loss_u) - 1)
+    gd_u, gd_s = worst(g_u, g64), worst(g_s, g_u)
+    fp32.update(loss_unsharded_vs_f64=d_u, loss_sharded_vs_unsharded=d_s,
+                grads_unsharded_vs_f64=gd_u, grads_sharded_vs_unsharded=gd_s,
+                loss=float(loss_s))
+    check(d_s <= DIST_X * d_u, f"(a) fp32 loss: {d_s} past {DIST_X} x {d_u}")
+    check(gd_s <= DIST_X * gd_u,
+          f"(a) fp32 grads: {gd_s} past {DIST_X} x {gd_u}")
+    out["a_fp32"] = fp32
+    del m32, params32, g_u, g_s, g64, lu, ls, l64
+    flush()
+
+    model = build(qc, device=dev, dtype=bf16,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    served = {}
+    for tag, sharder in (("unsharded", None), ("sharded", tp)):
+        r = serve(qc, batch=B, prompt_len=S, tokens=T, model=model,
+                  sharder=sharder or Sharder(make_mesh((1, 1), devices=dev),
+                                             "tp"))
+        served[tag] = r
+    check(served["sharded"]["prefill_launches"] == expect(
+        qc.n_layers * n_shards) and not served["sharded"]["decode_launches"],
+        f"(a) bf16 sharded serve launched "
+        f"{served['sharded']['prefill_launches']}")
+    gen_u, gen_s = (served[t].pop("generated") for t in ("unsharded",
+                                                         "sharded"))
+    check(gen_s.shape == (B, T + 1) and bool((gen_s >= 0).all())
+          and bool((gen_s < qc.vocab_size).all()), "(a) bf16 tokens")
+    launches["a bf16 serve"] = served["sharded"]["prefill_launches"]
+    pre = functools.partial(model.prefill, prompts, S + T + 1, sharder=tp)
+    prof = {"prefill": device_profile(pre, top=8, host=False)}
+    _, cache = pre()
+    first = torch.zeros(B, dtype=torch.long, device=dev)
+    prof["decode"] = device_profile(
+        lambda: model.decode_step(first, cache, S, sharder=tp), top=8,
+        host=False)
+    del model, cache
+    flush()
+    trained = {}
+    for tag, sharder in (("unsharded", Sharder(make_mesh((1, 1),
+                                                         devices=dev),
+                                               "tp")), ("sharded", tp)):
+        r = train(qc, steps=2, global_batch=B, seq_len=S, device=dev,
+                  seed=0, sharder=sharder)
+        trained[tag] = {"ms": [x["ms"] for x in r["steps"]],
+                        "loss": [x["loss"] for x in r["steps"]],
+                        "grad_norm": [x["grad_norm"] for x in r["steps"]],
+                        "launches": r["steps"][-1]["launches"],
+                        "peak_memory_GB": r.get("peak_memory_GB"),
+                        "mesh": r["mesh"]}
+        flush()
+    check(trained["sharded"]["launches"] == expect(
+        qc.n_layers * n_shards, 2, 1),
+        f"(a) bf16 sharded step launched {trained['sharded']['launches']}")
+    check(all(math.isfinite(x) for t_ in trained.values()
+              for x in t_["loss"] + t_["grad_norm"]), "(a) bf16 steps")
+    launches["a bf16 step"] = trained["sharded"]["launches"]
+    out["a_bf16"] = {
+        "serve": served, "train": trained,
+        "tokens_agree": float((gen_u == gen_s).float().mean()),
+        "prefill_host_x": served["sharded"]["prefill_ms"]
+        / served["unsharded"]["prefill_ms"],
+        "decode_host_x": served["sharded"]["decode_ms_per_token"]
+        / served["unsharded"]["decode_ms_per_token"],
+        "step_host_x": trained["sharded"]["ms"][-1]
+        / trained["unsharded"]["ms"][-1],
+        "profile": prof}
+    seconds["a"] = time.perf_counter() - t0
+
+    # -- (b) glm4-9b, tp, full depth: the kv_seq-sharded cache ---------------
+    t0 = time.perf_counter()
+    seconds["held_GB_b"] = held_GB()
+    gsh = Sharder(mesh, gc_.sharding_profile)
+    rng = np.random.default_rng(38)
+    gprompts = torch.as_tensor(rng.integers(0, gc_.vocab_size, (Bg, Sg)),
+                               device=dev)
+    gfed = torch.as_tensor(rng.integers(0, gc_.vocab_size, (Tg, Bg)),
+                           device=dev)
+    model = build(gc_, device=dev, dtype=bf16,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    ((lu, _), ms_u) = ms_of(lambda: logits_run(model, None, gprompts, gfed,
+                                               Lg))
+    _build.LAUNCHES.clear()
+    ((lsh, gspec), ms_s) = ms_of(lambda: logits_run(model, gsh, gprompts,
+                                                    gfed, Lg))
+    launches["b"] = dict(_build.LAUNCHES)
+    check(launches["b"] == expect(gc_.n_layers * n_shards),
+          f"(b) sharded prefill and decode launched {launches['b']}")
+    check(gspec == (None, "data", "model", None, None),
+          f"(b) the cache's spec {gspec}")
+    m32 = Transformer(dataclasses.replace(gc_, attn_impl="xla"), device=dev,
+                      dtype=f32)
+    m32.load_state_dict(model.state_dict())
+    del model
+    flush()
+    l32, _ = logits_run(m32, None, gprompts, gfed, Lg)
+    del m32
+    flush()
+    glm = {"max_len": Lg, "cache_spec": gspec, "bf16": [],
+           "ms_unsharded": ms_u, "ms_sharded": ms_s}
+    for i, (a_, u_, r_) in enumerate(zip(lsh, lu, l32)):
+        d_s, d_u = rel(a_, r_), rel(u_, r_)
+        glm["bf16"].append({"step": i, "sharded_vs_unsharded": rel(a_, u_),
+                            "unsharded_vs_fp32": d_u, "sharded_vs_fp32": d_s})
+        check(d_s <= DIST_BF16_RATIO * d_u, f"(b) glm4 bf16 logits step "
+              f"{i}: {d_s} from fp32, the unsharded run {d_u}")
+    del lu, lsh, l32
+    # fp32 at DIST_CUT layers: sharded within DIST_X times the unsharded
+    # run's distance from float64.
+    cut = dataclasses.replace(gc_, n_layers=DIST_CUT)
+    m32 = build(cut, device=dev, dtype=f32,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    lu, _ = logits_run(m32, None, gprompts, gfed, Lg)
+    (lsh, _), launches["b fp32"] = counted(lambda: logits_run(
+        m32, gsh, gprompts, gfed, Lg))
+    check(launches["b fp32"] == expect(cut.n_layers * n_shards),
+          f"(b) fp32 sharded run launched {launches['b fp32']}")
+    m64 = Transformer(dataclasses.replace(cut, attn_impl="xla"), device=dev,
+                      dtype=torch.float64)
+    m64.load_state_dict(m32.state_dict())
+    del m32
+    with widened():
+        l64, _ = logits_run(m64, None, gprompts, gfed, Lg)
+    del m64
+    flush()
+    glm["fp32"] = []
+    for i, (a_, u_, r_) in enumerate(zip(lsh, lu, l64)):
+        d_s, d_u = rel(a_, u_), rel(u_, r_)
+        glm["fp32"].append({"step": i, "n_layers": DIST_CUT,
+                            "sharded_vs_unsharded": d_s,
+                            "unsharded_vs_f64": d_u})
+        check(d_s <= DIST_X * d_u, f"(b) glm4 fp32 logits step {i}: {d_s} "
+              f"past {DIST_X} x {d_u}")
+    out["b"] = glm
+    del lu, lsh, l64
+    seconds["b"] = time.perf_counter() - t0
+
+    # -- (c) phi3-medium-14b, sp: prefill at full depth, 4-layer step ---------
+    t0 = time.perf_counter()
+    seconds["held_GB_c"] = held_GB()
+    sp = Sharder(mesh, pc.sharding_profile)
+    check(sp.profile == "sp", f"{pc.arch} runs {sp.profile}")
+    rng = np.random.default_rng(39)
+    pprompts = torch.as_tensor(rng.integers(0, pc.vocab_size, (Bp, Sp)),
+                               device=dev)
+    model = build(pc, device=dev, dtype=bf16,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    none = torch.zeros(0, Bp, dtype=torch.long, device=dev)
+    ((lu, _), ms_u) = ms_of(lambda: logits_run(model, None, pprompts, none,
+                                               Sp))
+    _build.LAUNCHES.clear()
+    ((lsh, pspec), ms_s) = ms_of(lambda: logits_run(model, sp, pprompts,
+                                                    none, Sp))
+    launches["c prefill"] = dict(_build.LAUNCHES)
+    check(launches["c prefill"] == expect(pc.n_layers * n_shards),
+          f"(c) sp prefill launched {launches['c prefill']}")
+    l32 = fp32_last_logits(model, pprompts)
+    del model
+    flush()
+    phi = {"prefill": {"sharded_vs_unsharded": rel(lsh[0], lu[0]),
+                       "unsharded_vs_fp32": rel(lu[0], l32),
+                       "sharded_vs_fp32": rel(lsh[0], l32),
+                       "ms_unsharded": ms_u, "ms_sharded": ms_s,
+                       "cache_spec": pspec}}
+    check(phi["prefill"]["sharded_vs_fp32"] <= DIST_BF16_RATIO
+          * phi["prefill"]["unsharded_vs_fp32"],
+          f"(c) phi3 bf16 prefill logits: {phi['prefill']}")
+    del lu, lsh, l32
+    cut = dataclasses.replace(pc, n_layers=DIST_PHI_DEPTH)
+    master = build(cut, device=dev, dtype=f32,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    params = {n: p.detach() for n, p in master.named_parameters()}
+    pbatch = token_batch(DataConfig(cut.vocab_size, Sp, Bp), 0, device=dev)
+    sp_loss = functools.partial(loss_fn, sharder=sp)
+    # fp32 (the masters compute): sharded within DIST_X times the unsharded
+    # run's distance from float64 (per layer remat there: the float64
+    # activations of 4 layers would not fit).
+    loss_u, _, g_u = value_and_grad(master, params, pbatch)
+    (loss_s, _, g_s), launches["c fp32 step"] = counted(
+        lambda: value_and_grad(master, params, pbatch, sp_loss))
+    check(launches["c fp32 step"] == expect(cut.n_layers * n_shards, 2, 1),
+          f"(c) fp32 sp step launched {launches['c fp32 step']}")
+    fp32 = {"n_layers": cut.n_layers,
+            "loss_sharded_vs_unsharded": abs(float(loss_s) / float(loss_u)
+                                             - 1),
+            "grads_sharded_vs_unsharded": worst(g_s, g_u),
+            "grads_l2_sharded_vs_unsharded": l2rel(g_s, g_u)}
+    del g_s
+    m64 = Transformer(dataclasses.replace(cut, attn_impl="xla",
+                                          remat_group=1),
+                      device=dev, dtype=torch.float64)
+    m64.load_state_dict(master.state_dict())
+    loss64 = 0.0
+    with widened():
+        # A row at a time, its gradient added into .grad (the float64
+        # activations of 4 rows and a second float64 copy of the grads
+        # would not fit): the loss is the mean of the rows' means.
+        for r in range(Bp):
+            row = {k: v[r:r + 1] for k, v in pbatch.items()}
+            part, _ = loss_fn(m64, row)
+            (part / Bp).backward()
+            loss64 += float(part) / Bp
+            del part
+    g64 = {n: p.grad for n, p in m64.named_parameters()}
+    del m64
+    fp32.update(loss_unsharded_vs_f64=abs(float(loss_u) / float(loss64) - 1),
+                grads_unsharded_vs_f64=worst(g_u, g64),
+                grads_l2_unsharded_vs_f64=l2rel(g_u, g64))
+    del g64
+    check(fp32["loss_sharded_vs_unsharded"]
+          <= DIST_X * fp32["loss_unsharded_vs_f64"]
+          and fp32["grads_sharded_vs_unsharded"]
+          <= DIST_X * fp32["grads_unsharded_vs_f64"],
+          f"(c) phi3 fp32 loss and grads: {fp32}")
+    phi["train_fp32"] = fp32
+    # bf16 compute off the fp32 masters: the sharded loss within DIST_X
+    # times the unsharded's distance from fp32, the grads no farther from
+    # fp32 (over every leaf) than DIST_BF16_RATIO times the unsharded's.
+    compute = type(master)(cut, device=dev, dtype=bf16)
+    (lb_u, _, gb_u) = value_and_grad(compute, params, pbatch)
+    (lb_s, _, gb_s), l_c = counted(lambda: value_and_grad(
+        compute, params, pbatch, sp_loss))
+    check(l_c == expect(cut.n_layers * n_shards, 2, 1),
+          f"(c) sp train step launched {l_c}")
+    del compute, params
+    bf = {"loss": float(lb_s),
+          "loss_sharded_vs_unsharded": abs(float(lb_s) / float(lb_u) - 1),
+          "loss_unsharded_vs_fp32": abs(float(lb_u) / float(loss_u) - 1),
+          "grads_sharded_vs_unsharded": l2rel(gb_s, gb_u),
+          "grads_unsharded_vs_fp32": l2rel(gb_u, g_u),
+          "grads_sharded_vs_fp32": l2rel(gb_s, g_u)}
+    check(bf["loss_sharded_vs_unsharded"]
+          <= DIST_X * bf["loss_unsharded_vs_fp32"]
+          and bf["grads_sharded_vs_fp32"]
+          <= DIST_BF16_RATIO * bf["grads_unsharded_vs_fp32"],
+          f"(c) phi3 bf16 loss and grads: {bf}")
+    del g_u, gb_u, gb_s
+    flush()
+    state = init_train_state(master)
+    step = make_train_step(master, AdamWConfig(), sharder=sp)
+    bf["step_ms"] = []
+    for _ in range(2):     # the first pays the allocator's growth
+        ((state, met), l_step), ms_step = ms_of(lambda: counted(
+            lambda: step(state, pbatch)))
+        bf["step_ms"].append(ms_step)
+        check(l_step == l_c and all(math.isfinite(float(met[k]))
+                                    for k in ("loss", "grad_norm")),
+              f"(c) sp train step {met}, launched {l_step}")
+    launches["c step"] = l_step
+    phi["train_bf16"] = bf
+    out["c"] = phi
+    del master, state, step
+    flush()
+    seconds["c"] = time.perf_counter() - t0
+
+    # -- (d) qwen3-0.6b through gpipe: 4 stages of 7 layers ----------------
+    t0 = time.perf_counter()
+    seconds["held_GB_d"] = held_GB()
+    stage_mesh = make_mesh((n_st,), ("stage",))
+    m32 = build(qc, device=dev, dtype=f32,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    params32 = {n: p.detach() for n, p in m32.named_parameters()}
+    dbatch = token_batch(DataConfig(qc.vocab_size, S_pipe, B_pipe), 0,
+                         device=dev)
+    ((loss_u, _, g_u), l_u), ms_u = ms_of(lambda: counted(
+        lambda: value_and_grad(m32, params32, dbatch, functools.partial(
+            loss_fn, remat=False))))
+    ((loss_p, _, g_p), l_p), ms_p = ms_of(lambda: counted(
+        lambda: value_and_grad(m32, params32, dbatch, functools.partial(
+            pipelined_loss_fn, mesh=stage_mesh, n_microbatches=n_mb))))
+    check(l_u == expect(qc.n_layers, 1, 1)
+          and l_p == expect(qc.n_layers * n_mb, 1, 1),
+          f"(d) launches unpipelined {l_u}, pipelined {l_p}")
+    pipe = {"stages": n_st, "layers_a_stage": qc.n_layers // n_st,
+            "microbatches": n_mb, "loss": float(loss_p),
+            "loss_rel": abs(float(loss_p) / float(loss_u) - 1),
+            "grads_rel": worst(g_p, g_u), "ms_unpipelined": ms_u,
+            "ms_pipelined": ms_p, "bounds": DIST_PIPE_RTOL}
+    check(pipe["loss_rel"] <= DIST_PIPE_RTOL[0]
+          and pipe["grads_rel"] <= DIST_PIPE_RTOL[1],
+          f"(d) pipelined against unpipelined: {pipe}")
+    launches["d"] = l_p
+    out["d"] = pipe
+    del m32, params32, g_u, g_p
+    flush()
+    seconds["d"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_start
+    emit({"phase": 37, "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+          "shard_devices": sorted({str(d) for d in mesh.devices}),
+          "shapes": {k: list(v) for k, v in shapes.items()},
+          "sp_kv_offsets": offsets, **out, "launches": launches,
+          "kernel_times": timings, "seconds": seconds})
+    return {"launches": launches, "timings": timings, "seconds": seconds,
+            "shapes": shapes, "offsets": offsets}
+
+
+def dist_kernel_rows(dist, entry, case_err):
+    """The kernels line's K7-K9 rows at phase 37's shard shapes:
+    times from ``dist["timings"]`` (summed over the offsets of a
+    sequence shard), launches from the path that ran each shape, errors
+    from the plain-version holds; ``entry`` is main's row maker."""
+    kernels = []
+    dl = dist["launches"]
+    dist_paths = {   # row -> (dtype, K7's path launches, the step's)
+        "tp qwen3-0.6b shard": {
+            "bfloat16": (dl["a bf16 serve"], dl["a bf16 step"]),
+            "float32": (dl["a fp32"]["serve"], dl["a fp32"]["step"])},
+        "tp glm4-9b shard": {"bfloat16": (dl["b"], {}),
+                             "float32": (dl["b fp32"], {})},
+        "sp phi3-medium-14b shard": {
+            "bfloat16": (dl["c prefill"], dl["c step"]),
+            "float32": (dl["c fp32 step"], dl["c fp32 step"])},
+        "gpipe qwen3-0.6b microbatch": {"float32": (dl["d"], dl["d"])}}
+    dist_case = {
+        "tp qwen3-0.6b shard": "a tp shard of qwen3-0.6b on a 2x4 mesh (4 "
+                               "query heads on their 2 kv heads, batch 2)",
+        "tp glm4-9b shard": "a tp shard of glm4-9b on a 2x4 mesh (8 query "
+                            "heads on one kv head, batch 2)",
+        "sp phi3-medium-14b shard": "the sp shards of phi3-medium-14b on a "
+                                    "2x4 mesh (512 queries on 2048 keys, "
+                                    "one launch at each kv_offset)",
+        "gpipe qwen3-0.6b microbatch": "a gpipe microbatch of qwen3-0.6b "
+                                       "(batch 1, 4 stages of 7 layers)"}
+    for label, by_dtype in dist_paths.items():
+        for dtype, (serve_l, train_l) in by_dtype.items():
+            rows_t = dist["timings"][f"{label} {dtype}"]
+            rows_t = rows_t if isinstance(rows_t, list) else [rows_t]
+            offs = [r["k7"]["kv_offset"] for r in rows_t]
+            names = [f"{label} off{o}" if o else label for o in offs]
+
+            def total(part, key):
+                return sum(r[part][key] for r in rows_t)
+
+            peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+            rows = {"shape": rows_t[0]["k7"]["shape"], "causal": True,
+                    "dtype": dtype, "case": dist_case[label],
+                    "kv_offsets": offs, "plain_timing": "eager",
+                    "phase": 37, "library": (
+                        "F.scaled_dot_product_attention (enable_gqa"
+                        + ("; a boolean mask at each offset)" if any(offs)
+                           else ")"))}
+            if len(offs) > 1:
+                rows["times_note"] = ("ms, bytes and operations summed over "
+                                      "one launch at each offset")
+            bwd_library = "backward of " + rows["library"] + (
+                " (dq, dk and dv together)")
+            kernels.append(entry(
+                "flash_fwd", "src/repro_torch/csrc/flash_attention_sm90.cu"
+                if dtype == "bfloat16" else
+                "src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention_bwd.py:86",
+                total("k7", "k7_ms"), total("k7", "plain_ms"),
+                total("k7", "bytes"), total("k7", "operations"),
+                total("k7", "sdpa_ms"),
+                {**rows, "train_launches": train_l.get("flash_fwd", 0),
+                 "max_abs_err": max(case_err[("flash_fwd", n, dtype)]
+                                    for n in names)},
+                serve_l, peak))
+            if "k89" not in rows_t[0]:
+                continue
+            src = ("src/repro_torch/csrc/flash_attention_bwd_sm90.cu"
+                   if dtype == "bfloat16" else
+                   "src/repro_torch/csrc/flash_attention_bwd.cu")
+            kernels += [
+                entry("flash_bwd_dq", src,
+                      "src/repro/kernels/flash_attention_bwd.py:223",
+                      total("k89", "k8_ms"), total("k89", "k8_plain_ms"),
+                      total("k89", "k8_bytes"),
+                      total("k89", "k8_operations"),
+                      total("k89", "sdpa_bwd_ms"),
+                      {**rows, "library": bwd_library,
+                       "max_abs_err": max(case_err[("flash_bwd_dq", n,
+                                                    dtype)] for n in names)},
+                      train_l, peak),
+                entry("flash_bwd_dkv", src,
+                      "src/repro/kernels/flash_attention_bwd.py:249",
+                      total("k89", "k9_ms"), total("k89", "k9_plain_ms"),
+                      total("k89", "k9_bytes"),
+                      total("k89", "k9_operations"),
+                      total("k89", "sdpa_bwd_ms"),
+                      {**rows, "library": bwd_library,
+                       "max_abs_err": max(case_err[("flash_bwd_dkv",
+                                                    f"{n} {g}", dtype)]
+                                          for n in names
+                                          for g in ("dk", "dv"))},
+                      train_l, peak)]
+    return kernels
 
 
 def halo_phase(dev, smi, k2):
@@ -4509,6 +5285,12 @@ def main(argv=None) -> int:
     # -- 36. halo distribution on a tile mesh ----------------------------------
     torch.cuda.empty_cache()
     emit(halo_phase(dev, smi, {1: k2_ms, 16: k2_f16}))
+
+    # -- 37. LM distribution on a data x model mesh ----------------------------
+    torch.cuda.empty_cache()
+    dist = lm_distribution_phase(dev, flash_case, bwd_case, graph_ms,
+                                 time_ms, device_profile)
+    kernels += dist_kernel_rows(dist, entry, case_err)
 
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")

@@ -171,14 +171,8 @@ def make_halo_runner(mesh, spec: StencilSpec, *, H: int, W: int,
 
     # Tile (i, j) sits i along row_axis and j along col_axis; its device is
     # the mesh's, whichever order the mesh names its axes in.
-    names = tuple(mesh.axis_names)
-    n_second = mesh.shape[names[1]]
-
-    def tile_device(i, j):
-        pos = {row_axis: i, col_axis: j}
-        return mesh.devices[pos[names[0]] * n_second + pos[names[1]]]
-
-    devices = [tile_device(i, j) for i in range(n_row) for j in range(n_col)]
+    devices = [mesh.device_at({row_axis: i, col_axis: j})
+               for i in range(n_row) for j in range(n_col)]
 
     def zones(acc, row0, col0, dtype):
         """The Dirichlet fixup of a region whose first cell is global

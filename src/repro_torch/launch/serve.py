@@ -1,5 +1,7 @@
-"""Serving launcher: batched prefill + greedy decode on one device — the port
-of the JAX package's ``launch/serve.py``.
+"""Serving launcher: batched prefill + greedy decode — the port of the JAX
+package's ``launch/serve.py``, on ``make_host_mesh()`` with a ``Sharder``
+of the config's profile, as JAX's: one card is the 1 x 1 mesh, where the
+unsharded path runs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --batch 4 --prompt-len 2048 --tokens 32            # on the card
@@ -47,7 +49,9 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model_zoo import build
+from repro_torch.parallel.sharding import Sharder
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -91,16 +95,28 @@ class _Clock:
         return (time.perf_counter() - start) * 1e3
 
 
+def host_sharder(cfg: ModelConfig, device: torch.device) -> Sharder:
+    """JAX's launchers' sharder: ``Sharder(make_host_mesh(),
+    cfg.sharding_profile)``, over the visible CUDA devices (one card gives
+    the 1 x 1 mesh, and the unsharded path runs) or, for the CPU, over the
+    one CPU device."""
+    mesh = make_host_mesh(devices=None if device.type == "cuda"
+                          else [device])
+    return Sharder(mesh, profile=cfg.sharding_profile)
+
+
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
           device=None, dtype: torch.dtype = torch.bfloat16,
-          seed: int = 0, model=None, inputs: dict | None = None) -> dict:
+          seed: int = 0, model=None, inputs: dict | None = None,
+          sharder: Sharder | None = None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``tokens`` greedy tokens; returns the generated ids, the timings and
     the kernel launches of the timed prefill and decode.  ``model``, a
     model of ``cfg`` already built, is served as it is (on its own device,
     in its own type) in place of one drawn from ``seed``.  ``inputs``: the
     batch's entries besides the tokens (a vlm's ``positions`` and
-    ``vision_embeds``, encdec's ``enc_frames``), default ``stub_inputs``."""
+    ``vision_embeds``, encdec's ``enc_frames``), default ``stub_inputs``.
+    ``sharder``: the mesh to serve on, default ``host_sharder``."""
     if model is None:
         dev = resolve_device(device)
         model = build(cfg, device=dev, dtype=dtype,
@@ -110,7 +126,9 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=dev)
     max_len = prompt_len + tokens + 1
-    prefill = make_prefill_step(model, max_len)
+    if sharder is None:
+        sharder = host_sharder(cfg, dev)
+    prefill = make_prefill_step(model, max_len, sharder=sharder)
     if inputs is None:
         inputs = stub_inputs(cfg, batch, prompt_len, dtype=model.dtype,
                              device=dev)
@@ -118,7 +136,7 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
 
     # Untimed warm-up: kernel build, cuBLAS handles, allocator growth.
     token, cache = prefill(batch_in)
-    make_decode_step(model, prompt_len)(token, cache)
+    make_decode_step(model, prompt_len, sharder=sharder)(token, cache)
     del token, cache
 
     clock = _Clock(dev)
@@ -134,7 +152,8 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
     out = [token]
     t0 = clock.start()
     for i in range(tokens):
-        token, cache = make_decode_step(model, prompt_len + i)(token, cache)
+        token, cache = make_decode_step(model, prompt_len + i,
+                                        sharder=sharder)(token, cache)
         out.append(token)
     decode_ms = clock.ms_since(t0) / max(tokens, 1)
     result = {
@@ -144,6 +163,7 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "clock": "cuda events" if dev.type == "cuda" else "host",
+        "mesh": dict(zip(sharder.mesh.axis_names, sharder.mesh.shape)),
         "prefill_ms": prefill_ms,
         "prefill_tokens_per_s": batch * prompt_len / (prefill_ms * 1e-3),
         "decode_ms_per_token": decode_ms,

@@ -1,7 +1,9 @@
-"""Training launcher: AdamW steps of the LM on one device through the
-fault-tolerant runtime (``runtime/ft.py``) — the port of the JAX package's
+"""Training launcher: AdamW steps of the LM through the fault-tolerant
+runtime (``runtime/ft.py``) — the port of the JAX package's
 ``launch/train.py``, with its checkpoint, restart and failure-injection
-options.
+options, on ``make_host_mesh()`` with a ``Sharder`` of the config's profile
+(``launch.serve.host_sharder``; one card is the 1 x 1 mesh, where the
+unsharded step runs).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --global-batch 4 --seq-len 2048 --steps 5           # on the card
@@ -69,9 +71,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.data.synthetic import DataConfig, token_batch
 from repro_torch.kernels import _build
-from repro_torch.launch.serve import _Clock, stub_inputs
+from repro_torch.launch.serve import _Clock, host_sharder, stub_inputs
 from repro_torch.models.model_zoo import build
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallel.sharding import Sharder
 from repro_torch.runtime.ft import FTConfig, run_training
 from repro_torch.train.train_step import init_train_state, make_train_step
 
@@ -80,7 +83,8 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
           lr: float = 3e-4, device=None, seed: int = 0, log_every: int = 0,
           inputs: dict | None = None, checkpoint_dir: str | None = None,
           checkpoint_every: int = 10,
-          fail_at_step: int | None = None) -> dict:
+          fail_at_step: int | None = None,
+          sharder: Sharder | None = None) -> dict:
     """Run train steps up to ``steps`` from fp32 masters drawn from
     ``seed``, through ``runtime.ft.run_training``; returns one record a
     step run (loss, nll, lr, grad_norm, ms, tokens/s and the kernel
@@ -92,13 +96,16 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     ``stub_inputs``.  ``checkpoint_dir``: checkpoint there every
     ``checkpoint_every`` steps and at the last (the newest three kept),
     and resume from the latest one found; ``fail_at_step`` raises
-    ``InjectedFailure`` before that step."""
+    ``InjectedFailure`` before that step.  ``sharder``: the mesh to train
+    on, default ``launch.serve.host_sharder``."""
     dev = resolve_device(device)
     model = build(cfg, device=dev, dtype=torch.float32,
                   generator=torch.Generator(device=dev).manual_seed(seed))
     opt = AdamWConfig(lr=lr, total_steps=steps,
                       warmup_steps=max(1, steps // 10))
-    train_step = make_train_step(model, opt)
+    if sharder is None:
+        sharder = host_sharder(cfg, dev)
+    train_step = make_train_step(model, opt, sharder=sharder)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                       global_batch=global_batch)
     if inputs is None:
@@ -144,6 +151,7 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     result = {
         "arch": cfg.arch, "attn_impl": cfg.attn_impl,
         "global_batch": global_batch, "seq_len": seq_len,
+        "mesh": dict(zip(sharder.mesh.axis_names, sharder.mesh.shape)),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "clock": "cuda events" if dev.type == "cuda" else "host",

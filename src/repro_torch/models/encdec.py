@@ -44,8 +44,8 @@ MAX_DEC_POSITIONS = 32768
 
 
 def _ln(d: int) -> dict:
-    return {"w": ParamDef((d,), scale="one"),
-            "b": ParamDef((d,), scale="zero")}
+    return {"w": ParamDef((d,), ("embed",), scale="one"),
+            "b": ParamDef((d,), ("embed",), scale="zero")}
 
 
 def enc_block_table(cfg: ModelConfig) -> dict:
@@ -71,13 +71,14 @@ def dec_block_table(cfg: ModelConfig) -> dict:
 def encdec_table(cfg: ModelConfig) -> dict:
     D, V = cfg.d_model, cfg.padded_vocab
     return {
-        "embed": ParamDef((V, D), scale=1.0),
-        "dec_pos": ParamDef((MAX_DEC_POSITIONS, D), scale=0.02),
+        "embed": ParamDef((V, D), ("vocab", "embed"), scale=1.0),
+        "dec_pos": ParamDef((MAX_DEC_POSITIONS, D), (None, "embed"),
+                            scale=0.02),
         "enc_layers": stack_tables(enc_block_table(cfg), cfg.n_enc_layers),
         "dec_layers": stack_tables(dec_block_table(cfg), cfg.n_layers),
         "enc_ln": _ln(D),
         "dec_ln": _ln(D),
-        "lm_head": ParamDef((V, D)),
+        "lm_head": ParamDef((V, D), ("vocab", "embed")),
     }
 
 
@@ -226,18 +227,23 @@ class EncDec(StackedModel):
         return self.dec_ln(x)
 
     def forward(self, tokens: torch.Tensor, enc_frames: torch.Tensor, *,
-                remat: bool = True):
-        """Train-mode forward: (final hidden (B, S, D), aux loss 0)."""
+                remat: bool = True, sharder=None):
+        """Train-mode forward: (final hidden (B, S, D), aux loss 0).  A
+        ``sharder`` of more than one shard raises ``NotImplementedError``
+        (``StackedModel.sharded``): the encdec family runs on a 1 x 1
+        mesh."""
+        self.sharded(sharder)
         enc_out = self.encode(enc_frames, remat=remat)
         hidden = self.decode_train(tokens, enc_out, remat=remat)
         return hidden, torch.zeros((), device=hidden.device)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int,
-                enc_frames: torch.Tensor):
+                enc_frames: torch.Tensor, *, sharder=None):
         """Encode, then the teacher-forced decoder over the prompt: (last
         hidden (B, D), cache: the self k/v padded to ``max_len``, the cross
         k/v at enc_len, a layer each)."""
+        self.sharded(sharder)
         B, S = tokens.shape
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
@@ -254,10 +260,12 @@ class EncDec(StackedModel):
         return self.dec_ln(x)[:, -1], cache
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, cache: dict, kv_len: int):
+    def decode_step(self, token: torch.Tensor, cache: dict, kv_len: int, *,
+                    sharder=None):
         """One decode step.  token: (B,); kv_len: the self cache's fill.
         Returns (logits (B, V) fp32 with the padded vocab masked, cache,
         updated in place)."""
+        self.sharded(sharder)
         x = self.embed[token[:, None]] + self.dec_pos[kv_len][None, None]
         for i, layer in enumerate(self.dec_layers):
             x = layer.decode(x, cache["self"]["k"][i], cache["self"]["v"][i],

@@ -1,8 +1,10 @@
 """Shared model-layer primitives and the declarative parameter tables — the
 port of the JAX package's ``models/layers.py``.
 
-Parameters are declared once as ``ParamDef(shape, scale, dtype)`` tables,
-as in JAX; :func:`init_params` and ``ParamDef.fill`` draw them from an
+Parameters are declared once as ``ParamDef(shape, dims, scale, dtype)``
+tables, as in JAX: the same table yields the initialized tensors and the
+logical-dims tree (``param_dims``) that ``parallel/sharding.Sharder``
+reads.  :func:`init_params` and ``ParamDef.fill`` draw them from an
 explicit ``torch.Generator`` with JAX's distributions (not its numbers: the
 two generators differ).  A leaf whose ``dtype`` is set keeps it whatever
 the model's type (the Mamba2 mixer's ``A_log``, ``D`` and ``dt_bias``, the
@@ -31,12 +33,14 @@ DRAW_PIECE = 1 << 26
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """A parameter's shape and init rule: ``"fan_in"`` (normal, std
+    """A parameter's shape, its logical dim names (one a dim, or None; the
+    sharding rules' keys), and its init rule: ``"fan_in"`` (normal, std
     1/sqrt(shape[0])), a float (normal, that std), ``"one"``, ``"zero"`` or
     ``"const:<v>"`` (every entry v: the solver layer's stencil weights start
     at a known-stable operator, not at noise).  The constant rules draw
     nothing from the generator.  ``dtype`` None means the model's."""
     shape: tuple[int, ...]
+    dims: tuple[str | None, ...]
     scale: float | str = "fan_in"
     dtype: torch.dtype | None = None
 
@@ -87,11 +91,21 @@ def init_params(table: Mapping[str, Any], generator: torch.Generator,
     return out
 
 
-def stack_tables(table: Mapping[str, Any], n: int) -> dict:
-    """Prefix every ParamDef with a leading stacked-layers dim."""
+def param_dims(table: Mapping[str, Any]) -> dict:
+    """The table's tree of logical dim names (JAX's ``param_dims``)."""
     out: dict = {}
     for path, pd in flatten(table):
-        set_path(out, path, ParamDef((n, *pd.shape), pd.scale, pd.dtype))
+        set_path(out, path, pd.dims)
+    return out
+
+
+def stack_tables(table: Mapping[str, Any], n: int) -> dict:
+    """Prefix every ParamDef with a leading stacked-layers dim (named
+    None: it never shards)."""
+    out: dict = {}
+    for path, pd in flatten(table):
+        set_path(out, path, ParamDef((n, *pd.shape), (None, *pd.dims),
+                                     pd.scale, pd.dtype))
     return out
 
 

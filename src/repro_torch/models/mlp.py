@@ -1,6 +1,7 @@
 """Dense FFN variants, gated (SwiGLU/GeGLU) and ungated (squared-ReLU,
 GELU) — the port of the JAX package's ``models/mlp.py``.  Weights keep
-JAX's (d_in, d_out) layout, so a JAX parameter tree loads as it is."""
+JAX's (d_in, d_out) layout, so a JAX parameter tree loads as it is;
+``mlp_apply`` runs one shard's slice of them under a sharder."""
 from __future__ import annotations
 
 import torch
@@ -12,11 +13,11 @@ from repro_torch.models.layers import ACTIVATIONS, ParamDef
 
 def mlp_table(d_model: int, d_ff: int, gated: bool) -> dict:
     t = {
-        "up": ParamDef((d_model, d_ff)),
-        "down": ParamDef((d_ff, d_model)),
+        "up": ParamDef((d_model, d_ff), ("embed", "dff")),
+        "down": ParamDef((d_ff, d_model), ("dff", "embed")),
     }
     if gated:
-        t["gate"] = ParamDef((d_model, d_ff))
+        t["gate"] = ParamDef((d_model, d_ff), ("embed", "dff"))
     return t
 
 
@@ -34,7 +35,17 @@ class MLP(nn.Module):
                      if gated else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        act = ACTIVATIONS[self.activation]
-        up = x @ self.up
-        h = act(x @ self.gate) * up if self.gate is not None else act(up)
-        return (h.to(x.dtype) @ self.down).to(x.dtype)
+        return mlp_apply(x, self.up, self.gate, self.down, self.activation)
+
+
+def mlp_apply(x: torch.Tensor, up: torch.Tensor, gate, down: torch.Tensor,
+              activation: str) -> torch.Tensor:
+    """The FFN on x (..., D) with the weights given: the whole layer's, or
+    under a sharder one shard's columns of ``up``/``gate`` and the same rows
+    of ``down`` (``dff`` over the model axis, tp), whose outputs are partial
+    sums that the caller adds over the shards (JAX's constraint of h to
+    (batch, seq, dff))."""
+    act = ACTIVATIONS[activation]
+    u = x @ up
+    h = act(x @ gate) * u if gate is not None else act(u)
+    return (h.to(x.dtype) @ down).to(x.dtype)

@@ -50,16 +50,20 @@ DISPATCH_MODES = ("einsum", "scatter")
 def moe_table(d_model: int, n_experts: int, d_ff: int,
               n_shared: int = 0) -> dict:
     t = {
-        "router": ParamDef((d_model, n_experts), dtype=torch.float32),
-        "up": ParamDef((n_experts, d_model, d_ff)),
-        "gate": ParamDef((n_experts, d_model, d_ff)),
-        "down": ParamDef((n_experts, d_ff, d_model)),
+        "router": ParamDef((d_model, n_experts), ("embed", "experts"),
+                           dtype=torch.float32),
+        "up": ParamDef((n_experts, d_model, d_ff),
+                       ("experts", "embed", "expert_dff")),
+        "gate": ParamDef((n_experts, d_model, d_ff),
+                         ("experts", "embed", "expert_dff")),
+        "down": ParamDef((n_experts, d_ff, d_model),
+                         ("experts", "expert_dff", "embed")),
     }
     if n_shared:
         t["shared"] = {
-            "up": ParamDef((d_model, n_shared * d_ff)),
-            "gate": ParamDef((d_model, n_shared * d_ff)),
-            "down": ParamDef((n_shared * d_ff, d_model)),
+            "up": ParamDef((d_model, n_shared * d_ff), ("embed", "dff")),
+            "gate": ParamDef((d_model, n_shared * d_ff), ("embed", "dff")),
+            "down": ParamDef((n_shared * d_ff, d_model), ("dff", "embed")),
         }
     return t
 

@@ -30,7 +30,7 @@ from torch import nn
 from repro_torch.core.adjoint import DIFF_BACKENDS, implicit_solve
 from repro_torch.core.plan import resolve_device
 from repro_torch.core.stencil import StencilSpec, heterogeneous_jacobi
-from repro_torch.models.layers import ParamDef
+from repro_torch.models.layers import ParamDef, param_dims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,13 +77,20 @@ def template_spec(cfg: SolverLayerConfig) -> StencilSpec:
     return heterogeneous_jacobi(np.ones(cfg.grid), name="learned-stencil")
 
 
+def _grid_dims(cfg: SolverLayerConfig) -> tuple[str, ...]:
+    """JAX's: the row dim may shard over data (the one grid dim with a
+    rule); the others replicate."""
+    return ("grid_row", "grid_col", "grid_depth")[:len(cfg.grid)]
+
+
 def solver_table(cfg: SolverLayerConfig) -> dict:
     """The layer's parameters, JAX's table (both fp32 whatever the model
     dtype)."""
     V = template_spec(cfg).num_variable_taps
     return {
-        "taps": ParamDef((V, *cfg.grid), scale=f"const:{cfg.init_weight}"),
-        "bc": ParamDef((), scale="zero"),
+        "taps": ParamDef((V, *cfg.grid), ("taps", *_grid_dims(cfg)),
+                         scale=f"const:{cfg.init_weight}"),
+        "bc": ParamDef((), (), scale="zero"),
     }
 
 
@@ -135,6 +142,14 @@ class SolverLayer(nn.Module):
             rtol=cfg.rtol, atol=cfg.atol, check_every=cfg.check_every,
             max_iters=cfg.max_iters)
         return sol, torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def dims(self) -> dict:
+        """The parameters' logical dim names (JAX's ``api.dims()``)."""
+        return param_dims(solver_table(self.cfg))
+
+    def cache_dims(self) -> dict:
+        """No cache: JAX's solver api gives {}."""
+        return {}
 
     def prefill(self, *args, **kwargs):
         raise _unsupported("prefill")

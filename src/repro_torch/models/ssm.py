@@ -34,19 +34,23 @@ def mamba2_table(d_model: int, d_inner: int, n_heads: int, d_state: int,
                  d_conv: int) -> dict:
     f32 = torch.float32
     return {
-        "z_proj": ParamDef((d_model, d_inner)),
-        "x_proj": ParamDef((d_model, d_inner)),
-        "bc_proj": ParamDef((d_model, 2 * d_state)),
-        "dt_proj": ParamDef((d_model, n_heads)),
-        "conv_w": ParamDef((d_conv, d_inner), scale=0.5),
-        "conv_b": ParamDef((d_inner,), scale="zero"),
-        "bc_conv_w": ParamDef((d_conv, 2 * d_state), scale=0.5),
-        "bc_conv_b": ParamDef((2 * d_state,), scale="zero"),
-        "A_log": ParamDef((n_heads,), scale="zero", dtype=f32),
-        "D": ParamDef((n_heads,), scale="one", dtype=f32),
-        "dt_bias": ParamDef((n_heads,), scale="zero", dtype=f32),
-        "norm_w": ParamDef((d_inner,), scale="one"),
-        "out_proj": ParamDef((d_inner, d_model)),
+        "z_proj": ParamDef((d_model, d_inner), ("embed", "conv_channels")),
+        "x_proj": ParamDef((d_model, d_inner), ("embed", "conv_channels")),
+        "bc_proj": ParamDef((d_model, 2 * d_state), ("embed", None)),
+        "dt_proj": ParamDef((d_model, n_heads), ("embed", "ssm_heads")),
+        "conv_w": ParamDef((d_conv, d_inner),
+                           ("conv_kernel", "conv_channels"), scale=0.5),
+        "conv_b": ParamDef((d_inner,), ("conv_channels",), scale="zero"),
+        "bc_conv_w": ParamDef((d_conv, 2 * d_state), ("conv_kernel", None),
+                              scale=0.5),
+        "bc_conv_b": ParamDef((2 * d_state,), (None,), scale="zero"),
+        "A_log": ParamDef((n_heads,), ("ssm_heads",), scale="zero",
+                          dtype=f32),
+        "D": ParamDef((n_heads,), ("ssm_heads",), scale="one", dtype=f32),
+        "dt_bias": ParamDef((n_heads,), ("ssm_heads",), scale="zero",
+                            dtype=f32),
+        "norm_w": ParamDef((d_inner,), ("conv_channels",), scale="one"),
+        "out_proj": ParamDef((d_inner, d_model), ("conv_channels", "embed")),
     }
 
 

@@ -10,8 +10,10 @@ against the cache).  ``cfg.attn_impl`` picks the full-sequence attention:
 ``"flash"`` runs the CUDA kernels (``kernels/flash_attention_bwd.
 flash_attention_trainable``, blocks 512 x 512, as ``transformer.py:168``:
 K7 forward, K8/K9 backward), ``"xla"`` the plain PyTorch
-``models/attention.attention``.  The port runs on one device and has no
-sharder, so the field alone picks the path.  Decode attention is
+``models/attention.attention``; the field alone picks the path, on one
+device and, with ``sharder=``, on every shard of a mesh (``ShardedDense``:
+the dense family's tp and sp profiles; JAX keeps XLA attention under a
+sharder only so that its HLO cost stays visible).  Decode attention is
 ``decode_attention`` on both (JAX runs no Pallas kernel there).
 
 The families:
@@ -65,13 +67,20 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
-from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.attention import (MASK_VALUE, attention,
+                                          decode_attention)
 from repro_torch.models.layers import (ParamDef, apply_mrope, apply_rope,
-                                       flatten, rms_norm, stack_tables)
-from repro_torch.models.mlp import MLP, mlp_table
+                                       flatten, param_dims, rms_norm,
+                                       stack_tables)
+from repro_torch.models.mlp import MLP, mlp_apply, mlp_table
 from repro_torch.models.moe import MoE, moe_table
 from repro_torch.models.ssm import (Mamba2Mixer, mamba2_cache_dims,
                                     mamba2_cache_shapes, mamba2_table)
+from repro_torch.parallel.sharding import (PartitionSpec, Sharded,
+                                           all_gather, axes_size,
+                                           block_start, local_view, pmax,
+                                           psum, shard, spec_axes,
+                                           zeros_pieces)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -92,14 +101,14 @@ def check_family(cfg: ModelConfig) -> None:
 def attn_table(cfg: ModelConfig) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     t = {
-        "wq": ParamDef((D, H, hd)),
-        "wk": ParamDef((D, KV, hd)),
-        "wv": ParamDef((D, KV, hd)),
-        "wo": ParamDef((H, hd, D)),
+        "wq": ParamDef((D, H, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((D, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((D, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((H, hd, D), ("heads", "head_dim", "embed")),
     }
     if cfg.qk_norm:
-        t["q_norm"] = ParamDef((hd,), scale="one")
-        t["k_norm"] = ParamDef((hd,), scale="one")
+        t["q_norm"] = ParamDef((hd,), ("head_dim",), scale="one")
+        t["k_norm"] = ParamDef((hd,), ("head_dim",), scale="one")
     return t
 
 
@@ -107,14 +116,14 @@ def block_table(cfg: ModelConfig, kind: str = "dense") -> dict:
     D = cfg.d_model
     if kind == "mamba":
         return {
-            "norm": ParamDef((D,), scale="one"),
+            "norm": ParamDef((D,), ("embed",), scale="one"),
             "mixer": mamba2_table(D, cfg.d_inner, cfg.n_ssm_heads,
                                   cfg.ssm_state, cfg.d_conv),
         }
     t = {
-        "attn_norm": ParamDef((D,), scale="one"),
+        "attn_norm": ParamDef((D,), ("embed",), scale="one"),
         "attn": attn_table(cfg),
-        "mlp_norm": ParamDef((D,), scale="one"),
+        "mlp_norm": ParamDef((D,), ("embed",), scale="one"),
     }
     if kind == "moe":
         t["moe"] = moe_table(D, cfg.n_experts, cfg.d_ff_expert,
@@ -139,9 +148,9 @@ def stacked_axes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 def model_table(cfg: ModelConfig) -> dict:
     D, V = cfg.d_model, cfg.padded_vocab
     t = {
-        "embed": ParamDef((V, D), scale=1.0),
-        "final_norm": ParamDef((D,), scale="one"),
-        "lm_head": ParamDef((V, D)),
+        "embed": ParamDef((V, D), ("vocab", "embed"), scale=1.0),
+        "final_norm": ParamDef((D,), ("embed",), scale="one"),
+        "lm_head": ParamDef((V, D), ("vocab", "embed")),
     }
     kind = {"dense": "dense", "vlm": "dense", "moe": "moe"}.get(cfg.family,
                                                               "mamba")
@@ -169,6 +178,42 @@ def _rope(cfg: ModelConfig, x: torch.Tensor, positions) -> torch.Tensor:
     return apply_rope(x, positions, cfg.rope_theta)
 
 
+def project_qkv(cfg: ModelConfig, x: torch.Tensor, wq, wk, wv, q_norm,
+                k_norm, positions, kv_source=None, use_rope: bool = True):
+    """q, k, v (B, S, heads, hd) of x with the weights given (the layer's,
+    or one shard's q heads), then qk_norm and rope (JAX's ``attn_apply``
+    up to the attention)."""
+    src = x if kv_source is None else kv_source
+    D = x.shape[-1]
+    q = (x @ wq.reshape(D, -1)).view(*x.shape[:2], *wq.shape[1:])
+    k = (src @ wk.reshape(D, -1)).view(*src.shape[:2], *wk.shape[1:])
+    v = (src @ wv.reshape(D, -1)).view(*src.shape[:2], *wv.shape[1:])
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
+    if use_rope and kv_source is None:
+        q = _rope(cfg, q, positions)
+        k = _rope(cfg, k, positions)
+    return q, k, v
+
+
+def attend(cfg: ModelConfig, q, k, v, causal: bool,
+           q_offset: int = 0) -> torch.Tensor:
+    """Full-sequence attention as ``cfg.attn_impl`` picks it: ``"flash"``
+    the trainable kernels (K7, K8/K9; blocks 512 x 512), ``"xla"`` the
+    plain ``attention``.  Query i sits at position ``q_offset + i`` and key
+    j at j (a sequence shard's queries, ``ShardedDense``): the kernels'
+    ``kv_offset``, the plain version's ``kv_offset=-q_offset``."""
+    if cfg.attn_impl == "flash":
+        return flash_attention_trainable(q, k.contiguous(), v.contiguous(),
+                                         causal, 512, 512, q_offset)
+    if cfg.attn_impl == "xla":
+        return attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
+                         kv_offset=-q_offset)
+    raise ValueError(f"attn_impl must be 'xla' or 'flash', got "
+                     f"{cfg.attn_impl!r}")
+
+
 class Attention(nn.Module):
     """q/k/v/o projections, qk_norm, rope, and the flash/plain switch; JAX's
     ``attn_apply`` switches: ``causal``, ``kv_source`` (cross-attention: k
@@ -193,21 +238,9 @@ class Attention(nn.Module):
 
     def _qkv(self, x: torch.Tensor, positions, kv_source=None,
              use_rope: bool = True):
-        src = x if kv_source is None else kv_source
-        D = x.shape[-1]
-        q = (x @ self.wq.reshape(D, -1)).view(*x.shape[:2],
-                                              *self.wq.shape[1:])
-        k = (src @ self.wk.reshape(D, -1)).view(*src.shape[:2],
-                                                *self.wk.shape[1:])
-        v = (src @ self.wv.reshape(D, -1)).view(*src.shape[:2],
-                                                *self.wv.shape[1:])
-        if self.q_norm is not None:
-            q = rms_norm(q, self.q_norm, self.cfg.norm_eps)
-            k = rms_norm(k, self.k_norm, self.cfg.norm_eps)
-        if use_rope and kv_source is None:
-            q = _rope(self.cfg, q, positions)
-            k = _rope(self.cfg, k, positions)
-        return q, k, v
+        return project_qkv(self.cfg, x, self.wq, self.wk, self.wv,
+                           self.q_norm, self.k_norm, positions, kv_source,
+                           use_rope)
 
     def _out(self, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         B, S = o.shape[:2]
@@ -219,15 +252,7 @@ class Attention(nn.Module):
         """Full-sequence attention.  x: (B, S, D); ``kv_source`` (B, T, D)
         or None (self-attention) -> (out, (k, v))."""
         q, k, v = self._qkv(x, positions, kv_source, use_rope)
-        if self.cfg.attn_impl == "flash":
-            out = flash_attention_trainable(q, k, v, causal, 512, 512, 0)
-        elif self.cfg.attn_impl == "xla":
-            out = attention(q, k, v, causal=causal,
-                            q_chunk=self.cfg.q_chunk)
-        else:
-            raise ValueError(f"attn_impl must be 'xla' or 'flash', got "
-                             f"{self.cfg.attn_impl!r}")
-        return self._out(out, x), (k, v)
+        return self._out(attend(self.cfg, q, k, v, causal), x), (k, v)
 
     def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, kv_len: int, positions=None):
@@ -387,6 +412,37 @@ class StackedModel(nn.Module):
             for module, rest in self._slots(path):
                 pd.fill(_param(module, rest), generator)
 
+    def dims(self) -> dict:
+        """The parameters' logical dim names in JAX's layout (layer lists
+        stacked, their leading dims None): JAX's ``api.dims()``."""
+        return param_dims(self.param_table(self.cfg))
+
+    def param_dims_by_name(self) -> dict[str, tuple]:
+        """{name in ``named_parameters``: its logical dims}: a stacked
+        leaf's dims without the stacked axes, for each layer."""
+        axes = self.param_axes(self.cfg)
+        out = {}
+        for path, pd in flatten(self.param_table(self.cfg)):
+            if path[0] not in axes:
+                out[".".join(path)] = pd.dims
+                continue
+            n = len(axes[path[0]])
+            for idx in np.ndindex(*axes[path[0]]):
+                out[".".join((path[0], *map(str, idx), *path[1:]))] = \
+                    pd.dims[n:]
+        return out
+
+    def sharded(self, sharder):
+        """The shard program that runs this model under ``sharder``
+        (``ShardedDense``), or None where there is no sharder or its mesh
+        has one shard: then the unsharded path runs, its kernels and
+        launches unchanged.  A family whose sharding is not ported raises
+        ``NotImplementedError`` on a larger mesh, never running unsharded
+        in silence."""
+        if sharder is None or sharder.trivial:
+            return None
+        return ShardedDense(self, sharder)
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """hidden (..., D) @ lm_head.T in fp32, as JAX's
         ``preferred_element_type=float32``: bf16 operands are exact in fp32,
@@ -481,7 +537,7 @@ class Transformer(StackedModel):
         return x, aux
 
     def forward(self, tokens: torch.Tensor, positions=None, *,
-                vision_embeds=None, remat: bool = True):
+                vision_embeds=None, remat: bool = True, sharder=None):
         """Train-mode forward: (final hidden (B, S, D), aux loss: the sum
         of the MoE layers' Switch losses, 0 in the other families).
         ``positions`` (B, S), or (3, B, S) for M-RoPE, default
@@ -497,6 +553,9 @@ class Transformer(StackedModel):
         checkpointed as well (``models/ssm.ssd_scan``), and inside an MoE
         layer each wave (``models/moe.moe_apply``).
         """
+        run = self.sharded(sharder)
+        if run is not None:
+            return run.forward(tokens, positions, remat=remat)
         x = self._embed(tokens, vision_embeds)
         if positions is None:
             positions = self._default_positions(tokens)
@@ -531,9 +590,12 @@ class Transformer(StackedModel):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int, positions=None, *,
-                vision_embeds=None):
+                vision_embeds=None, sharder=None):
         """Process a prompt: (last-position hidden (B, D), cache);
         ``positions`` and ``vision_embeds`` as ``forward``'s."""
+        run = self.sharded(sharder)
+        if run is not None:
+            return run.prefill(tokens, max_len, positions)
         B, S = tokens.shape
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
@@ -556,9 +618,15 @@ class Transformer(StackedModel):
         return x[:, -1], cache
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, cache: dict, kv_len: int):
+    def decode_step(self, token: torch.Tensor, cache: dict, kv_len: int, *,
+                    sharder=None):
         """One decode step.  token: (B,); kv_len: the cache fill.  Returns
-        (logits (B, V) fp32, cache, updated in place)."""
+        (logits (B, V) fp32, cache, updated in place); under a sharder of
+        more than one shard the cache is ``prefill``'s and the logits a
+        ``Sharded``."""
+        run = self.sharded(sharder)
+        if run is not None:
+            return run.decode_step(token, cache, kv_len)
         B = token.shape[0]
         x = self._embed(token[:, None])
         pos = torch.full((B, 1), kv_len, device=token.device)
@@ -636,3 +704,352 @@ def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return logits
     ids = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(ids < cfg.vocab_size, logits, -1e30)
+
+
+# ---------------------------------------------------------------------------
+# The dense family on a mesh
+# ---------------------------------------------------------------------------
+
+def kv_heads_for(h0: int, n: int, group: int):
+    """The kv heads that q heads [h0, h0 + n) read, in the layout the
+    attention takes (q head i of the shard reads kv head i // (its q heads
+    / its kv heads)): whole groups, a slice; a part of one group, that
+    head; a shard that splits a group (phi3-medium-14b's 10 heads a shard
+    at G = 4), one kv head a q head (an index, a group of 1)."""
+    if n % group == 0:
+        return slice(h0 // group, (h0 + n) // group)
+    if group % n == 0:
+        return slice(h0 // group, h0 // group + 1)
+    return torch.tensor([(h0 + i) // group for i in range(n)])
+
+
+def _decode_partial(q, k_cache, v_cache, lo: int, kv_len: int):
+    """One cache shard's flash-decoding partial: q (B, 1, H, hd), the shard
+    (B, L, KV, hd) holding positions lo.. -> (max, sum of exp, unnormalized
+    output) over its positions below kv_len, fp32, (B, KV, G, ...)."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(),
+                     k_cache.float()) * hd ** -0.5
+    pos = lo + torch.arange(k_cache.shape[1], device=q.device)
+    s = torch.where(pos < kv_len, s, MASK_VALUE)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bkgs,bskh->bkgh", p,
+                                          v_cache.float())
+
+
+class ShardedDense:
+    """The dense family on a mesh (JAX's ``forward``, ``prefill`` and
+    ``decode_step`` with a sharder): one shard-local program a mesh
+    coordinate, every shard driven by this one process, each on its
+    device, the collectives those of ``parallel/sharding.py``.  What each
+    profile's rules imply for the parameters (``Sharder.spec`` of their
+    dims) is explicit here:
+
+    - the residual stream x (batch, seq, D): batch over data, seq over
+      model in ``sp``, D whole;
+    - weights at use (``sharding.local_view``): pieces over the model
+      axis where their spec says so, every other axis gathered (``sp``'s
+      embed dim over data);
+    - ``tp``: wq column-parallel (heads), wk/wv whole, wo row-parallel and
+      its partial sums added over model; the MLP's gate/up column-parallel
+      (dff), down row-parallel, summed over model; the embedding
+      vocab-parallel (each shard's rows, zeros elsewhere, summed over
+      model); where a dim does not divide its axis it replicates, as JAX;
+    - ``sp``: every layer weight whole, each shard's queries attend to k
+      and v all-gathered along the sequence with its offset;
+    - inside a shard attention is ``attend``: ``cfg.attn_impl`` as on one
+      device, handed the shard's q heads and the kv heads they read
+      (``kv_heads_for``), or with ``sp`` its sequence offset (the kernels'
+      ``kv_offset``);
+    - decode: the cache sharded on kv_seq over model (where model divides
+      max_len, else whole on every shard, as JAX), the new k and v written
+      into the shard that owns position kv_len, attention flash-decoding:
+      each shard's partial (max, sum, output) over its positions, combined
+      by their log-sum-exp.
+
+    The parameters stay in the model (on its device); a shard's piece is a
+    slice ``.to()`` its device, so on one device it is a view, and
+    autograd adds every shard's and replica's gradient into the
+    parameter: the sum over the mesh axes its spec leaves unused."""
+
+    def __init__(self, model: "Transformer", sharder):
+        cfg = model.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.arch}: the {cfg.family} family has no sharded "
+                f"execution in the port (mesh "
+                f"{dict(zip(sharder.mesh.axis_names, sharder.mesh.shape))}"
+                f"); only the dense family's tp and sp profiles run "
+                f"sharded, every family on a 1 x 1 mesh")
+        if sharder.state_over_data:
+            raise NotImplementedError(
+                f"{cfg.arch}: state_over_data has rules but no sharded "
+                f"execution in the port")
+        self.model, self.cfg, self.sharder = model, cfg, sharder
+        self.mesh = sharder.mesh
+        self.coords = self.mesh.coords()
+        self.n = len(self.coords)
+        self.dims = model.param_dims_by_name()
+        self.params = dict(model.named_parameters())
+
+    # -- pieces ------------------------------------------------------------
+
+    def w(self, name: str):
+        """(a weight's local pieces at use, the spec they follow)."""
+        p = self.params[name]
+        return local_view(p, self.sharder.spec(self.dims[name],
+                                               tuple(p.shape)), self.mesh)
+
+    def start(self, k: int, entry, size: int) -> int:
+        return block_start(self.mesh, self.coords[k], entry, size)
+
+    def layout(self, B: int, S: int) -> PartitionSpec:
+        """The residual stream's (batch, seq) spec."""
+        xs = self.sharder.spec(("batch", "seq", "embed"),
+                               (B, S, self.cfg.d_model))
+        return PartitionSpec(xs[0], xs[1])
+
+    def _norm(self, name: str, xs: list) -> list:
+        w, _ = self.w(name)
+        return [rms_norm(x, w[k], self.cfg.norm_eps)
+                for k, x in enumerate(xs)]
+
+    def _embed(self, tokens: torch.Tensor, spec) -> list:
+        E, espec = self.w("embed")
+        vocab = spec_axes(espec[0])
+        if not vocab:
+            return [E[k][t] for k, t in enumerate(shard(tokens, spec,
+                                                        self.mesh))]
+        # Vocab-parallel: each shard looks up the tokens its rows hold,
+        # zeros elsewhere, and the model axis adds them up.  Under sp the
+        # lookup runs on the whole sequence, then each shard keeps its
+        # block.
+        seq = spec_axes(spec[1])
+        ids = shard(tokens, PartitionSpec(spec[0], None) if seq else spec,
+                    self.mesh)
+        V, Vl = self.cfg.padded_vocab, E[0].shape[0]
+        parts = []
+        for k, t in enumerate(ids):
+            local = t - self.start(k, espec[0], V)
+            hit = (local >= 0) & (local < Vl)
+            parts.append(torch.where(hit[..., None],
+                                     E[k][local.clamp(0, Vl - 1)], 0))
+        xs = psum(parts, self.mesh, vocab)
+        if seq:
+            S = tokens.shape[1]
+            Sl = S // axes_size(self.mesh, seq)
+            xs = [x[:, self.start(k, spec[1], S):][:, :Sl]
+                  for k, x in enumerate(xs)]
+        return xs
+
+    # -- a layer -------------------------------------------------------------
+
+    def _qkv(self, pre: str, hs: list, pos: list):
+        cfg = self.cfg
+        wq, qspec = self.w(pre + "wq")
+        wk, wv = self.w(pre + "wk")[0], self.w(pre + "wv")[0]
+        norms = ((self.w(pre + "q_norm")[0], self.w(pre + "k_norm")[0])
+                 if cfg.qk_norm else ([None] * self.n, [None] * self.n))
+        qkv = [project_qkv(cfg, h, wq[k], wk[k], wv[k], norms[0][k],
+                           norms[1][k], pos[k]) for k, h in enumerate(hs)]
+        return [list(t) for t in zip(*qkv)], qspec
+
+    def _out(self, pre: str, outs: list, hs: list, qspec) -> list:
+        """wo row-parallel where the heads shard: partial sums added over
+        the model axis."""
+        wo, _ = self.w(pre + "wo")
+        D = self.cfg.d_model
+        part = [(o.reshape(*o.shape[:2], -1) @ wo[k].reshape(-1, D)
+                 ).to(hs[k].dtype) for k, o in enumerate(outs)]
+        return psum(part, self.mesh, spec_axes(qspec[1]))
+
+    def _heads(self, k: int, qspec, n_local: int):
+        """(first q head of shard k, the kv heads those read)."""
+        if not spec_axes(qspec[1]):
+            return 0, slice(None)
+        cfg = self.cfg
+        h0 = self.start(k, qspec[1], cfg.n_heads)
+        return h0, kv_heads_for(h0, n_local,
+                                cfg.n_heads // cfg.n_kv_heads)
+
+    def _attn(self, pre: str, hs: list, pos: list, spec):
+        (q, k_, v), qspec = self._qkv(pre, hs, pos)
+        seq = spec_axes(spec[1])
+        S = hs[0].shape[1] * axes_size(self.mesh, seq)
+        if seq:
+            k_ = all_gather(k_, self.mesh, seq, 1)
+            v = all_gather(v, self.mesh, seq, 1)
+        outs = []
+        for k in range(self.n):
+            _, sel = self._heads(k, qspec, q[k].shape[2])
+            off = self.start(k, spec[1], S) if seq else 0
+            outs.append(attend(self.cfg, q[k], k_[k][:, :, sel],
+                               v[k][:, :, sel], True, off))
+        return self._out(pre, outs, hs, qspec), (k_, v)
+
+    def _mlp(self, pre: str, hs: list) -> list:
+        up, uspec = self.w(pre + "up")
+        down, _ = self.w(pre + "down")
+        gate = (self.w(pre + "gate")[0] if self.cfg.gated_mlp
+                else [None] * self.n)
+        outs = [mlp_apply(h, up[k], gate[k], down[k], self.cfg.activation)
+                for k, h in enumerate(hs)]
+        return psum(outs, self.mesh, spec_axes(uspec[1]))
+
+    def _layer(self, i: int, xs: list, pos: list, spec):
+        pre = f"layers.{i}."
+        a, kv = self._attn(pre + "attn.", self._norm(pre + "attn_norm", xs),
+                           pos, spec)
+        xs = [x + o for x, o in zip(xs, a)]
+        m = self._mlp(pre + "mlp.", self._norm(pre + "mlp_norm", xs))
+        return [x + o for x, o in zip(xs, m)], kv
+
+    def _layers(self, xs, pos, spec, lo: int, hi: int):
+        for i in range(lo, hi):
+            xs, _ = self._layer(i, xs, pos, spec)
+        return xs
+
+    # -- modes -----------------------------------------------------------------
+
+    def _inputs(self, tokens, positions):
+        spec = self.layout(*tokens.shape)
+        if positions is None:
+            positions = self.model._default_positions(tokens)
+        return spec, shard(positions, spec, self.mesh), self._embed(tokens,
+                                                                     spec)
+
+    def forward(self, tokens: torch.Tensor, positions=None, *,
+                remat: bool = True):
+        """-> (final hidden, a ``Sharded`` (B, S, D), aux 0); with
+        ``remat`` each group of ``cfg.remat_group`` layers runs under
+        ``torch.utils.checkpoint`` across all the shards at once."""
+        B, S = tokens.shape
+        spec, pos, xs = self._inputs(tokens, positions)
+        n = self.cfg.n_layers
+        g = self.cfg.remat_group
+        g = g if remat and g > 1 and n % g == 0 else 1
+        for lo in range(0, n, g):
+            if remat:
+                xs = checkpoint(self._layers, xs, pos, spec, lo, lo + g,
+                                use_reentrant=False)
+            else:
+                xs = self._layers(xs, pos, spec, lo, lo + g)
+        xs = self._norm("final_norm", xs)
+        hidden = Sharded(xs, PartitionSpec(spec[0], spec[1], None),
+                         (B, S, self.cfg.d_model), self.mesh)
+        return hidden, torch.zeros((), device=self.model.device)
+
+    def cache_spec(self, B: int, max_len: int) -> tuple:
+        cfg = self.cfg
+        shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return self.sharder.spec(self.model.cache_dims()["k"], shape), shape
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: int, positions=None):
+        """-> (last-position hidden, a ``Sharded`` (B, D); cache {"k", "v"}
+        of ``Sharded`` (n_layers, B, max_len, KV, hd), each shard's
+        positions of the padded k and v)."""
+        B, S = tokens.shape
+        if S > max_len:
+            raise ValueError(f"prompt of {S} tokens exceeds max_len "
+                             f"{max_len}")
+        spec, pos, xs = self._inputs(tokens, positions)
+        cspec, cshape = self.cache_spec(B, max_len)
+        cache = {name: Sharded(zeros_pieces(cshape, cspec, self.mesh,
+                                            self.model.dtype),
+                               cspec, cshape, self.mesh)
+                 for name in ("k", "v")}
+        L = cache["k"].pieces[0].shape[2]
+        for i in range(self.cfg.n_layers):
+            xs, kv = self._layer(i, xs, pos, spec)
+            for name, full in zip(("k", "v"), kv):
+                for k in range(self.n):
+                    lo = self.start(k, cspec[2], max_len)
+                    hi = min(lo + L, S)
+                    if hi > lo:
+                        cache[name].pieces[k][i, :, :hi - lo] = \
+                            full[k][:, lo:hi]
+        last = [x[:, -1:] for x in xs]
+        seq = spec_axes(spec[1])
+        if seq:
+            last = all_gather(last, self.mesh, seq, 1)
+        last = self._norm("final_norm", [t[:, -1] for t in last])
+        return (Sharded(last, PartitionSpec(spec[0], None),
+                        (B, self.cfg.d_model), self.mesh), cache)
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, cache: dict, kv_len: int):
+        """One token against a ``prefill`` cache (written in place) ->
+        (logits, a ``Sharded`` (B, V) fp32 over the vocab shards, the
+        cache)."""
+        cfg, mesh = self.cfg, self.mesh
+        B = token.shape[0]
+        spec = PartitionSpec(self.sharder.spec(("batch",), (B,))[0], None)
+        xs = self._embed(token[:, None], spec)
+        pos = shard(torch.full((B, 1), kv_len, device=token.device), spec,
+                    mesh)
+        kc, vc = cache["k"], cache["v"]
+        cspec, max_len = kc.spec, kc.shape[2]
+        L = kc.pieces[0].shape[2]
+        kv_axes = spec_axes(cspec[2])
+        for i in range(cfg.n_layers):
+            pre = f"layers.{i}.attn."
+            hs = self._norm(f"layers.{i}.attn_norm", xs)
+            (q, k_new, v_new), qspec = self._qkv(pre, hs, pos)
+            heads = spec_axes(qspec[1])
+            los = [self.start(k, cspec[2], max_len) for k in range(self.n)]
+            for k in range(self.n):
+                if los[k] <= kv_len < los[k] + L:
+                    kc.pieces[k][i, :, kv_len - los[k]] = k_new[k][:, 0]
+                    vc.pieces[k][i, :, kv_len - los[k]] = v_new[k][:, 0]
+            if kv_axes:
+                qa = all_gather(q, mesh, heads, 2) if heads else q
+                parts = [_decode_partial(qa[k], kc.pieces[k][i],
+                                         vc.pieces[k][i], los[k], kv_len + 1)
+                         for k in range(self.n)]
+                top = pmax([p[0] for p in parts], mesh, kv_axes)
+                scale = [torch.exp(p[0] - t) for p, t in zip(parts, top)]
+                tot = psum([p[1] * w for p, w in zip(parts, scale)], mesh,
+                           kv_axes)
+                acc = psum([p[2] * w[..., None]
+                            for p, w in zip(parts, scale)], mesh, kv_axes)
+                outs = []
+                for k in range(self.n):
+                    o = (acc[k] / tot[k][..., None]).to(q[k].dtype)
+                    o = o.reshape(o.shape[0], 1, cfg.n_heads, cfg.head_dim)
+                    h0, _ = self._heads(k, qspec, q[k].shape[2])
+                    outs.append(o[:, :, h0:h0 + q[k].shape[2]])
+            else:
+                outs = []
+                for k in range(self.n):
+                    _, sel = self._heads(k, qspec, q[k].shape[2])
+                    outs.append(decode_attention(
+                        q[k], kc.pieces[k][i][:, :, sel],
+                        vc.pieces[k][i][:, :, sel], kv_len + 1))
+            xs = [x + o for x, o in zip(xs, self._out(pre, outs, hs, qspec))]
+            pre = f"layers.{i}."
+            m = self._mlp(pre + "mlp.", self._norm(pre + "mlp_norm", xs))
+            xs = [x + o for x, o in zip(xs, m)]
+        xs = self._norm("final_norm", xs)
+        return self.logits([x[:, 0] for x in xs], spec[0]), cache
+
+    @torch.no_grad()
+    def logits(self, hs: list, batch_entry) -> "Sharded":
+        """hidden (B, D) pieces @ lm_head.T in fp32 over the vocab shards,
+        the padded rows masked: a ``Sharded`` (B, V)."""
+        W, wspec = self.w("lm_head")
+        V, Vl = self.cfg.padded_vocab, W[0].shape[0]
+        out = []
+        for k, h in enumerate(hs):
+            logits = F.linear(h.float(), W[k].float())
+            if self.cfg.padded_vocab != self.cfg.vocab_size:
+                ids = self.start(k, wspec[0], V) + torch.arange(
+                    Vl, device=logits.device)
+                logits = torch.where(ids < self.cfg.vocab_size, logits, -1e30)
+            out.append(logits)
+        B = hs[0].shape[0] * axes_size(self.mesh, spec_axes(batch_entry))
+        return Sharded(out, PartitionSpec(batch_entry, wspec[0]), (B, V),
+                       self.mesh)

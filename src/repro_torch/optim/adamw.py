@@ -19,6 +19,9 @@ import math
 import torch
 
 
+_HOST = torch.device("cpu")
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
     lr: float = 3e-4
@@ -62,31 +65,80 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _update_leaf(p, m, v, g, scale, lr, bc1, bc2, cfg: AdamWConfig) -> None:
+    """One leaf's (or one slice's) AdamW step, in place."""
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.float() * scale
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_(((1 - b2) * g).mul_(g))
+    del g
+    # m̂ / (sqrt(v̂) + eps) + wd * p, each op rounded as in JAX, with at
+    # most two temporaries of the leaf's size at a time (a 256,000-row
+    # embedding's are 5.9 GB each).
+    denom = (v / bc2).sqrt_().add_(cfg.eps)
+    step_dir = (m / bc1).div_(denom)
+    step_dir.add_(torch.mul(p, cfg.weight_decay, out=denom))
+    del denom
+    p.sub_(step_dir.mul_(lr))
+
+
+def _opt_slices(sharder, dims: dict, params: dict):
+    """{name: [(slices, owner device)]}: each parameter's distinct
+    ``opt_spec`` slices (ZeRO-1), each with the device of the first shard
+    that holds it."""
+    from repro_torch.parallel.sharding import local_slices
+    mesh = sharder.mesh
+    out = {}
+    for name, p in params.items():
+        spec = sharder.opt_spec(dims[name], tuple(p.shape))
+        seen: dict = {}
+        for c, dev in zip(mesh.coords(), mesh.devices):
+            sl = local_slices(spec, tuple(p.shape), mesh, c)
+            seen.setdefault(tuple((s.start, s.stop) for s in sl), (sl, dev))
+        out[name] = list(seen.values())
+    return out
+
+
 @torch.no_grad()
-def apply_update(state: dict, grads: dict, cfg: AdamWConfig):
+def apply_update(state: dict, grads: dict, cfg: AdamWConfig, *,
+                 sharder=None, dims: dict | None = None):
     """One AdamW step; ``grads`` match ``state["params"]`` by name (any float
     dtype).  Updates the state in place and returns (state, {"grad_norm",
-    "lr"})."""
+    "lr"}).
+
+    With a ``sharder`` of more than one shard (and ``dims``, the
+    parameters' logical dims by name), ZeRO-1: the step runs on each
+    parameter's distinct ``opt_spec`` slices, each on its owner shard's
+    device (a view where that is the state's), and the updated slices are
+    written back; the grad norm sums each distinct slice once."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if sharder is None or sharder.trivial:
+        gnorm = global_norm(grads)
+        pieces = {name: [((slice(None),) * p.dim(), p.device)]
+                  for name, p in state["params"].items()}
+    else:
+        pieces = _opt_slices(sharder, dims, state["params"])
+        total = 0
+        for name, slices in pieces.items():
+            for sl, dev in slices:
+                part = torch.sum(torch.square(grads[name][sl].to(dev).float()))
+                total = total + part.to(grads[name].device)
+        gnorm = torch.sqrt(total)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - b1 ** step.to(torch.float32)
-    bc2 = 1 - b2 ** step.to(torch.float32)
+    bc1 = 1 - cfg.b1 ** step.to(torch.float32)
+    bc2 = 1 - cfg.b2 ** step.to(torch.float32)
     for name, p in state["params"].items():
-        m, v = state["m"][name], state["v"][name]
-        g = grads[name].float() * scale
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_(((1 - b2) * g).mul_(g))
-        del g
-        # m̂ / (sqrt(v̂) + eps) + wd * p, each op rounded as in JAX, with at
-        # most two temporaries of the leaf's size at a time (a 256,000-row
-        # embedding's are 5.9 GB each).
-        denom = (v / bc2).sqrt_().add_(cfg.eps)
-        step_dir = (m / bc1).div_(denom)
-        step_dir.add_(torch.mul(p, cfg.weight_decay, out=denom))
-        del denom
-        p.sub_(step_dir.mul_(lr))
+        for sl, dev in pieces[name]:
+            leaves = [t[sl] for t in (p, state["m"][name], state["v"][name])]
+            local = [t.to(dev) for t in leaves]
+            # lr and the bias corrections are host scalars; the clip scale
+            # follows the slice only onto another card.
+            _update_leaf(*local, grads[name][sl].to(dev),
+                         scale if scale.device in (dev, _HOST)
+                         else scale.to(dev), lr, bc1, bc2, cfg)
+            for t, u in zip(leaves, local):
+                if u.data_ptr() != t.data_ptr():
+                    t.copy_(u)
     state["step"] = step
     return state, {"grad_norm": gnorm, "lr": lr}

@@ -18,14 +18,16 @@ never deeper than the local extent: one phase reaches one neighbour.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Sequence
 
 import torch
 
 
 class MeshShape(tuple):
-    """(n_row, n_col) that also answers ``shape[axis_name]``, as a JAX
-    mesh's ``shape`` does."""
+    """The mesh's axis sizes that also answer ``shape[axis_name]``, as a
+    JAX mesh's ``shape`` does."""
 
     def __new__(cls, sizes, axis_names):
         obj = super().__new__(cls, sizes)
@@ -37,39 +39,69 @@ class MeshShape(tuple):
             return tuple.__getitem__(self, self.axis_names.index(key))
         return tuple.__getitem__(self, key)
 
+    def get(self, key: str, default=None):
+        return self[key] if key in self.axis_names else default
+
 
 @dataclasses.dataclass(frozen=True)
 class TileMesh:
-    """An ``n_row x n_col`` grid of tiles; ``devices`` holds each tile's
-    device in row-major order."""
+    """A grid of shards over named axes: ``devices`` holds each shard's
+    device in row-major order over ``axis_names``.  The halo path tiles a
+    2D grid over two axes; the LM's sharder (``parallel/sharding.py``) and
+    the pipeline (``parallel/pipeline.py``) take any number."""
 
     shape: MeshShape
-    axis_names: tuple[str, str]
+    axis_names: tuple[str, ...]
     devices: tuple[torch.device, ...]
 
+    @property
+    def size(self) -> int:
+        return len(self.devices)
 
-def make_mesh(shape: tuple[int, int],
-              axis_names: tuple[str, str] = ("data", "model"),
+    def coords(self) -> list[tuple[int, ...]]:
+        """Every shard's coordinate, one index an axis, row-major."""
+        return list(itertools.product(*(range(n) for n in self.shape)))
+
+    def index(self, coord) -> int:
+        """The row-major position of ``coord`` in ``devices``."""
+        k = 0
+        for i, n in zip(coord, self.shape):
+            k = k * n + i
+        return k
+
+    def device_at(self, pos: dict) -> torch.device:
+        """The device of the shard at ``pos`` ({axis name: index}; an axis
+        not named sits at 0)."""
+        return self.devices[self.index(
+            tuple(pos.get(a, 0) for a in self.axis_names))]
+
+
+def make_mesh(shape: tuple[int, ...],
+              axis_names: tuple[str, ...] = ("data", "model"),
               devices=None) -> TileMesh:
-    """A :class:`TileMesh` of ``shape`` tiles.
+    """A :class:`TileMesh` of ``shape`` shards over ``axis_names`` (one a
+    dim of ``shape``).
 
-    ``devices`` is one device for every tile, or one a tile in row-major
-    order.  Without it the tiles go round-robin on the visible CUDA devices,
-    and where there is none this raises: the CPU is used only when named.
+    ``devices`` is one device for every shard, or one a shard in row-major
+    order; any ``torch.device`` will do (``"meta"`` places nothing, for
+    meshes that only price or resolve specs).  Without it the shards go
+    round-robin on the visible CUDA devices, and where there is none this
+    raises: the CPU is used only when named.
     """
-    n_row, n_col = (int(s) for s in shape)
-    if n_row < 1 or n_col < 1:
+    sizes = tuple(int(s) for s in shape)
+    if not sizes or min(sizes) < 1:
         raise ValueError(f"mesh shape must be positive, got {tuple(shape)}")
-    if len(axis_names) != 2 or axis_names[0] == axis_names[1]:
-        raise ValueError(f"a tile mesh has two distinct axis names, got "
-                         f"{tuple(axis_names)}")
-    n = n_row * n_col
+    if len(axis_names) != len(sizes) or \
+            len(set(axis_names)) != len(axis_names):
+        raise ValueError(f"a {len(sizes)}-axis mesh needs {len(sizes)} "
+                         f"distinct axis names, got {tuple(axis_names)}")
+    n = math.prod(sizes)
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "make_mesh places tiles on the CUDA devices by default and "
-                "none is available here; pass devices='cpu' to tile on the "
-                "CPU")
+                "make_mesh places shards on the CUDA devices by default and "
+                "none is available here; pass devices='cpu' to shard on "
+                "the CPU")
         count = torch.cuda.device_count()
         devs = [torch.device("cuda", k % count) for k in range(n)]
     elif isinstance(devices, (str, torch.device)):
@@ -77,9 +109,10 @@ def make_mesh(shape: tuple[int, int],
     else:
         devs = [torch.device(d) for d in devices]
         if len(devs) != n:
-            raise ValueError(f"{len(devs)} devices for a {n_row}x{n_col} "
-                             f"mesh of {n} tiles")
-    return TileMesh(MeshShape((n_row, n_col), axis_names), tuple(axis_names),
+            raise ValueError(f"{len(devs)} devices for a "
+                             f"{'x'.join(map(str, sizes))} mesh of {n} "
+                             f"shards")
+    return TileMesh(MeshShape(sizes, axis_names), tuple(axis_names),
                     tuple(devs))
 
 

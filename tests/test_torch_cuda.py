@@ -1569,3 +1569,43 @@ def test_halo_runner_on_the_card_equals_reference(cuda, fuse):
                 backend="reference", **kw)
     assert r.converged and r.iterations == s.iterations
     assert torch.equal(r.x, s.x)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "phi3-medium-14b"])
+def test_sharded_dense_on_the_card_equals_unsharded(cuda, arch):
+    # a 2x4 ("data", "model") mesh with every shard on cuda:0, fp32 smoke
+    # config through the flash kernels: qwen3's tp shards hand K7-K9 one q
+    # head and its kv head, phi3's sp shards their sequence offset
+    import dataclasses
+    import functools
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build
+    from repro_torch.parallel import make_mesh
+    from repro_torch.parallel.sharding import Sharder
+    from repro_torch.train.serve_step import greedy_generate
+    from repro_torch.train.train_step import (init_train_state, loss_fn,
+                                              value_and_grad)
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              attn_impl="flash")
+    model = build(cfg, device=cuda, dtype=torch.float32)
+    sh = Sharder(make_mesh((2, 4)), cfg.sharding_profile)
+    assert {d.type for d in sh.mesh.devices} == {"cuda"}
+    tokens = torch.tensor(_rng.integers(0, cfg.vocab_size, (4, 16)),
+                          device=cuda)
+    batch = {"tokens": tokens, "labels": tokens.roll(1, 1)}
+    params = init_train_state(model)["params"]
+    before = dict(_build.LAUNCHES)
+    l1, _, g1 = value_and_grad(model, params, batch)
+    l2, _, g2 = value_and_grad(model, params, batch,
+                               functools.partial(loss_fn, sharder=sh))
+    launched = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
+    assert launched["flash_fwd"] == 2 * 2 * (1 + 8)   # remat: 2 a layer
+    assert launched["flash_bwd_dq"] == launched["flash_bwd_dkv"] == 2 * 9
+    assert abs(float(l2) / float(l1) - 1) <= 1e-5
+    for n, g in g1.items():
+        assert (g2[n] - g).abs().max() <= 1e-4 * max(float(g.abs().max()),
+                                                     1e-3), n
+    want = greedy_generate(model, {"tokens": tokens}, steps=3, max_len=20)
+    got = greedy_generate(model, {"tokens": tokens}, steps=3, max_len=20,
+                          sharder=sh)
+    assert torch.equal(got, want)

@@ -53,7 +53,9 @@ def test_no_jax_or_repro_import_anywhere_in_the_port():
                    "configs/phi3_medium_14b.py", "checkpoint/__init__.py",
                    "checkpoint/checkpoint.py", "runtime/__init__.py",
                    "runtime/ft.py", "parallel/__init__.py",
-                   "parallel/halo.py", "core/distributed.py"):
+                   "parallel/halo.py", "core/distributed.py",
+                   "parallel/sharding.py", "parallel/pipeline.py",
+                   "launch/mesh.py"):
         assert os.path.join(PKG, *module.split("/")) in files, module
     bad = []
     for path in (f for f in files if f.endswith(".py")):
@@ -178,6 +180,47 @@ def test_port_imports_and_solves_with_jax_blocked():
     assert out.returncode == 0, out.stderr[-4000:]
     converged, iters = out.stdout.split()
     assert converged == "True" and int(iters) > 0
+
+
+LM_DISTRIBUTION = ("repro_torch.parallel.sharding",
+                   "repro_torch.parallel.pipeline", "repro_torch.launch.mesh")
+
+
+def test_lm_distribution_modules_import_no_process_group():
+    """One process drives every shard: the sharder, the pipeline and the
+    meshes import neither the JAX package nor ``torch.distributed``, in
+    their source or at run time."""
+    for mod in LM_DISTRIBUTION:
+        path = os.path.join(REPO, "src", *mod.split(".")) + ".py"
+        for name in _imported_modules(path):
+            assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), (
+                mod, name)
+            assert not name.startswith("torch.distributed"), (mod, name)
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        sys.path.insert(0, {os.path.join(REPO, 'src')!r})
+        import torch
+        before = set(m for m in sys.modules if m.startswith(
+            "torch.distributed"))
+        import {", ".join(LM_DISTRIBUTION)}
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.parallel.sharding import Sharder, shard, gather
+        mesh = make_host_mesh(4, devices=["cpu"] * 8)
+        x = torch.arange(32.0).reshape(8, 4)
+        spec = Sharder(mesh).spec(("vocab", "embed"), (8, 4))
+        assert torch.equal(gather(shard(x, spec, mesh), spec, mesh), x)
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and (m.split(".")[0] in ("jax", "jaxlib", "repro")
+                             or m.startswith("torch.distributed")
+                             and m not in before))
+        print(loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_adjoint_and_solver_layer_load_no_jax():

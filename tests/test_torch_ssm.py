@@ -112,7 +112,8 @@ def test_conv_halo_carries_the_sequence_into_decode():
 def test_param_def_dtype_survives_stacking_and_init():
     table = stack_tables(stack_tables(TS.mamba2_table(16, 32, 2, 8, 4), 3),
                          2)
-    assert table["A_log"] == ParamDef((2, 3, 2), "zero", torch.float32)
+    assert table["A_log"] == ParamDef((2, 3, 2), (None, None, "ssm_heads"),
+                                      "zero", torch.float32)
     params = init_params(table, torch.Generator().manual_seed(0),
                          torch.bfloat16, torch.device("cpu"))
     for name, t in params.items():
