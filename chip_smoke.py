@@ -73,6 +73,12 @@ solver):
     heads), glm4-9b's kv_seq-sharded decode cache, phi3-medium-14b on the
     sp profile (K7/K8/K9 on sequence shards at their kv_offset), and
     qwen3-0.6b through ``parallel.pipeline.gpipe`` (phase 37);
+  - every other LM family on that mesh through its shard program
+    (``StackedModel.sharded``), at full width cut in depth
+    (``FAM_DEPTH``): qwen3-moe-30b-a3b's and moonshot-v1-16b-a3b's expert
+    parallelism served, mamba2-370m's and zamba2-1.2b's head sharding and
+    qwen2-vl-2b on the sp profile served and trained, whisper-tiny on sp
+    served whole (phase 38);
   - the differentiable solve, ``repro_torch.core.implicit_solve`` on the
     card's default plan cache (its backward one solve with the transposed
     operator; ``F.conv2d`` and shifted adds, none of K1-K9), and the
@@ -388,11 +394,37 @@ The line after phase 22 lists the kernels phases 20-22 launched.
      of 7 layers, 4 microbatches), fp32 loss and grads against the
      unpipelined step (phase 17's bounds).  K7 8 a layer on a sharded
      path (16 in a train step), K8/K9 8; 4 a layer through the pipeline.
+ 38. every other LM family on phase 37's mesh, every shard on cuda:0
+     (``families_distribution_phase``): K7-K9 first held against their
+     plain versions at the new shard shapes (qwen3-moe's tp shards of its
+     8 x 4096 prefill and its 4-layer step, moonshot's, zamba2's shared
+     attention's, qwen2-vl's four sp shards, whisper's decoder self and
+     cross shards and its encoder whole on each shard; fp32 at the fp32
+     checks' shapes) and timed beside SDPA; (a) qwen3-moe-30b-a3b, tp:
+     fp32 at 2 layers (8 x 4096: the MoE groups split over data), the
+     sharded prefill and decode logits and a step's loss and grads within
+     DIST_X times the unsharded run's distance from float64, the first
+     MoE layer's routing the same on every shard of a data row and as
+     unsharded but at fp32 ties; bf16 at 12 of 48 layers (FAM_DEPTH),
+     prefill 8 x 4096 and 8 decode tokens sharded and unsharded,
+     the logits within DIST_BF16_RATIO of the unsharded run's distance
+     from an fp32 run (a layer in fp32 at a time), the experts' device ms
+     and the combine's adds; a 4-layer bf16 step sharded and unsharded,
+     the loss within DIST_X of the unsharded's distance from fp32;
+     (b) moonshot-v1-16b-a3b, tp, the scatter dispatch, served at 12
+     layers as (a); (c) mamba2-370m (12 layers) and zamba2-1.2b (14), tp,
+     (d) qwen2-vl-2b (14), sp, with drawn vision embeddings on grid ids:
+     served and one step each, held as (a) against fp32 copies; (e)
+     whisper-tiny, sp, whole, batch 16 on 1500 drawn frames, served, and
+     fp32 at 1 + 1 layers against float64.  Each run's sharded and
+     unsharded ms, peak GB and the sharded decode step's idle share.  K7
+     8 a layer a shard on every path with attention (16 in a step),
+     K8/K9 8.  About 125 s.
 The inventory line lists K1-K9 and K5's split kernel, and K7-K9 again at
 zamba2's shape, at qwen3-moe's GQA-8 shape, at qwen2-vl's GQA-6 shape, at
 whisper's encoder and cross shapes, at glm4-9b's, phi3-medium-14b's and
-nemotron-4-15b's (GQA 16, 4 and 6) and at phase 37's shard shapes, with
-their launches on those archs' serve and train paths.
+nemotron-4-15b's (GQA 16, 4 and 6) and at phases 37's and 38's shard
+shapes, with their launches on those archs' serve and train paths.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -632,6 +664,32 @@ DIST_BF16_RATIO = 1.5
 # (d) the pipelined step against the unpipelined one, fp32: phase 17's
 # flash-against-xla bounds (loss relative, each grad's max-abs relative).
 DIST_PIPE_RTOL = (1e-5, 1e-4)
+# Phase 38: every other LM family on DIST_MESH, every shard on cuda:0,
+# held by DIST_X (fp32 against float64) and DIST_BF16_RATIO (bf16 at
+# depth against an fp32 run of the same weights).
+FAM_MOE_SERVE = (8, 4096, 8)     # (a) batch, prompt, decode tokens: 32
+                                 # groups of 1024, 2 a wave, over data
+FAM_MOE_FP32 = (8, 4096, 2, 2)   # (a) fp32: batch, prompt, steps, layers
+FAM_MOE_FP32_TRAIN = (2, 2048)   # (a) fp32 loss and grads: batch, seq
+FAM_MOE_TRAIN = (4, 2048, 4)     # (a) bf16 step: batch, seq, layers
+                                 # (phase 29's cut: 16 B a parameter)
+FAM_SERVE = (4, 2048, 8)         # (b)-(d): batch, prompt, decode tokens
+FAM_TRAIN = (4, 2048)            # (c), (d): the bf16 step
+FAM_ENC = (16, 224, 8)           # (e): batch, decoder prompt, tokens
+FAM_ENC_FP32_DEPTH = 1           # (e): layers a side of the fp32 check
+# (a)-(d) at these depths (full width): at full depth the phase took 790.9
+# s on an H100 80GB HBM3 at 700 W (each shard's Python issuing every
+# routing, dispatch, SSD chunk and collective), so the serve and train
+# paths are cut in depth to keep it under 180 s; whisper-tiny (e) runs
+# whole.
+FAM_DEPTH = {"qwen3-moe-30b-a3b": 12, "moonshot-v1-16b-a3b": 12,
+             "mamba2-370m": 12, "zamba2-1.2b": 14, "qwen2-vl-2b": 14}
+FAM_REF_Q_CHUNK = 256            # the references' plain attention rows
+# (a) an fp32 tie in the routing: two of a token's top-(k + 1) router
+# probabilities within this much of its largest (fp32 rounds a prob to
+# 6e-8 of itself; the sharded and unsharded runs' router inputs differ by
+# the tp sums' order, about 1e-6 relative).
+FAM_ROUTE_TIE = 1e-5
 DEVICE = "cuda"
 # Phases 20-22, the stencil serving tier.  Autotune cells: (name, spec,
 # grid, iterations a timed call); Table 1's and Fig 6's go to the committed
@@ -2675,31 +2733,7 @@ def lm_distribution_phase(dev, flash_case, bwd_case, graph_ms, time_ms,
         sync()
         torch.cuda.empty_cache()
 
-    def rel(a, b):
-        return float((a.double() - b.double()).abs().max()
-                     / b.double().abs().max())
-
-    def worst(run, ref):
-        """The largest per-leaf max-abs-relative distance of two grads."""
-        return max(rel(run[n], g) for n, g in ref.items())
-
-    def l2rel(run, ref):
-        """||run - ref|| / ||ref|| over every leaf of two grads."""
-        num = sum(float((run[n].double() - g.double()).square().sum())
-                  for n, g in ref.items())
-        return (num / sum(float(g.double().square().sum())
-                          for g in ref.values())) ** 0.5
-
-    @contextlib.contextmanager
-    def widened():
-        """The port's fp32 points (``.float()``: norms, softmax, rope, the
-        LM head) as float64, for the float64 reference."""
-        orig = torch.Tensor.float
-        torch.Tensor.float = lambda self: self.double()
-        try:
-            yield
-        finally:
-            torch.Tensor.float = orig
+    rel, worst, l2rel, widened = dist_rel, dist_worst, dist_l2rel, widened64
 
     def ms_of(fn):
         sync()
@@ -3206,12 +3240,40 @@ def lm_distribution_phase(dev, flash_case, bwd_case, graph_ms, time_ms,
             "shapes": shapes, "offsets": offsets}
 
 
+def dist_rel(a, b):
+    """max |a - b| / max |b| (phases 37-38)."""
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+def dist_worst(run, ref):
+    """The largest per-leaf max-abs-relative distance of two grads."""
+    return max(dist_rel(run[n], g) for n, g in ref.items())
+
+
+def dist_l2rel(run, ref):
+    """||run - ref|| / ||ref|| over every leaf of two grads."""
+    num = sum(float((run[n].double() - g.double()).square().sum())
+              for n, g in ref.items())
+    return (num / sum(float(g.double().square().sum())
+                      for g in ref.values())) ** 0.5
+
+
+@contextlib.contextmanager
+def widened64():
+    """The port's fp32 points (``.float()``: norms, softmax, rope, the LM
+    head) as float64, for a float64 reference run."""
+    import torch
+    orig = torch.Tensor.float
+    torch.Tensor.float = lambda self: self.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
 def dist_kernel_rows(dist, entry, case_err):
-    """The kernels line's K7-K9 rows at phase 37's shard shapes:
-    times from ``dist["timings"]`` (summed over the offsets of a
-    sequence shard), launches from the path that ran each shape, errors
-    from the plain-version holds; ``entry`` is main's row maker."""
-    kernels = []
+    """The kernels line's K7-K9 rows at phase 37's shard shapes."""
     dl = dist["launches"]
     dist_paths = {   # row -> (dtype, K7's path launches, the step's)
         "tp qwen3-0.6b shard": {
@@ -3233,22 +3295,38 @@ def dist_kernel_rows(dist, entry, case_err):
                                     "one launch at each kv_offset)",
         "gpipe qwen3-0.6b microbatch": "a gpipe microbatch of qwen3-0.6b "
                                        "(batch 1, 4 stages of 7 layers)"}
-    for label, by_dtype in dist_paths.items():
+    return shard_kernel_rows(dist["timings"], dist_paths, dist_case, 37,
+                             entry, case_err)
+
+
+def shard_kernel_rows(timings, paths, cases, phase, entry, case_err):
+    """The kernels line's K7-K9 rows at a distribution phase's shard
+    shapes: times from ``timings`` ({"<label> <dtype>": a row or a list
+    of rows, one a kv_offset}: ``k7_timing``'s and ``k89_timing``'s,
+    summed over the offsets of a sequence shard), launches from the path
+    that ran each shape (``paths``: {label: {dtype: (K7's path launches,
+    the train step's)}}), errors from the plain-version holds; ``cases``
+    describes each label, ``entry`` is main's row maker."""
+    kernels = []
+    for label, by_dtype in paths.items():
         for dtype, (serve_l, train_l) in by_dtype.items():
-            rows_t = dist["timings"][f"{label} {dtype}"]
+            rows_t = timings[f"{label} {dtype}"]
             rows_t = rows_t if isinstance(rows_t, list) else [rows_t]
             offs = [r["k7"]["kv_offset"] for r in rows_t]
+            causal = rows_t[0]["k7"]["causal"]
             names = [f"{label} off{o}" if o else label for o in offs]
 
             def total(part, key):
                 return sum(r[part][key] for r in rows_t)
 
             peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
-            rows = {"shape": rows_t[0]["k7"]["shape"], "causal": True,
-                    "dtype": dtype, "case": dist_case[label],
+            gqa = rows_t[0]["k7"]["shape"][3] != rows_t[0]["k7"]["shape"][4]
+            rows = {"shape": rows_t[0]["k7"]["shape"], "causal": causal,
+                    "dtype": dtype, "case": cases[label],
                     "kv_offsets": offs, "plain_timing": "eager",
-                    "phase": 37, "library": (
-                        "F.scaled_dot_product_attention (enable_gqa"
+                    "phase": phase, "library": (
+                        "F.scaled_dot_product_attention ("
+                        + ("enable_gqa" if gqa else "MHA")
                         + ("; a boolean mask at each offset)" if any(offs)
                            else ")"))}
             if len(offs) > 1:
@@ -3297,6 +3375,760 @@ def dist_kernel_rows(dist, entry, case_err):
                                           for g in ("dk", "dv"))},
                       train_l, peak)]
     return kernels
+
+
+def families_distribution_phase(dev, flash_case, bwd_case, graph_ms,
+                                time_ms, device_profile):
+    """Phase 38, every LM family but the dense one on phase 37's
+    ``DIST_MESH`` ("data", "model") mesh with every shard on ``dev``,
+    through the port's shard programs (``StackedModel.sharded``: the
+    moe family's expert parallelism, the ssm and hybrid families' head
+    sharding, the vlm and encdec families under sp), at full width and
+    ``FAM_DEPTH``'s depths (whisper-tiny whole):
+
+    (k) K7, K8 and K9 at every new shard shape these paths launch, held
+    against their plain versions (``flash_case``/``bwd_case``), then
+    timed (``k7_timing``, ``k89_timing``, SDPA);
+    (a) qwen3-moe-30b-a3b, tp: fp32 at ``FAM_MOE_FP32`` (2 layers, 8 x
+    4096: 32 groups, 2 a wave, split over data): prefill and decode
+    logits, sharded and unsharded, each held to DIST_X times the unsharded
+    run's distance from float64, the first MoE layer's routing identical
+    sharded and unsharded, and the loss and grads of a step at
+    ``FAM_MOE_FP32_TRAIN``; bf16: prefill 8 x 4096 and 8 decode tokens
+    sharded and unsharded, held by DIST_BF16_RATIO to an fp32 run of the
+    same weights (a layer at a time), the experts' device ms and the
+    combine's adds; a bf16 step at 4 layers, sharded and unsharded, its
+    loss held by DIST_X to the fp32 loss (``train_pair``);
+    (b) moonshot-v1-16b-a3b, tp, the scatter dispatch: served (4 x 2048,
+    8 tokens), held as (a)'s;
+    (c) mamba2-370m and zamba2-1.2b, tp: served 4 x 2048 and 8 tokens,
+    held by DIST_BF16_RATIO to an fp32 copy; one bf16 step each, its loss
+    held as (a)'s;
+    (d) qwen2-vl-2b, sp, drawn vision embeddings on grid ids: served and
+    one step, as (c);
+    (e) whisper-tiny, sp, batch 16 on 1500 drawn frames: served, held as
+    (c), and in fp32 at ``FAM_ENC_FP32_DEPTH`` encoder and decoder layers
+    against float64 by DIST_X.
+
+    Each run reports its sharded and unsharded ms, peak GB and the
+    sharded run's last decode step's idle share (torch.profiler, device
+    only).
+    The launch counts are zeroed before each path and read after it.
+    Returns {"launches": {label: counts}, "timings": {label: rows},
+    "seconds", "shapes"}."""
+    import functools
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from _torch_vlm_encdec_cases import family_inputs
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, token_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model_zoo import batch_inputs, build
+    from repro_torch.models.moe import _expert_ffn, expert_capacity
+    from repro_torch.models.transformer import mask_pad_logits
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.halo import make_mesh
+    from repro_torch.parallel.sharding import Sharder
+    from repro_torch.train.train_step import (compute_model,
+                                              init_train_state, load_params,
+                                              loss_fn, make_train_step,
+                                              value_and_grad)
+
+    t_start = time.perf_counter()
+    rel, worst = dist_rel, dist_worst
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def flush():
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+
+    def peak_GB():
+        return (torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else 0.0)
+
+    def reset_peak():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def counted(fn):
+        """(fn(), the kernel launches it made)."""
+        _build.LAUNCHES.clear()
+        out = fn()
+        sync()
+        return out, dict(_build.LAUNCHES)
+
+    def expect(uses, fwd=1, bwd=0):
+        out = {"flash_fwd": fwd * uses, "flash_bwd_dq": bwd * uses,
+               "flash_bwd_dkv": bwd * uses}
+        return {k: v for k, v in out.items() if v}
+
+    mesh = make_mesh(DIST_MESH, ("data", "model"))
+    check(all(d.type == dev.type and (d.index or 0) == 0
+              for d in mesh.devices),
+          f"phase 38: shards off {dev.type}:0: {mesh.devices}")
+    n_shards = mesh.size
+    Dd, Mm = DIST_MESH
+    archs = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "mamba2-370m",
+             "zamba2-1.2b", "qwen2-vl-2b", "whisper-tiny")
+    cfgs = {a: dataclasses.replace(get_config(a), attn_impl="flash")
+            for a in archs}
+    cfgs = {a: dataclasses.replace(c, n_layers=FAM_DEPTH.get(a, c.n_layers))
+            for a, c in cfgs.items()}
+    cfgs["moonshot-v1-16b-a3b"] = dataclasses.replace(
+        cfgs["moonshot-v1-16b-a3b"], moe_dispatch="scatter")
+    qm, ms_, m2, zb, vl, wh = (cfgs[a] for a in archs)
+    Bq, Sq, Tq = FAM_MOE_SERVE
+    Bs, Ss, Ts = FAM_SERVE
+    Bt, St = FAM_TRAIN
+    Be, Se, Te = FAM_ENC
+    launches, timings, seconds, out = {}, {}, {}, {}
+
+    # -- (k) the new shard shapes' kernels against their plain versions ----
+    t0 = time.perf_counter()
+
+    def tp_shard(cfg, batch, seq):
+        H_l, G = cfg.n_heads // Mm, cfg.n_heads // cfg.n_kv_heads
+        return (batch // Dd, seq, seq, H_l, H_l // G if H_l % G == 0 else 1,
+                cfg.head_dim)
+
+    enc_len = wh.enc_len
+    shapes = {   # label -> (shape, causal, kv_offsets)
+        "tp qwen3-moe serve shard": (tp_shard(qm, Bq, Sq), True, [0]),
+        "tp qwen3-moe train shard": (tp_shard(qm, *FAM_MOE_TRAIN[:2]), True,
+                                     [0]),
+        "tp moonshot shard": (tp_shard(ms_, Bs, Ss), True, [0]),
+        "tp zamba2 shared attention shard": (tp_shard(zb, Bs, Ss), True,
+                                             [0]),
+        "sp qwen2-vl shard": ((Bs // Dd, Ss // Mm, Ss, vl.n_heads,
+                               vl.n_kv_heads, vl.head_dim), True,
+                              [m * (Ss // Mm) for m in range(Mm)]),
+        "sp whisper decoder self shard": (
+            (Be // Dd, Se // Mm, Se, wh.n_heads, wh.n_kv_heads,
+             wh.head_dim), True, [m * (Se // Mm) for m in range(Mm)]),
+        "sp whisper cross shard": ((Be // Dd, Se // Mm, enc_len, wh.n_heads,
+                                    wh.n_kv_heads, wh.head_dim), False, [0]),
+        "sp whisper encoder shard": ((Be // Dd, enc_len, enc_len, wh.n_heads,
+                                      wh.n_kv_heads, wh.head_dim), False,
+                                     [0])}
+    Bf, Sf, _, _ = FAM_MOE_FP32
+    fp32_shapes = {   # held in fp32 (the fp32 checks' launches), untimed
+        "tp qwen3-moe fp32 shard": (tp_shard(qm, Bf, Sf), True, [0]),
+        "tp qwen3-moe fp32 train shard": (tp_shard(qm, *FAM_MOE_FP32_TRAIN),
+                                          True, [0]),
+        "sp whisper fp32 self shard": shapes["sp whisper decoder self shard"],
+        "sp whisper fp32 cross shard": shapes["sp whisper cross shard"],
+        "sp whisper fp32 encoder shard": shapes["sp whisper encoder shard"]}
+    bwd_labels = ("tp qwen3-moe train shard",
+                  "tp zamba2 shared attention shard", "sp qwen2-vl shard",
+                  "tp qwen3-moe fp32 train shard")
+    gk = torch.Generator(device=dev).manual_seed(38)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gk, device=dev).to(dtype)
+
+    def hold(label, shape, causal, offsets, dtype):
+        Bx, Sqx, Skv, Hx, KVx, hd = shape
+        for off in offsets:
+            name = f"{label} off{off}" if off else label
+            flash_case(name, shape, dtype, causal=causal, kv_offset=off,
+                       blocks=(512, 512))
+            if label in bwd_labels:
+                bwd_case(name, rand(Bx, Sqx, Hx, hd, dtype=dtype),
+                         rand(Bx, Skv, KVx, hd, dtype=dtype),
+                         rand(Bx, Skv, KVx, hd, dtype=dtype),
+                         rand(Bx, Sqx, Hx, hd, dtype=dtype), causal=causal,
+                         kv_offset=off, flips=dtype == bf16)
+            flush()
+
+    for label, (shape, causal, offs) in shapes.items():
+        hold(label, shape, causal, offs, bf16)
+    for label, (shape, causal, offs) in fp32_shapes.items():
+        hold(label, shape, causal, offs, f32)
+    gt = torch.Generator(device=dev).manual_seed(39)
+    for label, (shape, causal, offs) in shapes.items():
+        rows = []
+        for off in offs:
+            row = {"k7": k7_timing(shape, causal, dev, gt, graph_ms, time_ms,
+                                   kv_offset=off, dtype=bf16)}
+            if label in bwd_labels:
+                row["k89"] = k89_timing(shape, causal, dev, gt, graph_ms,
+                                        time_ms, kv_offset=off, dtype=bf16)
+            rows.append(row)
+            flush()
+        timings[f"{label} bfloat16"] = rows
+    seconds["kernels"] = time.perf_counter() - t0
+
+    # -- helpers of the runs ------------------------------------------------
+
+    @torch.no_grad()
+    def serve_run(model, sharder, toks, fed, max_len, extra, prog=None,
+                  profile=False):
+        """Prefill ``toks`` (with ``extra``: a vlm's vision embeddings and
+        positions, encdec's frames), then decode the ``fed`` tokens one a
+        step (teacher-forced), unsharded or through ``prog`` (the model's
+        shard program under ``sharder``): (the logits of the last prompt
+        position and of each step, gathered (B, V) fp32 over the vocab's
+        real rows; prefill ms; decode ms a token; launches; the first
+        cache leaf's spec; with ``profile`` the last decode step run under
+        ``device_profile`` (device only; a whole sharded serve traces 10^5
+        launches, a minute of the profiler's own time) and left out of the
+        decode ms, else None)."""
+        if sharder is not None and prog is None:
+            prog = model.sharded(sharder)
+        S = toks.shape[1]
+        _build.LAUNCHES.clear()
+        sync()
+        e0 = event()
+        if prog is None:
+            last, cache = model.prefill(toks, max_len, **extra)
+            outs = [mask_pad_logits(model.logits(last), model.cfg)]
+        else:
+            last, cache = prog.prefill(toks, max_len, **extra)
+            outs = [prog.logits(last.pieces, last.spec[0]).gather()]
+        e1 = event()
+        state = {"cache": cache}
+
+        def step(i, tok):
+            if prog is None:
+                lg, state["cache"] = model.decode_step(tok, state["cache"],
+                                                       S + i)
+                return lg
+            lg, state["cache"] = prog.decode_step(tok, state["cache"], S + i)
+            return lg.gather()
+
+        timed = len(fed) - 1 if profile else len(fed)
+        for i, tok in enumerate(fed[:timed]):
+            outs.append(step(i, tok))
+        e2 = event()
+        e2.synchronize()
+        prof = None
+        if profile:
+            got = {}
+            prof = device_profile(lambda: got.setdefault(
+                "lg", step(timed, fed[timed])), top=6, host=False)
+            outs.append(got["lg"])
+        leaf = state["cache"]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        spec = list(leaf.spec) if prog is not None else None
+        V = model.cfg.vocab_size     # the padded rows' -1e30 cut off
+        return ([o[:, :V].float() for o in outs], e0.elapsed_time(e1),
+                e1.elapsed_time(e2) / max(timed, 1),
+                dict(_build.LAUNCHES), spec, prof)
+
+    def served(model, sharder, toks, fed, max_len, extra, prog=None):
+        """serve_run unsharded, then sharded, its last decode step under
+        the profiler: {"logits": (unsharded, sharded), ms, peak GB, the
+        sharded decode step's idle share and device ms by class, launches,
+        cache spec}."""
+        t1 = time.perf_counter()
+        reset_peak()
+        lu, pu, du, l_u, _, _ = serve_run(model, None, toks, fed, max_len,
+                                          extra)
+        peak_u = peak_GB()
+        flush()
+        reset_peak()
+        ls, ps, ds, l_s, spec, prof = serve_run(model, sharder, toks, fed,
+                                                max_len, extra, prog,
+                                                profile=True)
+        rec = {"prefill_ms_unsharded": pu, "prefill_ms_sharded": ps,
+               "decode_ms_per_token_unsharded": du,
+               "decode_ms_per_token_sharded": ds,
+               "peak_GB_unsharded": peak_u, "peak_GB_sharded": peak_GB(),
+               "sharded_decode_step": {
+                   k: prof[k] for k in ("wall_ms", "device_ms",
+                                        "device_idle_share", "ms_by_class",
+                                        "kernels")},
+               "launches_unsharded": l_u, "launches_sharded": l_s,
+               "cache_spec": spec, "n_layers": model.cfg.n_layers,
+               "serve_s": time.perf_counter() - t1}
+        flush()
+        return (lu, ls), rec
+
+    def hold_bf16(tag, lu, ls, l32, rec):
+        """Each step's sharded logits no farther from the fp32 run than
+        DIST_BF16_RATIO times the unsharded run's distance."""
+        rec["bf16_vs_fp32"] = []
+        for i, (u_, s_, r_) in enumerate(zip(lu, ls, l32)):
+            d_u, d_s = rel(u_, r_), rel(s_, r_)
+            rec["bf16_vs_fp32"].append({"step": i, "unsharded": d_u,
+                                        "sharded": d_s,
+                                        "sharded_vs_unsharded": rel(s_, u_)})
+            check(d_s <= DIST_BF16_RATIO * d_u, f"({tag}) bf16 logits step "
+                  f"{i}: sharded {d_s} from fp32, unsharded {d_u}")
+
+    @contextlib.contextmanager
+    def as_fp32(module, cfg32):
+        """``module``'s bf16 parameters swapped for fp32 copies (and its
+        attention's config for ``cfg32``) while it runs, then the bf16
+        tensors put back as they were."""
+        saved = [(p, p.data) for p in module.parameters()
+                 if p.dtype == bf16]
+        attn = [m for m in module.modules() if hasattr(m, "cfg")
+                and hasattr(m, "wq")]
+        for p, d in saved:
+            p.data = d.float()
+        cfgs_ = [a.cfg for a in attn]
+        for a in attn:
+            a.cfg = cfg32
+        try:
+            yield
+        finally:
+            for p, d in saved:
+                p.data = d
+            for a, c in zip(attn, cfgs_):
+                a.cfg = c
+
+    @torch.no_grad()
+    def fp32_layerwise(model, toks, fed, max_len):
+        """serve_run's logits from an fp32 run of a bf16 moe model's
+        weights, one layer in fp32 at a time (``as_fp32``; the router is
+        fp32 already), the embedding, final norm and head in fp32, the
+        cache fp32, attention plain PyTorch: the reference where an fp32
+        copy of the model would not fit beside it."""
+        cfg = model.cfg
+        cfg32 = dataclasses.replace(cfg, attn_impl="xla",
+                                    q_chunk=FAM_REF_Q_CHUNK)
+        B, S = toks.shape
+        emb, head = model.embed.float(), model.lm_head.float()
+        fnorm = model.final_norm.float()
+        shape = (B, max_len, cfg.n_kv_heads, cfg.head_dim)
+        kc = [torch.zeros(shape, device=dev) for _ in model.layers]
+        vc = [torch.zeros(shape, device=dev) for _ in model.layers]
+
+        def logits(x):
+            return mask_pad_logits(F.linear(rms_norm(x, fnorm, cfg.norm_eps),
+                                            head), cfg)
+
+        x = emb[toks]
+        pos = model._default_positions(toks)
+        for i, block in enumerate(model.layers):
+            with as_fp32(block, cfg32):
+                x, (k, v), _ = block(x, pos)
+            kc[i][:, :S], vc[i][:, :S] = k, v
+        outs = [logits(x[:, -1])]
+        for j, tok in enumerate(fed):
+            x = emb[tok[:, None]]
+            p = torch.full((B, 1), S + j, device=dev)
+            for i, block in enumerate(model.layers):
+                with as_fp32(block, cfg32):
+                    x = block.decode(x, kc[i], vc[i], S + j, p)
+            outs.append(logits(x[:, 0]))
+        return outs
+
+    def route_compare(routes_u, routes_s, waves):
+        """The first MoE layer's routing of a prefill's ``waves``, each
+        shard's groups (``routes_s``, shard order within a wave) against
+        the unsharded run's (``routes_u``): the shards of a data row must
+        agree exactly (the same expert ids and keep mask a token), and a
+        token may route otherwise than unsharded only at an fp32 tie (the
+        two runs' router inputs differ by the tp sums' order): two of its
+        top-(k + 1) probabilities within FAM_ROUTE_TIE of its largest, the
+        keep mask changing only in a group holding such a token."""
+        G_u = routes_u[0][0].shape[0]
+        Gl = routes_s[0][0].shape[0]
+        agree, moved, ties, keep_off = True, 0, True, True
+        gaps = []
+        for w in range(waves):
+            e_u, k_u, p_u = routes_u[w]
+            rows = {}
+            for k, coord in enumerate(mesh.coords()):
+                e_s, k_s, _ = routes_s[w * n_shards + k]
+                if coord[0] in rows:
+                    agree &= bool(torch.equal(e_s, rows[coord[0]][0])
+                                  and torch.equal(k_s, rows[coord[0]][1]))
+                    continue
+                rows[coord[0]] = (e_s, k_s)
+                g0 = coord[0] * Gl if Gl < G_u else 0
+                eu, ku = e_u[g0:g0 + Gl], k_u[g0:g0 + Gl]
+                off = (e_s != eu).any(-1)                 # (Gl, S)
+                moved += int(off.sum())
+                if off.any():
+                    top = p_u[g0:g0 + Gl][off].sort(
+                        -1, descending=True).values[:, :e_s.shape[-1] + 1]
+                    gap = ((top[:, :-1] - top[:, 1:]).amin(-1)
+                           / top[:, 0])
+                    gaps += gap.tolist()
+                    ties &= bool((gap <= FAM_ROUTE_TIE).all())
+                keep_off &= bool(((k_s != ku).any(-1).any(-1)
+                                  <= off.any(-1)).all())
+        return {"waves": waves, "groups_a_wave": G_u, "groups_a_shard": Gl,
+                "groups_split": Gl < G_u, "shards_of_a_row_agree": agree,
+                "tokens_routed_otherwise": moved,
+                "their_relative_gaps": gaps[:16],
+                "differences_at_ties_only": ties and keep_off}
+
+    def fp32_copy(model, **changes):
+        ref = type(model)(dataclasses.replace(
+            model.cfg, attn_impl="xla", q_chunk=FAM_REF_Q_CHUNK, **changes),
+            device=dev, dtype=f32)
+        ref.load_state_dict(model.state_dict())
+        return ref
+
+    def prompts(cfg, B, S, T, seed):
+        rng = np.random.default_rng(seed)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                               device=dev)
+        fed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (T, B)),
+                              device=dev)
+        return toks, fed
+
+    def extra_of(cfg, B, S, seed, dtype):
+        if cfg.family not in ("vlm", "encdec"):
+            return {}
+        return family_inputs(cfg, B, S, seed, dev, dtype)
+
+    @torch.no_grad()
+    def token_nll(model, batch):
+        """Each token's nll (T,) fp32 under a forward of ``model``."""
+        hidden, _ = model(batch["tokens"], remat=False,
+                          **batch_inputs(model.cfg, batch))
+        h = hidden.reshape(-1, hidden.shape[-1])
+        y = batch["labels"].reshape(-1, 1)
+        W, V = model.lm_head.float(), model.cfg.vocab_size
+        out = []
+        for c in range(0, h.shape[0], 1024):
+            lg = F.linear(h[c:c + 1024].float(), W)[:, :V]
+            out.append(torch.logsumexp(lg, -1)
+                       - lg.gather(1, y[c:c + 1024])[:, 0])
+        return torch.cat(out)
+
+    def train_pair(cfg, B, S, tag):
+        """One bf16 step off fp32 masters drawn from seed 0, unsharded and
+        sharded (a fresh master each: a step updates its masters), timed;
+        the sharded loss held to DIST_X times the unsharded's distance
+        from the masters' fp32 loss, or, where that is smaller, to DIST_X
+        times the bf16 loss's own noise: the standard error of the mean of
+        the tokens' bf16-against-fp32 nll differences (a bf16 run of these
+        random models moves each token's nll by far more than the mean
+        moves, so two bf16 runs' losses part by about that error, whatever
+        their summation order)."""
+        sh = Sharder(mesh, cfg.sharding_profile)
+        batch = {**token_batch(DataConfig(cfg.vocab_size, S, B), 0,
+                               device=dev),
+                 **extra_of(cfg, B, S, 7, bf16)}
+        rec = {"batch": B, "seq_len": S, "n_layers": cfg.n_layers}
+        for run in ("unsharded", "sharded"):
+            master = build(cfg, device=dev, dtype=f32,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+            if run == "unsharded":
+                with torch.no_grad():
+                    rec["loss_fp32"] = float(loss_fn(master, batch)[0])
+                    compute = compute_model(master, bf16)
+                    load_params(compute, dict(master.named_parameters()))
+                    diff = token_nll(compute, batch) - token_nll(master,
+                                                                 batch)
+                    rec["loss_noise"] = float(diff.std() / diff.numel()
+                                              ** 0.5) / rec["loss_fp32"]
+                    del compute, diff
+            step = make_train_step(master, AdamWConfig(),
+                                   sharder=sh if run == "sharded" else None)
+            state = init_train_state(master)
+            reset_peak()
+            sync()
+            e0 = event()
+            (state, met), l_ = counted(lambda: step(state, batch))
+            e1 = event()
+            e1.synchronize()
+            rec[run] = {"ms": e0.elapsed_time(e1), "peak_GB": peak_GB(),
+                        "loss": float(met["loss"]),
+                        "grad_norm": float(met["grad_norm"]),
+                        "aux": float(met["aux"]), "launches": l_}
+            check(all(math.isfinite(rec[run][k])
+                      for k in ("loss", "grad_norm")),
+                  f"({tag}) {run} bf16 step: {rec[run]}")
+            del master, step, state, met
+            flush()
+        d_u = abs(rec["unsharded"]["loss"] / rec["loss_fp32"] - 1)
+        d_s = abs(rec["sharded"]["loss"] / rec["loss_fp32"] - 1)
+        rec.update(loss_unsharded_vs_fp32=d_u, loss_sharded_vs_fp32=d_s)
+        check(d_s <= DIST_X * max(d_u, rec["loss_noise"]),
+              f"({tag}) bf16 step loss: sharded {d_s} from fp32, past "
+              f"{DIST_X} x {max(d_u, rec['loss_noise'])}")
+        return rec
+
+    # -- (a) qwen3-moe-30b-a3b, tp -----------------------------------------
+    t0 = time.perf_counter()
+    tp = Sharder(mesh, qm.sharding_profile)
+    check(tp.profile == "tp", f"{qm.arch} runs {tp.profile}")
+    Bf, Sf, Tf, Lf = FAM_MOE_FP32
+    cut = dataclasses.replace(qm, n_layers=Lf)
+    m32 = build(cut, device=dev, dtype=f32,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    toks, fed = prompts(cut, Bf, Sf, Tf, 40)
+    max_f = Sf + Tf + 2                 # model 4 divides it: the cache shards
+    m32.layers[0].moe.routes = []
+    lu, _, _, l_u, _, _ = serve_run(m32, None, toks, fed, max_f, {})
+    routes_u = m32.layers[0].moe.routes
+    m32.layers[0].moe.routes = None
+    prog = m32.sharded(tp)
+    prog.routes = {}
+    ls, _, _, l_s, fspec, _ = serve_run(m32, tp, toks, fed, max_f, {},
+                                        prog)
+    routes_s = prog.routes["layers.0."]
+    check(l_u == expect(Lf) and l_s == expect(Lf * n_shards),
+          f"(a) fp32 serve launched {l_u}, {l_s}")
+    routing = route_compare(routes_u, routes_s, len(routes_u) - Tf)
+    check(routing["shards_of_a_row_agree"] and routing["groups_split"]
+          and routing["differences_at_ties_only"],
+          f"(a) fp32 routing of layer 0: {routing}")
+    del routes_u, routes_s, prog
+    m64 = type(m32)(dataclasses.replace(cut, attn_impl="xla",
+                                        q_chunk=FAM_REF_Q_CHUNK),
+                    device=dev, dtype=f64)
+    m64.load_state_dict(m32.state_dict())
+    with widened64():
+        l64 = serve_run(m64, None, toks, fed, max_f, {})[0]
+    fp32 = {"n_layers": Lf, "batch": Bf, "prompt": Sf, "cache_spec": fspec,
+            "routing": routing, "logits": []}
+    for i, (s_, u_, r_) in enumerate(zip(ls, lu, l64)):
+        d_u, d_s = rel(u_, r_), rel(s_, u_)
+        fp32["logits"].append({"step": i, "unsharded_vs_f64": d_u,
+                               "sharded_vs_unsharded": d_s,
+                               "sharded_vs_f64": rel(s_, r_)})
+        check(d_s <= DIST_X * d_u, f"(a) fp32 logits step {i}: sharded "
+              f"{d_s} from unsharded, past {DIST_X} x {d_u}")
+    del lu, ls, l64
+    flush()
+    Bg, Sg = FAM_MOE_FP32_TRAIN
+    batch = token_batch(DataConfig(cut.vocab_size, Sg, Bg), 0, device=dev)
+    params32 = {n: p.detach() for n, p in m32.named_parameters()}
+    loss_u, _, g_u = value_and_grad(m32, params32, batch)
+    (loss_s, _, g_s), step_s = counted(lambda: value_and_grad(
+        m32, params32, batch, functools.partial(loss_fn, sharder=tp)))
+    check(step_s == expect(Lf * n_shards, 2, 1),
+          f"(a) fp32 sharded step launched {step_s}")
+    launches["a fp32 step"] = step_s
+    del m32, params32
+    with widened64():
+        loss64, _, g64 = value_and_grad(
+            m64, {n: p.detach() for n, p in m64.named_parameters()}, batch)
+    del m64
+    d_u = abs(float(loss_u) / float(loss64) - 1)
+    d_s = abs(float(loss_s) / float(loss_u) - 1)
+    gd_u, gd_s = worst(g_u, g64), worst(g_s, g_u)
+    fp32.update(step_batch=Bg, step_seq=Sg, loss_unsharded_vs_f64=d_u,
+                loss_sharded_vs_unsharded=d_s, grads_unsharded_vs_f64=gd_u,
+                grads_sharded_vs_unsharded=gd_s, loss=float(loss_s))
+    check(d_s <= DIST_X * d_u, f"(a) fp32 loss: {d_s} past {DIST_X} x {d_u}")
+    check(gd_s <= DIST_X * gd_u,
+          f"(a) fp32 grads: {gd_s} past {DIST_X} x {gd_u}")
+    del g_u, g_s, g64
+    flush()
+    out["a_fp32"] = fp32
+    launches["a fp32 serve"] = l_s
+
+    seconds["a fp32"] = time.perf_counter() - t0
+    model = build(qm, device=dev, dtype=bf16,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    toks, fed = prompts(qm, Bq, Sq, Tq, 41)
+    max_q = Sq + Tq
+    (lu, ls), rec = served(model, tp, toks, fed, max_q, {})
+    check(rec["launches_sharded"] == expect(qm.n_layers * n_shards)
+          and rec["launches_unsharded"] == expect(qm.n_layers),
+          f"(a) bf16 serve launched {rec['launches_sharded']}")
+    launches["a serve"] = rec["launches_sharded"]
+    t1 = time.perf_counter()
+    l32 = fp32_layerwise(model, toks, fed, max_q)
+    seconds["a fp32 reference"] = time.perf_counter() - t1
+    hold_bf16("a", lu, ls, l32, rec)
+    del lu, ls, l32
+    # The experts' device ms: one shard's FFN on one wave (its 32 experts'
+    # capacity slots of one group) against the unsharded wave's 128
+    # experts on both groups, by graph replay, and a prefill's worth.
+    E, gs = qm.n_experts, qm.moe_group_size
+    C = expert_capacity(gs, qm.top_k, qm.capacity_factor, E)
+    n_groups = Bq * Sq // gs
+    n_waves = min(qm.moe_waves, n_groups)
+    G = n_groups // n_waves
+    lay = model.layers[0].moe
+    El = E // Mm
+    xin_s = rand(El, G // Dd, C, qm.d_model, dtype=bf16)
+    xin_u = rand(E, G, C, qm.d_model, dtype=bf16)
+    piece = {n: getattr(lay, n)[:El] for n in ("up", "gate", "down")}
+    whole = {n: getattr(lay, n) for n in ("up", "gate", "down")}
+    ex_s = graph_ms(lambda: _expert_ffn(piece, xin_s, qm.activation), 5)
+    ex_u = graph_ms(lambda: _expert_ffn(whole, xin_u, qm.activation), 5)
+    per = qm.n_layers * n_waves
+    rec["experts"] = {
+        "shard_wave_ms": ex_s, "unsharded_wave_ms": ex_u,
+        "prefill_ms_sharded": ex_s * per * n_shards,
+        "prefill_ms_unsharded": ex_u * per,
+        "capacity": C, "waves": n_waves, "groups_a_wave": G,
+        "groups_a_shard": G // Dd, "experts_a_shard": El}
+    # The combine: each data row's partial outputs of every wave, added
+    # over the 4 model shards once a layer (3 adds a row; shards on one
+    # card share the sum).
+    part = n_waves * (G // Dd) * gs * qm.d_model
+    rec["combine"] = {"adds_a_layer": Dd * (Mm - 1),
+                      "adds_a_prefill": qm.n_layers * Dd * (Mm - 1),
+                      "elements_an_add": part,
+                      "bytes_a_prefill": qm.n_layers * Dd * (Mm - 1) * 3
+                      * part * 2}
+    del model, xin_s, xin_u, piece, whole, lay
+    flush()
+    tcut = dataclasses.replace(qm, n_layers=FAM_MOE_TRAIN[2])
+    t1 = time.perf_counter()
+    rec["train"] = train_pair(tcut, *FAM_MOE_TRAIN[:2], "a")
+    seconds["a train"] = time.perf_counter() - t1
+    check(rec["train"]["sharded"]["launches"] == expect(
+        tcut.n_layers * n_shards, 2, 1),
+        f"(a) bf16 sharded step launched {rec['train']['sharded']}")
+    launches["a step"] = rec["train"]["sharded"]["launches"]
+    out["a"] = rec
+    seconds["a"] = time.perf_counter() - t0
+
+    # -- (b) moonshot-v1-16b-a3b, tp, scatter ------------------------------
+    t0 = time.perf_counter()
+    model = build(ms_, device=dev, dtype=bf16,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    toks, fed = prompts(ms_, Bs, Ss, Ts, 42)
+    (lu, ls), rec = served(model, Sharder(mesh, ms_.sharding_profile), toks,
+                           fed, Ss + Ts, {})
+    check(rec["launches_sharded"] == expect(ms_.n_layers * n_shards),
+          f"(b) serve launched {rec['launches_sharded']}")
+    launches["b serve"] = rec["launches_sharded"]
+    hold_bf16("b", lu, ls, fp32_layerwise(model, toks, fed, Ss + Ts), rec)
+    out["b"] = rec
+    del model, lu, ls
+    flush()
+    seconds["b"] = time.perf_counter() - t0
+
+    # -- (c)-(e): models whose fp32 copy fits beside them -------------------
+    for tag, cfg, (B_, S_, T_), train_shape in (
+            ("c mamba2", m2, FAM_SERVE, FAM_TRAIN),
+            ("c zamba2", zb, FAM_SERVE, FAM_TRAIN),
+            ("d", vl, FAM_SERVE, FAM_TRAIN),
+            ("e", wh, FAM_ENC, None)):
+        t0 = time.perf_counter()
+        sh = Sharder(mesh, cfg.sharding_profile)
+        model = build(cfg, device=dev, dtype=bf16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        toks, fed = prompts(cfg, B_, S_, T_, 43)
+        extra = extra_of(cfg, B_, S_, 44, bf16)
+        (lu, ls), rec = served(model, sh, toks, fed, S_ + T_, extra)
+        uses = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+                "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
+                    cfg.family, cfg.n_layers)
+        check(rec["launches_sharded"] == expect(uses * n_shards)
+              and rec["launches_unsharded"] == expect(uses),
+              f"({tag}) serve launched {rec['launches_sharded']}")
+        launches[f"{tag} serve"] = rec["launches_sharded"]
+        t1 = time.perf_counter()
+        ref = fp32_copy(model)
+        l32 = serve_run(ref, None, toks, fed, S_ + T_,
+                        {k: v.float() if v.is_floating_point() else v
+                         for k, v in extra.items()})[0]
+        rec["fp32_reference_s"] = time.perf_counter() - t1
+        hold_bf16(tag, lu, ls, l32, rec)
+        del ref, lu, ls, l32, model
+        flush()
+        if train_shape is not None:
+            t1 = time.perf_counter()
+            rec["train"] = train_pair(cfg, *train_shape, tag)
+            rec["train_s"] = time.perf_counter() - t1
+            check(rec["train"]["sharded"]["launches"] == expect(
+                uses * n_shards, 2, 1),
+                f"({tag}) sharded step launched {rec['train']['sharded']}")
+            launches[f"{tag} step"] = rec["train"]["sharded"]["launches"]
+        out[tag] = rec
+        seconds[tag] = time.perf_counter() - t0
+
+    # (e) fp32 at FAM_ENC_FP32_DEPTH layers each side against float64.
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(wh, n_layers=FAM_ENC_FP32_DEPTH,
+                              n_enc_layers=FAM_ENC_FP32_DEPTH)
+    sh = Sharder(mesh, cut.sharding_profile)
+    m32 = build(cut, device=dev, dtype=f32,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    toks, fed = prompts(cut, Be, Se, 2, 45)
+    extra = extra_of(cut, Be, Se, 46, f32)
+    lu = serve_run(m32, None, toks, fed, Se + 4, extra)[0]
+    ls, _, _, l_s, _, _ = serve_run(m32, sh, toks, fed, Se + 4, extra)
+    check(l_s == expect(3 * FAM_ENC_FP32_DEPTH * n_shards),
+          f"(e) fp32 sharded serve launched {l_s}")
+    launches["e fp32 serve"] = l_s
+    m64 = type(m32)(dataclasses.replace(cut, attn_impl="xla"), device=dev,
+                    dtype=f64)
+    m64.load_state_dict(m32.state_dict())
+    with widened64():
+        l64 = serve_run(m64, None, toks, fed, Se + 4,
+                        {k: v.double() for k, v in extra.items()})[0]
+    enc = {"n_layers": FAM_ENC_FP32_DEPTH, "logits": []}
+    for i, (s_, u_, r_) in enumerate(zip(ls, lu, l64)):
+        d_u, d_s = rel(u_, r_), rel(s_, u_)
+        enc["logits"].append({"step": i, "unsharded_vs_f64": d_u,
+                              "sharded_vs_unsharded": d_s})
+        check(d_s <= DIST_X * d_u, f"(e) fp32 logits step {i}: sharded "
+              f"{d_s} from unsharded, past {DIST_X} x {d_u}")
+    out["e_fp32"] = enc
+    del m32, m64, lu, ls, l64
+    flush()
+    seconds["e fp32"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_start
+    emit({"phase": 38, "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+          "shard_devices": sorted({str(d) for d in mesh.devices}),
+          "shapes": {k: [list(v[0]), v[1], v[2]]
+                     for k, v in {**shapes, **fp32_shapes}.items()},
+          **out, "launches": launches, "kernel_times": timings,
+          "seconds": seconds})
+    return {"launches": launches, "timings": timings, "seconds": seconds,
+            "shapes": shapes}
+
+
+def families_kernel_rows(fam, entry, case_err):
+    """The kernels line's K7-K9 rows at phase 38's shard shapes."""
+    fl = fam["launches"]
+    paths = {   # row -> (dtype, K7's path launches, the step's)
+        "tp qwen3-moe serve shard": {"bfloat16": (fl["a serve"], {})},
+        "tp qwen3-moe train shard": {"bfloat16": (fl["a step"],
+                                                  fl["a step"])},
+        "tp moonshot shard": {"bfloat16": (fl["b serve"], {})},
+        "tp zamba2 shared attention shard": {
+            "bfloat16": (fl["c zamba2 serve"], fl["c zamba2 step"])},
+        "sp qwen2-vl shard": {"bfloat16": (fl["d serve"], fl["d step"])},
+        "sp whisper decoder self shard": {"bfloat16": (fl["e serve"], {})},
+        "sp whisper cross shard": {"bfloat16": (fl["e serve"], {})},
+        "sp whisper encoder shard": {"bfloat16": (fl["e serve"], {})}}
+    cases = {
+        "tp qwen3-moe serve shard": "a tp shard of qwen3-moe-30b-a3b's "
+                                    "prefill, 8 x 4096 on a 2x4 mesh (8 "
+                                    "query heads on one kv head, batch 4)",
+        "tp qwen3-moe train shard": "a tp shard of qwen3-moe-30b-a3b's "
+                                    "4-layer step, 4 x 2048 on a 2x4 mesh",
+        "tp moonshot shard": "a tp shard of moonshot-v1-16b-a3b on a 2x4 "
+                             "mesh (4 MHA heads, batch 2)",
+        "tp zamba2 shared attention shard": "a tp shard of zamba2-1.2b's "
+                                            "shared attention (8 MHA heads "
+                                            "of 64, batch 2)",
+        "sp qwen2-vl shard": "the sp shards of qwen2-vl-2b on a 2x4 mesh "
+                             "(512 queries on 2048 keys, 12 q heads on 2 "
+                             "kv heads, one launch at each kv_offset)",
+        "sp whisper decoder self shard": "the sp shards of whisper-tiny's "
+                                         "decoder self-attention (56 "
+                                         "queries on 224 keys, batch 8, "
+                                         "one launch at each kv_offset)",
+        "sp whisper cross shard": "a sp shard of whisper-tiny's cross-"
+                                  "attention (56 queries on the 1500 "
+                                  "frames, batch 8)",
+        "sp whisper encoder shard": "whisper-tiny's encoder, whole on each "
+                                    "sp shard (1500 frames, batch 8)"}
+    return shard_kernel_rows(fam["timings"], paths, cases, 38, entry,
+                             case_err)
 
 
 def halo_phase(dev, smi, k2):
@@ -5291,6 +6123,12 @@ def main(argv=None) -> int:
     dist = lm_distribution_phase(dev, flash_case, bwd_case, graph_ms,
                                  time_ms, device_profile)
     kernels += dist_kernel_rows(dist, entry, case_err)
+
+    # -- 38. every other LM family on the mesh ----------------------------------
+    torch.cuda.empty_cache()
+    fam = families_distribution_phase(dev, flash_case, bwd_case, graph_ms,
+                                      time_ms, device_profile)
+    kernels += families_kernel_rows(fam, entry, case_err)
 
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")

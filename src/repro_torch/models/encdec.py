@@ -21,6 +21,10 @@ The cache is JAX's: {"self": {"k", "v"} (n_layers, B, max_len, KV, hd),
 "cross_k", "cross_v" (n_layers, B, enc_len, KV, hd)}; ``decode_step``
 writes the new token's self-attention entries in place.
 
+On a mesh (``sharder=`` of more than one shard) the entry points run
+``ShardedEncDec``: the encoder whole on every model shard, the decoder's
+sequence split as the profile says.
+
 Frames are cast to the model's type before the sinusoid is added (JAX adds
 it in the frames' type and leaves the products to promote; with frames of
 the model's type, as every caller here passes, the two agree).
@@ -37,8 +41,11 @@ from repro_torch.core.plan import resolve_device
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.layers import ParamDef, layer_norm, stack_tables
 from repro_torch.models.mlp import MLP, mlp_table
-from repro_torch.models.transformer import (Attention, StackedModel,
-                                            attn_table, mask_pad_logits)
+from repro_torch.models.transformer import (Attention, ShardProgram,
+                                            StackedModel, attn_table,
+                                            mask_pad_logits)
+from repro_torch.parallel.sharding import (PartitionSpec, Sharded, psum,
+                                           shard, spec_axes)
 
 MAX_DEC_POSITIONS = 32768
 
@@ -176,6 +183,9 @@ class EncDec(StackedModel):
     param_table = staticmethod(encdec_table)
     param_axes = staticmethod(encdec_axes)
 
+    def shard_program(self) -> type:
+        return ShardedEncDec
+
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -228,11 +238,12 @@ class EncDec(StackedModel):
 
     def forward(self, tokens: torch.Tensor, enc_frames: torch.Tensor, *,
                 remat: bool = True, sharder=None):
-        """Train-mode forward: (final hidden (B, S, D), aux loss 0).  A
-        ``sharder`` of more than one shard raises ``NotImplementedError``
-        (``StackedModel.sharded``): the encdec family runs on a 1 x 1
-        mesh."""
-        self.sharded(sharder)
+        """Train-mode forward: (final hidden (B, S, D), aux loss 0); under
+        a ``sharder`` of more than one shard ``ShardedEncDec``'s, the
+        hidden a ``Sharded``."""
+        run = self.sharded(sharder)
+        if run is not None:
+            return run.forward(tokens, enc_frames, remat=remat)
         enc_out = self.encode(enc_frames, remat=remat)
         hidden = self.decode_train(tokens, enc_out, remat=remat)
         return hidden, torch.zeros((), device=hidden.device)
@@ -242,8 +253,10 @@ class EncDec(StackedModel):
                 enc_frames: torch.Tensor, *, sharder=None):
         """Encode, then the teacher-forced decoder over the prompt: (last
         hidden (B, D), cache: the self k/v padded to ``max_len``, the cross
-        k/v at enc_len, a layer each)."""
-        self.sharded(sharder)
+        k/v at enc_len, a layer each); sharded as ``forward``."""
+        run = self.sharded(sharder)
+        if run is not None:
+            return run.prefill(tokens, max_len, enc_frames)
         B, S = tokens.shape
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
@@ -264,8 +277,11 @@ class EncDec(StackedModel):
                     sharder=None):
         """One decode step.  token: (B,); kv_len: the self cache's fill.
         Returns (logits (B, V) fp32 with the padded vocab masked, cache,
-        updated in place)."""
-        self.sharded(sharder)
+        updated in place); under a sharder the cache is ``prefill``'s and
+        the logits a ``Sharded``."""
+        run = self.sharded(sharder)
+        if run is not None:
+            return run.decode_step(token, cache, kv_len)
         x = self.embed[token[:, None]] + self.dec_pos[kv_len][None, None]
         for i, layer in enumerate(self.dec_layers):
             x = layer.decode(x, cache["self"]["k"][i], cache["self"]["v"][i],
@@ -289,3 +305,150 @@ class EncDec(StackedModel):
         cross = (None, "batch", "enc_seq", "kv_heads", "head_dim")
         return {"self": {"k": kv, "v": kv}, "cross_k": cross,
                 "cross_v": cross}
+
+
+class ShardedEncDec(ShardProgram):
+    """The encdec family on a mesh (JAX's ``encode``, ``decode_train``,
+    ``encdec_prefill`` and ``encdec_decode_step`` with a sharder), on
+    ``ShardProgram``'s attention, MLP, embedding and logits.  ``enc_seq``
+    has no rule, so the encoder runs whole on every model shard (its batch
+    rows over data); the decoder's sequence splits as the residual
+    stream's (``sp``: over model where model divides it, else whole), its
+    self-attention causal at each block's offset against k and v gathered
+    along the sequence, its cross-attention each block's queries on the
+    whole encoder output.  Decode: the self cache on ``kv_seq`` over model
+    (flash-decoding, as the dense family's), the cross cache on
+    ``enc_seq``, whole on every model shard."""
+
+    def _ln(self, name: str, xs: list) -> list:
+        w, b = self.w(name + ".w")[0], self.w(name + ".b")[0]
+        return [layer_norm(x, w[k], b[k], self.cfg.norm_eps)
+                for k, x in enumerate(xs)]
+
+    def _encode(self, frames: torch.Tensor, remat: bool) -> list:
+        """Each shard's batch rows of the encoder output (B_l, enc_len,
+        D)."""
+        B, T, D = frames.shape
+        fspec = self.sharder.spec(("batch", "enc_seq", "embed"), (B, T, D))
+        spec = PartitionSpec(fspec[0], fspec[1])
+        sin = torch.as_tensor(_sinusoid(T, D), device=frames.device)
+        xs = [x.to(self.model.dtype) + sin.to(self.model.dtype)[None]
+              for x in shard(frames, spec, self.mesh)]
+        none = [None] * self.n
+
+        def layer(i, xs):
+            pre = f"enc_layers.{i}."
+            a, _ = self._attn(pre + "attn.", self._ln(pre + "ln1", xs), none,
+                              spec, causal=False, use_rope=False)
+            xs = [x + o for x, o in zip(xs, a)]
+            m = self._mlp(pre + "mlp.", self._ln(pre + "ln2", xs))
+            return [x + o for x, o in zip(xs, m)]
+
+        for i in range(self.cfg.n_enc_layers):
+            xs = (checkpoint(layer, i, xs, use_reentrant=False) if remat
+                  else layer(i, xs))
+        return self._ln("enc_ln", xs)
+
+    def _dec_embed(self, tokens: torch.Tensor, spec, p0: int = 0) -> list:
+        """The token embeddings plus ``dec_pos`` at each shard's positions
+        (p0 onwards)."""
+        xs = self._embed(tokens, spec)
+        pos, _ = self.w("dec_pos")
+        return [x + pos[k][p0 + self.start(k, spec[1], tokens.shape[1]):]
+                [:x.shape[1]][None] for k, x in enumerate(xs)]
+
+    def _dec_block(self, i: int, xs: list, enc: list, spec):
+        """-> (xs, self (k, v), cross (k, v)), each shard's."""
+        pre = f"dec_layers.{i}."
+        none = [None] * self.n
+        a, self_kv = self._attn(pre + "self_attn.", self._ln(pre + "ln1", xs),
+                                none, spec, use_rope=False)
+        xs = [x + o for x, o in zip(xs, a)]
+        a, cross_kv = self._attn(pre + "cross_attn.",
+                                 self._ln(pre + "ln2", xs), none, spec,
+                                 causal=False, kv_src=enc, use_rope=False)
+        xs = [x + o for x, o in zip(xs, a)]
+        m = self._mlp(pre + "mlp.", self._ln(pre + "ln3", xs))
+        return [x + o for x, o in zip(xs, m)], self_kv, cross_kv
+
+    def forward(self, tokens: torch.Tensor, enc_frames: torch.Tensor, *,
+                remat: bool = True):
+        """-> (final hidden, a ``Sharded`` (B, S, D), aux 0); with
+        ``remat`` each encoder and decoder layer under
+        ``torch.utils.checkpoint`` across all the shards."""
+        B, S = tokens.shape
+        spec = self.layout(B, S)
+        enc = self._encode(enc_frames, remat)
+        xs = self._dec_embed(tokens, spec)
+
+        def layer(i, xs):
+            return self._dec_block(i, xs, enc, spec)[0]
+
+        for i in range(self.cfg.n_layers):
+            xs = (checkpoint(layer, i, xs, use_reentrant=False) if remat
+                  else layer(i, xs))
+        xs = self._ln("dec_ln", xs)
+        return (Sharded(xs, PartitionSpec(spec[0], spec[1], None),
+                        (B, S, self.cfg.d_model), self.mesh),
+                torch.zeros((), device=self.model.device))
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                enc_frames: torch.Tensor):
+        """-> (last hidden, a ``Sharded`` (B, D); cache {"self": {"k",
+        "v"}, "cross_k", "cross_v"} of ``Sharded`` leaves)."""
+        B, S = tokens.shape
+        if S > max_len:
+            raise ValueError(f"prompt of {S} tokens exceeds max_len "
+                             f"{max_len}")
+        spec = self.layout(B, S)
+        enc = self._encode(enc_frames, remat=False)
+        cache = self._cache(B, max_len)
+        xs = self._dec_embed(tokens, spec)
+        for i in range(self.cfg.n_layers):
+            xs, self_kv, (ck, cv) = self._dec_block(i, xs, enc, spec)
+            self._write_kv(cache["self"], i, self_kv, S)
+            for name, t in (("cross_k", ck), ("cross_v", cv)):
+                for piece, v in zip(cache[name].pieces, t):
+                    piece[i].copy_(v)
+        last = self._last(xs, spec, lambda t: self._ln("dec_ln", t))
+        return (Sharded(last, PartitionSpec(spec[0], None),
+                        (B, self.cfg.d_model), self.mesh), cache)
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, cache: dict, kv_len: int):
+        """One token against a ``prefill`` cache (the self cache written in
+        place) -> (logits, a ``Sharded`` (B, V) fp32, the cache).  The cross
+        query is projected with fp32 sums and rounded once, its output
+        likewise, as unsharded."""
+        B = token.shape[0]
+        D = self.cfg.d_model
+        spec = PartitionSpec(self.sharder.spec(("batch",), (B,))[0], None)
+        xs = self._dec_embed(token[:, None], spec, kv_len)
+        none = [None] * self.n
+        for i in range(self.cfg.n_layers):
+            pre = f"dec_layers.{i}."
+            a = self._attn_decode(pre + "self_attn.",
+                                  self._ln(pre + "ln1", xs), none,
+                                  cache["self"]["k"], cache["self"]["v"], i,
+                                  kv_len)
+            xs = [x + o for x, o in zip(xs, a)]
+            hs = self._ln(pre + "ln2", xs)
+            wq, qspec = self.w(pre + "cross_attn.wq")
+            wo, _ = self.w(pre + "cross_attn.wo")
+            part = []
+            for k, h in enumerate(hs):
+                q = (h.float() @ wq[k].float().reshape(D, -1)).to(h.dtype)
+                q = q.view(*h.shape[:2], *wq[k].shape[1:])
+                _, sel = self._heads(k, qspec, q.shape[2])
+                ck = cache["cross_k"].pieces[k][i][:, :, sel]
+                cv = cache["cross_v"].pieces[k][i][:, :, sel]
+                out = decode_attention(q, ck, cv, ck.shape[1])
+                part.append((out.reshape(*h.shape[:2], -1).float()
+                             @ wo[k].float().reshape(-1, D)).to(h.dtype))
+            a = psum(part, self.mesh, spec_axes(qspec[1]))
+            xs = [x + o for x, o in zip(xs, a)]
+            m = self._mlp(pre + "mlp.", self._ln(pre + "ln3", xs))
+            xs = [x + o for x, o in zip(xs, m)]
+        xs = self._ln("dec_ln", xs)
+        return self.logits([x[:, 0] for x in xs], spec[0]), cache

@@ -42,7 +42,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.plan import resolve_device
 from repro_torch.models.layers import ACTIVATIONS, ParamDef
-from repro_torch.models.mlp import MLP
+from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.parallel.sharding import (all_gather, axes_size,
+                                           block_start, psum, spec_axes)
 
 DISPATCH_MODES = ("einsum", "scatter")
 
@@ -134,18 +136,26 @@ def _expert_ffn(params: dict, xin: torch.Tensor,
 
 
 def _group_moe(params: dict, xg: torch.Tensor, k: int, capacity: int,
-               activation: str, dispatch_mode: str = "einsum"):
+               activation: str, dispatch_mode: str = "einsum",
+               e0: int = 0, routes: list | None = None):
     """One wave of groups.  xg: (G, S, D) -> (out (G, S, D), me (E,), ce
     (E,)): the output and the aux loss's mean router prob and top-1
-    fraction per expert."""
+    fraction per expert.  ``params``' experts are experts e0.. of the
+    router's E (all of them unsharded; one model shard's block under
+    expert parallelism, ``moe_sharded``, whose ``out`` is then the partial
+    sum over that block).  ``routes``: a list that gets the routing
+    (expert_idx, keep, each (G, S, k); the router probs (G, S, E))."""
     G, S, D = xg.shape
-    E = params["router"].shape[1]
+    E = params["up"].shape[0]          # the experts here: e0 .. e0 + E
     C = capacity
     probs, gate_vals, expert_idx, pos, keep = route(xg, params["router"], k,
                                                     C)
-    # Each kept slot's row of the (E * C) expert slots; dropped ones the
-    # extra row E * C.
-    slot = torch.where(keep, expert_idx * C + pos, E * C)
+    if routes is not None:
+        routes.append((expert_idx, keep, probs))
+    # Each kept slot's row of these experts' (E * C) slots; dropped ones,
+    # and other shards' experts' ones, the extra row E * C.
+    slot = (expert_idx - e0) * C + pos
+    slot = torch.where(keep & (slot >= 0) & (slot < E * C), slot, E * C)
     if dispatch_mode == "scatter":
         gsk = slot.reshape(G, S * k, 1).expand(G, S * k, D)
         xk = xg[:, :, None, :].expand(G, S, k, D).reshape(G, S * k, D)
@@ -159,7 +169,8 @@ def _group_moe(params: dict, xg: torch.Tensor, k: int, capacity: int,
         out = out.view(G, S, D).to(xg.dtype)
     elif dispatch_mode == "einsum":
         # combine[g, s, e * C + c]: the token's gate weight in that slot.
-        combine = torch.zeros(G, S, E * C + 1, device=xg.device).scatter(
+        combine = torch.zeros(G, S, E * C + 1, dtype=gate_vals.dtype,
+                              device=xg.device).scatter(
             -1, slot, gate_vals)[..., :-1]
         dispatch = (combine > 0).to(xg.dtype)
         xin = (dispatch.transpose(1, 2) @ xg).view(G, E, C, D)
@@ -170,16 +181,19 @@ def _group_moe(params: dict, xg: torch.Tensor, k: int, capacity: int,
         raise ValueError(f"dispatch_mode must be one of {DISPATCH_MODES}, "
                          f"got {dispatch_mode!r}")
     me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
+    ce = F.one_hot(expert_idx[..., 0], probs.shape[-1]).float().mean(
+        dim=(0, 1))
     return out, me, ce
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, group_size: int = 1024,
               activation: str = "silu", n_waves: int = 16,
-              dispatch_mode: str = "einsum"):
+              dispatch_mode: str = "einsum", routes: list | None = None):
     """x: (B, S, D) -> (out (B, S, D), aux loss scalar fp32).  ``params``:
-    ``moe_table``'s leaves as tensors."""
+    ``moe_table``'s leaves as tensors; ``routes``: a list that gets each
+    wave's routing in order (``_group_moe``; without autograd, since a
+    checkpointed wave routes again in the backward)."""
     B, S, D = x.shape
     E = params["router"].shape[1]
     gs, waves, G = wave_layout(B * S, group_size, n_waves)
@@ -187,7 +201,8 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
     remat = torch.is_grad_enabled()
     outs, stats = [], []
     for xg in x.reshape(waves, G, gs, D).unbind(0):
-        args = (params, xg, top_k, capacity, activation, dispatch_mode)
+        args = (params, xg, top_k, capacity, activation, dispatch_mode, 0,
+                routes)
         out, me, ce = (checkpoint(_group_moe, *args, use_reentrant=False)
                        if remat else _group_moe(*args))
         outs.append(out)
@@ -205,7 +220,10 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
 class MoE(nn.Module):
     """One layer's experts (``moe_table``'s leaves; ``shared`` an ``MLP``
     of n_shared * d_ff when there are shared experts).  ``device=None``
-    means the card (``core.plan.resolve_device``)."""
+    means the card (``core.plan.resolve_device``).  ``routes``: None, or
+    a list that each forward's routing is appended to (``moe_apply``)."""
+
+    routes: list | None = None
 
     def __init__(self, d_model: int, n_experts: int, d_ff: int,
                  n_shared: int = 0, *, top_k: int,
@@ -242,4 +260,90 @@ class MoE(nn.Module):
                          capacity_factor=self.capacity_factor,
                          group_size=group_size, activation=self.activation,
                          n_waves=self.n_waves,
-                         dispatch_mode=self.dispatch_mode)
+                         dispatch_mode=self.dispatch_mode,
+                         routes=self.routes)
+
+
+def moe_sharded(pieces: list, xs: list, sharder, batch_entry, *,
+                seq_entry=None, expert_entry, shared_entry=None, top_k: int,
+                capacity_factor: float = 1.25, group_size: int = 1024,
+                activation: str = "silu", n_waves: int = 16,
+                dispatch_mode: str = "einsum", routes: list | None = None):
+    """Expert parallelism: ``moe_apply`` on a mesh, one shard-local program
+    a coordinate (``models/transformer.ShardedMoE``'s FFN).  ``xs``: each
+    shard's block of x (B, S, D), laid by ``batch_entry`` and
+    ``seq_entry``; ``pieces``: each shard's view of the layer's
+    parameters, ``router`` whole (D, E), ``up``/``gate``/``down`` its block
+    of experts (laid by ``expert_entry``: the experts over model, tp), and
+    ``shared`` (with shared experts) its dff columns of ``up``/``gate`` and
+    rows of ``down`` (``shared_entry``).  -> (out, aux) a shard each.
+
+    JAX's global wave layout: x gathered over its shards and cut
+    (waves, G, group size, D) over all B * S tokens, as unsharded, so the
+    group size, the capacity, the dropped tokens and the aux loss's means
+    are the unsharded run's; the G groups of a wave split over the batch
+    axes where the ``moe_groups`` rule divides them (G >= 2), else every
+    data row runs all of them.  Each shard routes its groups with the
+    whole router (every shard of a data row on the same rows of x, so the
+    same expert ids and keep mask a token), runs the FFN of its own
+    experts on their slots (``_group_moe``'s expert window) and combines
+    them weighted by the gates: a partial sum, added over the expert axes
+    (JAX's all-to-all pair written out).  The groups' outputs are then
+    gathered over the batch axes and each shard keeps its block.  Waves run
+    under ``torch.utils.checkpoint`` while autograd records, all shards of
+    a wave in one.  The shared experts are the dense tp MLP: dff-parallel,
+    ``down`` row-parallel and summed over its axes.  ``routes``: as
+    ``moe_apply``'s, each wave's shards in shard order, each holding its
+    own groups."""
+    mesh = sharder.mesh
+    coords = mesh.coords()
+    full = all_gather(all_gather(xs, mesh, spec_axes(batch_entry), 0),
+                      mesh, spec_axes(seq_entry), 1)
+    B, S, D = full[0].shape
+    E = pieces[0]["router"].shape[1]
+    gs, waves, G = wave_layout(B * S, group_size, n_waves)
+    C = expert_capacity(gs, top_k, capacity_factor, E)
+    gentry = sharder.spec(("moe_groups",), (G,))[0]
+    Gl = G // axes_size(mesh, spec_axes(gentry))
+    xw = []
+    for k, x in enumerate(full):
+        g0 = block_start(mesh, coords[k], gentry, G)
+        xw.append(x.reshape(waves, G, gs, D)[:, g0:g0 + Gl])
+    e0 = [block_start(mesh, c, expert_entry, E) for c in coords]
+
+    def wave(xgs):
+        res = [_group_moe(p, xg, top_k, C, activation, dispatch_mode, e,
+                          routes) for p, xg, e in zip(pieces, xgs, e0)]
+        return tuple([r[i] for r in res] for i in range(3))
+
+    remat = torch.is_grad_enabled()
+    outs, mes, ces = [], [], []
+    for w in range(waves):
+        xgs = [x[w] for x in xw]
+        o, me, ce = (checkpoint(wave, xgs, use_reentrant=False) if remat
+                     else wave(xgs))
+        outs.append(o)
+        mes.append(me)
+        ces.append(ce)
+    # Partial sums over this shard's experts, added over the expert axes.
+    outs = psum([torch.stack(o) for o in zip(*outs)], mesh,
+                spec_axes(expert_entry))
+    outs = all_gather(outs, mesh, spec_axes(gentry), 1)
+    ng = axes_size(mesh, spec_axes(gentry))
+    me = psum([torch.stack(m) for m in zip(*mes)], mesh, spec_axes(gentry))
+    ce = psum([torch.stack(c) for c in zip(*ces)], mesh, spec_axes(gentry))
+    aux = [E * ((m / ng) * (c / ng)).sum(dim=-1).mean()
+           for m, c in zip(me, ce)]
+    out = []
+    for k, o in enumerate(outs):
+        b0 = block_start(mesh, coords[k], batch_entry, B)
+        s0 = block_start(mesh, coords[k], seq_entry, S)
+        Bl, Sl = xs[k].shape[:2]
+        out.append(o.reshape(B, S, D)[b0:b0 + Bl, s0:s0 + Sl])
+    if "shared" in pieces[0]:
+        sh = psum([mlp_apply(x, p["shared"]["up"], p["shared"]["gate"],
+                             p["shared"]["down"], activation)
+                   for x, p in zip(xs, pieces)], mesh,
+                  spec_axes(shared_entry))
+        out = [o + s for o, s in zip(out, sh)]
+    return out, aux

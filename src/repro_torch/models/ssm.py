@@ -28,6 +28,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.conv1d import causal_conv1d, causal_conv1d_update
 from repro_torch.core.plan import resolve_device
 from repro_torch.models.layers import ParamDef, rms_norm
+from repro_torch.parallel.sharding import (all_gather, block_start, psum,
+                                           spec_axes)
 
 
 def mamba2_table(d_model: int, d_inner: int, n_heads: int, d_state: int,
@@ -135,35 +137,48 @@ def ssd_scan(xdt, dA, B, C, chunk: int, state0=None):
     return torch.cat(ys, dim=1), state
 
 
-def mamba2_apply(params: dict, x: torch.Tensor, *, n_heads: int,
-                 head_dim: int, d_state: int, chunk: int, initial_state=None,
-                 return_state: bool = False):
-    """Full-sequence Mamba2 block.  x: (B, L, D) -> (B, L, D) (and the final
-    SSD state, fp32, with ``return_state``)."""
-    Bb, L, D = x.shape
+def _project(params: dict, x: torch.Tensor):
+    """x (B, L, D) -> z, the conv's x channels and B|C (silu, compute
+    type), and dt (fp32, before its bias): the channels those of the
+    parameters given (a layer's, or one shard's block)."""
     dt_ = x.dtype
     z = (x @ params["z_proj"]).to(dt_)
     xc = (x @ params["x_proj"]).to(dt_)
     bc = (x @ params["bc_proj"]).to(dt_)
     dt = x.float() @ params["dt_proj"].float()
-
     # The stencil engine's causal convs.
     xc = F.silu(causal_conv1d(xc, params["conv_w"],
                               params["conv_b"]).float()).to(dt_)
     bc = F.silu(causal_conv1d(bc, params["bc_conv_w"],
                               params["bc_conv_b"]).float()).to(dt_)
+    return z, xc, bc, dt
 
+
+def _scan(params: dict, xc, bc, dt, head_dim: int, chunk: int,
+          initial_state=None):
+    """The SSD over xc's C // head_dim heads (``params``' A_log, D and
+    dt_bias the same heads) -> (y (B, L, C) in xc's type, final state
+    fp32)."""
+    Bb, L, C = xc.shape
     A = -torch.exp(params["A_log"].float())                       # (H,)
     dt = softplus(dt + params["dt_bias"].float())                 # (B, L, H)
-    xh = xc.reshape(Bb, L, n_heads, head_dim)
+    xh = xc.reshape(Bb, L, C // head_dim, head_dim)
     Bmat, Cmat = torch.chunk(bc, 2, dim=-1)                       # (B, L, N)
-
-    xdt = (xh.float() * dt[..., None]).to(dt_)
+    xdt = (xh.float() * dt[..., None]).to(xc.dtype)
     y, final = ssd_scan(xdt, dt * A, Bmat, Cmat, chunk,
                         state0=initial_state)
     y = y + params["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(Bb, L, n_heads * head_dim).to(dt_)
+    return y.reshape(Bb, L, C).to(xc.dtype), final
 
+
+def mamba2_apply(params: dict, x: torch.Tensor, *, n_heads: int,
+                 head_dim: int, d_state: int, chunk: int, initial_state=None,
+                 return_state: bool = False):
+    """Full-sequence Mamba2 block.  x: (B, L, D) -> (B, L, D) (and the final
+    SSD state, fp32, with ``return_state``)."""
+    dt_ = x.dtype
+    z, xc, bc, dt = _project(params, x)
+    y, final = _scan(params, xc, bc, dt, head_dim, chunk, initial_state)
     # Gated RMSNorm, then the output projection.
     y = rms_norm((y.float() * F.silu(z.float())).to(dt_), params["norm_w"])
     out = (y @ params["out_proj"]).to(dt_)
@@ -172,43 +187,134 @@ def mamba2_apply(params: dict, x: torch.Tensor, *, n_heads: int,
     return out
 
 
-def mamba2_decode(params: dict, x_t: torch.Tensor, cache: dict, *,
-                  n_heads: int, head_dim: int, d_state: int):
-    """One-token decode.  x_t: (B, D); cache: {conv_x, conv_bc, state}.
-    Returns (out (B, D), new cache), as JAX's (which rounds the dt
-    projection to the compute type here, and keeps the conv outputs fp32)."""
-    Bb, D = x_t.shape
+def _project_token(params: dict, x_t: torch.Tensor, cache: dict):
+    """One token's z, conv'd x channels and B|C (fp32, as JAX's decode
+    keeps them), dt (the projection rounded to the compute type, as
+    JAX's) and the new conv halos."""
     dt_ = x_t.dtype
     z = (x_t @ params["z_proj"]).to(dt_)
     xc = (x_t @ params["x_proj"]).to(dt_)
     bc = (x_t @ params["bc_proj"]).to(dt_)
     dt = (x_t @ params["dt_proj"]).float()
-
     conv_x, xc = causal_conv1d_update(cache["conv_x"], xc, params["conv_w"],
                                       params["conv_b"])
     conv_bc, bc = causal_conv1d_update(cache["conv_bc"], bc,
                                        params["bc_conv_w"],
                                        params["bc_conv_b"])
-    xc = F.silu(xc.float())
-    bc = F.silu(bc.float())
+    return (z, F.silu(xc.float()), F.silu(bc.float()), dt,
+            {"conv_x": conv_x, "conv_bc": conv_bc})
 
+
+def _step(params: dict, xc, bc, dt, state, head_dim: int):
+    """One token's SSD update over xc's heads -> (y (B, C) fp32, the new
+    state (B, H, P, N) fp32)."""
+    Bb, C = xc.shape
     A = -torch.exp(params["A_log"].float())
     dt = softplus(dt + params["dt_bias"].float())                 # (B, H)
-    xh = xc.reshape(Bb, n_heads, head_dim)
+    xh = xc.reshape(Bb, C // head_dim, head_dim)
     Bv, Cv = torch.chunk(bc, 2, dim=-1)                           # (B, N)
-
-    state = cache["state"].float()                                # (B,H,P,N)
     decay = torch.exp(dt * A)                                     # (B, H)
-    state = state * decay[:, :, None, None] + torch.einsum(
+    state = state.float() * decay[:, :, None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dt, xh, Bv)
     y = torch.einsum("bhpn,bn->bhp", state, Cv)
     y = y + params["D"].float()[None, :, None] * xh
-    y = y.reshape(Bb, n_heads * head_dim)
+    return y.reshape(Bb, C), state
 
+
+def mamba2_decode(params: dict, x_t: torch.Tensor, cache: dict, *,
+                  n_heads: int, head_dim: int, d_state: int):
+    """One-token decode.  x_t: (B, D); cache: {conv_x, conv_bc, state}.
+    Returns (out (B, D), new cache), as JAX's (which rounds the dt
+    projection to the compute type here, and keeps the conv outputs fp32)."""
+    dt_ = x_t.dtype
+    z, xc, bc, dt, new = _project_token(params, x_t, cache)
+    y, state = _step(params, xc, bc, dt, cache["state"], head_dim)
     y = rms_norm((y * F.silu(z.float())).to(dt_), params["norm_w"])
     out = (y @ params["out_proj"]).to(dt_)
-    return out, {"conv_x": conv_x, "conv_bc": conv_bc,
-                 "state": state.to(cache["state"].dtype)}
+    return out, {**new, "state": state.to(cache["state"].dtype)}
+
+
+def _gated_norm_out(mesh, ys, zs, norm_w, out_proj, chan, gathered,
+                    d_inner: int, dt_: torch.dtype, eps: float = 1e-6):
+    """The gated RMSNorm and the row-parallel ``out_proj``, in the compute
+    type ``dt_``, of each shard's y and z (..., channels), their channels
+    the shard's block of ``conv_channels`` (laid by ``chan``) or, where
+    ``gathered``, all d_inner.  The norm's mean square runs over the whole
+    d_inner: a block's sum of squares is added over the channel axes
+    before the rsqrt.  ``out_proj``'s rows are the shard's block, so the
+    products are partial sums, added over the same axes."""
+    gs = [(y.float() * F.silu(z.float())).to(dt_) for y, z in zip(ys, zs)]
+    ss = [torch.sum(torch.square(g.float()), dim=-1, keepdim=True)
+          for g in gs]
+    if not gathered:
+        ss = psum(ss, mesh, spec_axes(chan))
+    outs = []
+    for k, (g, s) in enumerate(zip(gs, ss)):
+        if gathered and spec_axes(chan):
+            c0 = block_start(mesh, mesh.coords()[k], chan, d_inner)
+            g = g[..., c0:c0 + norm_w[k].shape[0]]
+        y = (g.float() * torch.rsqrt(s / d_inner + eps)
+             * norm_w[k].float()).to(dt_)
+        outs.append((y @ out_proj[k]).to(dt_))
+    return psum(outs, mesh, spec_axes(chan))
+
+
+def mamba2_sharded(pieces: list, hs: list, mesh, *, chan, heads,
+                   n_heads: int, head_dim: int, d_state: int, chunk: int,
+                   return_state: bool = False):
+    """``mamba2_apply`` on a mesh, one shard-local program a coordinate:
+    ``hs`` each shard's (B_l, L, D) rows, ``pieces`` each shard's view of
+    the mixer's parameters (``mamba2_table``): ``z_proj``, ``x_proj``,
+    ``conv_w``, ``conv_b``, ``norm_w`` and ``out_proj``'s rows its block of
+    ``conv_channels`` (laid by ``chan``), ``dt_proj``, ``A_log``, ``D`` and
+    ``dt_bias`` its block of ``ssm_heads`` (``heads``), ``bc_proj`` and the
+    ``bc_conv`` taps whole (their dims are None), so every shard projects
+    and convolves B and C itself.  The SSD is independent a head: where
+    the channels and the heads split alike (tp: both over model, d_inner /
+    model = whole heads) each shard scans its heads, and the gated norm
+    and ``out_proj`` add their partial sums over the channel axes
+    (``_gated_norm_out``).  Where the two resolve to different specs (the
+    divisibility fallback: heads whole, channels split) each shard gathers
+    z and the conv's output over the channel axes and scans every head.
+    -> each shard's out (and with ``return_state`` its final SSD state, its
+    heads' or all)."""
+    gathered = spec_axes(chan) != spec_axes(heads)
+    zs, xcs, bcs, dts = zip(*(_project(p, x) for p, x in zip(pieces, hs)))
+    if gathered:
+        zs = all_gather(zs, mesh, spec_axes(chan), -1)
+        xcs = all_gather(xcs, mesh, spec_axes(chan), -1)
+    ys, finals = zip(*(_scan(p, xc, bc, dt, head_dim, chunk)
+                       for p, xc, bc, dt in zip(pieces, xcs, bcs, dts)))
+    out = _gated_norm_out(mesh, ys, zs, [p["norm_w"] for p in pieces],
+                          [p["out_proj"] for p in pieces], chan, gathered,
+                          n_heads * head_dim, hs[0].dtype)
+    return (out, list(finals)) if return_state else out
+
+
+def mamba2_decode_sharded(pieces: list, xts: list, caches: list, mesh, *,
+                          chan, heads, n_heads: int, head_dim: int,
+                          d_state: int):
+    """``mamba2_decode`` on a mesh (``mamba2_sharded``'s layout): ``xts``
+    each shard's (B_l, D) token rows, ``caches`` each shard's pieces of
+    the layer's cache (``conv_x`` its channel block, ``conv_bc`` whole,
+    ``state`` its heads, or every head where the heads do not split as the
+    channels do).  -> (each shard's out (B_l, D), each shard's new cache
+    pieces)."""
+    gathered = spec_axes(chan) != spec_axes(heads)
+    zs, xcs, bcs, dts, new = zip(*(_project_token(p, x, c) for p, x, c
+                                   in zip(pieces, xts, caches)))
+    if gathered:
+        zs = all_gather(zs, mesh, spec_axes(chan), -1)
+        xcs = all_gather(xcs, mesh, spec_axes(chan), -1)
+    ys = []
+    for p, xc, bc, dt, c, n in zip(pieces, xcs, bcs, dts, caches, new):
+        y, state = _step(p, xc, bc, dt, c["state"], head_dim)
+        ys.append(y)
+        n["state"] = state.to(c["state"].dtype)
+    out = _gated_norm_out(mesh, ys, zs, [p["norm_w"] for p in pieces],
+                          [p["out_proj"] for p in pieces], chan, gathered,
+                          n_heads * head_dim, xts[0].dtype)
+    return out, list(new)
 
 
 def mamba2_cache_shapes(batch: int, n_heads: int, head_dim: int,

@@ -11,8 +11,8 @@ against the cache).  ``cfg.attn_impl`` picks the full-sequence attention:
 flash_attention_trainable``, blocks 512 x 512, as ``transformer.py:168``:
 K7 forward, K8/K9 backward), ``"xla"`` the plain PyTorch
 ``models/attention.attention``; the field alone picks the path, on one
-device and, with ``sharder=``, on every shard of a mesh (``ShardedDense``:
-the dense family's tp and sp profiles; JAX keeps XLA attention under a
+device and, with ``sharder=``, on every shard of a mesh (the family's
+``ShardProgram``, tp or sp profile; JAX keeps XLA attention under a
 sharder only so that its HLO cost stays visible).  Decode attention is
 ``decode_attention`` on both (JAX runs no Pallas kernel there).
 
@@ -73,9 +73,11 @@ from repro_torch.models.layers import (ParamDef, apply_mrope, apply_rope,
                                        flatten, param_dims, rms_norm,
                                        stack_tables)
 from repro_torch.models.mlp import MLP, mlp_apply, mlp_table
-from repro_torch.models.moe import MoE, moe_table
+from repro_torch.models.moe import MoE, moe_sharded, moe_table
 from repro_torch.models.ssm import (Mamba2Mixer, mamba2_cache_dims,
-                                    mamba2_cache_shapes, mamba2_table)
+                                    mamba2_cache_shapes,
+                                    mamba2_decode_sharded, mamba2_sharded,
+                                    mamba2_table)
 from repro_torch.parallel.sharding import (PartitionSpec, Sharded,
                                            all_gather, axes_size,
                                            block_start, local_view, pmax,
@@ -202,7 +204,7 @@ def attend(cfg: ModelConfig, q, k, v, causal: bool,
     """Full-sequence attention as ``cfg.attn_impl`` picks it: ``"flash"``
     the trainable kernels (K7, K8/K9; blocks 512 x 512), ``"xla"`` the
     plain ``attention``.  Query i sits at position ``q_offset + i`` and key
-    j at j (a sequence shard's queries, ``ShardedDense``): the kernels'
+    j at j (a sequence shard's queries, ``ShardProgram``): the kernels'
     ``kv_offset``, the plain version's ``kv_offset=-q_offset``."""
     if cfg.attn_impl == "flash":
         return flash_attention_trainable(q, k.contiguous(), v.contiguous(),
@@ -432,16 +434,20 @@ class StackedModel(nn.Module):
                     pd.dims[n:]
         return out
 
+    def shard_program(self) -> type:
+        """The family's shard program (a ``ShardProgram``)."""
+        raise NotImplementedError
+
     def sharded(self, sharder):
-        """The shard program that runs this model under ``sharder``
-        (``ShardedDense``), or None where there is no sharder or its mesh
-        has one shard: then the unsharded path runs, its kernels and
-        launches unchanged.  A family whose sharding is not ported raises
-        ``NotImplementedError`` on a larger mesh, never running unsharded
-        in silence."""
+        """The shard program that runs this model under ``sharder`` (the
+        family's ``shard_program``), or None where there is no sharder or
+        its mesh has one shard: then the unsharded path runs, its kernels
+        and launches unchanged.  What the port cannot run sharded
+        (``state_over_data``) raises ``NotImplementedError`` on a larger
+        mesh, never running unsharded in silence."""
         if sharder is None or sharder.trivial:
             return None
-        return ShardedDense(self, sharder)
+        return self.shard_program()(self, sharder)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """hidden (..., D) @ lm_head.T in fp32, as JAX's
@@ -466,6 +472,9 @@ class Transformer(StackedModel):
 
     param_table = staticmethod(model_table)
     param_axes = staticmethod(stacked_axes)
+
+    def shard_program(self) -> type:
+        return SHARD_PROGRAMS[self.cfg.family]
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
@@ -555,7 +564,8 @@ class Transformer(StackedModel):
         """
         run = self.sharded(sharder)
         if run is not None:
-            return run.forward(tokens, positions, remat=remat)
+            return run.forward(tokens, positions,
+                               vision_embeds=vision_embeds, remat=remat)
         x = self._embed(tokens, vision_embeds)
         if positions is None:
             positions = self._default_positions(tokens)
@@ -595,7 +605,8 @@ class Transformer(StackedModel):
         ``positions`` and ``vision_embeds`` as ``forward``'s."""
         run = self.sharded(sharder)
         if run is not None:
-            return run.prefill(tokens, max_len, positions)
+            return run.prefill(tokens, max_len, positions,
+                               vision_embeds=vision_embeds)
         B, S = tokens.shape
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
@@ -707,7 +718,7 @@ def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The dense family on a mesh
+# Shard programs: the families on a mesh
 # ---------------------------------------------------------------------------
 
 def kv_heads_for(h0: int, n: int, group: int):
@@ -740,13 +751,13 @@ def _decode_partial(q, k_cache, v_cache, lo: int, kv_len: int):
                                           v_cache.float())
 
 
-class ShardedDense:
-    """The dense family on a mesh (JAX's ``forward``, ``prefill`` and
-    ``decode_step`` with a sharder): one shard-local program a mesh
-    coordinate, every shard driven by this one process, each on its
-    device, the collectives those of ``parallel/sharding.py``.  What each
-    profile's rules imply for the parameters (``Sharder.spec`` of their
-    dims) is explicit here:
+class ShardProgram:
+    """What the families' shard programs share (JAX's ``forward``,
+    ``prefill`` and ``decode_step`` with a sharder): one shard-local
+    program a mesh coordinate, every shard driven by this one process,
+    each on its device, the collectives those of ``parallel/sharding.py``.
+    What each profile's rules imply for the parameters (``Sharder.spec``
+    of their dims) is explicit here:
 
     - the residual stream x (batch, seq, D): batch over data, seq over
       model in ``sp``, D whole;
@@ -764,26 +775,27 @@ class ShardedDense:
       device, handed the shard's q heads and the kv heads they read
       (``kv_heads_for``), or with ``sp`` its sequence offset (the kernels'
       ``kv_offset``);
-    - decode: the cache sharded on kv_seq over model (where model divides
-      max_len, else whole on every shard, as JAX), the new k and v written
-      into the shard that owns position kv_len, attention flash-decoding:
-      each shard's partial (max, sum, output) over its positions, combined
-      by their log-sum-exp.
+    - decode: the kv cache sharded on kv_seq over model (where model
+      divides max_len, else whole on every shard, as JAX), the new k and v
+      written into the shard that owns position kv_len, attention
+      flash-decoding: each shard's partial (max, sum, output) over its
+      positions, combined by their log-sum-exp.
+
+    Here: the embedding, the norms, a shard's attention (full-sequence and
+    decode), the dense MLP, the logits, the caches and the three modes
+    (``forward``, ``prefill``, ``decode_step`` over ``_schedule``); each
+    family adds its blocks (``ShardedDense``, ``ShardedMoE``,
+    ``ShardedSSM``, ``ShardedHybrid``, ``encdec.ShardedEncDec``).
 
     The parameters stay in the model (on its device); a shard's piece is a
     slice ``.to()`` its device, so on one device it is a view, and
     autograd adds every shard's and replica's gradient into the
-    parameter: the sum over the mesh axes its spec leaves unused."""
+    parameter: the sum over the mesh axes its spec leaves unused.
+    ``state_over_data`` (batch-1 decode) has rules but no execution: it
+    raises ``NotImplementedError`` for every family."""
 
-    def __init__(self, model: "Transformer", sharder):
+    def __init__(self, model: StackedModel, sharder):
         cfg = model.cfg
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"{cfg.arch}: the {cfg.family} family has no sharded "
-                f"execution in the port (mesh "
-                f"{dict(zip(sharder.mesh.axis_names, sharder.mesh.shape))}"
-                f"); only the dense family's tp and sp profiles run "
-                f"sharded, every family on a 1 x 1 mesh")
         if sharder.state_over_data:
             raise NotImplementedError(
                 f"{cfg.arch}: state_over_data has rules but no sharded "
@@ -817,44 +829,81 @@ class ShardedDense:
         return [rms_norm(x, w[k], self.cfg.norm_eps)
                 for k, x in enumerate(xs)]
 
-    def _embed(self, tokens: torch.Tensor, spec) -> list:
+    def _seq_block(self, xs: list, spec, S: int) -> list:
+        """Each shard's block of the sequence (its spec[1]) of whole
+        sequences (B_l, S, ...)."""
+        if not spec_axes(spec[1]):
+            return xs
+        Sl = S // axes_size(self.mesh, spec_axes(spec[1]))
+        return [x[:, self.start(k, spec[1], S):][:, :Sl]
+                for k, x in enumerate(xs)]
+
+    def _embed(self, tokens: torch.Tensor, spec,
+               vision_embeds=None) -> list:
+        """Each shard's rows of the token embeddings, the first nv
+        positions replaced by ``vision_embeds`` (B, nv, D) where given,
+        before the sequence is split (JAX's ``_embed``)."""
         E, espec = self.w("embed")
         vocab = spec_axes(espec[0])
-        if not vocab:
-            return [E[k][t] for k, t in enumerate(shard(tokens, spec,
-                                                        self.mesh))]
-        # Vocab-parallel: each shard looks up the tokens its rows hold,
-        # zeros elsewhere, and the model axis adds them up.  Under sp the
-        # lookup runs on the whole sequence, then each shard keeps its
-        # block.
-        seq = spec_axes(spec[1])
-        ids = shard(tokens, PartitionSpec(spec[0], None) if seq else spec,
+        # The whole sequence first where the vocab shards' sum or the
+        # vision prefix needs it, then each shard's block.
+        whole = spec_axes(spec[1]) and (vocab or vision_embeds is not None)
+        ids = shard(tokens, PartitionSpec(spec[0], None) if whole else spec,
                     self.mesh)
-        V, Vl = self.cfg.padded_vocab, E[0].shape[0]
-        parts = []
-        for k, t in enumerate(ids):
-            local = t - self.start(k, espec[0], V)
-            hit = (local >= 0) & (local < Vl)
-            parts.append(torch.where(hit[..., None],
-                                     E[k][local.clamp(0, Vl - 1)], 0))
-        xs = psum(parts, self.mesh, vocab)
-        if seq:
-            S = tokens.shape[1]
-            Sl = S // axes_size(self.mesh, seq)
-            xs = [x[:, self.start(k, spec[1], S):][:, :Sl]
-                  for k, x in enumerate(xs)]
-        return xs
+        if not vocab:
+            xs = [E[k][t] for k, t in enumerate(ids)]
+        else:
+            # Vocab-parallel: each shard looks up the tokens its rows
+            # hold, zeros elsewhere, and the model axis adds them up.
+            V, Vl = self.cfg.padded_vocab, E[0].shape[0]
+            parts = []
+            for k, t in enumerate(ids):
+                local = t - self.start(k, espec[0], V)
+                hit = (local >= 0) & (local < Vl)
+                parts.append(torch.where(hit[..., None],
+                                         E[k][local.clamp(0, Vl - 1)], 0))
+            xs = psum(parts, self.mesh, vocab)
+        if vision_embeds is not None:
+            nv = vision_embeds.shape[1]
+            ve = shard(vision_embeds, PartitionSpec(spec[0], None, None),
+                       self.mesh)
+            xs = [torch.cat([v.to(x.dtype), x[:, nv:]], dim=1)
+                  for v, x in zip(ve, xs)]
+        return self._seq_block(xs, spec, tokens.shape[1]) if whole else xs
 
-    # -- a layer -------------------------------------------------------------
+    def _positions(self, positions: torch.Tensor, spec) -> list:
+        """Each shard's position ids: (B, S), or M-RoPE's (3, B, S) split
+        on its last two axes."""
+        if positions.dim() == 3:
+            spec = PartitionSpec(None, *spec)
+        return shard(positions, spec, self.mesh)
 
-    def _qkv(self, pre: str, hs: list, pos: list):
+    def _cache(self, B: int, max_len: int) -> dict:
+        """Zeros of the model's cache tree (``cache_shapes``), each leaf a
+        ``Sharded`` laid by its ``cache_dims``' spec."""
+        def build(shapes, dims):
+            if isinstance(dims, dict):
+                return {k: build(shapes[k], dims[k]) for k in dims}
+            shape, dtype = shapes
+            spec = self.sharder.spec(dims, shape)
+            return Sharded(zeros_pieces(shape, spec, self.mesh, dtype), spec,
+                           shape, self.mesh)
+        return build(self.model.cache_shapes(B, max_len),
+                     self.model.cache_dims())
+
+    # -- attention and the MLP ---------------------------------------------
+
+    def _qkv(self, pre: str, hs: list, pos: list, kv_src=None,
+             use_rope: bool = True):
         cfg = self.cfg
         wq, qspec = self.w(pre + "wq")
         wk, wv = self.w(pre + "wk")[0], self.w(pre + "wv")[0]
         norms = ((self.w(pre + "q_norm")[0], self.w(pre + "k_norm")[0])
                  if cfg.qk_norm else ([None] * self.n, [None] * self.n))
+        src = kv_src or [None] * self.n
         qkv = [project_qkv(cfg, h, wq[k], wk[k], wv[k], norms[0][k],
-                           norms[1][k], pos[k]) for k, h in enumerate(hs)]
+                           norms[1][k], pos[k], src[k], use_rope)
+               for k, h in enumerate(hs)]
         return [list(t) for t in zip(*qkv)], qspec
 
     def _out(self, pre: str, outs: list, hs: list, qspec) -> list:
@@ -875,10 +924,16 @@ class ShardedDense:
         return h0, kv_heads_for(h0, n_local,
                                 cfg.n_heads // cfg.n_kv_heads)
 
-    def _attn(self, pre: str, hs: list, pos: list, spec):
-        (q, k_, v), qspec = self._qkv(pre, hs, pos)
-        seq = spec_axes(spec[1])
-        S = hs[0].shape[1] * axes_size(self.mesh, seq)
+    def _attn(self, pre: str, hs: list, pos: list, spec, causal=True,
+              kv_src=None, use_rope: bool = True):
+        """Full-sequence attention of each shard's rows: its q heads on the
+        kv heads they read, its queries at their sequence offset against k
+        and v gathered along the sequence; with ``kv_src`` (each shard's
+        whole encoder output) cross-attention.  -> (outputs summed over
+        the head shards, (k, v) each shard's, gathered)."""
+        (q, k_, v), qspec = self._qkv(pre, hs, pos, kv_src, use_rope)
+        seq = spec_axes(spec[1]) if kv_src is None else ()
+        S = hs[0].shape[1] * axes_size(self.mesh, spec_axes(spec[1]))
         if seq:
             k_ = all_gather(k_, self.mesh, seq, 1)
             v = all_gather(v, self.mesh, seq, 1)
@@ -887,96 +942,155 @@ class ShardedDense:
             _, sel = self._heads(k, qspec, q[k].shape[2])
             off = self.start(k, spec[1], S) if seq else 0
             outs.append(attend(self.cfg, q[k], k_[k][:, :, sel],
-                               v[k][:, :, sel], True, off))
+                               v[k][:, :, sel], causal, off))
         return self._out(pre, outs, hs, qspec), (k_, v)
 
     def _mlp(self, pre: str, hs: list) -> list:
         up, uspec = self.w(pre + "up")
         down, _ = self.w(pre + "down")
-        gate = (self.w(pre + "gate")[0] if self.cfg.gated_mlp
+        gate = (self.w(pre + "gate")[0] if pre + "gate" in self.params
                 else [None] * self.n)
         outs = [mlp_apply(h, up[k], gate[k], down[k], self.cfg.activation)
                 for k, h in enumerate(hs)]
         return psum(outs, self.mesh, spec_axes(uspec[1]))
 
-    def _layer(self, i: int, xs: list, pos: list, spec):
-        pre = f"layers.{i}."
-        a, kv = self._attn(pre + "attn.", self._norm(pre + "attn_norm", xs),
-                           pos, spec)
-        xs = [x + o for x, o in zip(xs, a)]
-        m = self._mlp(pre + "mlp.", self._norm(pre + "mlp_norm", xs))
-        return [x + o for x, o in zip(xs, m)], kv
+    def _write_kv(self, cache: dict, idx, kv, S: int) -> None:
+        """A prefill's (k, v), each shard's over the whole prompt, into the
+        cache's pieces at layer slot ``idx``: each shard the positions it
+        holds."""
+        for name, full in zip(("k", "v"), kv):
+            c = cache[name]
+            L = c.pieces[0].shape[-3]
+            for k in range(self.n):
+                lo = self.start(k, c.spec[-3], c.shape[-3])
+                hi = min(lo + L, S)
+                if hi > lo:
+                    c.pieces[k][idx][:, :hi - lo] = full[k][:, lo:hi]
 
-    def _layers(self, xs, pos, spec, lo: int, hi: int):
-        for i in range(lo, hi):
-            xs, _ = self._layer(i, xs, pos, spec)
-        return xs
+    def _attn_decode(self, pre: str, hs: list, pos: list, kc: Sharded,
+                     vc: Sharded, idx, kv_len: int) -> list:
+        """One token's self-attention against layer slot ``idx`` of a
+        ``prefill`` cache: the new k and v written into the shard that owns
+        position kv_len, then flash-decoding over the kv_seq shards (or each
+        head shard's whole cache) -> outputs summed over the head shards."""
+        cfg, mesh = self.cfg, self.mesh
+        (q, k_new, v_new), qspec = self._qkv(pre, hs, pos)
+        heads = spec_axes(qspec[1])
+        entry, max_len = kc.spec[-3], kc.shape[-3]
+        L = kc.pieces[0].shape[-3]
+        los = [self.start(k, entry, max_len) for k in range(self.n)]
+        ks = [p[idx] for p in kc.pieces]
+        vs = [p[idx] for p in vc.pieces]
+        for k in range(self.n):
+            if los[k] <= kv_len < los[k] + L:
+                ks[k][:, kv_len - los[k]] = k_new[k][:, 0]
+                vs[k][:, kv_len - los[k]] = v_new[k][:, 0]
+        outs = []
+        if spec_axes(entry):
+            kv_axes = spec_axes(entry)
+            qa = all_gather(q, mesh, heads, 2) if heads else q
+            parts = [_decode_partial(qa[k], ks[k], vs[k], los[k], kv_len + 1)
+                     for k in range(self.n)]
+            top = pmax([p[0] for p in parts], mesh, kv_axes)
+            scale = [torch.exp(p[0] - t) for p, t in zip(parts, top)]
+            tot = psum([p[1] * w for p, w in zip(parts, scale)], mesh,
+                       kv_axes)
+            acc = psum([p[2] * w[..., None] for p, w in zip(parts, scale)],
+                       mesh, kv_axes)
+            for k in range(self.n):
+                o = (acc[k] / tot[k][..., None]).to(q[k].dtype)
+                o = o.reshape(o.shape[0], 1, cfg.n_heads, cfg.head_dim)
+                h0, _ = self._heads(k, qspec, q[k].shape[2])
+                outs.append(o[:, :, h0:h0 + q[k].shape[2]])
+        else:
+            for k in range(self.n):
+                _, sel = self._heads(k, qspec, q[k].shape[2])
+                outs.append(decode_attention(q[k], ks[k][:, :, sel],
+                                             vs[k][:, :, sel], kv_len + 1))
+        return self._out(pre, outs, hs, qspec)
 
-    # -- modes -----------------------------------------------------------------
+    # -- the modes ----------------------------------------------------------
 
-    def _inputs(self, tokens, positions):
+    def _schedule(self) -> list:
+        """The blocks in the order a forward runs them: (kind, parameter
+        prefix, cache subtree or None for its root, index on its stacked
+        axes); a family's ``_<kind>_block`` and ``_<kind>_decode`` run
+        them."""
+        raise NotImplementedError
+
+    def _remat_runs(self, remat: bool) -> list:
+        """The schedule cut into the runs that each go under one
+        checkpoint: groups of ``cfg.remat_group`` blocks (1 where it does
+        not divide their number), as the unsharded ``_run_layers``."""
+        blocks = self._schedule()
+        g = self.cfg.remat_group
+        g = g if remat and g > 1 and len(blocks) % g == 0 else 1
+        return [blocks[i:i + g] for i in range(0, len(blocks), g)]
+
+    def _inputs(self, tokens, positions, vision_embeds=None):
         spec = self.layout(*tokens.shape)
         if positions is None:
             positions = self.model._default_positions(tokens)
-        return spec, shard(positions, spec, self.mesh), self._embed(tokens,
-                                                                     spec)
+        return (spec, self._positions(positions, spec),
+                self._embed(tokens, spec, vision_embeds))
+
+    def _run(self, xs, aux, pos, spec, run):
+        for kind, pre, _, _ in run:
+            xs, a, _ = getattr(self, f"_{kind}_block")(pre, xs, pos, spec)
+            if a is not None:
+                aux = aux + a
+        return xs, aux
 
     def forward(self, tokens: torch.Tensor, positions=None, *,
-                remat: bool = True):
-        """-> (final hidden, a ``Sharded`` (B, S, D), aux 0); with
-        ``remat`` each group of ``cfg.remat_group`` layers runs under
-        ``torch.utils.checkpoint`` across all the shards at once."""
+                vision_embeds=None, remat: bool = True):
+        """-> (final hidden, a ``Sharded`` (B, S, D), aux: the MoE layers'
+        aux losses summed, else 0); with ``remat`` each run of
+        ``_remat_runs`` under ``torch.utils.checkpoint`` across all the
+        shards at once."""
         B, S = tokens.shape
-        spec, pos, xs = self._inputs(tokens, positions)
-        n = self.cfg.n_layers
-        g = self.cfg.remat_group
-        g = g if remat and g > 1 and n % g == 0 else 1
-        for lo in range(0, n, g):
+        spec, pos, xs = self._inputs(tokens, positions, vision_embeds)
+        aux = torch.zeros((), device=self.model.device)
+        for run in self._remat_runs(remat):
             if remat:
-                xs = checkpoint(self._layers, xs, pos, spec, lo, lo + g,
-                                use_reentrant=False)
+                xs, aux = checkpoint(self._run, xs, aux, pos, spec, run,
+                                     use_reentrant=False)
             else:
-                xs = self._layers(xs, pos, spec, lo, lo + g)
+                xs, aux = self._run(xs, aux, pos, spec, run)
         xs = self._norm("final_norm", xs)
-        hidden = Sharded(xs, PartitionSpec(spec[0], spec[1], None),
-                         (B, S, self.cfg.d_model), self.mesh)
-        return hidden, torch.zeros((), device=self.model.device)
+        return (Sharded(xs, PartitionSpec(spec[0], spec[1], None),
+                        (B, S, self.cfg.d_model), self.mesh), aux)
 
-    def cache_spec(self, B: int, max_len: int) -> tuple:
-        cfg = self.cfg
-        shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return self.sharder.spec(self.model.cache_dims()["k"], shape), shape
-
-    @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int, positions=None):
-        """-> (last-position hidden, a ``Sharded`` (B, D); cache {"k", "v"}
-        of ``Sharded`` (n_layers, B, max_len, KV, hd), each shard's
-        positions of the padded k and v)."""
-        B, S = tokens.shape
-        if S > max_len:
-            raise ValueError(f"prompt of {S} tokens exceeds max_len "
-                             f"{max_len}")
-        spec, pos, xs = self._inputs(tokens, positions)
-        cspec, cshape = self.cache_spec(B, max_len)
-        cache = {name: Sharded(zeros_pieces(cshape, cspec, self.mesh,
-                                            self.model.dtype),
-                               cspec, cshape, self.mesh)
-                 for name in ("k", "v")}
-        L = cache["k"].pieces[0].shape[2]
-        for i in range(self.cfg.n_layers):
-            xs, kv = self._layer(i, xs, pos, spec)
-            for name, full in zip(("k", "v"), kv):
-                for k in range(self.n):
-                    lo = self.start(k, cspec[2], max_len)
-                    hi = min(lo + L, S)
-                    if hi > lo:
-                        cache[name].pieces[k][i, :, :hi - lo] = \
-                            full[k][:, lo:hi]
+    def _last(self, xs: list, spec, final) -> list:
+        """The last position of each shard's batch rows, gathered from the
+        sequence shard that holds it, through ``final`` (the final norm)."""
         last = [x[:, -1:] for x in xs]
         seq = spec_axes(spec[1])
         if seq:
             last = all_gather(last, self.mesh, seq, 1)
-        last = self._norm("final_norm", [t[:, -1] for t in last])
+        return final([t[:, -1] for t in last])
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: int, positions=None,
+                *, vision_embeds=None):
+        """-> (last-position hidden, a ``Sharded`` (B, D); the cache: the
+        model's tree with ``Sharded`` leaves, each shard's pieces)."""
+        B, S = tokens.shape
+        if S > max_len:
+            raise ValueError(f"prompt of {S} tokens exceeds max_len "
+                             f"{max_len}")
+        spec, pos, xs = self._inputs(tokens, positions, vision_embeds)
+        cache = self._cache(B, max_len)
+        for kind, pre, key, idx in self._schedule():
+            slot = cache[key] if key else cache
+            xs, _, layer = getattr(self, f"_{kind}_block")(
+                pre, xs, pos, spec, want_cache=True)
+            if kind == "mamba":
+                for name, pieces in layer.items():
+                    for k, t in enumerate(pieces):
+                        slot[name].pieces[k][idx].copy_(t)
+            else:
+                self._write_kv(slot, idx, layer, S)
+        last = self._last(xs, spec, lambda t: self._norm("final_norm", t))
         return (Sharded(last, PartitionSpec(spec[0], None),
                         (B, self.cfg.d_model), self.mesh), cache)
 
@@ -985,54 +1099,17 @@ class ShardedDense:
         """One token against a ``prefill`` cache (written in place) ->
         (logits, a ``Sharded`` (B, V) fp32 over the vocab shards, the
         cache)."""
-        cfg, mesh = self.cfg, self.mesh
         B = token.shape[0]
         spec = PartitionSpec(self.sharder.spec(("batch",), (B,))[0], None)
         xs = self._embed(token[:, None], spec)
-        pos = shard(torch.full((B, 1), kv_len, device=token.device), spec,
-                    mesh)
-        kc, vc = cache["k"], cache["v"]
-        cspec, max_len = kc.spec, kc.shape[2]
-        L = kc.pieces[0].shape[2]
-        kv_axes = spec_axes(cspec[2])
-        for i in range(cfg.n_layers):
-            pre = f"layers.{i}.attn."
-            hs = self._norm(f"layers.{i}.attn_norm", xs)
-            (q, k_new, v_new), qspec = self._qkv(pre, hs, pos)
-            heads = spec_axes(qspec[1])
-            los = [self.start(k, cspec[2], max_len) for k in range(self.n)]
-            for k in range(self.n):
-                if los[k] <= kv_len < los[k] + L:
-                    kc.pieces[k][i, :, kv_len - los[k]] = k_new[k][:, 0]
-                    vc.pieces[k][i, :, kv_len - los[k]] = v_new[k][:, 0]
-            if kv_axes:
-                qa = all_gather(q, mesh, heads, 2) if heads else q
-                parts = [_decode_partial(qa[k], kc.pieces[k][i],
-                                         vc.pieces[k][i], los[k], kv_len + 1)
-                         for k in range(self.n)]
-                top = pmax([p[0] for p in parts], mesh, kv_axes)
-                scale = [torch.exp(p[0] - t) for p, t in zip(parts, top)]
-                tot = psum([p[1] * w for p, w in zip(parts, scale)], mesh,
-                           kv_axes)
-                acc = psum([p[2] * w[..., None]
-                            for p, w in zip(parts, scale)], mesh, kv_axes)
-                outs = []
-                for k in range(self.n):
-                    o = (acc[k] / tot[k][..., None]).to(q[k].dtype)
-                    o = o.reshape(o.shape[0], 1, cfg.n_heads, cfg.head_dim)
-                    h0, _ = self._heads(k, qspec, q[k].shape[2])
-                    outs.append(o[:, :, h0:h0 + q[k].shape[2]])
-            else:
-                outs = []
-                for k in range(self.n):
-                    _, sel = self._heads(k, qspec, q[k].shape[2])
-                    outs.append(decode_attention(
-                        q[k], kc.pieces[k][i][:, :, sel],
-                        vc.pieces[k][i][:, :, sel], kv_len + 1))
-            xs = [x + o for x, o in zip(xs, self._out(pre, outs, hs, qspec))]
-            pre = f"layers.{i}."
-            m = self._mlp(pre + "mlp.", self._norm(pre + "mlp_norm", xs))
-            xs = [x + o for x, o in zip(xs, m)]
+        pos = torch.full((B, 1), kv_len, device=token.device)
+        if self.cfg.m_rope_sections is not None:
+            pos = pos.expand(3, B, 1)   # kv_len on every channel, as JAX
+        pos = self._positions(pos, spec)
+        for kind, pre, key, idx in self._schedule():
+            slot = cache[key] if key else cache
+            xs = getattr(self, f"_{kind}_decode")(pre, xs, pos, spec, slot,
+                                                  idx, kv_len)
         xs = self._norm("final_norm", xs)
         return self.logits([x[:, 0] for x in xs], spec[0]), cache
 
@@ -1053,3 +1130,192 @@ class ShardedDense:
         B = hs[0].shape[0] * axes_size(self.mesh, spec_axes(batch_entry))
         return Sharded(out, PartitionSpec(batch_entry, wspec[0]), (B, V),
                        self.mesh)
+
+
+class ShardedDense(ShardProgram):
+    """The dense and vlm families on a mesh: one ``DenseBlock`` a layer,
+    attention and the FFN each after an rms-norm with the residual.  The
+    vlm's ``vision_embeds`` take the first positions before the sequence
+    splits (``_embed``) and its (3, B, S) M-RoPE ids split on their last
+    axis (``_positions``); decode gives the new token kv_len on all three
+    channels."""
+
+    def _schedule(self) -> list:
+        return [("dense", f"layers.{i}.", None, i)
+                for i in range(self.cfg.n_layers)]
+
+    def _ffn(self, pre: str, hs: list, spec, group_size: int):
+        """-> (each shard's FFN output, the aux loss or None)."""
+        return self._mlp(pre + "mlp.", hs), None
+
+    def _dense_block(self, pre: str, xs: list, pos: list, spec,
+                     want_cache: bool = False):
+        """-> (xs, aux or None, (k, v) each shard's over the prompt)."""
+        a, kv = self._attn(pre + "attn.", self._norm(pre + "attn_norm", xs),
+                           pos, spec)
+        xs = [x + o for x, o in zip(xs, a)]
+        m, aux = self._ffn(pre, self._norm(pre + "mlp_norm", xs), spec,
+                           self.cfg.moe_group_size)
+        return [x + o for x, o in zip(xs, m)], aux, kv
+
+    def _dense_decode(self, pre: str, xs: list, pos: list, spec, slot: dict,
+                      idx, kv_len: int) -> list:
+        a = self._attn_decode(pre + "attn.",
+                              self._norm(pre + "attn_norm", xs), pos,
+                              slot["k"], slot["v"], idx, kv_len)
+        xs = [x + o for x, o in zip(xs, a)]
+        # One token a row: the group is at most the batch (JAX's
+        # min(moe_group_size, B * 1)).
+        B = xs[0].shape[0] * axes_size(self.mesh, spec_axes(spec[0]))
+        m, _ = self._ffn(pre, self._norm(pre + "mlp_norm", xs), spec,
+                         min(self.cfg.moe_group_size, B))
+        return [x + o for x, o in zip(xs, m)]
+
+
+class ShardedMoE(ShardedDense):
+    """The moe family on a mesh: the dense program's attention, embedding
+    and head, and the experts' FFN expert-parallel
+    (``models/moe.moe_sharded``): the experts over model, the groups of
+    JAX's global wave layout over data where they divide, the routing
+    with the whole router on every shard, the combine's partial sums added
+    over model; the shared experts dff-parallel.  The aux loss is the
+    unsharded run's (the same groups, waves and means).  ``routes``: None,
+    or a dict that gets each layer's routing, {parameter prefix: list}
+    (``moe_sharded``'s order)."""
+
+    routes: dict | None = None
+
+    def _ffn(self, pre: str, hs: list, spec, group_size: int):
+        cfg, mesh = self.cfg, self.mesh
+        router, rspec = self.w(pre + "moe.router")
+        # The whole fp32 router on every shard (1 MB at 2048 x 128),
+        # gathered from its column pieces.
+        router = all_gather(router, mesh, spec_axes(rspec[1]), 1)
+        pieces = [{"router": r} for r in router]
+        for name in ("up", "gate", "down"):
+            ws, espec = self.w(pre + "moe." + name)
+            for p, t in zip(pieces, ws):
+                p[name] = t
+        shared_entry = None
+        if cfg.n_shared_experts:
+            for name in ("up", "gate", "down"):
+                ws, sspec = self.w(pre + "moe.shared." + name)
+                if name == "up":
+                    shared_entry = sspec[1]
+                for p, t in zip(pieces, ws):
+                    p.setdefault("shared", {})[name] = t
+        out, aux = moe_sharded(
+            pieces, hs, self.sharder, spec[0], seq_entry=spec[1],
+            expert_entry=espec[0], shared_entry=shared_entry,
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            group_size=group_size, activation=cfg.activation,
+            n_waves=cfg.moe_waves, dispatch_mode=cfg.moe_dispatch,
+            routes=None if self.routes is None else
+            self.routes.setdefault(pre, []))
+        return out, aux[0].to(self.model.device)
+
+
+class ShardedSSM(ShardProgram):
+    """The ssm family on a mesh: one ``MambaBlock`` a layer, its mixer
+    head-sharded (``models/ssm.mamba2_sharded``: the channels and the
+    heads over model, ``out_proj`` row-parallel, the gated norm's sum of
+    squares added over model, B and C projected whole on every shard).
+    Where the sequence splits (``sp``) a block gathers it, scans it whole
+    and keeps its block.  Decode: the conv state on ``conv_channels``, the
+    SSD state on ``ssm_heads`` (``mamba2_cache_dims``)."""
+
+    def _schedule(self) -> list:
+        return [("mamba", f"layers.{i}.", None, i)
+                for i in range(self.cfg.n_layers)]
+
+    def _mixer(self, pre: str):
+        """(each shard's view of the mixer's parameters, the channel and
+        head spec entries)."""
+        names = mamba2_table(1, 1, 1, 1, 1)
+        pieces = [{} for _ in range(self.n)]
+        specs = {}
+        for name in names:
+            ws, specs[name] = self.w(pre + "mixer." + name)
+            for p, t in zip(pieces, ws):
+                p[name] = t
+        return pieces, specs["z_proj"][1], specs["dt_proj"][1]
+
+    def _ssm_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(n_heads=cfg.n_ssm_heads, head_dim=cfg.ssm_head_dim,
+                    d_state=cfg.ssm_state)
+
+    def _mamba_block(self, pre: str, xs: list, pos, spec,
+                     want_cache: bool = False):
+        """-> (xs, None, with ``want_cache`` {conv_x, conv_bc, state} each
+        shard's: the last K-1 pre-conv projections and the final state)."""
+        cfg = self.cfg
+        hs = self._norm(pre + "norm", xs)
+        seq = spec_axes(spec[1])
+        if seq:
+            hs = all_gather(hs, self.mesh, seq, 1)
+        pieces, chan, heads = self._mixer(pre)
+        ys = mamba2_sharded(pieces, hs, self.mesh, chan=chan, heads=heads,
+                            chunk=cfg.ssm_chunk, return_state=want_cache,
+                            **self._ssm_kw())
+        layer = None
+        if want_cache:
+            ys, finals = ys
+            layer = {"conv_x": [], "conv_bc": [], "state": finals}
+            for h, p in zip(hs, pieces):
+                tail = h[:, -(cfg.d_conv - 1):].float()
+                layer["conv_x"].append((tail @ p["x_proj"].float()).to(
+                    h.dtype))
+                layer["conv_bc"].append((tail @ p["bc_proj"].float()).to(
+                    h.dtype))
+        if seq:
+            ys = self._seq_block(ys, spec, hs[0].shape[1])
+        return [x + y for x, y in zip(xs, ys)], None, layer
+
+    def _mamba_decode(self, pre: str, xs: list, pos, spec, slot: dict, idx,
+                      kv_len: int) -> list:
+        hs = self._norm(pre + "norm", xs)
+        pieces, chan, heads = self._mixer(pre)
+        caches = [{name: slot[name].pieces[k][idx] for name in slot}
+                  for k in range(self.n)]
+        ys, new = mamba2_decode_sharded(pieces, [h[:, 0] for h in hs],
+                                        caches, self.mesh, chan=chan,
+                                        heads=heads, **self._ssm_kw())
+        # Every shard has read its cache before any is written (shards on
+        # one device share a replicated piece).
+        for c, n in zip(caches, new):
+            for name, t in n.items():
+                c[name].copy_(t)
+        return [x + y[:, None] for x, y in zip(xs, ys)]
+
+
+class ShardedHybrid(ShardedSSM, ShardedDense):
+    """The hybrid family on a mesh: ``ShardedSSM``'s Mamba blocks, and the
+    one shared ``DenseBlock`` (``shared_attn``) after each group on the
+    dense tp program; its parameters' gradients add up over every use and
+    every shard.  Each group and its shared block run under one
+    checkpoint, the tail a layer at a time, as unsharded."""
+
+    def _schedule(self) -> list:
+        cfg = self.cfg
+        out = []
+        for g in range(cfg.n_layers // cfg.attn_every):
+            out += [("mamba", f"layers.{g}.{i}.", "groups", (g, i))
+                    for i in range(cfg.attn_every)]
+            out.append(("dense", "shared_attn.", "attn", g))
+        return out + [("mamba", f"tail_layers.{i}.", "tail", i)
+                      for i in range(cfg.n_layers % cfg.attn_every)]
+
+    def _remat_runs(self, remat: bool) -> list:
+        blocks = self._schedule()
+        if not remat:
+            return [blocks]
+        g = self.cfg.attn_every + 1
+        n = (self.cfg.n_layers // self.cfg.attn_every) * g
+        return ([blocks[i:i + g] for i in range(0, n, g)]
+                + [[b] for b in blocks[n:]])
+
+
+SHARD_PROGRAMS = {"dense": ShardedDense, "vlm": ShardedDense,
+                  "moe": ShardedMoE, "ssm": ShardedSSM,
+                  "hybrid": ShardedHybrid}

@@ -2,7 +2,7 @@
 prefill (prompt -> cache + first greedy token) and decode (one token
 against the cache), on one device or, given a ``Sharder`` of more than one
 shard, on its mesh: the model's sharded ``prefill`` and ``decode_step``
-(``models/transformer.ShardedDense``), the logits over the vocab shards
+(the family's shard program), the logits over the vocab shards
 and the greedy argmax taken across them (``sharded_argmax``).
 """
 from __future__ import annotations

@@ -29,7 +29,7 @@ the master model itself and nothing is copied.  A solver-family model
 the steady-state MSE as its loss, whatever ``compute_dtype`` says.
 
 Under a sharder the forward and the loss run shard by shard
-(``models/transformer.ShardedDense``, ``train/loss.sharded_xent``) in one
+(the family's shard program, ``train/loss.sharded_xent``) in one
 autograd graph over every shard: each shard's weights are pieces of the
 compute model's parameters, so a parameter's gradient is the sum of its
 pieces' and replicas' gradients (the mesh axes its spec leaves unused).
@@ -153,8 +153,9 @@ def make_train_step(model: StackedModel, opt: AdamWConfig,
     grad_norm, lr}; a solver layer's {loss, mse, aux, grad_norm, lr}) for
     the masters of ``model``'s config; the state is updated in place
     (``apply_update``).  ``sharder``: run it on its mesh (the module
-    docstring); a family without sharded execution raises
-    ``NotImplementedError`` on a mesh of more than one shard."""
+    docstring); what has no sharded execution (``state_over_data``, the
+    solver family) raises ``NotImplementedError`` on a mesh of more than
+    one shard."""
     if sharder is not None and sharder.trivial:
         sharder = None
     if getattr(model.cfg, "family", None) == "solver":
@@ -166,7 +167,7 @@ def make_train_step(model: StackedModel, opt: AdamWConfig,
         compute, loss_of = model, solver_loss_fn
     else:
         compute = compute_model(model, compute_dtype)
-        compute.sharded(sharder)    # raises for an unported family
+        compute.sharded(sharder)    # raises where there is no execution
         loss_of = functools.partial(loss_fn, sharder=sharder)
     dims = compute.param_dims_by_name() if sharder is not None else None
 

@@ -1609,3 +1609,48 @@ def test_sharded_dense_on_the_card_equals_unsharded(cuda, arch):
     got = greedy_generate(model, {"tokens": tokens}, steps=3, max_len=20,
                           sharder=sh)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                                  "mamba2-370m", "zamba2-1.2b",
+                                  "qwen2-vl-2b", "whisper-tiny"])
+def test_sharded_families_on_the_card_equal_unsharded(cuda, arch):
+    # every other family's shard program on a 2x4 ("data", "model") mesh
+    # with every shard on cuda:0, fp32 smoke config through the flash
+    # kernels: the loss and grads, and the greedy tokens, as unsharded
+    # (whisper-tiny's smoke model at 1 + 1 layers: chaotic past one, its
+    # sp grads part by 1.2e-4 of a leaf's max-abs at 2 + 2)
+    import dataclasses
+    import functools
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models.model_zoo import build
+    from repro_torch.parallel import make_mesh
+    from repro_torch.parallel.sharding import Sharder
+    from repro_torch.train.serve_step import greedy_generate
+    from repro_torch.train.train_step import (init_train_state, loss_fn,
+                                              value_and_grad)
+    depth = ({"n_layers": 1, "n_enc_layers": 1} if arch == "whisper-tiny"
+             else {})
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              attn_impl="flash", **depth)
+    model = build(cfg, device=cuda, dtype=torch.float32)
+    sh = Sharder(make_mesh((2, 4)), cfg.sharding_profile)
+    tokens = torch.tensor(_rng.integers(0, cfg.vocab_size, (4, 16)),
+                          device=cuda)
+    extra = {k: torch.randn(v.shape, device=cuda)
+             for k, v in stub_inputs(cfg, 4, 16, dtype=torch.float32,
+                                     device=cuda).items()}
+    batch = {"tokens": tokens, "labels": tokens.roll(1, 1), **extra}
+    params = init_train_state(model)["params"]
+    l1, _, g1 = value_and_grad(model, params, batch)
+    l2, _, g2 = value_and_grad(model, params, batch,
+                               functools.partial(loss_fn, sharder=sh))
+    assert abs(float(l2) / float(l1) - 1) <= 1e-5
+    for n, g in g1.items():
+        assert (g2[n] - g).abs().max() <= 1e-4 * max(float(g.abs().max()),
+                                                     1e-3), n
+    serve = {"tokens": tokens, **extra}
+    want = greedy_generate(model, serve, steps=3, max_len=20)
+    got = greedy_generate(model, serve, steps=3, max_len=20, sharder=sh)
+    assert torch.equal(got, want)

@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.models.convert import from_jax_params, to_jax_tree
 from repro_torch.models.layers import flatten, set_path
 from repro_torch.models.model_zoo import build
@@ -48,8 +48,6 @@ TRAIN = (("qwen3-0.6b", "tp"), ("phi3-medium-14b", "sp"))
 DECODE = (("glm4-9b", "tp"), ("phi3-medium-14b", "sp"))
 B, S, MAX_LEN = 4, 12, 16          # decode: model 4 divides 16
 TRAIN_B, TRAIN_S = 4, 16
-UNPORTED = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "mamba2-370m",
-            "zamba2-1.2b", "qwen2-vl-2b", "whisper-tiny")
 
 
 def _inputs():
@@ -373,29 +371,30 @@ def test_kv_heads_a_shard_reads():
     assert kv_heads_for(10, 10, 4).tolist() == [2, 2, 3, 3, 3, 3, 4, 4, 4, 4]
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_on_a_larger_mesh(arch):
+@pytest.mark.parametrize("arch", list_archs())
+def test_state_over_data_raises_on_a_larger_mesh(arch):
+    # every family runs sharded; state_over_data has rules but no
+    # execution, and raises at every entry point, never running unsharded
     cfg = get_config(arch, smoke=True)
     model = build(cfg, device="cpu", dtype=torch.float32)
-    sh = Sharder(cpu_mesh(), cfg.sharding_profile)
-    family = cfg.family
+    sh = Sharder(cpu_mesh(), cfg.sharding_profile, state_over_data=True)
     tokens = torch.zeros(4, 8, dtype=torch.long)
     extra = {}
-    if family == "encdec":
+    if cfg.family == "encdec":
         extra = {"enc_frames": torch.zeros(4, cfg.enc_len, cfg.d_model)}
-    with pytest.raises(NotImplementedError, match=family):
+    with pytest.raises(NotImplementedError, match="state_over_data"):
         model(tokens, sharder=sh, **extra)
-    with pytest.raises(NotImplementedError, match=family):
+    with pytest.raises(NotImplementedError, match="state_over_data"):
         make_prefill_step(model, 12, sharder=sh)({"tokens": tokens, **extra})
-    with pytest.raises(NotImplementedError, match=family):
+    with pytest.raises(NotImplementedError, match="state_over_data"):
         model.decode_step(tokens[:, 0], {}, 8, sharder=sh)
-    with pytest.raises(NotImplementedError, match=family):
+    with pytest.raises(NotImplementedError, match="state_over_data"):
         make_train_step(model, AdamWConfig(), sharder=sh)
 
 
 ALL = ("qwen3-0.6b", "glm4-9b", "phi3-medium-14b", "nemotron-4-15b",
-       "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-1.2b", "qwen2-vl-2b",
-       "whisper-tiny")
+       "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "mamba2-370m",
+       "zamba2-1.2b", "qwen2-vl-2b", "whisper-tiny")
 
 
 @pytest.mark.parametrize("arch", ALL)
