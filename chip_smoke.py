@@ -690,6 +690,72 @@ FAM_REF_Q_CHUNK = 256            # the references' plain attention rows
 # 6e-8 of itself; the sharded and unsharded runs' router inputs differ by
 # the tp sums' order, about 1e-6 relative).
 FAM_ROUTE_TIE = 1e-5
+# Phase 39, the launch tooling (launch/specs.py, hlo_cost.py, dryrun.py)
+# and state_over_data decode.  (a) qwen3-0.6b's smoke config through these
+# dry-run cells, for real, on the 16 x 16 mesh with all 256 shards on
+# cuda:0, their counts held equal to the meta dry run's of the same cell;
+# (b) these full-width cells through the dry-run CLI on meta, their counts
+# held equal to LT_CLI_COUNTS (the CPU sweep's records, PERF.md §5);
+# (c) batch-1 decode under state_over_data on DIST_MESH at full width and
+# depth: SOD_TOKENS bf16 tokens from a seeded random cache of SOD_LEN
+# positions, sharded against unsharded (the decode's worst token by
+# DIST_BF16_RATIO against an fp32 copy reading the same bf16 cache), and
+# fp32 against float64 by DIST_X, token by token, at
+# SOD_FP32_DEPTH layers (zamba2's fp32 and float64 caches at 38 layers,
+# 51.6 and 103 GB, do not fit; at 6 layers, one attention use, 8.6 and
+# 17.2 GB) over SOD_FP32_TOKENS tokens.
+LT_SMOKE_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+LT_CLI_CELLS = (("mamba2-370m", "long_500k"), ("zamba2-1.2b", "long_500k"),
+                ("qwen3-0.6b", "decode_32k"))
+LT_CLI_COUNTS = {   # per shard: flops, hbm_bytes, collectives
+    "mamba2-370m long_500k": {
+        "flops": 69648384.0, "hbm_bytes": 111755542.03125,
+        "collectives": {
+            "all-gather": {"count": 50.0, "operand_bytes": 1548.0,
+                     "result_bytes": 24768.0},
+            "all-reduce": {"count": 97.0, "operand_bytes": 100544.0,
+                     "result_bytes": 100544.0},
+            "reduce-scatter": {"count": 0.0, "operand_bytes": 0.0,
+                     "result_bytes": 0.0},
+            "all-to-all": {"count": 0.0, "operand_bytes": 0.0,
+                     "result_bytes": 0.0},
+            "collective-permute": {"count": 0.0, "operand_bytes": 0.0,
+                     "result_bytes": 0.0},
+        }},
+    "zamba2-1.2b long_500k": {
+        "flops": 393719808.0, "hbm_bytes": 870875790.03125,
+        "collectives": {
+            "all-gather": {"count": 46.0, "operand_bytes": 3980.0,
+                     "result_bytes": 63680.0},
+            "all-reduce": {"count": 107.0, "operand_bytes": 259736.0,
+                     "result_bytes": 259736.0},
+            "reduce-scatter": {"count": 0.0, "operand_bytes": 0.0,
+                     "result_bytes": 0.0},
+            "all-to-all": {"count": 0.0, "operand_bytes": 0.0,
+                     "result_bytes": 0.0},
+            "collective-permute": {"count": 0.0, "operand_bytes": 0.0,
+                     "result_bytes": 0.0},
+        }},
+    "qwen3-0.6b decode_32k": {
+        "flops": 5234884608.0, "hbm_bytes": 17625467328.0,
+        "collectives": {
+            "all-gather": {"count": 30.0, "operand_bytes": 57440.0,
+                     "result_bytes": 919040.0},
+            "all-reduce": {"count": 141.0, "operand_bytes": 2797568.0,
+                     "result_bytes": 2797568.0},
+            "reduce-scatter": {"count": 0.0, "operand_bytes": 0.0,
+                     "result_bytes": 0.0},
+            "all-to-all": {"count": 0.0, "operand_bytes": 0.0,
+                     "result_bytes": 0.0},
+            "collective-permute": {"count": 0.0, "operand_bytes": 0.0,
+                     "result_bytes": 0.0},
+        }},
+}
+SOD_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+SOD_LEN = 524_288
+SOD_TOKENS = 8
+SOD_FP32_DEPTH = {"mamba2-370m": 48, "zamba2-1.2b": 6}
+SOD_FP32_TOKENS = 2
 DEVICE = "cuda"
 # Phases 20-22, the stencil serving tier.  Autotune cells: (name, spec,
 # grid, iterations a timed call); Table 1's and Fig 6's go to the committed
@@ -4131,6 +4197,412 @@ def families_kernel_rows(fam, entry, case_err):
                              case_err)
 
 
+def launch_tooling_phase(dev, flash_case, bwd_case, graph_ms, time_ms,
+                         device_profile):
+    """Phase 39, the launch tooling and state_over_data decode:
+
+    (b) first started: the dry-run CLI (``python -m
+    repro_torch.launch.dryrun``) on meta for ``LT_CLI_CELLS`` at full
+    width and, for (a), qwen3-0.6b's smoke cells of ``LT_SMOKE_CELLS``,
+    one subprocess each, all at once, while the card runs (a) and (c);
+    each full-width cell's status OK and counts equal to ``LT_CLI_COUNTS``;
+    (k) K7-K9 at (a)'s new shard shapes held against their plain versions
+    (``flash_case``/``bwd_case``), then timed (``k7_timing``,
+    ``k89_timing``, SDPA);
+    (a) the same smoke cells for real through ``launch.dryrun.run_cell``
+    with all 256 shards of the 16 x 16 mesh on ``dev``: the counted
+    flops, hbm_bytes and collectives equal to the meta record's exactly,
+    the kernels' launches those the shard program implies (train 2 x
+    layers x 256 K7 and layers x 256 K8/K9, prefill layers x 256 K7,
+    decode none: its attention is plain), each step's seconds and the
+    card's peak memory beside the record's argument bytes x 256;
+    (c) mamba2-370m and zamba2-1.2b under state_over_data on DIST_MESH,
+    every shard on ``dev``, batch 1 (module constants' comment): ms/token
+    sharded and unsharded, peak GB, the sharded step's idle share.
+
+    Returns {"launches", "timings", "seconds"}."""
+    import gc
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.parallel.halo import make_mesh
+
+    t_start = time.perf_counter()
+    bf16 = torch.bfloat16
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def flush():
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+
+    def peak_GB():
+        return torch.cuda.max_memory_allocated(dev) / 1e9
+
+    launches, timings, seconds, out = {}, {}, {}, {}
+
+    # -- (b) the meta dry runs, started first ---------------------------------
+    tmp = tempfile.mkdtemp(prefix="phase39_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    cells = ([("qwen3-0.6b", s, True) for s in LT_SMOKE_CELLS]
+             + [(a, s, False) for a, s in LT_CLI_CELLS])
+    procs = {}
+    for arch, shape, smoke in cells:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "pod", "--out",
+               os.path.join(tmp, "smoke" if smoke else "full")]
+        procs[(arch, shape, smoke)] = (subprocess.Popen(
+            cmd + ["--smoke"] * smoke, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT),
+            time.perf_counter())
+
+    def record_of(arch, shape, smoke):
+        p, t0 = procs[(arch, shape, smoke)]
+        stdout, stderr = p.communicate(timeout=900)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"phase 39: dryrun {arch} {shape} exited "
+              f"{p.returncode}: {stderr[-2000:]}")
+        path = os.path.join(tmp, "smoke" if smoke else "full",
+                            f"{arch}__{shape}__pod16x16.json")
+        with open(path) as f:
+            rec = json.load(f)
+        check(rec["status"] == "OK" and "status=OK" in stdout,
+              f"phase 39: dryrun {arch} {shape}: {rec['status']}")
+        return rec, wall
+
+    def counts(rec):
+        return {k: rec["hlo_cost"][k] for k in ("flops", "hbm_bytes",
+                                                "collectives")}
+
+    try:
+        # -- (k) the new shard shapes' kernels against their plain versions --
+        t0 = time.perf_counter()
+        cfg = get_config("qwen3-0.6b", smoke=True)
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        shapes = {   # 4 q heads do not divide model 16: whole on a shard
+            "pod qwen3-0.6b smoke train shard": (256 // 16, 4096, 4096, H,
+                                                 KV, hd),
+            "pod qwen3-0.6b smoke prefill shard": (32 // 16, 32768, 32768,
+                                                   H, KV, hd)}
+        gk = torch.Generator(device=dev).manual_seed(39)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gk, device=dev).to(bf16)
+
+        for label, shape in shapes.items():
+            Bx, Sqx, Skv, Hx, KVx, hdx = shape
+            flash_case(label, shape, bf16, causal=True, blocks=(512, 512))
+            if "train" in label:
+                bwd_case(label, rand(Bx, Sqx, Hx, hdx),
+                         rand(Bx, Skv, KVx, hdx), rand(Bx, Skv, KVx, hdx),
+                         rand(Bx, Sqx, Hx, hdx), causal=True, flips=True)
+            flush()
+            row = {"k7": k7_timing(shape, True, dev, gk, graph_ms, time_ms,
+                                   dtype=bf16)}
+            if "train" in label:
+                row["k89"] = k89_timing(shape, True, dev, gk, graph_ms,
+                                        time_ms, dtype=bf16)
+            timings[f"{label} bfloat16"] = [row]
+            flush()
+        seconds["kernels"] = time.perf_counter() - t0
+
+        # -- (a) the smoke cells on the card, counted -----------------------
+        t0 = time.perf_counter()
+        gf = torch.Generator(device=dev).manual_seed(390)
+
+        def fill(t):
+            if t.is_floating_point():
+                t.normal_(generator=gf)
+            else:
+                t.random_(0, cfg.vocab_size, generator=gf)
+
+        L = cfg.n_layers
+        want = {"train_4k": {"flash_fwd": 2 * L * 256,
+                             "flash_bwd_dq": L * 256,
+                             "flash_bwd_dkv": L * 256},
+                "prefill_32k": {"flash_fwd": L * 256}, "decode_32k": {}}
+        smoke = {}
+        for shape in LT_SMOKE_CELLS:
+            flush()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.LAUNCHES.clear()
+            t1 = time.perf_counter()
+            rec = run_cell("qwen3-0.6b", shape, False, "", smoke=True,
+                           devices=[dev] * 256, fill=fill)
+            sync()
+            wall = time.perf_counter() - t1
+            got = dict(_build.LAUNCHES)
+            launches[f"a {shape}"] = got
+            meta, meta_wall = record_of("qwen3-0.6b", shape, True)
+            check(got == want[shape], f"phase 39 (a) {shape} launched {got}, "
+                  f"not {want[shape]}")
+            check(counts(rec) == counts(meta), f"phase 39 (a) {shape}: "
+                  f"cuda counts {counts(rec)} differ from meta's "
+                  f"{counts(meta)}")
+            sizes = ("argument_size_in_bytes", "output_size_in_bytes")
+            check(all(rec["memory_analysis"][k] == meta["memory_analysis"][k]
+                      for k in sizes),
+                  f"phase 39 (a) {shape}: argument/output bytes differ")
+            smoke[shape] = {
+                "wall_s": wall, "trace_s": rec["compile_s"],
+                "meta_trace_s": meta["compile_s"], "meta_wall_s": meta_wall,
+                "peak_GB": peak_GB(),
+                "argument_GB_x256": rec["memory_analysis"][
+                    "argument_size_in_bytes"] * 256 / 1e9,
+                "temp_GB_x256_cuda": rec["memory_analysis"][
+                    "temp_size_in_bytes"] * 256 / 1e9,
+                "temp_GB_x256_meta": meta["memory_analysis"][
+                    "temp_size_in_bytes"] * 256 / 1e9,
+                "flops_per_shard": rec["hlo_cost"]["flops"],
+                "hbm_bytes_per_shard": rec["hlo_cost"]["hbm_bytes"],
+                "launches": got, "counts_equal_meta": True}
+            emit({"phase": 39, "part": "a", "cell": shape, **smoke[shape]})
+        out["a"] = smoke
+        seconds["a"] = time.perf_counter() - t0
+
+        # -- (c) state_over_data decode at full width and depth -------------
+        t0 = time.perf_counter()
+        mesh = make_mesh(DIST_MESH, ("data", "model"))
+        check(all(d.type == dev.type and (d.index or 0) == 0
+                  for d in mesh.devices),
+              f"phase 39: shards off {dev.type}:0: {mesh.devices}")
+        sod = {}
+        for arch in SOD_ARCHS:
+            sod[arch] = sod_run(arch, mesh, dev, device_profile)
+            flush()
+        out["c"] = sod
+        seconds["c"] = time.perf_counter() - t0
+
+        # -- (b) the full-width cells' records ------------------------------
+        full = {}
+        for arch, shape in LT_CLI_CELLS:
+            rec, wall = record_of(arch, shape, False)
+            want_c = LT_CLI_COUNTS.get(f"{arch} {shape}")
+            check(want_c is not None and counts(rec) == want_c,
+                  f"phase 39 (b) {arch} {shape}: counts {counts(rec)} "
+                  f"differ from the CPU sweep's {want_c}")
+            full[f"{arch} {shape}"] = {
+                "wall_s": wall, "trace_s": rec["compile_s"],
+                "build_s": rec["lower_s"],
+                "state_over_data": rec["state_over_data"],
+                "flops_per_shard": rec["hlo_cost"]["flops"],
+                "memory_analysis": rec["memory_analysis"]}
+        out["b"] = full
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds["total"] = time.perf_counter() - t_start
+    emit({"phase": 39, **out, "launches": launches, "kernel_times": timings,
+          "seconds": seconds})
+    return {"launches": launches, "timings": timings, "seconds": seconds}
+
+
+def sod_run(arch, mesh, dev, device_profile):
+    """Phase 39 (c) for one arch: bf16 at full depth, sharded and unsharded
+    from one seeded random cache of SOD_LEN positions, the decode's worst
+    token held by DIST_BF16_RATIO to an fp32 copy of the weights reading
+    the same bf16 cache; then fp32 sharded and unsharded at
+    SOD_FP32_DEPTH layers against float64 by DIST_X, token by token.  The sharded cache's pieces are views of
+    the one cache (every shard on ``dev``); each run overwrites the
+    positions from kv_len before it reads them, and the Mamba states are
+    put back between runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import flatten
+    from repro_torch.models.model_zoo import build
+    from repro_torch.parallel.sharding import Sharded, Sharder, shard
+
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    rel = dist_rel
+    kv0 = SOD_LEN - SOD_TOKENS
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def random_cache(model, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        cache = model.init_cache(1, SOD_LEN)
+        for _, leaf in flatten(cache):
+            leaf.normal_(generator=g)
+        return cache
+
+    def sharded_cache(model, sharder, cache):
+        specs = dict(flatten(model.cache_dims()))
+        out = {}
+        for path, leaf in flatten(cache):
+            spec = sharder.spec(specs[path], tuple(leaf.shape))
+            node = out
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = Sharded(shard(leaf, spec, mesh), spec,
+                                     tuple(leaf.shape), mesh)
+        return out
+
+    def saved_states(cache):
+        """Clones of the leaves a decode rewrites in place (not the kv)."""
+        return {p: t.clone() for p, t in flatten(cache)
+                if p[-1] not in ("k", "v")}
+
+    def restore(cache, saved):
+        for p, t in flatten(cache):
+            if p in saved:
+                t.copy_(saved[p])
+
+    def decode(model, cache, toks, sharder=None, profile=False):
+        kw = {} if sharder is None else {"sharder": sharder}
+        outs = []
+        sync()
+        t0 = time.perf_counter()
+        n = len(toks) - (1 if profile else 0)
+        for i in range(n):
+            lg, cache = model.decode_step(toks[i], cache, kv0 + i, **kw)
+            outs.append(real(lg.gather() if sharder is not None else lg))
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        prof = None
+        if profile:
+            box = {}
+
+            def last():
+                box["lg"] = model.decode_step(toks[n], cache, kv0 + n,
+                                              **kw)[0]
+            prof = device_profile(last, host=False)
+            outs.append(real(box["lg"].gather()))
+        return outs, ms, prof
+
+    def real(logits):
+        """The logits of the vocab's real rows (the padded ones are
+        -1e30)."""
+        return logits[:, :cfg.vocab_size]
+
+    cfg = get_config(arch)
+    toks = torch.randint(0, cfg.vocab_size, (SOD_TOKENS, 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             391))
+    sh = Sharder(mesh, cfg.sharding_profile, state_over_data=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    m16 = build(cfg, device=dev, dtype=bf16, generator=gen)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = random_cache(m16, 392)
+    scache = sharded_cache(m16, sh, cache)
+    specs = {".".join(p): list(leaf.spec) for p, leaf in flatten(scache)}
+    check(all(("model", "data") in [tuple(e) if isinstance(e, (list, tuple))
+                                    else e for e in v]
+              for k, v in specs.items() if k.endswith(("k", "v")))
+          and all("data" in v for k, v in specs.items()
+                  if k.endswith("state")),
+          f"phase 39 (c) {arch}: cache specs {specs}")
+    saved = saved_states(cache)
+    ls, ms_s, prof = decode(m16, scache, toks, sh, profile=True)
+    peak_s = torch.cuda.max_memory_allocated(dev) / 1e9
+    restore(cache, saved)
+    torch.cuda.reset_peak_memory_stats(dev)
+    lu, ms_u, _ = decode(m16, cache, toks)
+    peak_u = torch.cuda.max_memory_allocated(dev) / 1e9
+    restore(cache, saved)
+    # the fp32 copy: the same weights, the Mamba leaves fp32, the kv the
+    # same bf16 tensors (its writes rounded to bf16, as the runs' are)
+    m32 = build(cfg, device=dev, dtype=f32, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    m32.load_state_dict(m16.state_dict())
+    c32 = {}
+    for p, t in flatten(cache):
+        node = c32
+        for q in p[:-1]:
+            node = node.setdefault(q, {})
+        node[p[-1]] = t if p[-1] in ("k", "v") else t.float()
+    lr, _, _ = decode(m32, c32, toks)
+    del m32, c32
+    # The decode as a whole: batch 1 gives one row a token, and the tp
+    # partial sums' bf16 roundings (the same with and without the flag,
+    # tests/test_torch_state_over_data.py) move a single row's distance
+    # by more than the ratio at 48 layers.
+    bf16_rows = [{"token": i, "unsharded_vs_fp32": rel(u_, r_),
+                  "sharded_vs_fp32": rel(s_, r_),
+                  "sharded_vs_unsharded": rel(s_, u_)}
+                 for i, (s_, u_, r_) in enumerate(zip(ls, lu, lr))]
+    d_u = max(r["unsharded_vs_fp32"] for r in bf16_rows)
+    d_s = max(r["sharded_vs_fp32"] for r in bf16_rows)
+    check(d_s <= DIST_BF16_RATIO * d_u, f"phase 39 (c) {arch} bf16: the "
+          f"sharded decode {d_s} from fp32, past {DIST_BF16_RATIO} x {d_u}")
+    del cache, scache, saved, m16, ls, lu, lr
+    torch.cuda.empty_cache()
+
+    # fp32 against float64 at SOD_FP32_DEPTH layers
+    cut = dataclasses.replace(cfg, n_layers=SOD_FP32_DEPTH[arch])
+    m32 = build(cut, device=dev, dtype=f32, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    cache = random_cache(m32, 393)
+    scache = sharded_cache(m32, sh, cache)
+    saved = saved_states(cache)
+    t2 = toks[:SOD_FP32_TOKENS]
+    ls, _, _ = decode(m32, scache, t2, sh)
+    restore(cache, saved)
+    lu, _, _ = decode(m32, cache, t2)
+    restore(cache, saved)
+    del scache
+    c64 = {}
+    for p, t in flatten(cache):
+        node = c64
+        for q in p[:-1]:
+            node = node.setdefault(q, {})
+        node[p[-1]] = t.double()
+    del cache, saved
+    m64 = type(m32)(cut, device=dev, dtype=f64)
+    m64.load_state_dict(m32.state_dict())
+    del m32
+    with widened64():
+        l64, _, _ = decode(m64, c64, t2)
+    del m64, c64
+    fp32_rows = []
+    for i, (s_, u_, r_) in enumerate(zip(ls, lu, l64)):
+        d_u, d_s = rel(u_, r_), rel(s_, u_)
+        fp32_rows.append({"token": i, "unsharded_vs_f64": d_u,
+                          "sharded_vs_unsharded": d_s,
+                          "sharded_vs_f64": rel(s_, r_)})
+        check(d_s <= DIST_X * d_u, f"phase 39 (c) {arch} fp32 token {i}: "
+              f"sharded {d_s} from unsharded, past {DIST_X} x {d_u}")
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "positions": SOD_LEN,
+            "cache_specs": specs, "ms_per_token_sharded": ms_s,
+            "ms_per_token_unsharded": ms_u, "peak_GB_sharded": peak_s,
+            "peak_GB_unsharded": peak_u,
+            "sharded_step_idle_share": prof["device_idle_share"],
+            "sharded_step_device_ms": prof["device_ms"],
+            "bf16": bf16_rows, "fp32_layers": cut.n_layers,
+            "fp32": fp32_rows}
+
+
+def launch_kernel_rows(lt, entry, case_err):
+    """The kernels line's K7-K9 rows at phase 39 (a)'s shard shapes."""
+    la = lt["launches"]
+    paths = {"pod qwen3-0.6b smoke train shard": {
+                 "bfloat16": (la["a train_4k"], la["a train_4k"])},
+             "pod qwen3-0.6b smoke prefill shard": {
+                 "bfloat16": (la["a prefill_32k"], {})}}
+    cases = {"pod qwen3-0.6b smoke train shard":
+             "a shard of qwen3-0.6b's smoke train_4k cell on the 16 x 16 "
+             "mesh (16 x 4096, 4 q heads on 2 kv heads of 16, whole)",
+             "pod qwen3-0.6b smoke prefill shard":
+             "a shard of qwen3-0.6b's smoke prefill_32k cell on the 16 x "
+             "16 mesh (2 x 32768)"}
+    return shard_kernel_rows(lt["timings"], paths, cases, 39, entry,
+                             case_err)
+
+
 def halo_phase(dev, smi, k2):
     """Phase 36, halo distribution on a tile mesh with every tile on
     ``dev``, through the port's entry points: (a) Table 1 through
@@ -6129,6 +6601,12 @@ def main(argv=None) -> int:
     fam = families_distribution_phase(dev, flash_case, bwd_case, graph_ms,
                                       time_ms, device_profile)
     kernels += families_kernel_rows(fam, entry, case_err)
+
+    # -- 39. the launch tooling and state_over_data decode ---------------------
+    torch.cuda.empty_cache()
+    lt = launch_tooling_phase(dev, flash_case, bwd_case, graph_ms, time_ms,
+                              device_profile)
+    kernels += launch_kernel_rows(lt, entry, case_err)
 
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")

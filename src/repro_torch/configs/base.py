@@ -1,6 +1,6 @@
 """ModelConfig — the port's own copy of the JAX package's ``configs/base.py``
 (one dataclass for every architecture family), with ``padded_vocab``,
-``param_count``, ``register``, ``get_config`` and ``list_archs``.
+``param_count``, ``active_param_count``, ``register``, ``get_config`` and ``list_archs``.
 
 Full-size configs live in ``repro_torch/configs/<arch_id>.py``; every arch
 also has ``smoke()``, a reduced same-family config for CPU tests.  Every
@@ -119,6 +119,14 @@ class ModelConfig:
         else:
             raise ValueError(self.family)
         return emb + blocks + D
+
+    def active_param_count(self) -> int:
+        """Active params per token (= param_count for non-MoE)."""
+        if self.family != "moe":
+            return self.param_count()
+        expert = 3 * self.d_model * self.d_ff_expert
+        inactive = self.n_layers * (self.n_experts - self.top_k) * expert
+        return self.param_count() - inactive
 
 
 _REGISTRY: dict[str, dict] = {}

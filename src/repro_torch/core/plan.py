@@ -67,6 +67,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def resolve_model_device(device=None) -> torch.device:
+    """``resolve_device`` for the LM modules, which also take ``meta``: a
+    model of shapes only, with no storage, for the dry run
+    (``launch/dryrun.py``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 # ---------------------------------------------------------------------------
 # Support matrix
 # ---------------------------------------------------------------------------

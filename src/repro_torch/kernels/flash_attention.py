@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiling import round_up
+from repro_torch.launch.hlo_cost import attention_cost, kernel_cost, nbytes
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
@@ -195,13 +196,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_offset: subtracted from a kv index to give its position (the TPU
     kernel's code; see the module docstring).  block_q/block_k are the
     plain version's blocks; the kernels tile by their own sizes whatever
-    they are.
+    they are.  On ``meta`` (the dry run) it returns the output's shape
+    only.  Every path charges a counting ``launch.hlo_cost.CostCounter``
+    the kernel's analytic work.
     """
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
-                                     block_k=block_k, kv_offset=kv_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device}")
-    return launch(q, k, v, causal=causal, kv_offset=kv_offset,
-                  with_lse=False, name="flash_attention")[0]
+    with kernel_cost(attention_cost(q, k, causal, kv_offset, 4),
+                     2 * nbytes(q) + nbytes(k) + nbytes(v)):
+        if q.device.type == "cpu":
+            # contiguous, as the kernel writes it
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         block_q=block_q, block_k=block_k,
+                                         kv_offset=kv_offset).contiguous()
+        if q.device.type == "meta":
+            check_operands(q, k, v)
+            return torch.empty_like(q)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                             f"{q.device}")
+        return launch(q, k, v, causal=causal, kv_offset=kv_offset,
+                      with_lse=False, name="flash_attention")[0]

@@ -37,6 +37,7 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, MAX_GRID_YZ,
                                                  check_operands, launch,
                                                  layout,
                                                  online_softmax_plain)
+from repro_torch.launch.hlo_cost import attention_cost, kernel_cost, nbytes
 
 # The CUDA source and entry points (K8, K9) of each dtype.
 KERNELS = {torch.bfloat16: ("flash_attention_bwd_sm90",
@@ -57,14 +58,27 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, block_q: int = 512, block_k: int = 512,
               kv_offset: int = 0):
     """q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd) -> (out (B, Sq, H, hd) in
-    q's type, lse (B, H, Sq) fp32)."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal=causal, block_q=block_q,
-                               block_k=block_k, kv_offset=kv_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cpu or cuda, not {q.device}")
-    return launch(q, k, v, causal=causal, kv_offset=kv_offset, with_lse=True,
-                  name="flash_fwd")
+    q's type, lse (B, H, Sq) fp32); on ``meta`` their shapes only.  Every
+    path charges a counting ``launch.hlo_cost.CostCounter`` K7's analytic
+    work."""
+    B, Sq, H, _ = q.shape
+    with kernel_cost(attention_cost(q, k, causal, kv_offset, 4),
+                     2 * nbytes(q) + nbytes(k) + nbytes(v) + 4 * B * H * Sq):
+        if q.device.type == "cpu":
+            # contiguous, as the kernel writes them
+            out, lse = flash_fwd_plain(q, k, v, causal=causal,
+                                       block_q=block_q, block_k=block_k,
+                                       kv_offset=kv_offset)
+            return out.contiguous(), lse.contiguous()
+        if q.device.type == "meta":
+            check_operands(q, k, v)
+            return torch.empty_like(q), q.new_empty((B, H, Sq),
+                                                    dtype=torch.float32)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_fwd runs on cpu or cuda, not "
+                             f"{q.device}")
+        return launch(q, k, v, causal=causal, kv_offset=kv_offset,
+                      with_lse=True, name="flash_fwd")
 
 
 # ---------------------------------------------------------------------------
@@ -278,20 +292,41 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, KV, hd), lse (B, H, Sq) fp32 (``flash_fwd``'s) -> (dq, dk, dv) in
     the layouts and types of q, k, v.  block_q/block_k are the plain
     version's blocks; the kernels tile by their own sizes whatever they
-    are."""
-    if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                               block_q=block_q, block_k=block_k,
-                               kv_offset=kv_offset)
-    if q.device.type != "cuda":
+    are.  On ``meta`` the gradients' shapes only.  ``delta`` is a PyTorch
+    reduction on every path (JAX's too), counted as such; K8 and K9 each
+    charge a counting ``launch.hlo_cost.CostCounter`` their analytic
+    work."""
+    dev = q.device.type
+    if dev not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_bwd runs on cpu or cuda, not {q.device}")
     if o.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} must have q's shape "
                          f"{tuple(q.shape)}")
     delta = flash_delta(o, do)
     kw = dict(causal=causal, kv_offset=kv_offset)
-    return (launch_bwd_dq(q, k, v, do, lse, delta, **kw),
-            *launch_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    plain = dict(kw, block_q=block_q, block_k=block_k)
+    reads = (2 * nbytes(q) + nbytes(k) + nbytes(v) + nbytes(lse)
+             + nbytes(delta))       # q, do, k, v, lse, delta
+    with kernel_cost(attention_cost(q, k, causal, kv_offset, 6),
+                     reads + nbytes(q)):
+        if dev == "cpu":
+            dq = flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                    **plain).contiguous()
+        elif dev == "meta":
+            check_operands(q, k, v)
+            dq = torch.empty_like(q)
+        else:
+            dq = launch_bwd_dq(q, k, v, do, lse, delta, **kw)
+    with kernel_cost(attention_cost(q, k, causal, kv_offset, 8),
+                     reads + nbytes(k) + nbytes(v)):
+        if dev == "cpu":
+            dk, dv = (t.contiguous() for t in flash_bwd_dkv_plain(
+                q, k, v, do, lse, delta, **plain))
+        elif dev == "meta":
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+        else:
+            dk, dv = launch_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

@@ -37,7 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.plan import resolve_device
+from repro_torch.core.plan import resolve_model_device
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.layers import ParamDef, layer_norm, stack_tables
 from repro_torch.models.mlp import MLP, mlp_table
@@ -193,7 +193,7 @@ class EncDec(StackedModel):
             raise ValueError(f"{cfg.arch}: EncDec runs the encdec family, "
                              f"not {cfg.family!r}")
         self.cfg = cfg
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=resolve_model_device(device), dtype=dtype)
         V, D = cfg.padded_vocab, cfg.d_model
         self.embed = nn.Parameter(torch.empty(V, D, **kw))
         self.dec_pos = nn.Parameter(torch.empty(MAX_DEC_POSITIONS, D, **kw))

@@ -162,14 +162,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     convention used by all assigned LM archs.
     """
     hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
-                            device=x.device)                  # (hd/2,)
+    freqs = _freqs(hd, theta, x.device)                  # (hd/2,)
     angles = positions[..., None].float() * freqs             # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]                     # (..., seq, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def _freqs(hd: int, theta: float, device) -> torch.Tensor:
+    """``rope_freqs`` rounded to fp32 on the host, then put on ``device``
+    (a constant: no cast runs on the device)."""
+    return torch.from_numpy(rope_freqs(hd, theta).astype(np.float32)).to(
+        device)
 
 
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -185,8 +191,7 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     hd = x.shape[-1]
     if sum(sections) != hd // 2:
         raise ValueError(f"mrope sections {sections} must sum to {hd // 2}")
-    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
-                            device=x.device)                  # (hd/2,)
+    freqs = _freqs(hd, theta, x.device)                  # (hd/2,)
     angles_all = positions[..., None].float() * freqs         # (3, B, S, hd/2)
     parts, start = [], 0
     for i, s in enumerate(sections):

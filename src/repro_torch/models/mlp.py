@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.core.plan import resolve_device
+from repro_torch.core.plan import resolve_model_device
 from repro_torch.models.layers import ACTIVATIONS, ParamDef
 
 
@@ -28,7 +28,7 @@ class MLP(nn.Module):
                  *, device=None, dtype=torch.float32):
         super().__init__()
         self.activation = activation
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=resolve_model_device(device), dtype=dtype)
         self.up = nn.Parameter(torch.empty(d_model, d_ff, **kw))
         self.down = nn.Parameter(torch.empty(d_ff, d_model, **kw))
         self.gate = (nn.Parameter(torch.empty(d_model, d_ff, **kw))

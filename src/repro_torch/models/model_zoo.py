@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.plan import resolve_device
+from repro_torch.core.plan import resolve_model_device
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import StackedModel, Transformer
 
@@ -43,14 +43,17 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
     (seed 0 on the device if None), in place: beside the model at most one
     draw piece (``layers.DRAW_PIECE``).  A solver-family config gets a
     ``SolverLayer``: fp32 parameters from JAX's constant rules, whatever
-    ``dtype`` and ``generator`` say."""
+    ``dtype`` and ``generator`` say.  On ``meta`` the model has shapes
+    and no storage, and nothing is drawn (the dry run's model)."""
     if cfg.family == "solver":
         # Learned-stencil layer: forward = a differentiable fixed-point
         # solve; parameters = the stencil weights.
         from repro_torch.models.solver_layer import SolverLayer
         return SolverLayer(cfg, device=device)
-    dev = resolve_device(device)
+    dev = resolve_model_device(device)
     model = model_class(cfg)(cfg, device=dev, dtype=dtype)
+    if dev.type == "meta":
+        return model
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     model.init_weights(generator)

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.plan import resolve_device
+from repro_torch.core.plan import resolve_model_device
 from repro_torch.models.layers import ACTIVATIONS, ParamDef
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.parallel.sharding import (all_gather, axes_size,
@@ -181,8 +181,11 @@ def _group_moe(params: dict, xg: torch.Tensor, k: int, capacity: int,
         raise ValueError(f"dispatch_mode must be one of {DISPATCH_MODES}, "
                          f"got {dispatch_mode!r}")
     me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(expert_idx[..., 0], probs.shape[-1]).float().mean(
-        dim=(0, 1))
+    # The top-1 one-hot as a comparison (F.one_hot runs other ops on each
+    # device, so a counted step would differ between them).
+    top1 = expert_idx[..., 0, None] == torch.arange(probs.shape[-1],
+                                                    device=xg.device)
+    ce = top1.float().mean(dim=(0, 1))
     return out, me, ce
 
 
@@ -237,7 +240,7 @@ class MoE(nn.Module):
         self.top_k, self.capacity_factor = top_k, capacity_factor
         self.activation, self.n_waves = activation, n_waves
         self.dispatch_mode = dispatch_mode
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=resolve_model_device(device), dtype=dtype)
         E, D, Fe = n_experts, d_model, d_ff
         self.router = nn.Parameter(torch.empty(
             D, E, device=kw["device"], dtype=torch.float32))

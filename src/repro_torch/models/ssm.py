@@ -26,7 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.conv1d import causal_conv1d, causal_conv1d_update
-from repro_torch.core.plan import resolve_device
+from repro_torch.core.plan import resolve_model_device
 from repro_torch.models.layers import ParamDef, rms_norm
 from repro_torch.parallel.sharding import (all_gather, block_start, psum,
                                            spec_axes)
@@ -293,24 +293,48 @@ def mamba2_sharded(pieces: list, hs: list, mesh, *, chan, heads,
 
 def mamba2_decode_sharded(pieces: list, xts: list, caches: list, mesh, *,
                           chan, heads, n_heads: int, head_dim: int,
-                          d_state: int):
+                          d_state: int, headdim=None):
     """``mamba2_decode`` on a mesh (``mamba2_sharded``'s layout): ``xts``
     each shard's (B_l, D) token rows, ``caches`` each shard's pieces of
     the layer's cache (``conv_x`` its channel block, ``conv_bc`` whole,
     ``state`` its heads, or every head where the heads do not split as the
     channels do).  -> (each shard's out (B_l, D), each shard's new cache
-    pieces)."""
+    pieces).
+
+    ``headdim``: the state's spec entry on its head dim (``ssm_headdim``,
+    over data under ``state_over_data``).  Where it shards, each shard
+    updates the (B, H_l, P_l, N) block of the state it holds from its
+    P_l slice of the token's x heads (its channel block, or all channels,
+    as above), and the outputs y (B, H_l, P_l) are all-gathered over
+    those axes before the gated norm: the norm's sum of squares and
+    ``out_proj``'s partial products then run over the channel block and
+    add over the channel axes alone, as without the flag.  (Adding the
+    partial products over data too would move D values a shard instead of
+    d_inner / model: more at every arch's widths.)"""
     gathered = spec_axes(chan) != spec_axes(heads)
     zs, xcs, bcs, dts, new = zip(*(_project_token(p, x, c) for p, x, c
                                    in zip(pieces, xts, caches)))
     if gathered:
         zs = all_gather(zs, mesh, spec_axes(chan), -1)
         xcs = all_gather(xcs, mesh, spec_axes(chan), -1)
+    split = spec_axes(headdim)
     ys = []
-    for p, xc, bc, dt, c, n in zip(pieces, xcs, bcs, dts, caches, new):
-        y, state = _step(p, xc, bc, dt, c["state"], head_dim)
+    for k, (p, xc, bc, dt, c, n) in enumerate(zip(pieces, xcs, bcs, dts,
+                                                  caches, new)):
+        Pl = c["state"].shape[2]
+        if split:
+            Bb, C = xc.shape
+            p0 = block_start(mesh, mesh.coords()[k], headdim, head_dim)
+            xc = xc.reshape(Bb, C // head_dim, head_dim)[..., p0:p0 + Pl]
+            xc = xc.reshape(Bb, -1)
+        y, state = _step(p, xc, bc, dt, c["state"], Pl)
         ys.append(y)
         n["state"] = state.to(c["state"].dtype)
+    if split:
+        ys = [y.reshape(y.shape[0], -1, c["state"].shape[2])
+              for y, c in zip(ys, caches)]
+        ys = [y.reshape(y.shape[0], -1) for y in
+              all_gather(ys, mesh, split, 2)]
     out = _gated_norm_out(mesh, ys, zs, [p["norm_w"] for p in pieces],
                           [p["out_proj"] for p in pieces], chan, gathered,
                           n_heads * head_dim, xts[0].dtype)
@@ -346,7 +370,7 @@ class Mamba2Mixer(nn.Module):
         super().__init__()
         self.kw = dict(n_heads=n_heads, head_dim=head_dim, d_state=d_state)
         self.chunk = chunk
-        dev = resolve_device(device)
+        dev = resolve_model_device(device)
         for name, pd in mamba2_table(d_model, d_inner, n_heads, d_state,
                                      d_conv).items():
             self.register_parameter(name, nn.Parameter(torch.empty(

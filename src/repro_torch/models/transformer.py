@@ -65,7 +65,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.plan import resolve_device
+from repro_torch.core.plan import resolve_model_device
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
 from repro_torch.models.attention import (MASK_VALUE, attention,
                                           decode_attention)
@@ -227,7 +227,7 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=resolve_model_device(device), dtype=dtype)
         self.wq = nn.Parameter(torch.empty(D, H, hd, **kw))
         self.wk = nn.Parameter(torch.empty(D, KV, hd, **kw))
         self.wv = nn.Parameter(torch.empty(D, KV, hd, **kw))
@@ -277,7 +277,7 @@ class DenseBlock(nn.Module):
         super().__init__()
         self.eps = cfg.norm_eps
         self.group_size = cfg.moe_group_size
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=resolve_model_device(device), dtype=dtype)
         self.attn_norm = nn.Parameter(torch.empty(cfg.d_model, **kw))
         self.attn = Attention(cfg, **kw)
         self.mlp_norm = nn.Parameter(torch.empty(cfg.d_model, **kw))
@@ -321,7 +321,7 @@ class MambaBlock(nn.Module):
         super().__init__()
         self.eps = cfg.norm_eps
         self.d_conv = cfg.d_conv
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=resolve_model_device(device), dtype=dtype)
         self.norm = nn.Parameter(torch.empty(cfg.d_model, **kw))
         self.mixer = Mamba2Mixer(cfg.d_model, cfg.d_inner, cfg.n_ssm_heads,
                                  cfg.ssm_head_dim, cfg.ssm_state, cfg.d_conv,
@@ -442,9 +442,7 @@ class StackedModel(nn.Module):
         """The shard program that runs this model under ``sharder`` (the
         family's ``shard_program``), or None where there is no sharder or
         its mesh has one shard: then the unsharded path runs, its kernels
-        and launches unchanged.  What the port cannot run sharded
-        (``state_over_data``) raises ``NotImplementedError`` on a larger
-        mesh, never running unsharded in silence."""
+        and launches unchanged."""
         if sharder is None or sharder.trivial:
             return None
         return self.shard_program()(self, sharder)
@@ -481,7 +479,7 @@ class Transformer(StackedModel):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=resolve_model_device(device), dtype=dtype)
         V, D = cfg.padded_vocab, cfg.d_model
         self.embed = nn.Parameter(torch.empty(V, D, **kw))
         self.final_norm = nn.Parameter(torch.empty(D, **kw))
@@ -791,16 +789,17 @@ class ShardProgram:
     slice ``.to()`` its device, so on one device it is a view, and
     autograd adds every shard's and replica's gradient into the
     parameter: the sum over the mesh axes its spec leaves unused.
-    ``state_over_data`` (batch-1 decode) has rules but no execution: it
-    raises ``NotImplementedError`` for every family."""
+
+    ``state_over_data`` (batch-1 decode, where the batch cannot shard over
+    data) changes only the caches' layout: the kv caches on kv_seq over
+    ("model", "data") (the model axis major; the flash-decoding combine
+    runs over both), the SSD state's head dim over data
+    (``models/ssm.mamba2_decode_sharded``).  No activation rule changes,
+    so forward and prefill run as without it; a prefill lays its cache by
+    the flag's specs, as a decode takes it."""
 
     def __init__(self, model: StackedModel, sharder):
-        cfg = model.cfg
-        if sharder.state_over_data:
-            raise NotImplementedError(
-                f"{cfg.arch}: state_over_data has rules but no sharded "
-                f"execution in the port")
-        self.model, self.cfg, self.sharder = model, cfg, sharder
+        self.model, self.cfg, self.sharder = model, model.cfg, sharder
         self.mesh = sharder.mesh
         self.coords = self.mesh.coords()
         self.n = len(self.coords)
@@ -954,6 +953,18 @@ class ShardProgram:
                 for k, h in enumerate(hs)]
         return psum(outs, self.mesh, spec_axes(uspec[1]))
 
+    def _block_of(self, t: torch.Tensor, leaf: Sharded, k: int):
+        """Shard k's block of ``t``, a layer's entry of cache ``leaf``:
+        ``t`` as it is, but cut to the piece's block along each dim where
+        it holds the whole (the SSD state's head dim, over data under
+        ``state_over_data``)."""
+        piece = leaf.pieces[k].shape[-t.dim():]
+        for d, (n, size) in enumerate(zip(piece, t.shape)):
+            if n != size:
+                entry = leaf.spec[len(leaf.spec) - t.dim() + d]
+                t = t.narrow(d, self.start(k, entry, size), n)
+        return t
+
     def _write_kv(self, cache: dict, idx, kv, S: int) -> None:
         """A prefill's (k, v), each shard's over the whole prompt, into the
         cache's pieces at layer slot ``idx``: each shard the positions it
@@ -1087,7 +1098,8 @@ class ShardProgram:
             if kind == "mamba":
                 for name, pieces in layer.items():
                     for k, t in enumerate(pieces):
-                        slot[name].pieces[k][idx].copy_(t)
+                        slot[name].pieces[k][idx].copy_(
+                            self._block_of(t, slot[name], k))
             else:
                 self._write_kv(slot, idx, layer, S)
         last = self._last(xs, spec, lambda t: self._norm("final_norm", t))
@@ -1280,7 +1292,9 @@ class ShardedSSM(ShardProgram):
                   for k in range(self.n)]
         ys, new = mamba2_decode_sharded(pieces, [h[:, 0] for h in hs],
                                         caches, self.mesh, chan=chan,
-                                        heads=heads, **self._ssm_kw())
+                                        heads=heads,
+                                        headdim=slot["state"].spec[-2],
+                                        **self._ssm_kw())
         # Every shard has read its cache before any is written (shards on
         # one device share a replicated piece).
         for c, n in zip(caches, new):

@@ -138,7 +138,7 @@ def apply_update(state: dict, grads: dict, cfg: AdamWConfig, *,
                          scale if scale.device in (dev, _HOST)
                          else scale.to(dev), lr, bc1, bc2, cfg)
             for t, u in zip(leaves, local):
-                if u.data_ptr() != t.data_ptr():
+                if u is not t:      # the slice went to another device
                     t.copy_(u)
     state["step"] = step
     return state, {"grad_norm": gnorm, "lr": lr}

@@ -23,6 +23,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.launch import hlo_cost
+
 
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
@@ -30,6 +32,18 @@ def _tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def hand_off(y: torch.Tensor, device) -> torch.Tensor:
+    """A stage's output onto the next stage's device: JAX's ``ppermute``,
+    counted by a ``launch.hlo_cost.CostCounter`` as one
+    ``collective-permute`` (on one device the copy is no copy at all)."""
+    with hlo_cost.quiet():
+        out = y.to(device)
+    if hlo_cost.counting():
+        n = hlo_cost.nbytes(y)
+        hlo_cost.collective("collective-permute", n, n, grad_of=out)
+    return out
 
 
 def gpipe(stage_fn: Callable, mesh, stage_axis: str, n_microbatches: int):
@@ -63,7 +77,7 @@ def gpipe(stage_fn: Callable, mesh, stage_axis: str, n_microbatches: int):
                 inp = x_mb[mb].to(devices[0]) if s == 0 else inbox[s]
                 y = stage_fn(local[s], inp)
                 if s + 1 < S:
-                    nxt[s + 1] = y.to(devices[s + 1])      # the ppermute
+                    nxt[s + 1] = hand_off(y, devices[s + 1])
                 else:
                     outs[mb] = y                           # the commit
             inbox = nxt

@@ -39,6 +39,8 @@ from typing import Any, Sequence
 
 import torch
 
+from repro_torch.launch import hlo_cost
+
 # Logical dim -> candidate mesh axes, tried in order; first divisible wins.
 _TP_RULES: dict[str, tuple[str, ...]] = {
     "batch": ("pod+data",),     # composite: shards over pod AND data
@@ -354,20 +356,33 @@ def groups(mesh, axes) -> list[list[int]]:
     return [[k for _, k in sorted(g)] for g in out.values()]
 
 
-def _collective(values: Sequence[torch.Tensor], mesh, axes, combine):
+def _collective(values: Sequence[torch.Tensor], mesh, axes, combine,
+                kind: str):
     """``combine`` of the group's values, copied to each shard's device in
-    group order; shards on one device share the result."""
+    group order; shards on one device share the result.  A counting
+    ``launch.hlo_cost.CostCounter`` sees one ``kind`` collective a group
+    member (its piece in, the result out), not the copies and adds."""
     if not spec_axes(axes):
         return list(values)
     out: list = [None] * len(values)
     done: dict = {}
-    for group in groups(mesh, axes):
-        for k in group:
-            dev = mesh.devices[k]
-            key = (dev, tuple(id(values[j]) for j in group))
-            if key not in done:
-                done[key] = combine([values[j].to(dev) for j in group])
-            out[k] = done[key]
+    counting = hlo_cost.counting()
+    with hlo_cost.quiet():
+        for group in groups(mesh, axes):
+            for k in group:
+                dev = mesh.devices[k]
+                key = (dev, tuple(id(values[j]) for j in group))
+                if key not in done:
+                    done[key] = [combine([values[j].to(dev) for j in group]),
+                                 0, hlo_cost.nbytes(values[k])]
+                done[key][1] += 1
+                out[k] = done[key][0]
+    if counting:
+        # One count a member; the gradient's transpose once a shared
+        # result, for the members that share it.
+        for result, members, operand in done.values():
+            hlo_cost.collective(kind, operand, hlo_cost.nbytes(result),
+                                members, grad_of=result)
     return out
 
 
@@ -387,15 +402,15 @@ def _max(ts):
 
 def psum(values, mesh, axes) -> list[torch.Tensor]:
     """All-reduce sum over ``axes``, added in block order."""
-    return _collective(values, mesh, axes, _sum)
+    return _collective(values, mesh, axes, _sum, "all-reduce")
 
 
 def pmax(values, mesh, axes) -> list[torch.Tensor]:
     """All-reduce max over ``axes``."""
-    return _collective(values, mesh, axes, _max)
+    return _collective(values, mesh, axes, _max, "all-reduce")
 
 
 def all_gather(values, mesh, axes, dim: int) -> list[torch.Tensor]:
     """Concatenate the group's pieces along ``dim`` in block order."""
     return _collective(values, mesh, axes,
-                       lambda ts: torch.cat(ts, dim=dim))
+                       lambda ts: torch.cat(ts, dim=dim), "all-gather")

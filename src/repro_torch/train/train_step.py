@@ -119,6 +119,13 @@ def compute_model(model: StackedModel,
     return type(model)(model.cfg, device=model.device, dtype=compute_dtype)
 
 
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a and b are one tensor's memory (on ``meta`` too, where
+    every data_ptr is 0)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
+
+
 @torch.no_grad()
 def load_params(compute: StackedModel, params: dict) -> None:
     """Copy the named fp32 masters into the compute model, each cast to the
@@ -126,7 +133,7 @@ def load_params(compute: StackedModel, params: dict) -> None:
     and holds the rounded values."""
     for name, p in compute.named_parameters():
         src = params[name]
-        if p.data_ptr() == src.data_ptr():
+        if _same_memory(p, src):
             continue
         if p.dtype != compute.dtype:
             src = src.to(compute.dtype)
@@ -153,9 +160,8 @@ def make_train_step(model: StackedModel, opt: AdamWConfig,
     grad_norm, lr}; a solver layer's {loss, mse, aux, grad_norm, lr}) for
     the masters of ``model``'s config; the state is updated in place
     (``apply_update``).  ``sharder``: run it on its mesh (the module
-    docstring); what has no sharded execution (``state_over_data``, the
-    solver family) raises ``NotImplementedError`` on a mesh of more than
-    one shard."""
+    docstring); the solver family, which has no sharded execution, raises
+    ``NotImplementedError`` on a mesh of more than one shard."""
     if sharder is not None and sharder.trivial:
         sharder = None
     if getattr(model.cfg, "family", None) == "solver":
@@ -167,7 +173,6 @@ def make_train_step(model: StackedModel, opt: AdamWConfig,
         compute, loss_of = model, solver_loss_fn
     else:
         compute = compute_model(model, compute_dtype)
-        compute.sharded(sharder)    # raises where there is no execution
         loss_of = functools.partial(loss_fn, sharder=sharder)
     dims = compute.param_dims_by_name() if sharder is not None else None
 

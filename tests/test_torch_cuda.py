@@ -22,6 +22,7 @@ backward) are held per element to 2e-5 + 1e-5 * |plain| in fp32 and to the
 same bf16 bound as K6/K7, and four faults planted in their bf16
 (tensor-core) source must fail it too.
 """
+import contextlib
 import ctypes
 import dataclasses
 import itertools
@@ -1654,3 +1655,78 @@ def test_sharded_families_on_the_card_equal_unsharded(cuda, arch):
     want = greedy_generate(model, serve, steps=3, max_len=20)
     got = greedy_generate(model, serve, steps=3, max_len=20, sharder=sh)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ("qwen3-0.6b", "mamba2-370m",
+                                  "zamba2-1.2b"))
+def test_cost_counter_on_the_card_equals_meta(cuda, arch):
+    # launch/hlo_cost.py: a smoke train step and a state_over_data
+    # decode on a 2x4 mesh, every shard on cuda:0, count the same flops,
+    # hbm bytes and collectives as on meta (the dry run's device, under
+    # its native meta kernels); the kernels charge their analytic work on
+    # both, and launch on the card only
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import native_meta_kernels
+    from repro_torch.launch.hlo_cost import analyze
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import make_mesh
+    from repro_torch.parallel.sharding import Sharder
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              attn_impl="flash")
+    results, launched = [], {}
+    for dev in (cuda, torch.device("meta")):
+        model = build(cfg, device=dev, dtype=torch.float32)
+        mesh = make_mesh((2, 4), devices=[dev] * 8)
+        step = make_train_step(model, AdamWConfig(),
+                               sharder=Sharder(mesh, cfg.sharding_profile))
+        tokens = torch.randint(0, cfg.vocab_size, (4, 32), device=dev) \
+            if dev.type == "cuda" else torch.empty(4, 32, dtype=torch.long,
+                                                   device=dev)
+        batch = {"tokens": tokens, "labels": tokens}
+        state = init_train_state(model)
+        sod = Sharder(mesh, cfg.sharding_profile, state_over_data=True)
+        prompt = tokens[:1, :12]
+
+        def serve():
+            _, cache = model.prefill(prompt, 16, sharder=sod)
+            model.decode_step(prompt[:, 0], cache, 12, sharder=sod)
+
+        _build.LAUNCHES.clear()
+        with (native_meta_kernels() if dev.type == "meta"
+              else contextlib.nullcontext()):
+            r = (analyze(step, state, batch), analyze(serve))
+        launched[dev.type] = dict(_build.LAUNCHES)
+        results.append([{k: x[k] for k in ("flops", "hbm_bytes",
+                                           "collectives")} for x in r])
+    assert results[0] == results[1]
+    assert results[0][0]["flops"] > 0
+    assert launched["meta"] == {}
+    if cfg.family != "ssm":
+        assert launched["cuda"]["flash_fwd"] > 0
+
+
+def test_a_cuda_tensor_never_takes_the_meta_branch(cuda, monkeypatch):
+    # the kernels' meta branch returns empty outputs: a cuda tensor must
+    # launch the kernel instead (the launch count moves, the output is
+    # the plain version's within the bf16 bound)
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, do = (torch.randn(s, device=cuda).to(torch.bfloat16)
+                   for s in ((1, 64, 2, 16), (1, 64, 2, 16),
+                             (1, 64, 2, 16), (1, 64, 2, 16)))
+    _build.LAUNCHES.clear()
+    out = flash_attention(q, k, v)
+    o, lse = flash_fwd(q, k, v)
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"flash_attention": 1, "flash_fwd": 1,
+                                     "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    plain, plain_lse = flash_fwd_plain(q, k, v)
+    assert (out.float() - plain.float()).abs().max() <= 2e-2
+    assert (lse - plain_lse).abs().max() <= 1e-5 * plain_lse.abs().max()
+    want = flash_bwd_plain(q, k, v, o, lse, do)
+    for got, ref in zip((dq, dk, dv), want):
+        assert (got.float() - ref.float()).abs().max() <= 2e-2

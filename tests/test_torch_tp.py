@@ -373,23 +373,39 @@ def test_kv_heads_a_shard_reads():
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_state_over_data_raises_on_a_larger_mesh(arch):
-    # every family runs sharded; state_over_data has rules but no
-    # execution, and raises at every entry point, never running unsharded
+    # state_over_data now has its execution: every entry point runs under
+    # it on a larger mesh and gives the unsharded results (batch 4 takes
+    # the data axis first, so here the flag moves no cache: the batch-1
+    # layouts are tests/test_torch_state_over_data.py's)
     cfg = get_config(arch, smoke=True)
     model = build(cfg, device="cpu", dtype=torch.float32)
     sh = Sharder(cpu_mesh(), cfg.sharding_profile, state_over_data=True)
-    tokens = torch.zeros(4, 8, dtype=torch.long)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 8)))
     extra = {}
     if cfg.family == "encdec":
         extra = {"enc_frames": torch.zeros(4, cfg.enc_len, cfg.d_model)}
-    with pytest.raises(NotImplementedError, match="state_over_data"):
-        model(tokens, sharder=sh, **extra)
-    with pytest.raises(NotImplementedError, match="state_over_data"):
-        make_prefill_step(model, 12, sharder=sh)({"tokens": tokens, **extra})
-    with pytest.raises(NotImplementedError, match="state_over_data"):
-        model.decode_step(tokens[:, 0], {}, 8, sharder=sh)
-    with pytest.raises(NotImplementedError, match="state_over_data"):
-        make_train_step(model, AdamWConfig(), sharder=sh)
+    with torch.no_grad():
+        got, _ = model(tokens, sharder=sh, **extra)
+        want, _ = model(tokens, **extra)
+    assert float((got.gather() - want).abs().max()) <= 1e-5 * max(
+        float(want.abs().max()), 1e-3)
+    t1, c1 = make_prefill_step(model, 12, sharder=sh)(
+        {"tokens": tokens, **extra})
+    t0, c0 = make_prefill_step(model, 12)({"tokens": tokens, **extra})
+    assert torch.equal(t1, t0)
+    l1, _ = model.decode_step(t1, c1, 8, sharder=sh)
+    l0, _ = model.decode_step(t0, c0, 8)
+    assert float((l1.gather() - l0).abs().max()) <= 1e-5 * float(
+        l0.abs().max())
+    batch = {"tokens": tokens, "labels": tokens.roll(1, 1), **extra}
+    losses = []
+    for s in (sh, None):
+        master = build(cfg, device="cpu", dtype=torch.float32)
+        _, m = make_train_step(master, AdamWConfig(), torch.float32,
+                               sharder=s)(init_train_state(master), batch)
+        losses.append(float(m["loss"]))
+    assert abs(losses[0] / losses[1] - 1) <= 1e-5
 
 
 ALL = ("qwen3-0.6b", "glm4-9b", "phi3-medium-14b", "nemotron-4-15b",
