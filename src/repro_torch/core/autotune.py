@@ -354,7 +354,8 @@ def dtype_key(dtype) -> str:
 
 
 def device_kind(device=None) -> str:
-    """The table's device key: the card's name on CUDA, "cpu" on the CPU.
+    """The table's device key: the card's name on CUDA and on ``meta`` (a
+    dry run of the card's program), "cpu" on the CPU.
 
     ``device`` is a torch.device or its string ("cuda", "cuda:1", "cpu");
     None means the card.  Where CUDA is named but absent (a roofline priced
@@ -362,11 +363,11 @@ def device_kind(device=None) -> str:
     carries.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         return dev.type
     if not torch.cuda.is_available():
         return "cuda"
-    return torch.cuda.get_device_name(dev)
+    return torch.cuda.get_device_name(dev if dev.type == "cuda" else None)
 
 
 def lookup_entry(tuned, spec: StencilSpec, grid_shape, dtype, device, *,

@@ -29,9 +29,12 @@ class BoundaryMode(enum.Enum):
 
 
 def _interior(shape: tuple[int, ...], dtype, device) -> torch.Tensor:
-    # Built where it is used: no host array, no copy to the device.
+    # Built where it is used: no host array, no copy to the device.  The
+    # fill is an explicit ``fill_``: an indexed assignment of a number runs
+    # other ops on meta than on cpu or cuda, and a counted solve
+    # (launch/hlo_cost.py) must read the same on all three.
     m = torch.zeros(shape, dtype=dtype, device=device)
-    m[tuple(slice(1, -1) for _ in shape)] = 1.0
+    m[tuple(slice(1, -1) for _ in shape)].fill_(1.0)
     return m
 
 

@@ -28,7 +28,8 @@ Two communication-avoiding tricks from the wafer-scale scaling papers
 The local update is plain PyTorch, as the JAX package's is plain ``jnp``:
 shifted multiply-adds summed in fp32 in the spec's tap order, so an fp32
 tile update equals the ``reference`` backend's bit for bit.  The batch
-rides whole on every tile.
+rides whole on every tile, or splits over a third mesh axis
+(``batch_axis``): each batch block then exchanges among its own tiles.
 
 Variable-coefficient specs split their per-cell ``WeightField`` taps with
 the grid: the stacked fields are exchanged *once per chunk* (they are
@@ -128,12 +129,17 @@ def _mask_zones(acc, bc_value, grows: range, gcols: range, H, W, dtype):
 def make_halo_runner(mesh, spec: StencilSpec, *, H: int, W: int,
                      bc_value: float, iterations: int,
                      row_axis: str = "data", col_axis: str = "model",
-                     fuse: int = 1):
+                     batch_axis: str | None = None, fuse: int = 1):
     """Builds a (batch, H, W) -> (batch, H, W) halo-exchange stepper.
 
     The input is split into the mesh's tiles (rows over ``row_axis``,
-    columns over ``col_axis``), each moved to its tile's device; the chunk
-    runs there, and the tiles are gathered back onto the input's device.
+    columns over ``col_axis``, and with ``batch_axis`` the batch into as
+    many blocks as that axis has shards: JAX's P(batch_axis, row_axis,
+    col_axis)), each moved to its tile's device (block b's tile (i, j) at
+    ``mesh.device_at({batch_axis: b, row_axis: i, col_axis: j})``); the
+    chunk runs there, each block's halos traded among its own tiles, and
+    the tiles are gathered back onto the input's device.  A batch that the
+    batch axis does not divide raises, as JAX's sharding does.
     This is the distribution primitive the ``halo`` backend of
     ``core.plan.make_plan`` wraps; user-facing entry points are
     ``stencil_apply(..., backend="halo", mesh=...)`` for a fixed step count
@@ -169,10 +175,13 @@ def make_halo_runner(mesh, spec: StencilSpec, *, H: int, W: int,
     # tiles (extent < 2r) fall back to the monolithic rim-only update.
     split = min(h_loc, w_loc) >= 2 * r
 
-    # Tile (i, j) sits i along row_axis and j along col_axis; its device is
-    # the mesh's, whichever order the mesh names its axes in.
-    devices = [mesh.device_at({row_axis: i, col_axis: j})
+    # Block b's tile (i, j) sits b along batch_axis, i along row_axis and j
+    # along col_axis; its device is the mesh's, whichever order the mesh
+    # names its axes in.
+    n_batch = 1 if batch_axis is None else mesh.shape[batch_axis]
+    blocks = [[mesh.device_at({batch_axis: b, row_axis: i, col_axis: j})
                for i in range(n_row) for j in range(n_col)]
+              for b in range(n_batch)]
 
     def zones(acc, row0, col0, dtype):
         """The Dirichlet fixup of a region whose first cell is global
@@ -232,8 +241,22 @@ def make_halo_runner(mesh, spec: StencilSpec, *, H: int, W: int,
                for j in range(n_col)]
 
     def run(x0: torch.Tensor) -> torch.Tensor:
-        dtype = x0.dtype
         x0 = DirichletBC(bc_value).set_boundary(x0, 2)
+        if n_batch == 1:
+            return chunk(x0, blocks[0])
+        B = x0.shape[0]
+        if B % n_batch:
+            raise ValueError(
+                f"the batch of {B} grids does not divide over the "
+                f"{n_batch} shards of mesh axis {batch_axis!r}")
+        b = B // n_batch
+        return torch.cat([chunk(x0[k * b:(k + 1) * b], devices)
+                          for k, devices in enumerate(blocks)], dim=0)
+
+    def chunk(x0: torch.Tensor, devices: list) -> torch.Tensor:
+        """The chunk on one batch block's tiles, gathered onto x0's
+        device."""
+        dtype = x0.dtype
         tiles = [x0[..., r0:r0 + h_loc, c0:c0 + w_loc].to(d)
                  for (r0, c0), d in zip(origins, devices)]
         f_local = f_aug = [None] * len(tiles)

@@ -56,10 +56,13 @@ KERNEL_BACKENDS = ("cuda", "cuda_fused")
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Raises where CUDA is asked for and absent:
-    an entry point never drops quietly to the CPU."""
+    an entry point never drops quietly to the CPU.  ``meta`` stands for the
+    card in a dry run: plans and solvers choose as they would there, and
+    run shapes only (``launch/hlo_cost.py`` counts them)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in DEVICE_PROFILES:
-        raise ValueError(f"repro_torch runs on cuda or cpu, not {dev}")
+        raise ValueError(f"repro_torch runs on cuda, cpu or meta, not "
+                         f"{dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
@@ -266,6 +269,8 @@ DEVICE_PROFILES = {
                           kernels_native=True, collective_bw=4.5e11,
                           round_latency=16e-6),
 }
+# A dry run prices as the card.
+DEVICE_PROFILES["meta"] = DEVICE_PROFILES["cuda"]
 
 # The plain versions re-run every tap as its own PyTorch op — orders of
 # magnitude off; the model only needs them to never win on the CPU.

@@ -54,6 +54,13 @@ _FUSE_CANDIDATES = (16, 8, 4, 2, 1)
 _DEFAULT_CHECK_EVERY = 16
 
 
+def _any(active: torch.Tensor) -> bool:
+    """Whether an instance is still iterating; on ``meta``, which holds no
+    values, always: a dry run counts every chunk of ``max_iters``."""
+    flag = active.any()
+    return flag.device.type == "meta" or bool(flag.item())
+
+
 @dataclasses.dataclass
 class SolveResult:
     """Outcome of one :meth:`Solver.solve` call.
@@ -274,7 +281,7 @@ class Solver:
         nan = torch.tensor(float("nan"), device=dev)
         k = 0
         # One host sync per chunk: the loop condition.
-        while k < self.n_chunks and bool(active.any().item()):
+        while k < self.n_chunks and _any(active):
             y = plan(x, fields=fields, source=source, bc_value=bc_value)
             err = self._norm(y - x)
             done = err <= self.atol + self.rtol * self._norm(y)

@@ -5,10 +5,11 @@ Algorithm 1 at kernel level).
 ``dense_stencil_matmul`` dispatches on the device of ``x``: a CPU tensor
 goes through ``dense_stencil_plain``, a CUDA tensor launches
 ``csrc/dense_stencil_sm90.cu`` on the tensor cores (no library call) and
-raises if it cannot.  The route follows the dtype: bf16 runs one bf16
-product; fp32 first splits x and W into three bf16 pieces each
-(``split_bf16x3``, a kernel of the same source) and sums six piece products
-in fp32, as the TPU's matrix unit builds an fp32 product from bf16 passes.
+raises if it cannot, a ``meta`` tensor gets its output's shape.  The route
+follows the dtype: bf16 runs one bf16 product; fp32 first splits x and W
+into three bf16 pieces each (``split_bf16x3``, a kernel of the same
+source) and sums six piece products in fp32, as the TPU's matrix unit
+builds an fp32 product from bf16 passes.
 ``dense_stencil_split_plain`` repeats that arithmetic in plain PyTorch.
 The plan's ``dense`` backend keeps ``torch.matmul``, as the JAX package's
 keeps XLA's matmul; this kernel is reached through
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import dense_stencil_ref
+from repro_torch.launch.hlo_cost import kernel_cost
 
 # gridDim.y carries the 128-row blocks of x.
 MAX_ROWS = 65_535 * 128
@@ -135,12 +137,28 @@ def launch_split(v: torch.Tensor, cols: int) -> torch.Tensor:
 
 
 def dense_stencil_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (S, N) @ w: (N, N) -> (S, N) in x's type, fp32 accumulation."""
-    if x.device.type == "cpu":
-        return dense_stencil_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"dense_stencil_matmul runs on cpu or cuda, not "
-                         f"{x.device}")
+    """x: (S, N) @ w: (N, N) -> (S, N) in x's type, fp32 accumulation: the
+    plain version on the CPU, the kernel on CUDA, the output's shape on
+    ``meta``.  Each call charges a counting ``launch.hlo_cost.CostCounter``
+    the product's 2·S·N² flops and its operands' and result's bytes (x and
+    w read, the result written, once), fp32 split and bf16 alike."""
+    S, N = x.shape[0], w.shape[0]
+    with kernel_cost(2.0 * S * N * N, 2 * x.nbytes + w.nbytes):
+        if x.device.type == "cpu":
+            return dense_stencil_plain(x, w)
+        if x.device.type == "meta":
+            _check(x, w)
+            if S > MAX_ROWS:
+                raise ValueError(f"{S} rows exceed the kernel's {MAX_ROWS}")
+            return torch.empty_like(x)
+        if x.device.type != "cuda":
+            raise ValueError(f"dense_stencil_matmul runs on cpu, cuda or "
+                             f"meta, not {x.device}")
+        return _launch(x, w)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K5 on CUDA tensors: fp32 split into three bf16 pieces, or bf16."""
     _check(x, w)
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")

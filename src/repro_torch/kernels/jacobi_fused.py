@@ -8,7 +8,9 @@ steps in fp32 and one rounding to x's type at the end of the pass.  So one
 plain version, ``jacobi2d_fused_plain``, serves both.  ``jacobi2d_fused_step``
 dispatches on the device of ``x``: a CPU tensor takes the plain version, a
 CUDA tensor launches one of ``csrc/jacobi_fused.cu``'s kernels and raises if
-it cannot.
+it cannot, and a ``meta`` tensor gets its output's shape once the schedule
+is checked.  A call charges a counting ``launch.hlo_cost.CostCounter`` once
+(``stencil2d.stencil_bytes``), however many passes it launches.
 
 Which kernel runs is a dispatch by shape (``kernel_for``), or a name
 (``kernel=``, to time one against another):
@@ -53,11 +55,14 @@ import torch
 from repro_torch.core.stencil import StencilSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil2d import (check_launch, check_operands,
-                                           interior, resolve_fields, sweep)
+                                           interior, meta_fields,
+                                           resolve_fields, stencil_bytes,
+                                           sweep)
 from repro_torch.kernels.tiling import (MAX_SMEM_BYTES, RESIDENT_VMEM_BYTES,
                                         STATIC_SMEM_BYTES, resident_cta_fits,
                                         resident_fits, resident_smem_bytes,
                                         round_up)
+from repro_torch.launch.hlo_cost import kernel_cost
 
 RIMS = ("trapezoid", "resident")
 # csrc/jacobi_fused.cu's kernels, by the codes of its K_* enum.
@@ -355,14 +360,29 @@ def jacobi2d_fused_step(x: torch.Tensor, spec: StencilSpec, *, fuse: int,
                          f"{kernel!r}")
     H, W = x.shape[-2:]
     _check_geometry(H, W, fuse, spec.radius, rim)
-    if x.device.type == "cpu":
-        if kernel is not None:
-            raise ValueError("kernel names a CUDA kernel; x is on the cpu")
-        return jacobi2d_fused_plain(x, spec, fuse=fuse, bc_value=bc_value,
-                                    fields=fields)
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"jacobi2d_fused_step runs on cpu or cuda, not {x.device}")
+    with kernel_cost(0.0, stencil_bytes(x, spec)):
+        if x.device.type == "cpu":
+            if kernel is not None:
+                raise ValueError("kernel names a CUDA kernel; x is on the "
+                                 "cpu")
+            return jacobi2d_fused_plain(x, spec, fuse=fuse,
+                                        bc_value=bc_value, fields=fields)
+        if x.device.type == "meta":
+            check_operands(x, spec, meta_fields(fields))
+            check_launch(*x.shape)
+            _plan(kernel or kernel_for(rim, spec, fuse, x.shape[0], H, W),
+                  fuse, spec, H, W)
+            return torch.empty_like(x)
+        if x.device.type != "cuda":
+            raise ValueError(f"jacobi2d_fused_step runs on cpu, cuda or "
+                             f"meta, not {x.device}")
+        return _launch(x, spec, fuse, bc_value, rim, fields, kernel)
+
+
+def _launch(x: torch.Tensor, spec: StencilSpec, fuse: int, bc_value, rim,
+            fields, kernel):
+    """K2 or K3 on a CUDA tensor: every pass of the schedule."""
+    H, W = x.shape[-2:]
     fields = resolve_fields(spec, fields, x.device)
     check_operands(x, spec, fields)
     if not x.is_contiguous() or (fields is not None

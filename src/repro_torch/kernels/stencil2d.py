@@ -3,13 +3,17 @@
 
 ``stencil2d`` dispatches on the device of ``x``: a CPU tensor goes through
 ``stencil2d_plain`` (the same arithmetic in plain PyTorch), a CUDA tensor
-launches ``csrc/stencil2d.cu`` and raises if it cannot.  ``sweep`` is the
-one step every plain version (this one, the fused kernel's and the 3D
-kernel's) repeats.
+launches ``csrc/stencil2d.cu`` and raises if it cannot, and a ``meta``
+tensor (a dry run) gets its output's shape only.  ``sweep`` is the one
+step every plain version (this one, the fused kernel's and the 3D
+kernel's) repeats.  Each call charges a counting
+``launch.hlo_cost.CostCounter`` ``stencil_bytes`` and no flops, whatever
+the device, as K2-K4 do.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -17,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.stencil import StencilSpec, WeightField
 from repro_torch.kernels import _build
+from repro_torch.launch.hlo_cost import kernel_cost
 
 # Cells of one grid are indexed in int32.  The batch has no limit: the
 # wrappers launch it in slices (_build.batch_slices).
@@ -54,6 +59,24 @@ def check_operands(x: torch.Tensor, spec: StencilSpec,
     if fields is not None and tuple(fields.shape) != want:
         raise ValueError(f"fields must be shaped {want}, got "
                          f"{tuple(fields.shape)}")
+
+
+def stencil_bytes(x: torch.Tensor, spec: StencilSpec) -> int:
+    """What a call of K1-K4 is charged, as JAX's analyser charges a Pallas
+    ``custom-call`` its operands and result: x read and the result written
+    once, and a variable spec's (V, *grid) fp32 field stack read once (the
+    operands unpadded, as the port's kernels take them).  No flops: JAX
+    counts only matrix products and convolutions, and a stencil's shifted
+    adds are neither."""
+    fields = (4 * spec.num_variable_taps * math.prod(x.shape[1:])
+              if spec.is_variable else 0)
+    return 2 * x.nbytes + fields
+
+
+def meta_fields(fields) -> torch.Tensor | None:
+    """``fields`` where it is a tensor (its shape to check on ``meta``),
+    else None: an array or the spec's baked stack has nothing to check."""
+    return fields if isinstance(fields, torch.Tensor) else None
 
 
 def interior(grid: tuple[int, ...], device) -> torch.Tensor:
@@ -120,10 +143,21 @@ def stencil2d(x: torch.Tensor, spec: StencilSpec, *,
     step with the shell pinned to v.  ``fields`` overrides a variable
     spec's baked per-cell weights with a (V, H, W) stack.
     """
-    if x.device.type == "cpu":
-        return stencil2d_plain(x, spec, bc_value=bc_value, fields=fields)
-    if x.device.type != "cuda":
-        raise ValueError(f"stencil2d runs on cpu or cuda, not {x.device}")
+    with kernel_cost(0.0, stencil_bytes(x, spec)):
+        if x.device.type == "cpu":
+            return stencil2d_plain(x, spec, bc_value=bc_value, fields=fields)
+        if x.device.type == "meta":
+            check_operands(x, spec, meta_fields(fields))
+            check_launch(*x.shape)
+            return torch.empty_like(x)
+        if x.device.type != "cuda":
+            raise ValueError(f"stencil2d runs on cpu, cuda or meta, not "
+                             f"{x.device}")
+        return _launch(x, spec, bc_value, fields)
+
+
+def _launch(x: torch.Tensor, spec: StencilSpec, bc_value, fields):
+    """K1 on a CUDA tensor."""
     fields = resolve_fields(spec, fields, x.device)
     check_operands(x, spec, fields)
     if not x.is_contiguous() or (fields is not None

@@ -4,7 +4,9 @@
 ``stencil3d`` dispatches on the device of ``x``: a CPU tensor goes through
 ``stencil3d_plain`` (the 2D kernels' ``sweep`` on a rank-3 grid: the same
 arithmetic in plain PyTorch), a CUDA tensor launches ``csrc/stencil3d.cu``
-and raises if it cannot.  That source holds two kernels, the cell kernel
+and raises if it cannot, and a ``meta`` tensor gets its output's shape; a
+call charges a counting ``launch.hlo_cost.CostCounter``
+``stencil2d.stencil_bytes``.  That source holds two kernels, the cell kernel
 and the Z-streaming one; ``stencil3d_kernel_for`` there picks one by the
 tap table, Y and the batch.
 """
@@ -17,7 +19,10 @@ import torch
 from repro_torch.core.stencil import StencilSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil2d import (MAX_CELLS, check_operands,
-                                           interior, resolve_fields, sweep)
+                                           interior, meta_fields,
+                                           resolve_fields, stencil_bytes,
+                                           sweep)
+from repro_torch.launch.hlo_cost import kernel_cost
 
 # gridDim.y carries the Z planes.
 MAX_DEPTH = 65_535
@@ -78,12 +83,24 @@ def stencil3d(x: torch.Tensor, spec: StencilSpec, *,
     if kernel is not None and kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {list(KERNELS)}, got "
                          f"{kernel!r}")
-    if x.device.type == "cpu":
-        if kernel is not None:
-            raise ValueError("kernel names a CUDA kernel; x is on the cpu")
-        return stencil3d_plain(x, spec, bc_value=bc_value, fields=fields)
-    if x.device.type != "cuda":
-        raise ValueError(f"stencil3d runs on cpu or cuda, not {x.device}")
+    with kernel_cost(0.0, stencil_bytes(x, spec)):
+        if x.device.type == "cpu":
+            if kernel is not None:
+                raise ValueError("kernel names a CUDA kernel; x is on the "
+                                 "cpu")
+            return stencil3d_plain(x, spec, bc_value=bc_value, fields=fields)
+        if x.device.type == "meta":
+            check_operands(x, spec, meta_fields(fields), ndim=3)
+            check_launch3(*x.shape)
+            return torch.empty_like(x)
+        if x.device.type != "cuda":
+            raise ValueError(f"stencil3d runs on cpu, cuda or meta, not "
+                             f"{x.device}")
+        return _launch(x, spec, bc_value, fields, kernel)
+
+
+def _launch(x: torch.Tensor, spec: StencilSpec, bc_value, fields, kernel):
+    """K4 on a CUDA tensor."""
     fields = resolve_fields(spec, fields, x.device)
     check_operands(x, spec, fields, ndim=3)
     if not x.is_contiguous() or (fields is not None

@@ -22,13 +22,19 @@ counts twice), and returns JAX's keys:
   collectives             per kind {count, operand_bytes, result_bytes}
   collective_bytes_total  the operand bytes of every kind
 
-Kernels.  A hand-written kernel's wrapper charges its analytic work
-(``kernel_cost``: K6/K7 4·hd flops a visible (query, key) pair and head,
-K8 6·hd, K9 8·hd; the bytes of its operands read and its results written
-once) whether it launches on the card, runs its plain version on the CPU
-or, on ``meta``, only makes its outputs' shapes; the ops inside are not
-counted again.  So a counted step gives the same numbers on ``cpu``,
-``meta`` and ``cuda``.
+Kernels.  A hand-written kernel's wrapper charges its analytic work once
+a call (``kernel_cost``), whether it launches on the card (one launch or
+several: K2's trapezoid passes, a batch in slices), runs its plain
+version on the CPU or, on ``meta``, only makes its outputs' shapes; the
+ops inside are not counted again.  So a counted step or solve gives the
+same numbers on ``cpu``, ``meta`` and ``cuda``.  The bytes are what JAX
+charges a Pallas ``custom-call`` as a memory-level instruction: its
+operands read and its result written once (the port's operands, which
+its kernels do not pad).  The flops: K6/K7 4·hd a visible (query, key)
+pair and head, K8 6·hd, K9 8·hd; K5 its product's 2·S·N²; K1-K4 none,
+since JAX's flops count only matrix products and convolutions and a
+stencil's shifted adds are neither (K1-K4 charge x, a variable spec's
+fp32 field stack and the result: ``kernels/stencil2d.stencil_bytes``).
 
 Collectives are counted logically, in the function that performs them
 (``parallel/sharding._collective``: ``psum`` and ``pmax`` as

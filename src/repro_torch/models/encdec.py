@@ -45,7 +45,7 @@ from repro_torch.models.transformer import (Attention, ShardProgram,
                                             StackedModel, attn_table,
                                             mask_pad_logits)
 from repro_torch.parallel.sharding import (PartitionSpec, Sharded, psum,
-                                           shard, spec_axes)
+                                           psum_rounded, shard, spec_axes)
 
 MAX_DEC_POSITIONS = 32768
 
@@ -444,9 +444,10 @@ class ShardedEncDec(ShardProgram):
                 ck = cache["cross_k"].pieces[k][i][:, :, sel]
                 cv = cache["cross_v"].pieces[k][i][:, :, sel]
                 out = decode_attention(q, ck, cv, ck.shape[1])
-                part.append((out.reshape(*h.shape[:2], -1).float()
-                             @ wo[k].float().reshape(-1, D)).to(h.dtype))
-            a = psum(part, self.mesh, spec_axes(qspec[1]))
+                part.append(out.reshape(*h.shape[:2], -1).float()
+                            @ wo[k].float().reshape(-1, D))
+            a = psum_rounded(part, self.mesh, spec_axes(qspec[1]),
+                             hs[0].dtype)
             xs = [x + o for x, o in zip(xs, a)]
             m = self._mlp(pre + "mlp.", self._ln(pre + "ln3", xs))
             xs = [x + o for x, o in zip(xs, m)]

@@ -9,6 +9,7 @@ from torch import nn
 
 from repro_torch.core.plan import resolve_model_device
 from repro_torch.models.layers import ACTIVATIONS, ParamDef
+from repro_torch.parallel.sharding import row_product
 
 
 def mlp_table(d_model: int, d_ff: int, gated: bool) -> dict:
@@ -39,13 +40,15 @@ class MLP(nn.Module):
 
 
 def mlp_apply(x: torch.Tensor, up: torch.Tensor, gate, down: torch.Tensor,
-              activation: str) -> torch.Tensor:
+              activation: str, partial: bool = False) -> torch.Tensor:
     """The FFN on x (..., D) with the weights given: the whole layer's, or
     under a sharder one shard's columns of ``up``/``gate`` and the same rows
     of ``down`` (``dff`` over the model axis, tp), whose outputs are partial
     sums that the caller adds over the shards (JAX's constraint of h to
-    (batch, seq, dff))."""
+    (batch, seq, dff)): with ``partial`` in fp32, for
+    ``sharding.psum_rounded``."""
     act = ACTIVATIONS[activation]
     u = x @ up
-    h = act(x @ gate) * u if gate is not None else act(u)
-    return (h.to(x.dtype) @ down).to(x.dtype)
+    h = (act(x @ gate) * u if gate is not None else act(u)).to(x.dtype)
+    out = row_product(h, down, partial)
+    return out if partial else out.to(x.dtype)

@@ -44,7 +44,8 @@ from repro_torch.core.plan import resolve_model_device
 from repro_torch.models.layers import ACTIVATIONS, ParamDef
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.parallel.sharding import (all_gather, axes_size,
-                                           block_start, psum, spec_axes)
+                                           block_start, psum, psum_rounded,
+                                           row_product, spec_axes)
 
 DISPATCH_MODES = ("einsum", "scatter")
 
@@ -137,13 +138,15 @@ def _expert_ffn(params: dict, xin: torch.Tensor,
 
 def _group_moe(params: dict, xg: torch.Tensor, k: int, capacity: int,
                activation: str, dispatch_mode: str = "einsum",
-               e0: int = 0, routes: list | None = None):
+               e0: int = 0, routes: list | None = None,
+               partial: bool = False):
     """One wave of groups.  xg: (G, S, D) -> (out (G, S, D), me (E,), ce
     (E,)): the output and the aux loss's mean router prob and top-1
     fraction per expert.  ``params``' experts are experts e0.. of the
     router's E (all of them unsharded; one model shard's block under
     expert parallelism, ``moe_sharded``, whose ``out`` is then the partial
-    sum over that block).  ``routes``: a list that gets the routing
+    sum over that block, in fp32 with ``partial``, for
+    ``sharding.psum_rounded``).  ``routes``: a list that gets the routing
     (expert_idx, keep, each (G, S, k); the router probs (G, S, E))."""
     G, S, D = xg.shape
     E = params["up"].shape[0]          # the experts here: e0 .. e0 + E
@@ -166,7 +169,7 @@ def _group_moe(params: dict, xg: torch.Tensor, k: int, capacity: int,
         flat = F.pad(eout.transpose(0, 1).reshape(G, E * C, D), (0, 0, 0, 1))
         picked = flat.gather(1, gsk).view(G * S, k, D)
         out = torch.bmm(gate_vals.reshape(G * S, 1, k), picked.float())
-        out = out.view(G, S, D).to(xg.dtype)
+        out = out.view(G, S, D)
     elif dispatch_mode == "einsum":
         # combine[g, s, e * C + c]: the token's gate weight in that slot.
         combine = torch.zeros(G, S, E * C + 1, dtype=gate_vals.dtype,
@@ -175,8 +178,8 @@ def _group_moe(params: dict, xg: torch.Tensor, k: int, capacity: int,
         dispatch = (combine > 0).to(xg.dtype)
         xin = (dispatch.transpose(1, 2) @ xg).view(G, E, C, D)
         eout = _expert_ffn(params, xin.transpose(0, 1), activation)
-        out = (combine.to(xg.dtype) @ eout.transpose(0, 1).reshape(
-            G, E * C, D)).to(xg.dtype)
+        out = row_product(combine.to(xg.dtype), eout.transpose(0, 1).reshape(
+            G, E * C, D), partial)
     else:
         raise ValueError(f"dispatch_mode must be one of {DISPATCH_MODES}, "
                          f"got {dispatch_mode!r}")
@@ -186,7 +189,7 @@ def _group_moe(params: dict, xg: torch.Tensor, k: int, capacity: int,
     top1 = expert_idx[..., 0, None] == torch.arange(probs.shape[-1],
                                                     device=xg.device)
     ce = top1.float().mean(dim=(0, 1))
-    return out, me, ce
+    return (out if partial else out.to(xg.dtype)), me, ce
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
@@ -313,10 +316,12 @@ def moe_sharded(pieces: list, xs: list, sharder, batch_entry, *,
         g0 = block_start(mesh, coords[k], gentry, G)
         xw.append(x.reshape(waves, G, gs, D)[:, g0:g0 + Gl])
     e0 = [block_start(mesh, c, expert_entry, E) for c in coords]
+    partial = bool(spec_axes(expert_entry))
 
     def wave(xgs):
         res = [_group_moe(p, xg, top_k, C, activation, dispatch_mode, e,
-                          routes) for p, xg, e in zip(pieces, xgs, e0)]
+                          routes, partial) for p, xg, e in zip(pieces, xgs,
+                                                               e0)]
         return tuple([r[i] for r in res] for i in range(3))
 
     remat = torch.is_grad_enabled()
@@ -329,8 +334,8 @@ def moe_sharded(pieces: list, xs: list, sharder, batch_entry, *,
         mes.append(me)
         ces.append(ce)
     # Partial sums over this shard's experts, added over the expert axes.
-    outs = psum([torch.stack(o) for o in zip(*outs)], mesh,
-                spec_axes(expert_entry))
+    outs = psum_rounded([torch.stack(o) for o in zip(*outs)], mesh,
+                        spec_axes(expert_entry), xs[0].dtype)
     outs = all_gather(outs, mesh, spec_axes(gentry), 1)
     ng = axes_size(mesh, spec_axes(gentry))
     me = psum([torch.stack(m) for m in zip(*mes)], mesh, spec_axes(gentry))
@@ -344,9 +349,12 @@ def moe_sharded(pieces: list, xs: list, sharder, batch_entry, *,
         Bl, Sl = xs[k].shape[:2]
         out.append(o.reshape(B, S, D)[b0:b0 + Bl, s0:s0 + Sl])
     if "shared" in pieces[0]:
-        sh = psum([mlp_apply(x, p["shared"]["up"], p["shared"]["gate"],
-                             p["shared"]["down"], activation)
-                   for x, p in zip(xs, pieces)], mesh,
-                  spec_axes(shared_entry))
+        dff = spec_axes(shared_entry)
+        sh = psum_rounded([mlp_apply(x, p["shared"]["up"],
+                                     p["shared"]["gate"],
+                                     p["shared"]["down"], activation,
+                                     partial=bool(dff))
+                           for x, p in zip(xs, pieces)], mesh, dff,
+                          xs[0].dtype)
         out = [o + s for o, s in zip(out, sh)]
     return out, aux

@@ -29,6 +29,7 @@ from repro_torch.core.conv1d import causal_conv1d, causal_conv1d_update
 from repro_torch.core.plan import resolve_model_device
 from repro_torch.models.layers import ParamDef, rms_norm
 from repro_torch.parallel.sharding import (all_gather, block_start, psum,
+                                           psum_rounded, row_product,
                                            spec_axes)
 
 
@@ -242,7 +243,8 @@ def _gated_norm_out(mesh, ys, zs, norm_w, out_proj, chan, gathered,
     ``gathered``, all d_inner.  The norm's mean square runs over the whole
     d_inner: a block's sum of squares is added over the channel axes
     before the rsqrt.  ``out_proj``'s rows are the shard's block, so the
-    products are partial sums, added over the same axes."""
+    products are partial sums, added over the same axes in fp32 and rounded
+    once (``sharding.psum_rounded``)."""
     gs = [(y.float() * F.silu(z.float())).to(dt_) for y, z in zip(ys, zs)]
     ss = [torch.sum(torch.square(g.float()), dim=-1, keepdim=True)
           for g in gs]
@@ -255,8 +257,8 @@ def _gated_norm_out(mesh, ys, zs, norm_w, out_proj, chan, gathered,
             g = g[..., c0:c0 + norm_w[k].shape[0]]
         y = (g.float() * torch.rsqrt(s / d_inner + eps)
              * norm_w[k].float()).to(dt_)
-        outs.append((y @ out_proj[k]).to(dt_))
-    return psum(outs, mesh, spec_axes(chan))
+        outs.append(row_product(y, out_proj[k], bool(spec_axes(chan))))
+    return psum_rounded(outs, mesh, chan, dt_)
 
 
 def mamba2_sharded(pieces: list, hs: list, mesh, *, chan, heads,

@@ -81,8 +81,8 @@ from repro_torch.models.ssm import (Mamba2Mixer, mamba2_cache_dims,
 from repro_torch.parallel.sharding import (PartitionSpec, Sharded,
                                            all_gather, axes_size,
                                            block_start, local_view, pmax,
-                                           psum, shard, spec_axes,
-                                           zeros_pieces)
+                                           psum, psum_rounded, row_product,
+                                           shard, spec_axes, zeros_pieces)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -764,7 +764,9 @@ class ShardProgram:
       embed dim over data);
     - ``tp``: wq column-parallel (heads), wk/wv whole, wo row-parallel and
       its partial sums added over model; the MLP's gate/up column-parallel
-      (dff), down row-parallel, summed over model; the embedding
+      (dff), down row-parallel, summed over model (the row-parallel partial
+      products in fp32, added in fp32 and rounded once, as JAX's f32
+      all-reduce: ``sharding.psum_rounded``); the embedding
       vocab-parallel (each shard's rows, zeros elsewhere, summed over
       model); where a dim does not divide its axis it replicates, as JAX;
     - ``sp``: every layer weight whole, each shard's queries attend to k
@@ -910,9 +912,10 @@ class ShardProgram:
         the model axis."""
         wo, _ = self.w(pre + "wo")
         D = self.cfg.d_model
-        part = [(o.reshape(*o.shape[:2], -1) @ wo[k].reshape(-1, D)
-                 ).to(hs[k].dtype) for k, o in enumerate(outs)]
-        return psum(part, self.mesh, spec_axes(qspec[1]))
+        heads = spec_axes(qspec[1])
+        part = [row_product(o.reshape(*o.shape[:2], -1), wo[k].reshape(-1, D),
+                            bool(heads)) for k, o in enumerate(outs)]
+        return psum_rounded(part, self.mesh, heads, hs[0].dtype)
 
     def _heads(self, k: int, qspec, n_local: int):
         """(first q head of shard k, the kv heads those read)."""
@@ -949,9 +952,10 @@ class ShardProgram:
         down, _ = self.w(pre + "down")
         gate = (self.w(pre + "gate")[0] if pre + "gate" in self.params
                 else [None] * self.n)
-        outs = [mlp_apply(h, up[k], gate[k], down[k], self.cfg.activation)
-                for k, h in enumerate(hs)]
-        return psum(outs, self.mesh, spec_axes(uspec[1]))
+        dff = spec_axes(uspec[1])
+        outs = [mlp_apply(h, up[k], gate[k], down[k], self.cfg.activation,
+                          partial=bool(dff)) for k, h in enumerate(hs)]
+        return psum_rounded(outs, self.mesh, dff, hs[0].dtype)
 
     def _block_of(self, t: torch.Tensor, leaf: Sharded, k: int):
         """Shard k's block of ``t``, a layer's entry of cache ``leaf``:

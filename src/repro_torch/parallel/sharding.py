@@ -277,9 +277,13 @@ def gather(pieces: Sequence[torch.Tensor], spec, mesh,
         key = tuple(block_index(mesh, c, axes) for _, axes in sharded)
         blocks.setdefault(key, pieces[k])
 
+    # A mesh that lists only some shards fills the others' blocks as
+    # ``groups`` does (every block has one shape).
+    fill = next(iter(blocks.values()))
+
     def build(prefix: tuple, level: int) -> torch.Tensor:
         if level == len(sharded):
-            return blocks[prefix].to(device)
+            return blocks.get(prefix, fill).to(device)
         d, axes = sharded[level]
         return torch.cat([build(prefix + (i,), level + 1)
                           for i in range(axes_size(mesh, axes))], dim=d)
@@ -346,14 +350,18 @@ class Sharded:
 # ---------------------------------------------------------------------------
 
 def groups(mesh, axes) -> list[list[int]]:
-    """The shards (row-major positions) that agree on every axis but
-    ``axes``, each group in block order over ``axes``."""
+    """The shards (positions in ``mesh.coords()``) that agree on every
+    axis but ``axes``, each group in block order over ``axes``.  A mesh
+    that lists only some of its shards (``launch/dryrun.py``'s replicas,
+    on ``meta``) fills a block no listed shard holds with the group's
+    first member, whose piece has its shape."""
     axes = spec_axes(axes)
+    n = axes_size(mesh, axes)
     out: dict = {}
     for k, c in enumerate(mesh.coords()):
         rest = tuple(i for a, i in zip(mesh.axis_names, c) if a not in axes)
-        out.setdefault(rest, []).append((block_index(mesh, c, axes), k))
-    return [[k for _, k in sorted(g)] for g in out.values()]
+        out.setdefault(rest, {})[block_index(mesh, c, axes)] = k
+    return [[g.get(b, g[min(g)]) for b in range(n)] for g in out.values()]
 
 
 def _collective(values: Sequence[torch.Tensor], mesh, axes, combine,
@@ -369,7 +377,7 @@ def _collective(values: Sequence[torch.Tensor], mesh, axes, combine,
     counting = hlo_cost.counting()
     with hlo_cost.quiet():
         for group in groups(mesh, axes):
-            for k in group:
+            for k in dict.fromkeys(group):
                 dev = mesh.devices[k]
                 key = (dev, tuple(id(values[j]) for j in group))
                 if key not in done:
@@ -403,6 +411,26 @@ def _max(ts):
 def psum(values, mesh, axes) -> list[torch.Tensor]:
     """All-reduce sum over ``axes``, added in block order."""
     return _collective(values, mesh, axes, _sum, "all-reduce")
+
+
+def row_product(a: torch.Tensor, w: torch.Tensor,
+                partial: bool) -> torch.Tensor:
+    """``a @ w`` for a row-parallel weight: where its rows split
+    (``partial``), the partial product in fp32 (the operands in their type,
+    each product exact in fp32), to be added by ``psum_rounded``; else as
+    on one device."""
+    if partial:
+        return a.float() @ w.float()
+    return a @ w
+
+
+def psum_rounded(values, mesh, axes, dtype) -> list[torch.Tensor]:
+    """``psum`` of row-parallel partial products (``row_product``), added
+    in fp32 and rounded once to ``dtype``: JAX's SPMD program all-reduces
+    the f32 dot outputs and converts after (its all-reduces are f32 on the
+    host devices), so a sharded bf16 product rounds once, as the
+    unsharded one does."""
+    return [t.to(dtype) for t in psum(values, mesh, axes)]
 
 
 def pmax(values, mesh, axes) -> list[torch.Tensor]:

@@ -62,6 +62,14 @@ RUNNERS = [
     ("box_2x4_f2", "box", (2, 4), (1, 16, 32), 0.5, 6, 2),
 ] + [(f"laplace_2x2_n{n}_f{f}", "laplace", (2, 2), (2, n, n), 1.0, 8, f)
      for n in (16, 18) for f in (1, 2, 4)]
+# The batch split over a third axis: a 2x2x2 ("batch", "data", "model")
+# mesh, each batch block's tiles exchanging among themselves; a batch of 3
+# does not divide.
+BATCH_MESH = ((2, 2, 2), ("batch", "data", "model"))
+BATCH_RUNNERS = [
+    ("batch_laplace", "laplace", (4, 16, 16), 1.0, 8, 1),
+    ("batch_box_f2", "box", (2, 16, 16), 0.5, 6, 2),
+]
 # Per-cell taps split with the grid (2x4), fuse 1 and 3.
 VAR_GRID, VAR_BATCH, VAR_ITERS, VAR_FUSES = (16, 16), 2, 6, (1, 3)
 # Batched solves on 2x2 to rtol 1e-6: (name, x0, check_every, fuse).
@@ -79,6 +87,8 @@ def _inputs():
     d = {"exchange": np.arange(1, np.prod(EXCHANGE_GRID) + 1,
                                dtype=np.float32).reshape(EXCHANGE_GRID)}
     for name, _, _, shape, *_ in RUNNERS:
+        d[f"runner/{name}"] = rng.standard_normal(shape).astype(np.float32)
+    for name, _, shape, *_ in BATCH_RUNNERS:
         d[f"runner/{name}"] = rng.standard_normal(shape).astype(np.float32)
     d["var/kappa"] = (1.0 + 9.0 * rng.random(VAR_GRID)).astype(np.float32)
     d["var/x"] = rng.standard_normal(
@@ -131,6 +141,24 @@ for name, sname, shape, xshape, bc, iters, fuse in cfg["runners"]:
     out[f"runner/{name}"] = np.asarray(jax.jit(run)(jnp.asarray(
         inp[f"runner/{name}"])))
 
+bshape, bnames = cfg["batch_mesh"]
+bmesh = jax.make_mesh(tuple(bshape), tuple(bnames),
+                      axis_types=(AxisType.Auto,) * 3)
+for name, sname, xshape, bc, iters, fuse in cfg["batch_runners"]:
+    run = make_halo_runner(bmesh, spec(sname), H=xshape[1], W=xshape[2],
+                           bc_value=bc, iterations=iters, fuse=fuse,
+                           batch_axis="batch")
+    out[f"runner/{name}"] = np.asarray(jax.jit(run)(jnp.asarray(
+        inp[f"runner/{name}"])))
+try:
+    make_halo_runner(bmesh, spec("laplace"), H=16, W=16, bc_value=1.0,
+                     iterations=2, batch_axis="batch")(
+        jnp.zeros((3, 16, 16), jnp.float32))
+    raised = ""
+except Exception as err:
+    raised = type(err).__name__
+out["batch_indivisible_raises"] = np.asarray(raised)
+
 vspec = J.heterogeneous_jacobi(inp["var/kappa"])
 for fuse in cfg["var_fuses"]:
     r = J.solve(vspec, jnp.asarray(inp["var/x"]), backend="halo",
@@ -164,6 +192,7 @@ def jax_out(tmp_path_factory, inputs):
     cfg = {"inputs": str(d / "inputs.npz"), "out": str(d / "out.npz"),
            "specs": SPECS, "exchange_mesh": EXCHANGE_MESH,
            "exchange_radii": EXCHANGE_RADII, "runners": RUNNERS,
+           "batch_mesh": BATCH_MESH, "batch_runners": BATCH_RUNNERS,
            "var_fuses": VAR_FUSES, "var_iters": VAR_ITERS,
            "solves": SOLVES}
     env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -275,6 +304,54 @@ def test_runner_equals_jax(case, inputs, jax_out):
         np.testing.assert_array_equal(out, jax_out[f"runner/{name}"])
     np.testing.assert_allclose(out, jax_out[f"runner/{name}"], rtol=0,
                                atol=JAX_ATOL)
+
+
+@pytest.mark.parametrize("case", BATCH_RUNNERS,
+                         ids=[c[0] for c in BATCH_RUNNERS])
+def test_runner_splits_the_batch_over_a_third_axis(case, inputs, jax_out):
+    """``batch_axis``: each batch block on its own 2x2 tiles, equal to the
+    ``reference`` backend bit for bit and to JAX's runner on its 2x2x2
+    mesh at the two-axis runner's bound."""
+    name, sname, xshape, bc, iters, fuse = case
+    spec = _spec(T, sname)
+    mesh = cpu_mesh(*BATCH_MESH)
+    run = TD.make_halo_runner(mesh, spec, H=xshape[1], W=xshape[2],
+                              bc_value=bc, iterations=iters, fuse=fuse,
+                              batch_axis="batch")
+    x = torch.tensor(inputs[f"runner/{name}"])
+    out = run(x)
+    ref = T.stencil_apply(spec, x, backend="reference", bc=bc, iters=iters,
+                          device="cpu")
+    assert out.shape == x.shape and torch.equal(out, ref)
+    if sname == "laplace":
+        np.testing.assert_array_equal(out.numpy(), jax_out[f"runner/{name}"])
+    np.testing.assert_allclose(out.numpy(), jax_out[f"runner/{name}"],
+                               rtol=0, atol=JAX_ATOL)
+
+
+def test_runner_batch_axis_places_blocks_and_refuses_a_ragged_batch(
+        jax_out):
+    """Block b's tile (i, j) on ``mesh.device_at({batch: b, data: i,
+    model: j})`` (read off a mesh that records what it is asked), and a
+    batch of 3 over 2 shards raises as JAX's runner does."""
+    class Recording:
+        def __init__(self):
+            self.mesh, self.asked = cpu_mesh(*BATCH_MESH), []
+            self.shape = self.mesh.shape
+
+        def device_at(self, pos):
+            self.asked.append(dict(pos))
+            return self.mesh.device_at(pos)
+
+    mesh = Recording()
+    run = TD.make_halo_runner(mesh, T.laplace_jacobi(2), H=16, W=16,
+                              bc_value=1.0, iterations=2, batch_axis="batch")
+    assert mesh.asked == [{"batch": b, "data": i, "model": j}
+                          for b in range(2) for i in range(2)
+                          for j in range(2)]
+    with pytest.raises(ValueError, match="does not divide") as e:
+        run(torch.zeros(3, 16, 16))
+    assert type(e.value).__name__ == str(jax_out["batch_indivisible_raises"])
 
 
 def test_runner_without_the_split_on_narrow_tiles(inputs):

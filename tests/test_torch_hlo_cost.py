@@ -8,6 +8,10 @@ gradient within JAX's own 5% of 4x the forward (and of each other).  The
 flash kernels are charged their analytic work on ``cpu`` and ``meta``
 alike; the collectives once a group member, the same on both; and a smoke
 train step on a 2 x 4 mesh counts the same on both, every key exactly.
+The stencil kernels K1-K5 are charged once a call the bytes of their
+operands and result (K5 also its 2·S·N² flops) on both devices, and a
+short ``Solver`` run on ``meta`` through ``auto`` counts what the same
+plan counts on the CPU.
 """
 import dataclasses
 
@@ -20,8 +24,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro.launch.hlo_cost import analyze as jax_analyze
 from repro_torch.configs import get_config
+from repro_torch.core.stencil import heterogeneous_jacobi, laplace_jacobi
+from repro_torch.core.solver import Solver
+from repro_torch.kernels.dense_stencil import dense_stencil_matmul
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention_bwd import flash_bwd, flash_fwd
+from repro_torch.kernels.jacobi_fused import jacobi2d_fused_step
+from repro_torch.kernels.stencil2d import stencil2d
+from repro_torch.kernels.stencil3d import stencil3d
 from repro_torch.launch.dryrun import native_meta_kernels
 from repro_torch.launch.hlo_cost import (CostCounter, analyze,
                                          visible_pairs)
@@ -220,3 +230,87 @@ def test_smoke_train_step_counts_the_same_on_cpu_and_meta(arch):
     assert {k: cpu[k] for k in ("flops", "hbm_bytes", "collectives")} == \
         {k: meta[k] for k in ("flops", "hbm_bytes", "collectives")}
     assert sum(c["count"] for c in cpu["collectives"].values()) > 0
+
+
+def _variable_spec(shape):
+    """Four per-cell field taps (V = 4) on a grid of ``shape``."""
+    rng = np.random.default_rng(7)
+    return heterogeneous_jacobi(rng.uniform(0.5, 1.5, shape))
+
+
+# (name, call on a device -> (fn, args, kwargs), reckoned bytes, flops)
+STENCILS = [
+    ("K1 scalar taps", lambda d: (stencil2d, (torch.zeros(3, 20, 24, device=d),
+                                              laplace_jacobi(2)),
+                                  {"bc_value": 1.0}), 2 * 3 * 20 * 24 * 4, 0),
+    ("K1 field taps", lambda d: (stencil2d, (torch.zeros(3, 20, 24, device=d),
+                                             _variable_spec((20, 24))), {}),
+     2 * 3 * 20 * 24 * 4 + 4 * 20 * 24 * 4, 0),
+    ("K2 trapezoid passes", lambda d: (
+        jacobi2d_fused_step, (torch.zeros(2, 40, 40, device=d),
+                              laplace_jacobi(2)),
+        {"fuse": 40, "bc_value": 0.5}), 2 * 2 * 40 * 40 * 4, 0),
+    ("K3 resident", lambda d: (
+        jacobi2d_fused_step, (torch.zeros(2, 16, 16, device=d),
+                              laplace_jacobi(2)),
+        {"fuse": 8, "bc_value": 1.0, "rim": "resident"}),
+     2 * 2 * 16 * 16 * 4, 0),
+    ("K4", lambda d: (stencil3d, (torch.zeros(2, 6, 8, 12, device=d),
+                                  laplace_jacobi(3)), {"bc_value": 1.0}),
+     2 * 2 * 6 * 8 * 12 * 4, 0),
+    ("K5 fp32", lambda d: (dense_stencil_matmul,
+                           (torch.zeros(5, 48, device=d),
+                            torch.zeros(48, 48, device=d)), {}),
+     (2 * 5 * 48 + 48 * 48) * 4, 2 * 5 * 48 * 48),
+    ("K5 bf16", lambda d: (dense_stencil_matmul,
+                           (torch.zeros(5, 48, device=d, dtype=torch.bfloat16),
+                            torch.zeros(48, 48, device=d,
+                                        dtype=torch.bfloat16)), {}),
+     (2 * 5 * 48 + 48 * 48) * 2, 2 * 5 * 48 * 48),
+]
+
+
+@pytest.mark.parametrize("name,call,hbm,flops", STENCILS,
+                         ids=[c[0] for c in STENCILS])
+def test_stencil_kernels_charge_their_operands_on_cpu_and_meta(name, call,
+                                                               hbm, flops):
+    got = {}
+    for dev in ("cpu", "meta"):
+        fn, args, kw = call(dev)
+        with CostCounter() as c:
+            out = fn(*args, **kw)
+        assert out.shape == args[0].shape and out.device.type == dev
+        got[dev] = c.result()
+    assert got["cpu"] == got["meta"]
+    assert got["cpu"]["hbm_bytes"] == hbm
+    assert got["cpu"]["flops"] == flops
+
+
+@pytest.mark.parametrize("spec,grid,batch,backend", [
+    (laplace_jacobi(2), (16, 16), 3, "auto"),
+    (_variable_spec((12, 20)), (12, 20), 2, "auto"),
+    (_variable_spec((12, 20)), (12, 20), 2, "cuda"),
+    (laplace_jacobi(3), (6, 8, 8), 2, "auto"),
+], ids=["laplace", "variable", "variable-K1", "3d"])
+def test_a_solve_counts_the_same_on_cpu_and_meta(spec, grid, batch,
+                                                 backend):
+    """``auto`` on ``meta`` prices as the card and picks a kernel backend;
+    the same plan on the CPU (its kernels' plain versions, a solve that
+    does not converge in the 64 iterations) counts the same, every key,
+    the kernels charged once a call.  ``cuda`` at fuse 1 takes K1 one
+    step a call, after the shell is set."""
+    kw = dict(bc=1.0, rtol=1e-9, max_iters=64, check_every=16)
+    fuse = 1 if backend == "cuda" else None
+    meta = Solver(spec, grid, backend=backend, fuse=fuse, device="meta",
+                  **kw)
+    assert meta.backend in ("cuda", "cuda_fused")
+    cpu = Solver(spec, grid, backend=meta.backend, fuse=meta.fuse,
+                 device="cpu", **kw)
+    assert (cpu.fuse, cpu.plan.rim) == (meta.fuse, meta.plan.rim)
+    counts = [analyze(s.run, torch.zeros(batch, *grid, device=d))
+              for s, d in ((cpu, "cpu"), (meta, "meta"))]
+    assert counts[0] == counts[1]
+    # every chunk's kernel calls charged their operands at the least
+    calls = 64 // meta.fuse
+    cells = int(np.prod(grid))
+    assert counts[0]["hbm_bytes"] >= calls * 2 * batch * 4 * cells

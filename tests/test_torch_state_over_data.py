@@ -19,6 +19,16 @@ The prompt is 12 tokens in a cache of 16: kv_seq splits 8 ways, 2
 positions a shard, block b = 2·model + data (the model axis major).  The
 three decode steps write kv_len 12, 13 (block 6: model 3, data 0) and 14
 (block 7: model 3, data 1, a data-major block).
+
+bf16: mamba2-370m at full width and 4 of its 48 layers decodes 8 tokens at
+batch 1 from a seeded random SSD and conv state, sharded under the flag,
+unsharded and in fp32, in JAX (one of the subprocesses) and in the port
+from JAX's weights.  JAX's sharded bf16 decode equals its unsharded one
+bit for bit (its all-reduces add the f32 dot outputs); the port's adds its
+row-parallel partial products in fp32 too (``sharding.psum_rounded``), so
+each token lies no farther from fp32 sharded than unsharded, within
+``chip_smoke.py``'s ``DIST_BF16_RATIO`` (1.5), and parts from its own
+unsharded decode by less than the two frameworks' unsharded decodes part.
 """
 import json
 import os
@@ -46,6 +56,9 @@ JAX_ARCHS = ("mamba2-370m", "zamba2-1.2b", "qwen3-0.6b",
 GROUPS = (("mamba2-370m", "qwen3-0.6b"), ("zamba2-1.2b",),
           ("qwen3-moe-30b-a3b",), ("qwen2-vl-2b", "whisper-tiny"))
 JAX_BOUND = {"encdec": 5e-4}
+# The bf16 decode: its layers, tokens, the subprocess that runs it, and the
+# hold of chip_smoke.py's phase 39 (c).
+BF16_LAYERS, BF16_TOKENS, BF16_GROUP, DIST_BF16_RATIO = 4, 8, 2, 1.5
 
 
 def _inputs():
@@ -103,6 +116,43 @@ for arch in cfg["archs"]:
             logits, cache = decode(params, tok, cache,
                                    jnp.int32(cfg["prompt"] + i))
             out[arch + "/logits%d" % i] = np.asarray(logits)
+
+if cfg["bf16_layers"]:
+    # mamba2-370m in bf16 at full width: sharded, unsharded and fp32 from
+    # one seeded random cache.
+    import dataclasses
+    mcfg = dataclasses.replace(get_config("mamba2-370m"),
+                               n_layers=cfg["bf16_layers"])
+    api = build(mcfg)
+    params = api.init(jax.random.PRNGKey(0), jnp.bfloat16)
+    for path, v in jax.tree_util.tree_flatten_with_path(params)[0]:
+        out["bf16/params/" + "/".join(k.key for k in path)] = \
+            np.asarray(v.astype(jnp.float32))
+    rng = np.random.default_rng(31)
+    cache = {}
+    shapes = api.cache_shapes(1, 16)
+    for path, st in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        name = "/".join(k.key for k in path)
+        cache[name] = (rng.standard_normal(st.shape).astype(np.float32),
+                       st.dtype)
+        out["bf16/cache/" + name] = cache[name][0]
+    toks = rng.integers(0, mcfg.vocab_size, (cfg["bf16_tokens"], 1))
+    out["bf16/tokens"] = toks
+    sh = Sharder(mesh=mesh, profile=mcfg.sharding_profile,
+                 state_over_data=True)
+    p32 = jax.tree.map(lambda t: t.astype(jnp.float32), params)
+    runs = (("sharded", params, None, sh), ("unsharded", params, None, None),
+            ("fp32", p32, jnp.float32, None))
+    for name, p, dt, s in runs:
+        c = {k: jnp.asarray(a, dt or d) for k, (a, d) in cache.items()}
+        with mesh:
+            dec = jax.jit(lambda p, t, c, n, s=s: api.decode_step(
+                p, t, c, n, sharder=s))
+            for i in range(cfg["bf16_tokens"]):
+                lg, c = dec(p, jnp.asarray(toks[i], jnp.int32), c,
+                            jnp.int32(8 + i))
+                out[f"bf16/{name}/{i}"] = np.asarray(
+                    lg[:, :mcfg.vocab_size].astype(jnp.float32))
 np.savez(cfg["out"], **out)
 print("jax side ok")
 """
@@ -131,7 +181,9 @@ def jax_out(tmp_path_factory, inputs):
     for i, group in enumerate(GROUPS):
         cfg = {"inputs": str(d / "inputs.npz"), "out": str(d / f"{i}.npz"),
                "mesh": MESH, "archs": group, "max_len": MAX_LEN,
-               "prompt": PROMPT, "steps": STEPS}
+               "prompt": PROMPT, "steps": STEPS,
+               "bf16_layers": BF16_LAYERS if i == BF16_GROUP else 0,
+               "bf16_tokens": BF16_TOKENS}
         procs.append(subprocess.Popen(
             [sys.executable, "-c", JAX_SIDE, json.dumps(cfg)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -308,3 +360,60 @@ def test_the_flag_moves_the_state_and_changes_no_number(arch, dtype,
             assert torch.equal(got, want)
         else:
             assert _rel(got, want) <= 1e-5
+
+
+def test_bf16_sharded_decode_against_jax_per_token(jax_out):
+    """mamba2-370m's bf16 decode (module docstring), token by token: JAX's
+    sharded decode equals its unsharded one; the port's lies within
+    DIST_BF16_RATIO of its unsharded distance from fp32 at every token,
+    and its sharded-vs-unsharded distance is below the two frameworks'
+    unsharded distance."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("mamba2-370m"),
+                              n_layers=BF16_LAYERS)
+    tree = {}
+    for key, v in jax_out.items():
+        if key.startswith("bf16/params/"):
+            set_path(tree, tuple(key.split("/")[2:]), v)
+    sh = _sharder(cfg)
+    toks = jax_out["bf16/tokens"]
+    port = {}
+    for name, dtype, s in (("sharded", torch.bfloat16, sh),
+                           ("unsharded", torch.bfloat16, None),
+                           ("fp32", torch.float32, None)):
+        model = from_jax_params(cfg, tree, device="cpu", dtype=dtype)
+        cache = model.init_cache(1, 16)
+        for path, leaf in flatten(cache):
+            leaf.copy_(torch.from_numpy(
+                jax_out["bf16/cache/" + "/".join(path)]))
+        if s is not None:
+            cache = _sharded_cache(model, s, cache)
+        kw = {} if s is None else {"sharder": s}
+        logits = []
+        for i in range(BF16_TOKENS):
+            lg, cache = model.decode_step(torch.as_tensor(toks[i]), cache,
+                                          8 + i, **kw)
+            lg = lg.gather() if s is not None else lg
+            logits.append(lg[:, :cfg.vocab_size].float().numpy())
+        port[name] = logits
+    for i in range(BF16_TOKENS):
+        js, ju, jf = (jax_out[f"bf16/{n}/{i}"]
+                      for n in ("sharded", "unsharded", "fp32"))
+        ps, pu, pf = (port[n][i] for n in ("sharded", "unsharded", "fp32"))
+        assert np.array_equal(js, ju), i            # JAX's own ratio: 1
+        assert _rel(pf, jf) <= 1e-5, i              # the fp32 runs agree
+        assert _rel(ps, pf) <= DIST_BF16_RATIO * _rel(pu, pf), i
+        assert _rel(ps, pu) < _rel(pu, ju), i
+
+
+def _sharded_cache(model, sharder, cache):
+    """``cache`` (the model's tree) as ``Sharded`` leaves laid by the
+    sharder's specs of its ``cache_dims``."""
+    from repro_torch.parallel.sharding import shard
+    dims = dict(flatten(model.cache_dims()))
+    out = {}
+    for path, leaf in flatten(cache):
+        spec = sharder.spec(dims[path], tuple(leaf.shape))
+        set_path(out, path, Sharded(shard(leaf, spec, sharder.mesh), spec,
+                                    tuple(leaf.shape), sharder.mesh))
+    return out

@@ -372,7 +372,7 @@ def test_kv_heads_a_shard_reads():
 
 
 @pytest.mark.parametrize("arch", list_archs())
-def test_state_over_data_raises_on_a_larger_mesh(arch):
+def test_state_over_data_runs_and_matches_on_a_larger_mesh(arch):
     # state_over_data now has its execution: every entry point runs under
     # it on a larger mesh and gives the unsharded results (batch 4 takes
     # the data axis first, so here the flag moves no cache: the batch-1
