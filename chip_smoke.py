@@ -441,6 +441,17 @@ shapes, with their launches on those archs' serve and train paths.
      by ``launch.hlo_cost`` on the card equal to ``meta`` exactly, its
      launches those of the uncounted run, its result equal to it and held
      to its plain version as its phase holds it.  Under 30 s.
+ 41. the JAX package's last public API on the card (``api_phase``, with
+     ``device=None``, so on cuda, each part held against its CPU run):
+     (a) ``stencil_apply(causal_conv1d_spec([0.1, 0.2, 0.3, 0.4]), ...,
+     backend="auto", bc=1.5, iters=2)`` on 1024 grids of 65,536 cells,
+     within TOL; (b) ``dense_jacobi_with_bc`` at Table 1's 64x64 (the
+     4096x4096 matrix) for 7 iterations, the paper's dense limit, within
+     TOL; (c) Table 1's 7960 steps through ``stencil_apply(...,
+     tuned=<TUNED_stencil_cuda.json, loaded>)``: the table's schedule,
+     K3 launched, bit-equal to ``reference``; with ``tuned=None`` the
+     roofline's pick, bit-equal too.  Neither (a) nor (b) launches a
+     kernel.  Under 60 s.
 
 Any failed check raises and the script exits nonzero.  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero
@@ -659,6 +670,9 @@ HALO_BATCH_FUSE = 20           # (e): 100 exchanges of 20-deep halos
 HALO_BATCH_ITERS = 2000        # (e): a quarter of Table 1's 7960
 # Phase 40, the stencil tiers counted: its budget.
 STENCIL_COUNT_SECONDS = 30
+# Phase 41, the last public API: (a)'s grids and cells, its budget.
+API_CONV = (1024, 65_536)
+API_SECONDS = 60
 # Phase 37: LM distribution on a data x model mesh, every shard on cuda:0.
 DIST_MESH = (2, 4)               # ("data", "model")
 DIST_ARCH = "qwen3-0.6b"         # (a) tp, full width and depth
@@ -5074,6 +5088,111 @@ def stencil_counts_phase(dev, lap, lap3, table1_x, xd, matrix):
     return {"phase": 40, "tiers": tiers, "seconds": seconds}
 
 
+def api_phase(smi):
+    """Phase 41, the names the port gained to cover the JAX package's
+    public API, run with ``device=None`` (the card) and each held against
+    its run on the CPU: (a) ``stencil_apply`` of ``causal_conv1d_spec``
+    through ``auto`` on API_CONV; (b) ``dense_jacobi_with_bc`` at Table
+    1's 64x64 for DENSE_ITERS; (c) Table 1's TABLE1_ITERS steps through
+    ``stencil_apply(tuned=)``, the committed table loaded (its schedule,
+    K3) and None (the roofline's pick), each bit-equal to ``reference``
+    on the card.  The launch counts are zeroed before each part and read
+    after it.  Returns the phase's record."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core as T
+    from repro_torch.core import autotune as TA
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def err(a, b):
+        return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+    def on_card(fn):
+        """(fn()'s result, the launches it made), the counts zeroed."""
+        _build.LAUNCHES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        check(out.device.type == "cuda", f"phase 41 ran on {out.device}")
+        return out, dict(_build.LAUNCHES)
+
+    def pick(spec, grid, **kw):
+        plan = T.make_plan(spec, grid, backend="auto", **kw)
+        return {"source": plan.source, "backend": plan.backend,
+                "fuse": plan.fuse, "rim": plan.rim}
+
+    rec = {"phase": 41, "nvidia_smi": smi}
+    rng = np.random.default_rng(41)
+
+    # (a) the causal conv1d stencil through auto, on the card and the CPU
+    t0 = time.perf_counter()
+    conv = T.causal_conv1d_spec([0.1, 0.2, 0.3, 0.4])
+    xa = rng.standard_normal(API_CONV, dtype=np.float32)
+    kw = dict(backend="auto", bc=1.5, iters=2)
+    out, launched = on_card(lambda: T.stencil_apply(conv, xa, **kw))
+    want = T.stencil_apply(conv, xa, device=cpu, **kw)
+    e = err(out, want)
+    check(tuple(out.shape) == API_CONV and e <= TOL["float32"],
+          f"phase 41 (a): shape {tuple(out.shape)}, vs the CPU {e}")
+    check(not launched, f"phase 41 (a) launched {launched}")
+    rec["a"] = {"grids": API_CONV[0], "cells": API_CONV[1],
+                "pick": pick(conv, API_CONV[1:], bc=1.5, iters=2),
+                "max_abs_err_vs_cpu": e,
+                "seconds": time.perf_counter() - t0}
+    del out, want, xa
+
+    # (b) the dense encoding with its BCs, Table 1's grid, 7 iterations
+    t0 = time.perf_counter()
+    lap, bc = T.laplace_jacobi(2), T.DirichletBC(1.0)
+    xb = rng.random((16, 64, 64), dtype=np.float32)
+    out, launched = on_card(lambda: T.dense_jacobi_with_bc(
+        xb, lap, bc, DENSE_ITERS))
+    want = T.dense_jacobi_with_bc(xb, lap, bc, DENSE_ITERS, device=cpu)
+    e = err(out, want)
+    check(tuple(out.shape) == xb.shape and e <= TOL["float32"],
+          f"phase 41 (b): shape {tuple(out.shape)}, vs the CPU {e}")
+    check(not launched, f"phase 41 (b) launched {launched}")
+    rec["b"] = {"instances": xb.shape[0], "matrix": [64 * 64] * 2,
+                "iterations": DENSE_ITERS, "max_abs_err_vs_cpu": e,
+                "seconds": time.perf_counter() - t0}
+
+    # (c) Table 1 through stencil_apply(tuned=): the table, the roofline
+    t0 = time.perf_counter()
+    table = T.TunedTable.load(os.path.join(ROOT, "TUNED_stencil_cuda.json"))
+    x0 = torch.zeros(64, 64)
+    kw = dict(bc=TABLE1["bc"], iters=TABLE1_ITERS)
+    ref, _ = on_card(lambda: T.stencil_apply(lap, x0, backend="reference",
+                                             **kw))
+    rec["c"] = {"iterations": TABLE1_ITERS}
+    for name, tuned in (("tuned", table), ("roofline", None)):
+        out, launched = on_card(lambda: T.stencil_apply(
+            lap, x0, backend="auto", tuned=tuned, **kw))
+        chosen = pick(lap, (64, 64), tuned=tuned, **kw)
+        e = err(out, ref)
+        check(e == 0.0, f"phase 41 (c) {name} ({chosen}) vs reference: {e}")
+        rec["c"][name] = {"pick": chosen, "launches": launched,
+                          "max_abs_err_vs_reference": e}
+    best = table.lookup(TA.device_kind(), TA.spec_family(lap), (64, 64),
+                        "float32")
+    check(best is not None, f"phase 41 (c): the table has no entry for "
+          f"{TA.device_kind()}")
+    tuned = rec["c"]["tuned"]
+    check(tuned["pick"]["source"] == "tuned"
+          and (tuned["pick"]["backend"], tuned["pick"]["rim"])
+          == (best.backend, best.rim),
+          f"phase 41 (c) picked {tuned['pick']}, the table's best is "
+          f"{best}")
+    check(any(k.startswith("jacobi2d_resident") for k in tuned["launches"]),
+          f"phase 41 (c) launched {tuned['launches']}, no K3")
+    rec["c"]["seconds"] = time.perf_counter() - t0
+    rec["seconds"] = time.perf_counter() - t_phase
+    check(rec["seconds"] < API_SECONDS, f"phase 41 took {rec['seconds']} s")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6893,6 +7012,10 @@ def main(argv=None) -> int:
     lt = launch_tooling_phase(dev, flash_case, bwd_case, graph_ms, time_ms,
                               device_profile)
     kernels += launch_kernel_rows(lt, entry, case_err)
+
+    # -- 41. the JAX package's last public API on the card ---------------------
+    torch.cuda.empty_cache()
+    emit(api_phase(smi))
 
     check(launches7.get("flash_fwd", 0) == 2 * cfg_f.n_layers,
           f"the serve path launched {launches7}")

@@ -85,6 +85,10 @@ class ModelConfig:
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def is_causal_lm(self) -> bool:
+        return self.family in ("dense", "moe", "ssm", "hybrid", "vlm")
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head)."""
         D, V = self.d_model, self.vocab_size

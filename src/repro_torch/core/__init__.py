@@ -32,6 +32,7 @@ from repro_torch.core.autotune import (
     spec_family,
 )
 from repro_torch.core.boundary import BoundaryMode, DirichletBC, runtime_bc_grids
+from repro_torch.core.conv1d import causal_conv1d, causal_conv1d_update
 from repro_torch.core.conv_encoding import (
     conv2d_apply,
     conv2d_kernel,
@@ -46,6 +47,7 @@ from repro_torch.core.conv_encoding import (
 from repro_torch.core.dense_encoding import (
     build_dense_matrix,
     dense_jacobi,
+    dense_jacobi_with_bc,
     dense_layer_bytes,
     var_tap_indices,
 )
@@ -85,6 +87,7 @@ from repro_torch.core.stencil import (
     StencilSpec,
     WeightField,
     box,
+    causal_conv1d_spec,
     heterogeneous_jacobi,
     laplace_jacobi,
     spec_from_taps,
@@ -118,6 +121,9 @@ __all__ = [
     "backend_support",
     "box",
     "build_dense_matrix",
+    "causal_conv1d",
+    "causal_conv1d_spec",
+    "causal_conv1d_update",
     "choose_backend",
     "coarse_shape",
     "coarsen_spec",
@@ -132,6 +138,7 @@ __all__ = [
     "default_plan_cache",
     "default_tuned_table",
     "dense_jacobi",
+    "dense_jacobi_with_bc",
     "dense_layer_bytes",
     "encoding_flops_per_point",
     "estimate_seconds",

@@ -77,18 +77,29 @@ def conv2d_kernel(spec: StencilSpec, dtype=np.float32) -> np.ndarray:
 
 
 def conv2d_apply(x: torch.Tensor, kernel: torch.Tensor,
-                 pad: tuple[int, ...] | None = None) -> torch.Tensor:
+                 padding: "str | tuple[int, ...]" = "SAME") -> torch.Tensor:
     """One conv application.  x: (batch, C, H, W) with an OIHW kernel, or
     (batch, C, D, H, W) with an OIDHW kernel (a native 3D conv).
 
-    ``pad`` zero-pads x first (F.pad order: last dim first); None is a
-    'valid' conv.  Computes in fp32, returns x's type.
+    ``padding`` is JAX's "SAME" (zeros, the output the input's size) or
+    "VALID" (no padding), or explicit F.pad widths (last dim first).
+    Computes in fp32, returns x's type.
     """
     xf = x.float()
-    if pad is not None:
-        xf = F.pad(xf, pad)
     kf = kernel.float()
     nd = xf.ndim - 2
+    if padding == "SAME":
+        # XLA's split for stride 1: (k-1)//2 before, the rest after.
+        padding = ()
+        for k in reversed(kf.shape[2:]):
+            padding += ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    elif padding == "VALID":
+        padding = None
+    elif isinstance(padding, str):
+        raise ValueError(f"padding must be 'SAME', 'VALID' or F.pad widths, "
+                         f"not {padding!r}")
+    if padding is not None:
+        xf = F.pad(xf, padding)
     if xf.device.type == "cpu" and torch.backends.mkldnn.is_available():
         # F.conv2d's and F.conv3d's CPU heuristics send a batch of one
         # through im2col and sgemm, whose blocked sums round differently
@@ -143,7 +154,7 @@ def conv_jacobi_2d(
         else:
             # 'valid' conv on the interior; the shell is re-written from x
             # itself (it holds the Dirichlet values, which never change).
-            y = F.pad(conv2d_apply(x, kernel), (1, 1, 1, 1))
+            y = F.pad(conv2d_apply(x, kernel, "VALID"), (1, 1, 1, 1))
             x = y * mask + x * (1.0 - mask)
     return x[:, 0]
 

@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.boundary import DirichletBC
+from repro_torch.core.plan import resolve_device
 from repro_torch.core.stencil import StencilSpec, WeightField
 
 
@@ -127,6 +129,26 @@ def dense_jacobi(
             y = y + drive.float()
         x = y.to(x0.dtype)
     return x.reshape(x0.shape)
+
+
+def dense_jacobi_with_bc(
+    x0,
+    spec: StencilSpec,
+    bc: DirichletBC,
+    iterations: int,
+    dtype=torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Convenience wrapper: build the matrix, seed the BCs into x0's shell,
+    iterate.  ``x0`` is (batch, *grid), a tensor or an array, moved to
+    ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    x0 = torch.as_tensor(x0, device=dev).to(dtype)
+    grid_shape = tuple(x0.shape[1:])
+    matrix = torch.as_tensor(build_dense_matrix(grid_shape, spec),
+                             device=dev).to(dtype)
+    return dense_jacobi(bc.set_boundary(x0, len(grid_shape)), matrix,
+                        iterations)
 
 
 def dense_layer_bytes(grid_shape: tuple[int, ...], iterations: int,

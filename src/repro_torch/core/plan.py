@@ -830,6 +830,7 @@ def stencil_apply(
     device=None,
     rim: str | None = None,
     mesh=None,
+    tuned="default",
 ) -> torch.Tensor:
     """Apply ``iters`` stencil steps to ``x`` through any backend.
 
@@ -838,7 +839,9 @@ def stencil_apply(
     ``jacobi_reference``: the Dirichlet shell is seeded, then each
     iteration applies the stencil and re-pins the shell (``bc=None`` skips
     both and iterates the raw zero-padded operator).  ``mesh`` is the tile
-    mesh of ``backend="halo"`` (see :func:`make_plan`).
+    mesh of ``backend="halo"`` (see :func:`make_plan`).  ``tuned`` is
+    the measured table ``auto`` consults first: "default" (the committed
+    table), a ``TunedTable``, or None for the roofline alone.
     """
     dev = resolve_device(device)
     x = torch.as_tensor(x, device=dev)
@@ -849,5 +852,5 @@ def stencil_apply(
     grid_shape = tuple(x.shape[-spec.ndim:])
     plan = make_plan(spec, grid_shape, backend=backend, bc=bc, mode=mode,
                      iters=iters, fuse=fuse, dtype=x.dtype, device=dev,
-                     rim=rim, mesh=mesh)
+                     rim=rim, mesh=mesh, tuned=tuned)
     return plan(x)

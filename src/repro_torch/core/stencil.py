@@ -55,6 +55,9 @@ class WeightField:
         """The read-only float32 ndarray."""
         return self._np
 
+    # JAX's name for it.
+    values = array
+
     @property
     def shape(self) -> tuple[int, ...]:
         return tuple(self._np.shape)
@@ -212,8 +215,44 @@ class StencilSpec:
         tensor of this shape as ``fields=`` to a plan or solver to override
         the spec's baked values.
         """
-        vals = [w.array for _, w in self.taps if isinstance(w, WeightField)]
+        vals = self.field_values()
         return np.stack(vals) if vals else None
+
+    def field_values(self) -> tuple[np.ndarray, ...]:
+        """Value arrays of the per-cell taps, in canonical tap order."""
+        return tuple(w.array for _, w in self.taps
+                     if isinstance(w, WeightField))
+
+    def with_field_values(self, values, name: str | None = None) -> "StencilSpec":
+        """A spec whose per-cell taps take their values from ``values``.
+
+        ``values`` is a (V, *grid) stack or a sequence of V grid-shaped
+        arrays or tensors, matched to the variable taps in canonical tap
+        order.  A spec holds its fields as numpy values (it is a cache
+        key), so a tensor that requires grad is refused: gradients reach
+        the fields as the ``fields=`` operand of a plan or solver, as
+        ``models/solver_layer.SolverLayer`` passes them.
+        """
+        offs = self.variable_offsets
+        if len(values) != len(offs):
+            raise ValueError(
+                f"{self.name}: got {len(values)} field value arrays for "
+                f"{len(offs)} variable taps")
+        if getattr(values, "requires_grad", False) or any(
+                getattr(v, "requires_grad", False) for v in values):
+            raise ValueError(
+                f"{self.name}: a spec holds its weight fields as numpy "
+                f"values and drops gradients; pass a tensor that requires "
+                f"grad as fields= to a plan or solver instead (as "
+                f"SolverLayer does)")
+        repl = {off: WeightField(_host(v)) for off, v in zip(offs, values)}
+        taps = tuple((o, repl.get(o, w)) for o, w in self.taps)
+        return StencilSpec(taps=taps, name=name or self.name)
+
+
+def _host(v):
+    """A tensor's values on the host in fp32 (an array passes through)."""
+    return v.detach().float().cpu().numpy() if hasattr(v, "detach") else v
 
 
 def spec_from_taps(taps, name: str = "stencil") -> StencilSpec:
@@ -303,3 +342,14 @@ def heterogeneous_jacobi(kappa, name: str | None = None) -> StencilSpec:
     total = sum(faces.values())
     taps = {off: w / total for off, w in faces.items()}
     return StencilSpec(taps=taps, name=name or f"hetero{ndim}d")
+
+
+def causal_conv1d_spec(weights: Sequence[float]) -> StencilSpec:
+    """1D causal stencil: out[t] = sum_k w[k] * x[t - (K-1) + k].
+
+    The depthwise causal convolution inside Mamba2 blocks (d_conv=4)
+    expressed as a stencil.
+    """
+    K = len(weights)
+    taps = {(-(K - 1) + k,): float(w) for k, w in enumerate(weights)}
+    return StencilSpec(taps=taps, name=f"causal_conv1d_k{K}")

@@ -215,3 +215,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"{q.device}")
         return launch(q, k, v, causal=causal, kv_offset=kv_offset,
                       with_lse=False, name="flash_attention")[0]
+
+
+def flash_hbm_bytes(B, Sq, Skv, H, KV, hd, bytes_per_el=2) -> int:
+    """The TPU kernel's analytic HBM traffic, JAX's formula: q and o once,
+    k and v once for each 512-row q block, half of those skipped by the
+    causal mask.  Not the CUDA kernels' traffic, whose q tiles differ."""
+    q_o = 2 * B * Sq * H * hd * bytes_per_el
+    passes = max(1, Sq // 512)
+    kv = 2 * B * Skv * KV * hd * bytes_per_el * passes * H // KV
+    return q_o + kv // 2

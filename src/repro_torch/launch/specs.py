@@ -23,7 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.models.layers import flatten, set_path
+from repro_torch.models import layers
 from repro_torch.models.model_zoo import build
 from repro_torch.models.transformer import StackedModel
 from repro_torch.parallel.sharding import (PartitionSpec, Sharder,
@@ -125,10 +125,7 @@ def split_specs(tagged) -> tuple[dict, dict]:
 def param_shapes(model: StackedModel, dtype: torch.dtype) -> dict:
     """The parameters' meta stand-ins in JAX's layout (JAX's
     ``api.shapes(dtype)``; a leaf that pins its type keeps it)."""
-    out: dict = {}
-    for path, pd in flatten(model.param_table(model.cfg)):
-        set_path(out, path, _struct(pd.shape, pd.dtype or dtype))
-    return out
+    return layers.param_shapes(model.param_table(model.cfg), dtype)
 
 
 def _map(fn, tree):
@@ -153,15 +150,10 @@ def input_specs(cell: Cell, dtype=torch.bfloat16):
     """
     model = cell.model
     if cell.kind == "train":
+        from repro_torch.train.train_step import state_dims, state_shapes
         batch_structs, batch_dims = split_specs(_batch_specs(cell, dtype))
-        params = param_shapes(model, torch.float32)
-        zeros = _map(lambda t: _struct(t.shape, torch.float32), params)
-        state = {"params": params, "m": zeros,
-                 "v": _map(lambda t: t, zeros),
-                 "step": _struct((), torch.int32)}
-        pdims = model.dims()
-        state_dims = {"params": pdims, "m": pdims, "v": pdims, "step": ()}
-        return (state, batch_structs), (state_dims, batch_dims)
+        return ((state_shapes(model), batch_structs),
+                (state_dims(model), batch_dims))
 
     params_structs = param_shapes(model, dtype)
     params_dims = model.dims()

@@ -75,11 +75,12 @@ def dec_block_table(cfg: ModelConfig) -> dict:
     }
 
 
-def encdec_table(cfg: ModelConfig) -> dict:
+def encdec_table(cfg: ModelConfig,
+                 max_dec_positions: int = MAX_DEC_POSITIONS) -> dict:
     D, V = cfg.d_model, cfg.padded_vocab
     return {
         "embed": ParamDef((V, D), ("vocab", "embed"), scale=1.0),
-        "dec_pos": ParamDef((MAX_DEC_POSITIONS, D), (None, "embed"),
+        "dec_pos": ParamDef((max_dec_positions, D), (None, "embed"),
                             scale=0.02),
         "enc_layers": stack_tables(enc_block_table(cfg), cfg.n_enc_layers),
         "dec_layers": stack_tables(dec_block_table(cfg), cfg.n_layers),

@@ -99,9 +99,21 @@ def param_dims(table: Mapping[str, Any]) -> dict:
     return out
 
 
-def stack_tables(table: Mapping[str, Any], n: int) -> dict:
+def param_shapes(table: Mapping[str, Any], dtype: torch.dtype) -> dict:
+    """The table's tree of stand-ins: empty ``meta`` tensors of each
+    leaf's shape, in ``dtype`` unless the leaf pins its own (JAX's
+    ``ShapeDtypeStruct``s)."""
+    out: dict = {}
+    for path, pd in flatten(table):
+        set_path(out, path, torch.empty(pd.shape, dtype=pd.dtype or dtype,
+                                        device="meta"))
+    return out
+
+
+def stack_tables(table: Mapping[str, Any], n: int,
+                 dim_name: str = "layers") -> dict:
     """Prefix every ParamDef with a leading stacked-layers dim (named
-    None: it never shards)."""
+    None: it never shards; ``dim_name`` is unused, as in JAX)."""
     out: dict = {}
     for path, pd in flatten(table):
         set_path(out, path, ParamDef((n, *pd.shape), (None, *pd.dims),

@@ -677,8 +677,7 @@ class Transformer(StackedModel):
         """The cache's tree (JAX's layout) of (shape, dtype) leaves."""
         cfg, dt = self.cfg, self.dtype
         per_layer = {
-            "attn": {name: ((batch, max_len, cfg.n_kv_heads, cfg.head_dim),
-                            dt) for name in ("k", "v")},
+            "attn": attn_cache_shapes(cfg, batch, max_len, dt),
             "mamba": mamba2_cache_shapes(batch, cfg.n_ssm_heads,
                                          cfg.ssm_head_dim, cfg.ssm_state,
                                          cfg.d_conv, cfg.d_inner, dt)}
@@ -686,12 +685,21 @@ class Transformer(StackedModel):
 
     def cache_dims(self) -> dict:
         """The cache's logical dim names (JAX's ``cache_dims``)."""
-        per_layer = {
-            "attn": {name: ("batch", "kv_seq", "kv_heads", "head_dim")
-                     for name in ("k", "v")},
-            "mamba": mamba2_cache_dims()}
+        per_layer = {"attn": attn_cache_dims(), "mamba": mamba2_cache_dims()}
         return self._from_layout(per_layer, lambda dims, axes: {
             k: (None,) * len(axes) + d for k, d in dims.items()})
+
+
+def attn_cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: torch.dtype) -> dict:
+    """One attention layer's k and v cache: (shape, dtype) leaves."""
+    kv = ((batch, max_len, cfg.n_kv_heads, cfg.head_dim), dtype)
+    return {"k": kv, "v": kv}
+
+
+def attn_cache_dims() -> dict:
+    return {name: ("batch", "kv_seq", "kv_heads", "head_dim")
+            for name in ("k", "v")}
 
 
 def _stack(shapes: dict, axes: tuple[int, ...]) -> dict:

@@ -47,7 +47,7 @@ import functools
 
 import torch
 
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import param_shapes, rms_norm
 from repro_torch.models.model_zoo import batch_inputs
 from repro_torch.models.transformer import StackedModel
 from repro_torch.optim.adamw import AdamWConfig, apply_update, init_state
@@ -192,6 +192,20 @@ def state_dims(model: StackedModel) -> dict:
     step."""
     pdims = model.dims()
     return {"params": pdims, "m": pdims, "v": pdims, "step": ()}
+
+
+def state_shapes(model: StackedModel) -> dict:
+    """The train state's stand-ins in JAX's layout (JAX's
+    ``state_shapes``): fp32 params, m and v as empty ``meta`` tensors (a
+    leaf that pins its type keeps it in params), an int32 step."""
+    params = param_shapes(model.param_table(model.cfg), torch.float32)
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else
+                torch.empty(v.shape, dtype=torch.float32, device="meta")
+                for k, v in tree.items()}
+    return {"params": params, "m": zeros(params), "v": zeros(params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def init_train_state(model: StackedModel) -> dict:
